@@ -22,3 +22,6 @@ def _clear_jit_caches():
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running validation tests")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (the port's kernels); skips "
+        "without one")
