@@ -4,27 +4,38 @@
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --kernels  # phases 1-3 only (build and check)
 
-Phases, each printing one JSON line; any failure raises (exit code != 0):
+Phases, each printing one JSON line with its seconds; any failure raises
+(exit code != 0):
 
 1. the card: name, count, and ``nvidia-smi`` name and power limit;
 2. the build: ``nvcc`` compiles ``src/repro_torch/csrc/*.cu`` for sm_90a
    (one process per source, in parallel) into one library;
-3. each kernel against its plain PyTorch version on the card, at the
+3. each kernel against its plain PyTorch version on the card, with
+   CUDA-event times of the kernel, the plain version and, where one
+   PyTorch call computes the same function, that call (``library_ms``;
+   the port never calls it): the MLA path's kernels at DeepSeek-V3.2's
    serving shapes (B=4 requests, pool S=4160, top-k 2048 / 2049 lanes
-   with invalid lanes), with CUDA-event times of the kernel, the plain
-   version and, where one PyTorch call computes the same function, that
-   call (``library_ms``; the port never calls it);
-4. a small-input check: the port on the card against the port's plain
-   path on the CPU with the same weights (reduced DeepSeek-V3.2 with a
-   dense MLP and a 32-dim indexer), logits and pool within tolerance and
-   the hot-tier integer state exact under an injected top-k;
-5. serving: the port's ``Engine`` on DeepSeek-V3.2 at full width with 2
-   layers (d=7168, 128 heads, latent 512+64, indexer 64x128, top-k 2048,
-   hot tier 6144, 256 experts top-8; random bf16 weights from a seed),
-   4 slots, 8 requests of 4096-token context and 8 output tokens; every
-   kernel's launch count during the run must cover the decode steps;
-6. a profile of three more pure decode steps at full width: the device's
-   busy share and the kernels that take its time.
+   with invalid lanes), the GQA sparse attention at the (heads, KV
+   heads, head dim) of every dense/MoE config of the registry (B=8,
+   2049 lanes), and the page gather (on no path) at Qwen2-1.5B's pool;
+4. small-input checks: the port on the card against the port's plain
+   path on the CPU with the same weights (reduced DeepSeek-V3.2, reduced
+   Qwen2 with non-zero QKV biases, reduced Mixtral past its sliding
+   window in SAC and in dense mode; dense MLPs so that no MoE gate sits
+   on a rounding tie, indexer widened to 32 dims for the kernel), logits
+   and pool within tolerance and the hot-tier integer state exact under
+   an injected top-k;
+5. serving DeepSeek-V3.2 through the port's ``Engine`` at full width
+   with 2 layers (d=7168, 128 heads, latent 512+64, indexer 64x128,
+   top-k 2048, hot tier 6144, 256 experts top-8; random bf16 weights
+   from a seed), 4 slots, 8 requests of 4096-token context and 8 output
+   tokens; every kernel of the path launched on every layer of every
+   decode step; then a profile of three pure decode steps (the device's
+   busy share and the kernels that take its time);
+6. the same for Qwen2-1.5B at full width and full depth (28 layers,
+   12 heads over 2 KV heads of 128, QKV bias, top-k 2048, hot tier
+   6144): 8 slots, 16 requests of 8192-token context and 16 output
+   tokens, then its profile.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -35,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -54,6 +66,21 @@ BF16_FLOP_PER_S = 989e12
 # order (and the attention uses the hardware exp), so they agree to
 # about 1e-6 relative, checked at 1e-4
 TOL_F32 = dict(rtol=1e-4, atol=1e-4)
+
+# the served paths: config, depth, engine and trace sizes, the attention
+# kernel of the path and the device kernel names the profile looks for
+SERVES = {
+    "deepseek-v32": dict(n_layers=2, slots=4, max_ctx=4160, requests=8,
+                         context=4096, output=8, attn="sparse_attn",
+                         device_kernels=("gather_rows", "indexer_kernel",
+                                         "sparse_attn_kernel",
+                                         "scatter_rows")),
+    "qwen2-1.5b": dict(n_layers=None, slots=8, max_ctx=8256, requests=16,
+                       context=8192, output=16, attn="sparse_attn_gqa",
+                       device_kernels=("gather_rows", "indexer_kernel",
+                                       "sparse_gqa_kernel",
+                                       "scatter_rows")),
+}
 
 
 def fail(msg: str) -> None:
@@ -99,8 +126,9 @@ def bound_ms(n_bytes: float, n_flops: float):
 # ---------------------------------------------------------------------------
 
 
-def check_kernels(torch, ops, ref, mods):
-    """Returns {name: record}; launches are filled in by the serve phase."""
+def check_mla_path_kernels(torch, ops, ref, mods):
+    """The DeepSeek-V3.2 path's kernels at its serving shapes.  Returns
+    {name: record}; launches are filled in by the serve phases."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     B, S, d, k, di, H_idx = 4, 4160, 576, 2048, 128, 64
@@ -212,25 +240,127 @@ def check_kernels(torch, ops, ref, mods):
     return recs
 
 
+def gqa_shapes():
+    """(heads, KV heads, head dim) of every dense/MoE config of the
+    registry, Qwen2-1.5B's (the served one) first."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.transformer import build_segments
+    shapes = []
+    for name in ["qwen2-1.5b"] + sorted(ARCHS):
+        cfg = ARCHS[name]
+        if cfg.enc_dec or not cfg.has_attention:
+            continue
+        kinds = {s.kind for s in build_segments(cfg)}
+        shape = (cfg.n_heads, cfg.n_kv_heads, cfg.hd)
+        if kinds <= {"dense", "moe"} and shape not in shapes:
+            shapes.append(shape)
+    return shapes
+
+
+def check_sparse_gqa(torch, ops, ref, mod, B: int = 8, k: int = 2049):
+    """The GQA sparse attention at every dense/MoE shape of the registry
+    (k = topk + 1 lanes, about 10% invalid).  The row's times and bound
+    are Qwen2-1.5B's; every shape's error and times go to ``shapes``."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rec, per_shape, worst = None, [], 0.0
+    for H, n_kv, hd in gqa_shapes():
+        q = torch.randn((B, H, hd), generator=g, device=dev)
+        ent = torch.randn((B, k, 2 * n_kv * hd), generator=g,
+                          device=dev).bfloat16()
+        valid = torch.rand((B, k), generator=g, device=dev) > 0.1
+        valid[:, -1] = True                      # the own entry
+        out = ops.batched_sparse_gqa(q, ent, valid, n_kv=n_kv)
+
+        def plain():
+            return torch.stack([ref.sparse_gqa_attn_ref(
+                q[b], ent[b], valid[b], n_kv) for b in range(B)])
+        want = plain()
+        torch.testing.assert_close(out, want, **TOL_F32)
+        err = (out - want).abs().max().item()
+        worst = max(worst, err)
+        scale = 1.0 / math.sqrt(hd)
+        bias = torch.where(valid, 0.0, ref.NEG_INF).float()
+        kv = ent.float().view(B, k, 2, n_kv, hd)
+        kf = kv[:, :, 0].transpose(1, 2).contiguous()  # [B, n_kv, k, hd]
+        vf = kv[:, :, 1].transpose(1, 2).contiguous()
+        mask = bias[:, None, None, :]
+
+        def library():
+            return sdpa(q[:, :, None], kf, vf, attn_mask=mask, scale=scale,
+                        enable_gqa=True)
+        lib_diff = (library()[:, :, 0] - want).abs().max().item()
+        n_valid = int(valid.sum().item())
+        nb = (n_valid * 2 * n_kv * hd * 2 + 2 * B * H * hd * 4 + B * k * 4)
+        r = dict(heads=H, kv_heads=n_kv, head_dim=hd, max_abs_err=err,
+                 library_max_abs_diff=lib_diff,
+                 ms=cuda_time_ms(lambda: mod.sparse_attn_gqa(
+                     q, ent, bias, n_kv=n_kv, scale=scale)),
+                 plain_ms=cuda_time_ms(plain),
+                 library_ms=cuda_time_ms(library),
+                 bound=bound_ms(nb, 4.0 * n_valid * H * hd))
+        per_shape.append(r)
+        if rec is None:
+            rec = dict(r)
+    rec["max_abs_err"] = worst
+    return rec, per_shape
+
+
+def check_gather_pages(torch, ref, mod):
+    """The page gather (on no path) at one layer of Qwen2-1.5B's serving
+    pool, [8 * 8256, 512] bf16 in pages of 16 rows: 1024 page ids, the
+    pages of a top-2048 per request."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    B, S, d, page = 8, 8256, 512, 16
+    kv = torch.randn((B * S, d), generator=g, device=dev).bfloat16()
+    n = B * 2048 // page
+    pidx = torch.randint(0, B * S // page, (n,), generator=g, device=dev,
+                         dtype=torch.int32)
+    out = mod.gather_kv_pages(kv, pidx, page=page)
+    if not torch.equal(out, ref.gather_kv_pages_ref(kv, pidx, page)):
+        raise AssertionError("gather_kv_pages differs from its plain "
+                             "version")
+    view = kv.view(B * S // page, page * d)
+    pl = pidx.long()
+    nb = n * 4 + 2 * n * page * d * 2
+    return dict(
+        max_abs_err=0.0,
+        ms=cuda_time_ms(lambda: mod.gather_kv_pages(kv, pidx, page=page)),
+        plain_ms=cuda_time_ms(lambda: ref.gather_kv_pages_ref(kv, pidx,
+                                                              page)),
+        library_ms=cuda_time_ms(lambda: view.index_select(0, pl)),
+        bound=bound_ms(nb, 0.0))
+
+
 # ---------------------------------------------------------------------------
 # phase 4: small input, card vs the plain path on the CPU
 # ---------------------------------------------------------------------------
 
 
-def small_check(torch, devices=("cpu", "cuda")):
-    """Reduced DeepSeek-V3.2 (MLA, dense MLP so that no MoE gate sits on
-    a rounding tie, indexer widened to 32 dims for the kernel) on the
-    card against the same weights on the CPU: per-request relative L2
-    error of the logits and the pool within 5e-2 (bf16 activations round
-    at other places in cuBLAS and on the CPU; about 1e-2 is typical),
-    and the hot-tier integer state exact under an injected top-k."""
+def small_config(name: str):
+    """A reduced config the CUDA kernels take: the indexer widened to 32
+    dims (the kernel needs d_idx % 32 == 0) and a dense MLP, so that no
+    MoE gate sits on a rounding tie between cuBLAS and the CPU (the MoE
+    runs on the card in the DeepSeek-V3.2 serve phase)."""
     from repro_torch.configs import get_config
+    base = get_config(name).reduced()
+    return dataclasses.replace(base, n_experts=0, topk_experts=0,
+                               sac=dataclasses.replace(base.sac, d_idx=32))
+
+
+def small_check(torch, cfg, *, mode: str = "sac", prompt_len: int = 40,
+                pool_len: int = 64, devices=("cpu", "cuda")):
+    """``cfg`` on the card against the same weights on the CPU (QKV
+    biases, where the config has them, set non-zero): per-request
+    relative L2 error of the logits and the pool within 5e-2 (bf16
+    activations round at other places in cuBLAS and on the CPU; about
+    1e-2 is typical), and in SAC mode the hot-tier integer state exact
+    under an injected top-k.  Lane 1 holds the prompt, lane 0 is empty."""
     from repro_torch.core.pool import pool_write_prefill
     from repro_torch.models.model import build_model
 
-    base = get_config("deepseek-v32").reduced()
-    cfg = dataclasses.replace(base, n_experts=0, topk_experts=0,
-                              sac=dataclasses.replace(base.sac, d_idx=32))
     K = 16
 
     def topk(scores, cache_len):      # score-independent, with invalid lanes
@@ -242,24 +372,32 @@ def small_check(torch, devices=("cpu", "cuda")):
     runs = []
     params = None
     for dev in devices:
-        m = build_model(cfg, topk_fn=topk, device=dev)
+        m = build_model(cfg, mode=mode, topk_fn=topk, device=dev)
         if params is None:
-            params = m.init(torch.Generator(device=dev).manual_seed(1))
+            gen = torch.Generator(device=dev).manual_seed(1)
+            params = m.init(gen)
+            for layer in params["segments"][0]:
+                for name in ("bq", "bk", "bv"):
+                    if name in layer["attn"]:
+                        b = layer["attn"][name]
+                        b.copy_(0.5 * torch.randn(b.shape, generator=gen,
+                                                  device=dev))
         p = _to(params, dev)
-        prompt = torch.arange(3, 43, dtype=torch.int32,
+        prompt = torch.arange(3, 3 + prompt_len, dtype=torch.int32,
                               device=dev)[None] % cfg.vocab
         st, first = m.prefill(p, prompt)
-        state = m.init_serve_state(2, 64, device_buffer=8)
+        state = m.init_serve_state(2, pool_len, device_buffer=8)
         for key in ("kv_pool", "idx_pool"):
             pool_write_prefill(state[key], st[key], lane=1)
-        state["cache_len"][1] = 40
+        state["cache_len"][1] = prompt_len
         logits = [first]
         tok = torch.tensor([5, 7], dtype=torch.int32, device=dev)
         for _ in range(4):
             state, lg = m.decode(p, state, tok)
             logits.append(lg)
         runs.append(dict(logits=[x.float().cpu() for x in logits],
-                         hot=[t.cpu() for t in state["hot_buf"][1:]],
+                         hot=([t.cpu() for t in state["hot_buf"][1:]]
+                              if "hot_buf" in state else []),
                          pool=state["kv_pool"].float().cpu()))
     ref_run, dev_run = runs
     worst = 0.0
@@ -274,10 +412,14 @@ def small_check(torch, devices=("cpu", "cuda")):
         err = ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
         worst = max(worst, err)
     if worst > 5e-2:
-        raise AssertionError(f"card vs CPU relative L2 error {worst:.4f}")
+        raise AssertionError(f"{cfg.name} ({mode}): card vs CPU relative "
+                             f"L2 error {worst:.4f}")
+    if mode == "sac" and not ref_run["hot"]:
+        raise AssertionError("no hot tier in the SAC small check")
     for a, b in zip(ref_run["hot"], dev_run["hot"]):
         if not torch.equal(a, b):
-            raise AssertionError("hot-tier state differs card vs CPU")
+            raise AssertionError(f"{cfg.name}: hot-tier state differs "
+                                 "card vs CPU")
     return worst
 
 
@@ -290,36 +432,34 @@ def _to(tree, dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: serving at full width
+# phases 5-6: serving at full width, and where a decode step's time goes
 # ---------------------------------------------------------------------------
 
 
-def serve(torch, ops, cfg=None, device="cuda"):
-    """Serve the trace through the port's Engine; returns the kernels'
-    launch counts during the run and a summary.  (``cfg``/``device``
-    let the same phase run reduced on the CPU as a rehearsal.)"""
-    from repro_torch.configs import get_config
+def serve(torch, ops, cfg, *, slots: int, max_ctx: int, requests: int,
+          context: int, output: int, device="cuda"):
+    """Serve the trace through the port's Engine; returns the engine, the
+    kernels' launch counts during the run and a summary.  (``device``
+    lets the same phase run reduced on the CPU as a rehearsal.)"""
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.request import sharegpt_trace
 
-    if cfg is None:
-        cfg = dataclasses.replace(get_config("deepseek-v32"), n_layers=2)
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     t0 = time.perf_counter()
-    eng = Engine(cfg, slots=4, max_ctx=4160, device=device, seed=0)
+    eng = Engine(cfg, slots=slots, max_ctx=max_ctx, device=device, seed=0)
     sync()
     init_s = time.perf_counter() - t0
-    reqs = sharegpt_trace(8, context_len=4096, output_len=8, ctx_jitter=0.0,
-                          seed=0, vocab=cfg.vocab)
+    reqs = sharegpt_trace(requests, context_len=context, output_len=output,
+                          ctx_jitter=0.0, seed=0, vocab=cfg.vocab)
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     step_s = []
-    ops.reset_launch_counts()
     for r in reqs:
         eng.submit(r)
     done = []
+    ops.reset_launch_counts()
     t_run = time.perf_counter()
-    while len(done) < len(reqs) and eng.stats.steps < 100:
+    while len(done) < len(reqs) and eng.stats.steps < 20 * requests:
         s0 = eng.stats.steps
         t1 = time.perf_counter()
         done += eng.step()
@@ -329,11 +469,12 @@ def serve(torch, ops, cfg=None, device="cuda"):
     run_s = time.perf_counter() - t_run
     counts = ops.launch_counts()
     steps = eng.stats.steps
-    if len(done) != 8 or eng.stats.tokens != 64:
+    if len(done) != requests or eng.stats.tokens != requests * output:
         raise AssertionError(f"served {len(done)} requests, "
-                             f"{eng.stats.tokens} tokens (want 8, 64)")
+                             f"{eng.stats.tokens} tokens (want {requests}, "
+                             f"{requests * output})")
     for r in done:
-        if len(r.out_tokens) != 8 or not all(
+        if len(r.out_tokens) != output or not all(
                 0 <= t < cfg.vocab for t in r.out_tokens):
             raise AssertionError(f"request {r.request_id}: bad tokens")
     # wall time of the decode steps alone (steps that also ran a prefill
@@ -342,7 +483,8 @@ def serve(torch, ops, cfg=None, device="cuda"):
     summary = dict(
         phase="serve", config=(f"{cfg.name} (n_layers={cfg.n_layers}, "
                                f"d_model={cfg.d_model})"),
-        requests=len(done), tokens=eng.stats.tokens, steps=steps,
+        slots=slots, context=context, requests=len(done),
+        tokens=eng.stats.tokens, steps=steps,
         buffer_hit_rate=eng.stats.hit_rate,
         buffer_hits=eng.stats.buffer_hits,
         buffer_misses=eng.stats.buffer_misses,
@@ -355,23 +497,21 @@ def serve(torch, ops, cfg=None, device="cuda"):
     return eng, counts, summary
 
 
-# ---------------------------------------------------------------------------
-# phase 6: where the device time of a decode step goes
-# ---------------------------------------------------------------------------
-
-
-def profile_decode(torch, eng, n_steps: int = 3, top: int = 8):
+def profile_decode(torch, eng, *, requests: int, context: int,
+                   device_kernels, n_steps: int = 3, top: int = 8):
     """Device busy share and the kernels that take the device time of
-    pure decode steps at full width.  Four more requests (new ids, the
-    serving phase's lengths) are admitted and prefilled outside the
-    trace; their next ``n_steps`` decode steps run under torch.profiler
-    (CUPTI), whose host overhead lowers the busy share a little."""
+    pure decode steps at full width.  ``requests`` more requests (new
+    ids, the serving phase's lengths) are admitted and prefilled outside
+    the trace; their next ``n_steps`` decode steps run under
+    torch.profiler (CUPTI), whose host overhead lowers the busy share a
+    little.  Every name in ``device_kernels`` must show on the device."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.request import sharegpt_trace
 
-    reqs = sharegpt_trace(4, context_len=4096, output_len=n_steps + 1,
-                          ctx_jitter=0.0, seed=1, vocab=eng.cfg.vocab)
+    reqs = sharegpt_trace(requests, context_len=context,
+                          output_len=n_steps + 1, ctx_jitter=0.0, seed=1,
+                          vocab=eng.cfg.vocab)
     for i, r in enumerate(reqs):
         r.request_id = 1000 + i
         eng.submit(r)
@@ -399,34 +539,70 @@ def profile_decode(torch, eng, n_steps: int = 3, top: int = 8):
         t, n = by_name.get(name, (0.0, 0))
         by_name[name] = (t + (b - a) * 1e-6, n + 1)
     ours = {}
-    for key in ("gather_rows", "indexer_kernel", "sparse_attn_kernel",
-                "scatter_rows"):
+    for key in device_kernels:
         hits = [v for name, v in by_name.items() if key in name]
         ours[key] = dict(seconds=sum(t for t, _ in hits),
                          calls=sum(n for _, n in hits))
         if not ours[key]["calls"]:
             raise AssertionError(f"no {key} on the device in the profile")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    # where the host's share goes: operators by their own (self) host time
+    host = sorted((e for e in prof.key_averages()
+                   if e.self_cpu_time_total > 0),
+                  key=lambda e: -e.self_cpu_time_total)[:top]
     return dict(
-        phase="profile", decode_steps=n_steps, wall_s=wall_s,
-        device_busy_s=busy_us * 1e-6,
+        phase="profile", config=eng.cfg.name, decode_steps=n_steps,
+        slots=requests, wall_s=wall_s, device_busy_s=busy_us * 1e-6,
         device_busy_share=busy_us * 1e-6 / wall_s,
+        device_s_total=sum(t for t, _ in by_name.values()),
         port_kernels=ours,
         top_kernels=[dict(name=name[:96], seconds=t, calls=n)
-                     for name, (t, n) in ranked])
+                     for name, (t, n) in ranked],
+        top_host_ops=[dict(name=e.key[:96],
+                           self_seconds=e.self_cpu_time_total * 1e-6,
+                           calls=e.count) for e in host])
 
 
-def check_launches(counts, steps: int, layers: int) -> None:
+def check_launches(counts, steps: int, layers: int, attn: str) -> None:
     """Every kernel of the path ran in the serving run: the per-layer
-    ones at least once per layer per decode step, the pool write at
-    least once per step."""
-    for name in ("gather_kv", "indexer_scores", "sparse_attn"):
+    ones (indexer, gather, the path's attention) at least once per layer
+    per decode step, the pool write (one launch writes the new entry of
+    every layer) at least once per step."""
+    for name in ("gather_kv", "indexer_scores", attn):
         if counts[name] < steps * layers:
             raise AssertionError(f"{name}: {counts[name]} launches for "
                                  f"{steps} steps x {layers} layers")
     if counts["scatter_kv"] < steps:
         raise AssertionError(f"scatter_kv: {counts['scatter_kv']} launches "
                              f"for {steps} steps")
+
+
+def serve_and_profile(torch, ops, name: str):
+    """Phases 5-6 for one config of SERVES; returns the launch counts
+    of its serving run."""
+    from repro_torch.configs import get_config
+    spec = SERVES[name]
+    cfg = get_config(name)
+    if spec["n_layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=spec["n_layers"])
+    t0 = time.perf_counter()
+    eng, counts, summary = serve(
+        torch, ops, cfg, slots=spec["slots"], max_ctx=spec["max_ctx"],
+        requests=spec["requests"], context=spec["context"],
+        output=spec["output"])
+    summary["seconds"] = time.perf_counter() - t0
+    emit(summary)
+    check_launches(counts, summary["steps"], cfg.n_layers, spec["attn"])
+    t0 = time.perf_counter()
+    prof = profile_decode(torch, eng, requests=spec["slots"],
+                          context=spec["context"],
+                          device_kernels=spec["device_kernels"])
+    prof["seconds"] = time.perf_counter() - t0
+    emit(prof)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
 
 
 def main() -> None:
@@ -465,45 +641,72 @@ def main() -> None:
     emit(dict(phase="build", seconds=time.perf_counter() - t0))
 
     # 3. kernels against their plain versions
+    t0 = time.perf_counter()
     mods = {"gather_kv": gather_kv, "indexer": indexer,
             "sparse_attn": sparse_attn, "scatter_kv": scatter_kv}
-    recs = check_kernels(torch, ops, ref, mods)
+    recs = check_mla_path_kernels(torch, ops, ref, mods)
+    recs["sparse_attn_gqa"], gqa_per_shape = check_sparse_gqa(
+        torch, ops, ref, sparse_attn)
+    recs["gather_kv_pages"] = check_gather_pages(torch, ref, gather_kv)
     emit(dict(phase="kernels_vs_plain", tolerance_f32=TOL_F32,
-              max_abs_err={k: v["max_abs_err"] for k, v in recs.items()}))
+              max_abs_err={k: v["max_abs_err"] for k, v in recs.items()},
+              sparse_attn_gqa_shapes=gqa_per_shape,
+              seconds=time.perf_counter() - t0))
 
-    counts = None
+    launches = None
     if not args.kernels:
-        # 4. small input: card vs CPU plain path
-        ops.reset_launch_counts()
-        err = small_check(torch)
-        small_counts = ops.launch_counts()
-        emit(dict(phase="small_check", max_rel_l2_err=err,
-                  launches=small_counts))
-        if not all(small_counts.values()):
-            raise AssertionError("the small check did not run every kernel")
-        # 5. serving at full width
-        eng, counts, summary = serve(torch, ops)
-        emit(summary)
-        check_launches(counts, summary["steps"], 2)
-        # 6. the device time of a decode step, by kernel
-        emit(profile_decode(torch, eng))
+        # 4. small inputs: card vs CPU plain path
+        path_kernels = {
+            "sac": ("gather_kv", "indexer_scores", "scatter_kv"),
+            "dense": ("gather_kv", "scatter_kv")}
+        for name, mode, plen, slen in (
+                ("deepseek-v32", "sac", 40, 64),
+                ("qwen2-1.5b", "sac", 40, 64),
+                ("mixtral-8x22b", "sac", 80, 96),
+                ("mixtral-8x22b", "dense", 80, 96)):
+            t0 = time.perf_counter()
+            cfg = small_config(name)
+            ops.reset_launch_counts()
+            err = small_check(torch, cfg, mode=mode, prompt_len=plen,
+                              pool_len=slen)
+            small_counts = ops.launch_counts()
+            emit(dict(phase="small_check", config=name, mode=mode,
+                      context=plen, window=cfg.sliding_window,
+                      max_rel_l2_err=err, launches=small_counts,
+                      seconds=time.perf_counter() - t0))
+            attn = "sparse_attn" if cfg.mla else "sparse_attn_gqa"
+            missing = [k for k in path_kernels[mode] + (attn,)
+                       if not small_counts[k]]
+            if missing:
+                raise AssertionError(f"small check {name} ({mode}) did not "
+                                     f"run {missing}")
+        # 5-6. serving at full width, then a profile of its decode steps
+        launches = {k: 0 for k in ops.launch_counts()}
+        for name in SERVES:
+            for k, n in serve_and_profile(torch, ops, name).items():
+                launches[k] += n
 
     info = {
         "gather_kv": ("src/repro_torch/csrc/gather_kv.cu",
                       "src/repro/kernels/gather_kv.py:29"),
+        "gather_kv_pages": ("src/repro_torch/csrc/gather_kv.cu",
+                            "src/repro/kernels/gather_kv.py:56"),
         "indexer_scores": ("src/repro_torch/csrc/indexer.cu",
                            "src/repro/kernels/indexer.py:31"),
         "sparse_attn": ("src/repro_torch/csrc/sparse_attn.cu",
                         "src/repro/kernels/sparse_attn.py:63"),
+        "sparse_attn_gqa": ("src/repro_torch/csrc/sparse_attn.cu",
+                            "src/repro/kernels/sparse_attn.py:63"),
         "scatter_kv": ("src/repro_torch/csrc/scatter_kv.cu",
                        "src/repro/kernels/scatter_kv.py:25"),
     }
     kernels = []
     for name, (source, replaces) in info.items():
         r = recs[name]
+        on_path = launches is not None and name != "gather_kv_pages"
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=None if counts is None else counts[name],
+            launches=launches[name] if on_path else None,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound"][0], bound_by=r["bound"][1],
             library_ms=r["library_ms"]))

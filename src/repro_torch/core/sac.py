@@ -2,12 +2,12 @@
 
 Two halves:
 
-1. **On the device** (``sparse_attend``, ``dense_attend``): the
-   per-layer decode attention of the paper's Figure 6 -- indexer scoring
-   -> masked top-k -> pool fetch (injected ``fetch_fn``, the gather
-   kernel by default) -> sparse absorbed-MLA attention.  Speculative
-   prefetch (``prefetch_width > 0``) and the sliding-window and GQA
-   forms wait for later slices (ROADMAP).
+1. **On the device** (``sparse_attend``, ``window_attend``,
+   ``dense_attend``): the per-layer decode attention of the paper's
+   Figure 6 -- indexer scoring -> masked top-k -> pool fetch (injected
+   ``fetch_fn``, the gather kernel by default) -> sparse attention,
+   absorbed-MLA or GQA.  Speculative prefetch (``prefetch_width > 0``)
+   waits for the fetch-pipeline slice (ROADMAP).
 
 2. **On the host** (``SACSystem``): pool page placement, metadata
    publishing and fabric-cost accounting for the serving engine, copied
@@ -39,11 +39,10 @@ from repro_torch.models import dsa
 
 
 def _attend(p_attn, x, cfg, entries, valid, positions):
-    if not cfg.mla:
-        raise NotImplementedError(
-            "GQA sparse decode waits for the GQA families' slice "
-            "(ROADMAP: module item 'The other model families')")
-    return dsa.mla_absorbed_decode(p_attn, x, cfg, entries, valid, positions)
+    if cfg.mla:
+        return dsa.mla_absorbed_decode(p_attn, x, cfg, entries, valid,
+                                       positions)
+    return dsa.gqa_sparse_decode(p_attn, x, cfg, entries, valid, positions)
 
 
 def sparse_attend(p_attn: Dict, p_idx: Dict, x: torch.Tensor,
@@ -93,6 +92,28 @@ def sparse_attend(p_attn: Dict, p_idx: Dict, x: torch.Tensor,
     if buf_state is not None:
         return out, buf_state, hits, misses
     return out
+
+
+def window_attend(p_attn: Dict, x: torch.Tensor, cfg: ModelConfig,
+                  kv_pool_l: torch.Tensor, cache_len: torch.Tensor,
+                  positions: torch.Tensor, own_entry: torch.Tensor,
+                  window: int, fetch_fn: FetchFn = local_fetch
+                  ) -> torch.Tensor:
+    """Sliding-window decode: fetch the trailing ``window-1`` entries
+    (contiguous indices through the same fetch path, the gather kernel on
+    the card) + the own entry."""
+    B = x.shape[0]
+    w = window - 1
+    idx = (cache_len[:, None] - w
+           + torch.arange(w, dtype=torch.int32, device=x.device)[None, :])
+    valid = idx >= 0
+    idx = torch.clamp(idx, 0, kv_pool_l.shape[1] - 1).to(torch.int32)
+    fetched = fetch_fn(kv_pool_l, idx)
+    fetched = torch.cat([fetched, own_entry[:, None, :].to(fetched.dtype)],
+                        dim=1)
+    valid = torch.cat([valid, torch.ones((B, 1), dtype=torch.bool,
+                                         device=x.device)], dim=1)
+    return _attend(p_attn, x, cfg, fetched, valid, positions)
 
 
 def dense_attend(p_attn: Dict, x: torch.Tensor, cfg: ModelConfig,

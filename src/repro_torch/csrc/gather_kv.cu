@@ -13,6 +13,17 @@
 // addresses, so each warp instruction moves 512 contiguous bytes.  The
 // batch is the leading part of the flat warp index (no Python loop).
 // Indices are clamped into [0, S) so a stray index cannot fault.
+//
+// gather_pages (below) is the page-granular form:
+//   out[i * page : (i + 1) * page] = kv[p * page : (p + 1) * page],
+//   p = page_idx[i].
+// Replaces: src/repro/kernels/gather_kv.py::gather_kv_pages (Pallas: the
+// page ids are scalar-prefetched and each drives one (page, d) block DMA).
+// Bound: bytes, like the row gather.  A page is page * row_bytes
+// contiguous bytes (16 rows of 1 KB for a 512-wide bf16 entry), so one
+// block of 256 threads copies one whole page with 16-byte vectors, each
+// thread taking every 256th vector: the block's loads and stores are
+// fully coalesced and one block per page id fills the card.
 #include "common.cuh"
 
 namespace {
@@ -46,6 +57,29 @@ void launch(const void* kv, const void* idx, void* out, long long S,
       row_bytes);
 }
 
+template <typename V>
+__global__ void gather_pages(const char* __restrict__ kv,
+                             const int32_t* __restrict__ page_idx,
+                             char* __restrict__ out, long long n_pages_kv,
+                             long long page_bytes) {
+  const long long i = blockIdx.x;
+  long long p = page_idx[i];
+  p = p < 0 ? 0 : (p >= n_pages_kv ? n_pages_kv - 1 : p);
+  const V* src = reinterpret_cast<const V*>(kv + p * page_bytes);
+  V* dst = reinterpret_cast<V*>(out + i * page_bytes);
+  const long long n = page_bytes / (long long)sizeof(V);
+  for (long long j = threadIdx.x; j < n; j += blockDim.x) dst[j] = src[j];
+}
+
+template <typename V>
+void launch_pages(const void* kv, const void* page_idx, void* out,
+                  long long n_pages_kv, long long n, long long page_bytes,
+                  cudaStream_t stream) {
+  gather_pages<V><<<(unsigned)n, 256, 0, stream>>>(
+      (const char*)kv, (const int32_t*)page_idx, (char*)out, n_pages_kv,
+      page_bytes);
+}
+
 }  // namespace
 
 // kv: [B, S, row_bytes] bytes; idx: [B, k] int32; out: [B, k, row_bytes].
@@ -61,6 +95,29 @@ SAC_API int sac_gather_kv(const void* kv, const void* idx, void* out,
       case 4: launch<uint32_t>(kv, idx, out, S, k, n_rows, row_bytes, st); break;
       case 2: launch<uint16_t>(kv, idx, out, S, k, n_rows, row_bytes, st); break;
       default: launch<uint8_t>(kv, idx, out, S, k, n_rows, row_bytes, st);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+// kv: [n_pages_kv * page_bytes] bytes (S rows of a [S, d] tensor with
+// S % page == 0); page_idx: [n] int32; out: [n * page_bytes] bytes.
+SAC_API int sac_gather_kv_pages(const void* kv, const void* page_idx,
+                                void* out, long long n_pages_kv, long long n,
+                                long long page_bytes, void* stream) {
+  if (n > 0) {
+    cudaStream_t st = (cudaStream_t)stream;
+    switch (sac_vec_bytes(page_bytes, kv, out)) {
+      case 16: launch_pages<uint4>(kv, page_idx, out, n_pages_kv, n,
+                                   page_bytes, st); break;
+      case 8: launch_pages<uint2>(kv, page_idx, out, n_pages_kv, n,
+                                  page_bytes, st); break;
+      case 4: launch_pages<uint32_t>(kv, page_idx, out, n_pages_kv, n,
+                                     page_bytes, st); break;
+      case 2: launch_pages<uint16_t>(kv, page_idx, out, n_pages_kv, n,
+                                     page_bytes, st); break;
+      default: launch_pages<uint8_t>(kv, page_idx, out, n_pages_kv, n,
+                                     page_bytes, st);
     }
   }
   return (int)cudaGetLastError();

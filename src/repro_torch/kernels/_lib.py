@@ -33,10 +33,13 @@ _VP, _LL, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
     ctypes.c_float
 _SIGNATURES = {
     "sac_gather_kv": [_VP, _VP, _VP, _LL, _LL, _LL, _LL, _VP],
+    "sac_gather_kv_pages": [_VP, _VP, _VP, _LL, _LL, _LL, _VP],
     "sac_scatter_kv": [_VP, _VP, _VP, _LL, _LL, _LL, _LL, _VP],
     "sac_indexer_scores": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _VP],
     "sac_sparse_attn": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I,
                         _I, _I, _LL, _LL, _F, _VP],
+    "sac_sparse_attn_gqa": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
+                            _LL, _LL, _F, _VP],
 }
 
 _lib: Optional[ctypes.CDLL] = None

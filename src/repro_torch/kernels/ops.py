@@ -8,6 +8,7 @@ is no fallback from a CUDA tensor to the plain version.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import torch
@@ -19,18 +20,24 @@ from repro_torch.kernels import scatter_kv as _scatter
 from repro_torch.kernels import sparse_attn as _attn
 
 NEG_INF = ref.NEG_INF
-_KERNELS = {"gather_kv": _gather, "indexer_scores": _indexer,
-            "sparse_attn": _attn, "scatter_kv": _scatter}
+# kernel name -> (wrapper module, its counter attribute)
+_COUNTERS = {"gather_kv": (_gather, "launches"),
+             "gather_kv_pages": (_gather, "launches_pages"),
+             "indexer_scores": (_indexer, "launches"),
+             "sparse_attn": (_attn, "launches"),
+             "sparse_attn_gqa": (_attn, "launches_gqa"),
+             "scatter_kv": (_scatter, "launches")}
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per kernel since the last reset."""
-    return {name: mod.launches for name, mod in _KERNELS.items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in _COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _KERNELS.values():
-        mod.launches = 0
+    for mod, attr in _COUNTERS.values():
+        setattr(mod, attr, 0)
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
@@ -71,6 +78,22 @@ def batched_sparse_mla(q_lat: torch.Tensor, q_pe: torch.Tensor,
                                                 entries[b], valid[b], dc,
                                                 scale)
                         for b in range(q_lat.shape[0])])
+
+
+def batched_sparse_gqa(q: torch.Tensor, entries: torch.Tensor,
+                       valid: torch.Tensor, *, n_kv: int) -> torch.Tensor:
+    """q: [B,H,hd]; entries: [B,k,2*n_kv*hd]; valid: [B,k] -> [B,H,hd] f32.
+
+    Scale 1/sqrt(hd), as the reference divides q before the dot."""
+    if _on_cuda(q, entries, valid):
+        bias = torch.where(valid, 0.0, NEG_INF).to(torch.float32)
+        return _attn.sparse_attn_gqa(q.float().contiguous(),
+                                     entries.contiguous(), bias.contiguous(),
+                                     n_kv=n_kv,
+                                     scale=1.0 / math.sqrt(q.shape[-1]))
+    return torch.stack([ref.sparse_gqa_attn_ref(q[b], entries[b], valid[b],
+                                                n_kv)
+                        for b in range(q.shape[0])])
 
 
 def batched_scatter(pool: torch.Tensor, entries: torch.Tensor,

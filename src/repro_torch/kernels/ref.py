@@ -19,6 +19,17 @@ def gather_kv_ref(kv: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return kv[idx.long().clamp(0, kv.shape[0] - 1)]
 
 
+def gather_kv_pages_ref(kv: torch.Tensor, page_idx: torch.Tensor,
+                        page: int) -> torch.Tensor:
+    """Page-granular gather: kv [S, d] with S % page == 0; page_idx [n]
+    page numbers -> [n * page, d], page p being rows [p*page, (p+1)*page).
+    Page numbers are clamped into [0, S / page), as the CUDA kernel
+    clamps them."""
+    S, d = kv.shape
+    pages = kv.reshape(S // page, page, d)
+    return pages[page_idx.long().clamp(0, S // page - 1)].reshape(-1, d)
+
+
 def indexer_scores_ref(q: torch.Tensor, w: torch.Tensor,
                        keys: torch.Tensor) -> torch.Tensor:
     """Lightning indexer: q [H, di], w [H], keys [S, di] -> scores [S].

@@ -1,5 +1,5 @@
-"""DeepSeek Sparse Attention building blocks and the MLA decode paths
-(``repro/models/dsa.py``, its MLA and selection parts).
+"""DeepSeek Sparse Attention building blocks and the MLA and GQA decode
+paths (``repro/models/dsa.py``, all but the speculation helpers).
 
 - **Lightning indexer**: per-token keys of ``d_idx`` dims; at decode the
   query scores every cached position, ``I[s] = sum_h w[h] *
@@ -11,9 +11,13 @@
   (c_kv, k_rope); decode runs the absorbed form over fetched entries,
   its softmax core through ``ops.batched_sparse_mla`` (the sparse
   attention kernel on the card).
+- **GQA**: a pool entry is the token's stacked (roped k, v), laid out
+  ``[2, n_kv, hd]``; decode attends over fetched entries through
+  ``ops.batched_sparse_gqa`` (the GQA sparse attention kernel on the
+  card).  The reference's einsum form is only the tests' oracle.
 
-The GQA decode forms and the speculation helpers of the reference wait
-for later slices (ROADMAP).
+The speculation helpers of the reference wait for the fetch-pipeline
+slice (ROADMAP).
 """
 from __future__ import annotations
 
@@ -163,6 +167,66 @@ def mla_absorbed_decode(p, xq, cfg, fetched, valid, positions):
     w_uv = p["w_uv"].reshape(dc, nh, hd)
     out = torch.einsum("bhc,chd->bhd", o_lat, w_uv.float())
     return out.reshape(B, nh * hd).to(xq.dtype) @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# GQA sparse / dense decode over pool entries
+# ---------------------------------------------------------------------------
+
+
+def gqa_entry_dim(cfg) -> int:
+    return 2 * cfg.n_kv_heads * cfg.hd
+
+
+def gqa_kv_entry(p, x, cfg, positions):
+    """Pool entry for GQA archs: stacked (roped k, v) [.., 2*nkv*hd],
+    laid out as the decode side's ``reshape(B, k, 2, nkv, hd)``."""
+    lead = x.shape[:-1]
+    nkv, hd = cfg.n_kv_heads, cfg.hd
+    k = (x @ p["wk"]).reshape(*lead, nkv, hd)
+    v = (x @ p["wv"]).reshape(*lead, nkv, hd)
+    if cfg.qkv_bias:
+        k = k + p["bk"].reshape(nkv, hd)
+        v = v + p["bv"].reshape(nkv, hd)
+    return pack_kv_entry(apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def pack_kv_entry(k, v):
+    """[.., S, nkv, hd] k/v (k already roped) -> [.., S, 2*nkv*hd]."""
+    lead = k.shape[:-2]
+    nkv, hd = k.shape[-2:]
+    return torch.stack([k, v], dim=-3).reshape(*lead, 2 * nkv * hd)
+
+
+def gqa_q_proj(p, x, cfg, positions):
+    lead = x.shape[:-1]
+    nh, hd = cfg.n_heads, cfg.hd
+    q = x @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    q = q.reshape(*lead, nh, hd)
+    return apply_rope(q, positions, cfg.rope_theta)
+
+
+def gqa_sparse_decode(p, xq, cfg, fetched, valid, positions):
+    """GQA attention over fetched top-k entries.
+
+    xq: [B, D]; fetched: [B, k, 2*nkv*hd]; valid: [B, k] -> [B, D].  The
+    softmax core runs in ``ops.batched_sparse_gqa``; q and ``wo`` are
+    bf16 matmuls as in the reference."""
+    B = xq.shape[0]
+    q = gqa_q_proj(p, xq, cfg, positions)                      # [B,nh,hd]
+    out = ops.batched_sparse_gqa(q, fetched, valid, n_kv=cfg.n_kv_heads)
+    return out.reshape(B, cfg.n_heads * cfg.hd).to(xq.dtype) @ p["wo"]
+
+
+def gqa_dense_decode(p, xq, cfg, pool_layer, cache_len, positions):
+    """Dense GQA decode over the full pool slice (the full-prefetch
+    baseline).  pool_layer: [B, S, 2*nkv*hd]."""
+    S = pool_layer.shape[1]
+    valid = (torch.arange(S, dtype=torch.int32, device=pool_layer.device)
+             [None, :] < cache_len[:, None])
+    return gqa_sparse_decode(p, xq, cfg, pool_layer, valid, positions)
 
 
 def mla_dense_decode(p, xq, cfg, pool_layer, cache_len, positions):

@@ -1,6 +1,6 @@
 """Shared model layers (``repro/models/layers.py``): the parameter
-system, norms, RoPE, SwiGLU, the chunked causal attention of prefill and
-the dense MLP.
+system, norms, RoPE, SwiGLU, the GQA projections, the chunked causal
+attention of prefill (full or sliding-window) and the dense MLP.
 
 Parameters are plain dictionaries of tensors.  Every leaf is declared by
 a ``ParamSpec`` with the reference's shape, logical dims and init rule;
@@ -103,6 +103,46 @@ def apply_rope(x, positions, theta: float):
 # ---------------------------------------------------------------------------
 
 
+def attn_param_specs(cfg, prefix_scale=1.0) -> Dict[str, ParamSpec]:
+    d, nh, nkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    p = {
+        "wq": ParamSpec((d, nh * hd), ("D", "H")),
+        "wk": ParamSpec((d, nkv * hd), ("D", "KV")),
+        "wv": ParamSpec((d, nkv * hd), ("D", "KV")),
+        "wo": ParamSpec((nh * hd, d), ("H", "D"), scale=prefix_scale),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = ParamSpec((nh * hd,), ("H",), init="zeros")
+        p["bk"] = ParamSpec((nkv * hd,), ("KV",), init="zeros")
+        p["bv"] = ParamSpec((nkv * hd,), ("KV",), init="zeros")
+    return p
+
+
+def qkv_proj(p, x, cfg, positions):
+    """x: [B, S, D] -> q [B, S, nh, hd], k/v [B, S, nkv, hd] with RoPE."""
+    B, S, _ = x.shape
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, nh, hd)
+    k = k.reshape(B, S, nkv, hd)
+    v = v.reshape(B, S, nkv, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def repeat_kv(k, n_rep: int):
+    """[B, S, nkv, hd] -> [B, S, nkv * n_rep, hd], each KV head repeated
+    n_rep times in place (``jnp.repeat`` on the head axis)."""
+    if n_rep == 1:
+        return k
+    return torch.repeat_interleave(k, n_rep, dim=2)
+
+
 def blocked_causal_attention(q, k, v, *, chunk: int = 1024,
                              window: int = 0) -> torch.Tensor:
     """Memory-bounded causal attention: a loop over KV chunks with an
@@ -139,6 +179,17 @@ def blocked_causal_attention(q, k, v, *, chunk: int = 1024,
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.transpose(1, 2).to(q.dtype)                     # [B,S,H,hd]
+
+
+def dense_attention_block(p, x, cfg, positions, *, window: int = 0):
+    """Full prefill attention for one GQA layer. x: [B, S, D] ->
+    (out [B, S, D], (k, v) [B, S, nkv, hd], k roped)."""
+    B, S, _ = x.shape
+    q, k, v = qkv_proj(p, x, cfg, positions)
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    out = blocked_causal_attention(q, repeat_kv(k, n_rep),
+                                   repeat_kv(v, n_rep), window=window)
+    return out.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"], (k, v)
 
 
 # ---------------------------------------------------------------------------

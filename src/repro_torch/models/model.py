@@ -1,7 +1,9 @@
 """build_model(cfg) -> the model facade (``repro/models/model.py``).
 
-The port builds the decoder-only MLA families (DeepSeek-V3.2); every
-other family raises until its slice lands (ROADMAP).
+The port builds the decoder-only attention families whose layers are
+all ``dense``, ``moe``, ``mla_dense`` or ``mla_moe`` segments
+(DeepSeek-V3.2, Qwen2, MiniCPM, Granite, Chameleon, Mixtral, DBRX);
+every other family raises until its slice lands (ROADMAP).
 """
 from __future__ import annotations
 
@@ -12,13 +14,26 @@ from repro_torch.core.pool import FetchFn, local_fetch
 from repro_torch.models.transformer import TransformerLM
 
 
+def _unported_family(cfg: ModelConfig) -> Optional[str]:
+    if cfg.enc_dec:
+        return "encoder-decoder (models/encdec.py)"
+    if cfg.xlstm:
+        return "xLSTM (xlstm_super)"
+    if cfg.ssm_state:
+        return "zamba/mamba hybrid (zamba_super, mamba_tail, models/ssm.py)"
+    if cfg.local_global_ratio:
+        return "local:global attention (lg_super)"
+    return None
+
+
 def build_model(cfg: ModelConfig, fetch_fn: FetchFn = local_fetch,
                 mode: str = "sac", topk_fn: Optional[Callable] = None,
                 opts: Optional[dict] = None, device="cuda"):
     """mode: "sac" (top-k fetch decode) | "dense" (full-prefetch decode)."""
-    if cfg.enc_dec or not cfg.mla:
+    family = _unported_family(cfg)
+    if family:
         raise NotImplementedError(
-            f"{cfg.name}: only the decoder-only MLA family is ported "
-            "(ROADMAP: module item 'The other model families')")
+            f"{cfg.name}: the {family} family is not ported yet (ROADMAP: "
+            "module item 'The other model families')")
     return TransformerLM(cfg, fetch_fn=fetch_fn, mode=mode, topk_fn=topk_fn,
                          opts=opts, device=device)

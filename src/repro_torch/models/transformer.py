@@ -1,5 +1,7 @@
-"""Decoder-only LM assembly (``repro/models/transformer.py``), MLA
-segments only (``mla_dense``, ``mla_moe``: DeepSeek-V3.2).
+"""Decoder-only LM assembly (``repro/models/transformer.py``): the MLA
+segments (``mla_dense``, ``mla_moe``: DeepSeek-V3.2) and the GQA segments
+(``dense``, ``moe``: Qwen2, MiniCPM, Granite, Chameleon, Mixtral, DBRX;
+sliding window where the config has one).
 
 A model is a list of segments; where the reference scans stacked
 parameters with ``lax.scan``, the port loops over a list of per-layer
@@ -9,8 +11,8 @@ parameter dicts.  Entry points:
                  entries + indexer keys);
   ``decode``  -- one token per request over the pool: indexer -> top-k
                  -> fetch (the gather kernel, or ``fetch_fn``) -> sparse
-                 attention -> MoE, then the write-back of the new entries
-                 (the scatter kernel).
+                 attention -> MLP or MoE, then the write-back of the new
+                 entries (the scatter kernel).
 
 ``decode`` updates the serve state IN PLACE (pools, hot tier) and
 returns the same dict.  Other segment kinds and the fp8 pool raise
@@ -30,10 +32,11 @@ from repro_torch.core import hisparse
 from repro_torch.core import sac as sac_core
 from repro_torch.core.pool import FetchFn, local_fetch, pool_write
 from repro_torch.models import dsa, moe
-from repro_torch.models.layers import (DTYPE, ParamSpec, init_params,
+from repro_torch.models.layers import (DTYPE, ParamSpec, attn_param_specs,
+                                       dense_attention_block, init_params,
                                        mlp_block, mlp_param_specs, rms_norm)
 
-_PORTED_KINDS = ("mla_dense", "mla_moe")
+_PORTED_KINDS = ("dense", "moe", "mla_dense", "mla_moe")
 _OTHER_FAMILIES = ("segment kind {!r} waits for its slice (ROADMAP: module "
                    "item 'The other model families')")
 
@@ -100,7 +103,7 @@ def kv_entry_dim(cfg: ModelConfig) -> int:
         return 0
     if cfg.mla:
         return cfg.kv_lora_rank + cfg.qk_rope_dim
-    return 2 * cfg.n_kv_heads * cfg.hd
+    return dsa.gqa_entry_dim(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -114,7 +117,8 @@ def _norm(cfg):
 
 def _attn_layer_specs(cfg) -> Dict[str, Any]:
     p: Dict[str, Any] = {"ln1": _norm(cfg), "ln2": _norm(cfg)}
-    p["attn"] = dsa.mla_param_specs(cfg)
+    p["attn"] = (dsa.mla_param_specs(cfg) if cfg.mla
+                 else attn_param_specs(cfg))
     if cfg.sac.enabled:
         p["idx"] = dsa.indexer_param_specs(cfg)
     p["mlp"] = (moe.moe_param_specs(cfg) if cfg.n_experts
@@ -152,10 +156,15 @@ def _mlp_apply(p_mlp, x, cfg, *, groups: int = 1):
     return mlp_block(p_mlp, x), torch.zeros((), device=x.device)
 
 
-def _layer_fwd(p, x, cfg, positions, groups):
+def _layer_fwd(p, x, cfg, positions, window, groups):
     """Full (attn + mlp) prefill layer.  Returns (x', entry, idx_keys)."""
     xn = rms_norm(x, p["ln1"])
-    out, entry = dsa.mla_prefill_attention(p["attn"], xn, cfg, positions)
+    if cfg.mla:
+        out, entry = dsa.mla_prefill_attention(p["attn"], xn, cfg, positions)
+    else:
+        out, (k, v) = dense_attention_block(p["attn"], xn, cfg, positions,
+                                            window=window)
+        entry = dsa.pack_kv_entry(k, v)
     idx_keys = dsa.indexer_keys(p["idx"], xn) if cfg.sac.enabled else None
     x = x + out
     out, _ = _mlp_apply(p["mlp"], rms_norm(x, p["ln2"]), cfg, groups=groups)
@@ -171,14 +180,16 @@ def _attn_decode(p, x, cfg, ctx, kv_slice, idx_slice, window, hbuf=None):
     """
     xn = rms_norm(x, p["ln1"])
     positions, cache_len = ctx["positions"], ctx["cache_len"]
-    own = dsa.mla_kv_entry(p["attn"], xn, cfg, positions)
+    own = (dsa.mla_kv_entry(p["attn"], xn, cfg, positions) if cfg.mla
+           else dsa.gqa_kv_entry(p["attn"], xn, cfg, positions))
     if ctx["mode"] == "dense" or not cfg.sac.enabled:
         if window:
-            raise NotImplementedError(
-                "sliding-window decode waits for the GQA families' slice "
-                "(ROADMAP: module item 'The other model families')")
-        delta = sac_core.dense_attend(p["attn"], xn, cfg, kv_slice,
-                                      cache_len, positions, own)
+            delta = sac_core.window_attend(
+                p["attn"], xn, cfg, kv_slice, cache_len, positions, own,
+                window, fetch_fn=ctx["fetch_fn"])
+        else:
+            delta = sac_core.dense_attend(p["attn"], xn, cfg, kv_slice,
+                                          cache_len, positions, own)
         new_key = torch.zeros((x.shape[0], cfg.sac.d_idx), dtype=DTYPE,
                               device=x.device)
         if hbuf is not None:   # untouched buffer, zero counts
@@ -268,9 +279,10 @@ class TransformerLM:
                                  device=dev)[None, :].expand(B, S)
         groups = int(self.opts.get("moe_groups", 1))
         entries, ikeys = [], []
-        for si, _seg in enumerate(self.segments):
+        for si, seg in enumerate(self.segments):
             for p in params["segments"][si]:
-                x, entry, ik = _layer_fwd(p, x, cfg, positions, groups)
+                x, entry, ik = _layer_fwd(p, x, cfg, positions, seg.window,
+                                          groups)
                 entries.append(entry)
                 ikeys.append(ik)
         state: Dict[str, Any] = {}

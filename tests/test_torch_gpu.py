@@ -2,9 +2,12 @@
 
 Each kernel against its plain PyTorch version on the card, at the
 serving shapes of DeepSeek-V3.2 (B=4, pool S=4160, k=2048 / 2049 lanes
-with invalid lanes): gather and scatter bit-exact, indexer and attention
-at rtol = atol = 1e-4 (f32 sums in another order).  Plus the port on the
-card against its CPU path with the same weights on a small input.
+with invalid lanes) and, for the GQA attention, at the (heads, KV heads,
+head dim) of the dense/MoE configs (B=8, 2049 lanes): gather, page
+gather and scatter bit-exact, indexer and attention at rtol = atol =
+1e-4 (f32 sums in another order).  Plus the port's Engine on the card
+against its CPU path with the same weights on small inputs (reduced
+DeepSeek-V3.2 and reduced Qwen2).
 
 This file imports no JAX, so it runs on the machine with the card:
 
@@ -89,16 +92,50 @@ def test_gpu_sparse_mla_close(cuda, k):
 
 
 @pytest.mark.gpu
-def test_gpu_engine_matches_cpu_path(cuda):
+@pytest.mark.parametrize("H,n_kv,hd", [(12, 2, 128), (36, 36, 64),
+                                       (48, 1, 128), (48, 8, 128),
+                                       (64, 8, 128)])
+@pytest.mark.parametrize("k", [2049, 5])
+def test_gpu_sparse_gqa_close(cuda, H, n_kv, hd, k):
+    g = torch.Generator(device=cuda).manual_seed(H + k)
+    q = torch.randn(8, H, hd, generator=g, device=cuda)
+    ent = torch.randn(8, k, 2 * n_kv * hd, generator=g,
+                      device=cuda).bfloat16()
+    valid = torch.rand(8, k, generator=g, device=cuda) > 0.1
+    valid[:, -1] = True
+    want = torch.stack([ref.sparse_gqa_attn_ref(q[b], ent[b], valid[b], n_kv)
+                        for b in range(8)])
+    n0 = ops.launch_counts()["sparse_attn_gqa"]
+    got = ops.batched_sparse_gqa(q, ent, valid, n_kv=n_kv)
+    assert ops.launch_counts()["sparse_attn_gqa"] == n0 + 1
+    torch.testing.assert_close(got, want, **F32_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,page", [(512, 16), (576, 4)])
+def test_gpu_gather_pages_exact(cuda, d, page):
+    from repro_torch.kernels import gather_kv
+    g = torch.Generator(device=cuda).manual_seed(d)
+    kv = torch.randn(8 * 8256, d, generator=g, device=cuda).bfloat16()
+    pidx = torch.randint(0, kv.shape[0] // page, (1024,), generator=g,
+                         device=cuda, dtype=torch.int32)
+    assert torch.equal(gather_kv.gather_kv_pages(kv, pidx, page=page),
+                       ref.gather_kv_pages_ref(kv, pidx, page))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,attn", [("deepseek-v32", "sparse_attn"),
+                                       ("qwen2-1.5b", "sparse_attn_gqa")])
+def test_gpu_engine_matches_cpu_path(cuda, arch, attn):
     """The port's Engine on the card against the same engine on the CPU
-    (reduced DeepSeek-V3.2 with a 32-dim indexer, dense MLP), the same
+    (a reduced config with a 32-dim indexer, dense MLP), the same
     weights and an injected top-k: the timeline, the traffic and the
-    hot-tier outcome are exact, and every kernel ran."""
+    hot-tier outcome are exact, and every kernel of the path ran."""
     from repro_torch.configs import get_config
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.request import sharegpt_trace
 
-    base = get_config("deepseek-v32").reduced()
+    base = get_config(arch).reduced()
     cfg = dataclasses.replace(base, n_experts=0, topk_experts=0,
                               sac=dataclasses.replace(base.sac, d_idx=32))
 
@@ -121,7 +158,8 @@ def test_gpu_engine_matches_cpu_path(cuda):
         engines.append(eng)
         reqs.append(r)
     counts = ops.launch_counts()
-    assert all(n > 0 for n in counts.values()), counts
+    for name in ("gather_kv", "indexer_scores", attn, "scatter_kv"):
+        assert counts[name] > 0, counts
     for a, b in zip(*reqs):
         assert (a.dispatch_s, a.first_token_s, a.finish_s) == \
             (b.dispatch_s, b.first_token_s, b.finish_s)

@@ -4,8 +4,8 @@ On the CPU every kernel of the port runs as its plain PyTorch version.
 Each is held against three references on the same numpy inputs:
 ``repro.kernels.ref`` (any shape, including ragged S and k = topk + 1),
 the Pallas kernel in interpret mode (at the block-divisible shapes it
-accepts), and the jnp function the JAX model actually runs.  Gather and
-scatter must match bit for bit; the indexer and the attention take bf16
+accepts), and the jnp function the JAX model actually runs.  Gather,
+the page gather and scatter must match bit for bit; the indexer and the attention take bf16
 inputs and use rtol = atol = 2e-2, as tests/test_kernels.py does.
 The card-only checks of the CUDA kernels are in tests/test_torch_gpu.py.
 """
@@ -18,8 +18,10 @@ import pytest
 import torch
 
 from repro.core import pool as jpool
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.gather_kv import gather_kv as pl_gather
+from repro.kernels.gather_kv import gather_kv_pages as pl_gather_pages
 from repro.kernels.indexer import indexer_scores as pl_indexer
 from repro.kernels.scatter_kv import scatter_kv as pl_scatter
 from repro.kernels.sparse_attn import sparse_attn as pl_attn
@@ -73,6 +75,22 @@ def test_gather_batched_vs_local_fetch():
                                                              jnp.asarray(idx))))
     np.testing.assert_array_equal(
         got, _np(ops.batched_gather(kv_t, torch.from_numpy(idx))))
+
+
+@pytest.mark.parametrize("S,d,page,pages", [(128, 64, 4, [0, 3, 5, 7]),
+                                            (128, 64, 16, [7, 0, 3, 3]),
+                                            (96, 512, 16, [5, 1])])
+def test_gather_pages_plain_vs_pallas(S, d, page, pages):
+    """The page gather's plain version against the Pallas kernel in
+    interpret mode, bit for bit (repeated page ids included)."""
+    rng = np.random.default_rng(S + page)
+    kv_j, kv_t = _bf16(rng, S, d)
+    pidx = np.array(pages, np.int32)
+    got = _np(ref.gather_kv_pages_ref(kv_t, torch.from_numpy(pidx), page))
+    assert got.shape == (len(pages) * page, d)
+    np.testing.assert_array_equal(
+        got, _np(pl_gather_pages(kv_j, jnp.asarray(pidx), page=page,
+                                 interpret=True)))
 
 
 # ---------------------------------------------------------------------------
@@ -171,7 +189,7 @@ def test_mla_absorbed_decode_vs_jax_model():
 
 @pytest.mark.parametrize("k,H,n_kv,hd", [(19, 4, 2, 16), (64, 8, 8, 8)])
 def test_sparse_gqa_plain_vs_ref(k, H, n_kv, hd):
-    """The GQA oracle (for the GQA families' slice) against ref.py."""
+    """The GQA oracle, one request at a time, against ref.py."""
     rng = np.random.default_rng(k + n_kv)
     q_j, q_t = _bf16(rng, H, hd)
     e_j, e_t = _bf16(rng, k, 2 * n_kv * hd)
@@ -182,6 +200,46 @@ def test_sparse_gqa_plain_vs_ref(k, H, n_kv, hd):
     np.testing.assert_allclose(
         got, _np(jref.sparse_gqa_attn_ref(q_j, e_j, jnp.asarray(valid),
                                           n_kv)), **BF16_TOL)
+
+
+GQA_HEADS = [(4, 1), (4, 2), (4, 4), (6, 2)]
+
+
+@pytest.mark.parametrize("H,n_kv", GQA_HEADS)
+def test_batched_sparse_gqa_ragged_vs_ref(H, n_kv):
+    """ops.batched_sparse_gqa on the CPU (the plain version the kernel is
+    held against on the card) against the reference's oracle, at the
+    ragged k = topk + 1 = 17."""
+    rng = np.random.default_rng(H * 10 + n_kv)
+    B, k, hd = 3, 17, 16
+    q_j, q_t = _bf16(rng, B, H, hd)
+    e_j, e_t = _bf16(rng, B, k, 2 * n_kv * hd)
+    valid = rng.random((B, k)) > 0.25
+    valid[:, -1] = True
+    got = ops.batched_sparse_gqa(q_t, e_t, torch.from_numpy(valid),
+                                 n_kv=n_kv)
+    assert got.dtype == torch.float32 and got.shape == (B, H, hd)
+    want = jax.vmap(lambda a, b, c: jref.sparse_gqa_attn_ref(a, b, c, n_kv))(
+        q_j, e_j, jnp.asarray(valid))
+    np.testing.assert_allclose(_np(got), _np(want), **BF16_TOL)
+
+
+@pytest.mark.parametrize("H,n_kv", GQA_HEADS)
+def test_batched_sparse_gqa_vs_pallas(H, n_kv):
+    """The same against the Pallas kernel in interpret mode, vmapped over
+    requests and KV groups by the reference's ops (k = 512: two blocks of
+    256, so the running max and sum carry across grid steps)."""
+    rng = np.random.default_rng(H * 100 + n_kv)
+    B, k, hd = 2, 512, 16
+    q_j, q_t = _bf16(rng, B, H, hd)
+    e_j, e_t = _bf16(rng, B, k, 2 * n_kv * hd)
+    valid = rng.random((B, k)) > 0.25
+    valid[:, -1] = True
+    got = ops.batched_sparse_gqa(q_t, e_t, torch.from_numpy(valid),
+                                 n_kv=n_kv)
+    want = jops.batched_sparse_gqa(q_j, e_j, jnp.asarray(valid), n_kv=n_kv,
+                                   use_pallas=True, interpret=True)
+    np.testing.assert_allclose(_np(got), _np(want), **BF16_TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -250,5 +308,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         sparse_attn.sparse_attn(torch.zeros(1, 2, 8), kv, torch.zeros(1, 4),
                                 scale=1.0, dv=8)
-    assert ops.launch_counts() == {"gather_kv": 0, "indexer_scores": 0,
-                                   "sparse_attn": 0, "scatter_kv": 0}
+    with pytest.raises(ValueError):
+        sparse_attn.sparse_attn_gqa(torch.zeros(1, 2, 8),
+                                    torch.zeros(1, 4, 16,
+                                                dtype=torch.bfloat16),
+                                    torch.zeros(1, 4), n_kv=1, scale=1.0)
+    with pytest.raises(ValueError):
+        gather_kv.gather_kv_pages(kv[0], idx[0], page=2)
+    assert ops.launch_counts() == {"gather_kv": 0, "gather_kv_pages": 0,
+                                   "indexer_scores": 0, "sparse_attn": 0,
+                                   "sparse_attn_gqa": 0, "scatter_kv": 0}
