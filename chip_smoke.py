@@ -18,6 +18,10 @@ Phases, each printing one JSON line with its seconds; any failure raises
    with invalid lanes), the GQA sparse attention at the (heads, KV
    heads, head dim) of every dense/MoE config of the registry (B=8,
    2049 lanes), and the page gather (on no path) at Qwen2-1.5B's pool;
+   then both attention forms (each a split-k pass and a combine pass)
+   at the edges of their split plan: k in {1, 5, 65, one chunk - 1 and
+   + 1, 2049, 8257}, a chunk of invalid lanes, no valid lane, B = 1,
+   and the GQA form at head dims 72 and 512;
 4. small-input checks: the port on the card against the port's plain
    path on the CPU with the same weights (reduced DeepSeek-V3.2, reduced
    Qwen2 with non-zero QKV biases, reduced Mixtral past its sliding
@@ -31,7 +35,8 @@ Phases, each printing one JSON line with its seconds; any failure raises
    from a seed), 4 slots, 8 requests of 4096-token context and 8 output
    tokens; every kernel of the path launched on every layer of every
    decode step; then a profile of three pure decode steps (the device's
-   busy share and the kernels that take its time);
+   busy share and the kernels that take its time; each kernel of the
+   path, both attention passes included, must show on the device);
 6. the same for Qwen2-1.5B at full width and full depth (28 layers,
    12 heads over 2 KV heads of 128, QKV bias, top-k 2048, hot tier
    6144): 8 slots, 16 requests of 8192-token context and 16 output
@@ -73,12 +78,14 @@ SERVES = {
     "deepseek-v32": dict(n_layers=2, slots=4, max_ctx=4160, requests=8,
                          context=4096, output=8, attn="sparse_attn",
                          device_kernels=("gather_rows", "indexer_kernel",
-                                         "sparse_attn_kernel",
+                                         "sparse_mla_partial_kernel",
+                                         "sparse_attn_combine_kernel",
                                          "scatter_rows")),
     "qwen2-1.5b": dict(n_layers=None, slots=8, max_ctx=8256, requests=16,
                        context=8192, output=16, attn="sparse_attn_gqa",
                        device_kernels=("gather_rows", "indexer_kernel",
-                                       "sparse_gqa_kernel",
+                                       "sparse_gqa_partial_kernel",
+                                       "sparse_attn_combine_kernel",
                                        "scatter_rows")),
 }
 
@@ -201,11 +208,12 @@ def check_mla_path_kernels(torch, ops, ref, mods):
     mask = bias[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     n_valid = int(valid.sum().item())
-    nb = n_valid * d * 2 + B * H * d * 4 + B * kk * 4 + B * H * dc * 4
+    # valid entry rows, q and out in f32, the valid mask a byte a lane
+    nb = n_valid * d * 2 + B * H * d * 4 + B * kk + B * H * dc * 4
     recs["sparse_attn"] = dict(
         max_abs_err=(out - want).abs().max().item(),
         ms=cuda_time_ms(lambda: mods["sparse_attn"].sparse_attn(
-            qcat, ent, bias, scale=scale, dv=dc)),
+            qcat, ent, valid, scale=scale, dv=dc)),
         plain_ms=cuda_time_ms(plain_attn),
         library_ms=cuda_time_ms(lambda: sdpa(
             qcat[:, None], kf, vf, attn_mask=mask, scale=scale)),
@@ -292,11 +300,14 @@ def check_sparse_gqa(torch, ops, ref, mod, B: int = 8, k: int = 2049):
                         enable_gqa=True)
         lib_diff = (library()[:, :, 0] - want).abs().max().item()
         n_valid = int(valid.sum().item())
-        nb = (n_valid * 2 * n_kv * hd * 2 + 2 * B * H * hd * 4 + B * k * 4)
+        # valid entry rows (keys and values of every group), q and out
+        # in f32, the valid mask a byte a lane
+        nb = n_valid * 2 * n_kv * hd * 2 + 2 * B * H * hd * 4 + B * k
         r = dict(heads=H, kv_heads=n_kv, head_dim=hd, max_abs_err=err,
                  library_max_abs_diff=lib_diff,
+                 splits=mod.gqa_plan(B, H, n_kv, hd, k)[0],
                  ms=cuda_time_ms(lambda: mod.sparse_attn_gqa(
-                     q, ent, bias, n_kv=n_kv, scale=scale)),
+                     q, ent, valid, n_kv=n_kv, scale=scale)),
                  plain_ms=cuda_time_ms(plain),
                  library_ms=cuda_time_ms(library),
                  bound=bound_ms(nb, 4.0 * n_valid * H * hd))
@@ -305,6 +316,74 @@ def check_sparse_gqa(torch, ops, ref, mod, B: int = 8, k: int = 2049):
             rec = dict(r)
     rec["max_abs_err"] = worst
     return rec, per_shape
+
+
+def check_attention_edges(torch, ops, ref, mod):
+    """Both attention forms at the edges of the split-k design, against
+    their plain versions at TOL_F32: ragged k (1, 5, 65, one chunk - 1 and
+    + 1 of the served plan, 2049 and dense decode's 8257), a chunk whose
+    lanes are all invalid, no valid lane at all, and a single request.
+    GQA at Qwen2-1.5B's heads (B=8), MLA at DeepSeek-V3.2's (B=4); then
+    GQA at head dims 72 and 512."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    H_g, n_kv, hd, H_m, dc, dr = 12, 2, 128, 128, 512, 64
+    plans = {"gqa": lambda B, k: mod.gqa_plan(B, H_g, n_kv, hd, k),
+             "mla": lambda B, k: mod.mla_plan(B, H_m, dc, k)}
+    out_cases = []
+    for form, B in (("gqa", 8), ("mla", 4)):
+        chunk = plans[form](B, 2049)[1]
+        runs = ([(B, k, "random")
+                 for k in (1, 5, 65, chunk - 1, chunk + 1, 2049, 8257)]
+                + [(B, 2049, "chunk_invalid"), (B, 2049, "all_invalid"),
+                   (1, 2049, "random")])
+        for Bc, k, pattern in runs:
+            splits, ck = plans[form](Bc, k)
+            valid = torch.rand((Bc, k), generator=g, device=dev) > 0.1
+            valid[:, -1] = True
+            if pattern == "chunk_invalid":
+                valid[:, ck:2 * ck] = False
+            elif pattern == "all_invalid":
+                valid[:] = False
+            if form == "gqa":
+                q = torch.randn((Bc, H_g, hd), generator=g, device=dev)
+                ent = torch.randn((Bc, k, 2 * n_kv * hd), generator=g,
+                                  device=dev).bfloat16()
+                got = ops.batched_sparse_gqa(q, ent, valid, n_kv=n_kv)
+                want = torch.stack([ref.sparse_gqa_attn_ref(
+                    q[b], ent[b], valid[b], n_kv) for b in range(Bc)])
+            else:
+                ql = torch.randn((Bc, H_m, dc), generator=g, device=dev)
+                qp = torch.randn((Bc, H_m, dr), generator=g, device=dev)
+                ent = torch.randn((Bc, k, dc + dr), generator=g,
+                                  device=dev).bfloat16()
+                scale = 1.0 / math.sqrt(192)
+                got = ops.batched_sparse_mla(ql, qp, ent, valid, dc=dc,
+                                             scale=scale)
+                want = torch.stack([ref.sparse_mla_attn_ref(
+                    ql[b], qp[b], ent[b], valid[b], dc, scale)
+                    for b in range(Bc)])
+            torch.testing.assert_close(got, want, **TOL_F32)
+            out_cases.append(dict(form=form, B=Bc, k=k, pattern=pattern,
+                                  splits=splits, chunk=ck,
+                                  max_abs_err=(got - want).abs().max()
+                                  .item()))
+    # GQA head dims off the served one: 72 (zero-padded to 80 columns) and
+    # 512 (a one-stage tile ring: two stages overflow shared memory)
+    for H, kv, d in ((6, 2, 72), (8, 2, 512)):
+        q = torch.randn((2, H, d), generator=g, device=dev)
+        ent = torch.randn((2, 2049, 2 * kv * d), generator=g,
+                          device=dev).bfloat16()
+        valid = torch.rand((2, 2049), generator=g, device=dev) > 0.1
+        got = ops.batched_sparse_gqa(q, ent, valid, n_kv=kv)
+        want = torch.stack([ref.sparse_gqa_attn_ref(q[b], ent[b], valid[b],
+                                                    kv) for b in range(2)])
+        torch.testing.assert_close(got, want, **TOL_F32)
+        out_cases.append(dict(form="gqa", heads=H, kv_heads=kv, head_dim=d,
+                              B=2, k=2049, pattern="random",
+                              splits=mod.gqa_plan(2, H, kv, d, 2049)[0],
+                              max_abs_err=(got - want).abs().max().item()))
+    return out_cases
 
 
 def check_gather_pages(torch, ref, mod):
@@ -648,9 +727,12 @@ def main() -> None:
     recs["sparse_attn_gqa"], gqa_per_shape = check_sparse_gqa(
         torch, ops, ref, sparse_attn)
     recs["gather_kv_pages"] = check_gather_pages(torch, ref, gather_kv)
+    edges = check_attention_edges(torch, ops, ref, sparse_attn)
     emit(dict(phase="kernels_vs_plain", tolerance_f32=TOL_F32,
               max_abs_err={k: v["max_abs_err"] for k, v in recs.items()},
+              sparse_attn_splits=sparse_attn.mla_plan(4, 128, 512, 2049)[0],
               sparse_attn_gqa_shapes=gqa_per_shape,
+              attention_edges=edges,
               seconds=time.perf_counter() - t0))
 
     launches = None

@@ -1,468 +1,813 @@
-// Top-k sparse attention with an online softmax:
-//   out[b, h] = softmax_j(scale * q[b, h] . K[b, j] + bias[b, j]) @ V[b]
-// where K[b, j] = E[b, j, k_col : k_col + dq] and
-//       V[b, j] = E[b, j, v_col : v_col + dv] are columns of one entry row.
+// Top-k sparse attention, split-k ("flash decoding") on the tensor cores:
+//   out[b, h] = softmax_j(scale * q[b, h] . K[b, j] + mask[b, j]) @ V[b]
+// with mask 0 on valid lanes and -1e30 on invalid ones, in two forms:
+// - MLA (ops.batched_sparse_mla): K[b, j] = E[b, j, k_col : k_col + dq],
+//   V[b, j] = E[b, j, v_col : v_col + dv], every head on the same entries;
+// - GQA / MQA (ops.batched_sparse_gqa): an entry row is [2, n_kv, hd]
+//   (repro/models/dsa.py::gqa_kv_entry), and head g*n_rep + r attends with
+//   K_g = E[..., g*hd : (g+1)*hd] and V_g = E[..., (n_kv+g)*hd : ...].
 //
 // Replaces: src/repro/kernels/sparse_attn.py::sparse_attn (Pallas: a
 // sequential grid over k blocks carrying the running max, sum and
-// accumulator in VMEM scratch; it asserts k % block_k == 0).  The MLA form
-// (ops.batched_sparse_mla) is k_col = v_col = 0, dq = dc + dr, dv = dc:
-// the values are the first dc columns of the staged keys.  The GQA form
-// has a kernel of its own, sparse_gqa_kernel, further down this file.
+// accumulator in VMEM scratch; it asserts k % block_k == 0).  The GQA form
+// is the same Pallas kernel vmapped over requests and KV groups by
+// repro/kernels/ops.py::batched_sparse_gqa.
 //
-// Bound on an H100: close to the ridge.  DeepSeek-V3.2 decode (B=4,
-// H=128, k=2049, dq=576, dv=512) reads 9.4 MB of entries (2.8 us at
-// 3.35 TB/s) and does 2.3 GFLOP (2.3 us on the bf16 tensor cores).
+// Bound on an H100: bytes, and close to the ridge for MLA.  Qwen2-1.5B
+// decode (B=8, 12 heads over 2 KV groups of 128, k=2049) reads 16.8 MB of
+// entries (5 us at 3.35 TB/s) at 6 FLOP/byte; DeepSeek-V3.2 decode (B=4,
+// H=128, k=2049, dq=576, dv=512) reads 9.4 MB (2.8 us) and does 2.3 GFLOP
+// (2.3 us on the bf16 tensor cores).
 //
-// Design: the TPU grid's sequential k axis becomes a loop inside one
-// block.  A block owns one request and a group of 4 heads; it stages a
-// tile of 64 entry rows in shared memory once for all its heads (rows
-// padded by 8 bf16 so the 16-byte reads of eight lanes on eight rows hit
-// distinct banks), computes the 4x64 scores (one dot product per
-// thread), updates the running max and sum per head (one warp per head)
-// and accumulates p @ V with each thread owning two value columns of all
-// 4 heads.  Max, sum and accumulator are f32 and the division comes at
-// the end, as in the reference.  The ragged end of k is masked (lanes
-// past k score -inf and stage zeros), so k = topk + 1 needs no padding.
-// This first version runs on the CUDA cores; a split-k pass and wgmma
-// are the tuning steps.
+// Design.  The TPU grid's sequential k axis is split across blocks:
+// - Pass 1 (sparse_{gqa,mla}_partial_kernel), grid (split, head group,
+//   request), 8 warps.  A block takes a contiguous chunk of the k lanes (a
+//   multiple of the 64-lane tile) for up to 16 heads (MLA) or all n_rep
+//   heads of one KV group (GQA, so each entry is read from memory once),
+//   and writes the unnormalised partials m, l and acc to f32 scratch.  The
+//   host picks the chunk from the shape (kernels/sparse_attn.py::
+//   split_plan): fewest waves x (tiles per block + 1) for the blocks the
+//   card holds at once.
+// - Pass 2 (sparse_attn_combine_kernel), one block per (request, head),
+//   launched as a programmatic dependent launch so that it starts while
+//   pass 1 drains: m* = max_s m_s, out = sum_s 2^(m_s - m*) acc_s /
+//   max(sum_s 2^(m_s - m*) l_s, 1e-30).  A chunk of invalid lanes has
+//   m = -1e30 and weighs 0 beside any valid lane; with no valid lane at
+//   all every chunk weighs 1 and the output is the mean of the values, as
+//   the one-pass softmax gives.  Lanes past k score -inf.
+// - Tiles of 64 entry rows stream through a two-stage shared-memory ring
+//   filled by 16-byte cp.async from every thread (rows past k
+//   zero-filled): tile t+1 is in flight while tile t is computed.  Only
+//   the needed column ranges are staged (GQA: the group's key and value
+//   ranges, zero-padded to 16 columns; MLA: one range, the values being
+//   its first dv columns).  The block's q rows arrive in one bulk copy
+//   (TMA, completion on an mbarrier) beside tile 0.
+// - Products on the tensor cores, mma.sync m16n8k16 bf16 -> f32 with
+//   ldmatrix fragments, on 16-row head tiles: S = Q K^T (warp = 16 lanes
+//   x one half of the q.k dims; the halves are added in the softmax), then
+//   acc += P V (each warp owns 16-column slices of V).  The keys and
+//   values are bf16 and exact; q and p are f32, so each is split into
+//   hi = bf16(x) and lo = bf16(x - hi) and both halves go into the same
+//   f32 accumulator (relative error about 2^-17, against 2^-9 for a single
+//   bf16 rounding).  Scores are in log2 units (q carries scale * log2 e);
+//   max, sum and correction stay f32 and the division comes last.
 #include <cuda_bf16.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kTileK = 64;     // entry rows per tile
-constexpr int kHeads = 4;      // heads per block
-constexpr int kThreads = 256;  // = kTileK * kHeads: one score per thread
-constexpr int kMaxPairs = 2;   // value column pairs per thread (dv <= 1024)
-constexpr float kNegInf = -1e30f;
+constexpr int kTile = 64;            // entry rows per tile
+constexpr int kWarps = 8;            // 4 groups of 16 lanes x 2 k halves
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxItems = 5;         // P V items (16 heads x 16 cols) a warp
+constexpr int kPStride = kTile + 8;  // row stride of the scores and P
+constexpr int kMaxSmem = 232448;     // dynamic shared memory a block can use
+constexpr float kMasked = -1e30f;
 
-__global__ void __launch_bounds__(kThreads)
-sparse_attn_kernel(const float* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ ent,
-                   const float* __restrict__ bias, float* __restrict__ out,
-                   int H, int k, int dq, int dv, int k_col, int v_col,
-                   int st_col, int st_w, long long ent_batch,
-                   long long ent_row, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ks_stride = st_w + 8;                       // bf16 per row
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  float* qs = reinterpret_cast<float*>(ks + kTileK * ks_stride);  // [4][dq]
-  float* ps = qs + kHeads * dq;                         // [kTileK][4]
-  float* m_s = ps + kTileK * kHeads;                    // [4]
-  float* l_s = m_s + kHeads;                            // [4]
-  float* c_s = l_s + kHeads;                            // [4]
+struct Params {
+  const float* q;                    // [B, H, dq]
+  const __nv_bfloat16* ent;          // entry rows
+  const uint8_t* valid;              // [B, k]
+  float* m_part;                     // [B, H, splits]
+  float* l_part;                     // [B, H, splits]
+  float* acc_part;                   // [B, H, splits, dv]
+  long long ent_batch, ent_row;      // strides of the entries, in elements
+  int H, k, dq, dv, dqp, dvp;        // dqp, dvp: dq, dv rounded up to 16
+  int hb, ht;                        // heads per block, 16-row head tiles
+  int splits, chunk;                 // lanes per split: a multiple of kTile
+  int c0, w0, c1, w1;                // staged column ranges of group 0
+  int col_step;                      // column shift from one group to the next
+  int koff, voff;                    // keys / values inside the staged tiles
+  int stride;                        // staged row stride, bf16
+  float scale;
+};
 
-  const int b = blockIdx.y;
-  const int h0 = blockIdx.x * kHeads;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-
-  for (int i = tid; i < kHeads * dq; i += kThreads) {
-    const int h = h0 + i / dq;
-    qs[i] = h < H ? q[((long long)b * H + h) * dq + i % dq] : 0.f;
-  }
-  if (tid < kHeads) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
-  }
-  float acc[kHeads][2 * kMaxPairs];
-#pragma unroll
-  for (int h = 0; h < kHeads; ++h)
-#pragma unroll
-    for (int c = 0; c < 2 * kMaxPairs; ++c) acc[h][c] = 0.f;
-
-  const __nv_bfloat16* eb = ent + (long long)b * ent_batch + st_col;
-  const float* bb = bias + (long long)b * k;
-  const int vec_per_row = st_w / 8;
-  const int n_pairs = dv / 2;
-  const int kc = k_col - st_col, vc = v_col - st_col;
-
-  for (int j0 = 0; j0 < k; j0 += kTileK) {
-    // stage the entry tile (zeros past k)
-    for (int i = tid; i < kTileK * vec_per_row; i += kThreads) {
-      const int r = i / vec_per_row, c = i % vec_per_row;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (j0 + r < k)
-        v = *reinterpret_cast<const uint4*>(eb + (long long)(j0 + r) * ent_row
-                                            + c * 8);
-      *reinterpret_cast<uint4*>(ks + r * ks_stride + c * 8) = v;
-    }
-    __syncthreads();
-
-    // scores: thread (h, j) = (tid / 64, tid % 64)
-    {
-      const int j = tid % kTileK, h = tid / kTileK;
-      float s = -INFINITY;
-      if (j0 + j < k) {
-        const __nv_bfloat16* kr = ks + j * ks_stride + kc;
-        const float* qr = qs + h * dq;
-        float a = 0.f;
-        for (int d = 0; d < dq; d += 8) {
-          uint4 v = *reinterpret_cast<const uint4*>(kr + d);
-          const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&v);
-          float4 qa = *reinterpret_cast<const float4*>(qr + d);
-          float4 qb = *reinterpret_cast<const float4*>(qr + d + 4);
-          float2 f0 = __bfloat1622float2(k2[0]);
-          float2 f1 = __bfloat1622float2(k2[1]);
-          float2 f2 = __bfloat1622float2(k2[2]);
-          float2 f3 = __bfloat1622float2(k2[3]);
-          a = fmaf(qa.x, f0.x, a); a = fmaf(qa.y, f0.y, a);
-          a = fmaf(qa.z, f1.x, a); a = fmaf(qa.w, f1.y, a);
-          a = fmaf(qb.x, f2.x, a); a = fmaf(qb.y, f2.y, a);
-          a = fmaf(qb.z, f3.x, a); a = fmaf(qb.w, f3.y, a);
-        }
-        s = a * scale + bb[j0 + j];
-      }
-      ps[j * kHeads + h] = s;
-    }
-    __syncthreads();
-
-    // running max / sum: one warp per head
-    if (warp < kHeads) {
-      const int h = warp;
-      const float s0 = ps[lane * kHeads + h];
-      const float s1 = ps[(lane + 32) * kHeads + h];
-      float mx = fmaxf(s0, s1);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = m_s[h];
-      const float m_new = fmaxf(m_prev, mx);
-      const float p0 = __expf(s0 - m_new), p1 = __expf(s1 - m_new);
-      float sum = p0 + p1;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      ps[lane * kHeads + h] = p0;
-      ps[(lane + 32) * kHeads + h] = p1;
-      __syncwarp();
-      if (lane == 0) {
-        const float corr = __expf(m_prev - m_new);
-        c_s[h] = corr;
-        l_s[h] = l_s[h] * corr + sum;
-        m_s[h] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * corr + p @ V: thread owns value pairs tid, tid + 256
-    {
-      float corr[kHeads];
-#pragma unroll
-      for (int h = 0; h < kHeads; ++h) corr[h] = c_s[h];
-#pragma unroll
-      for (int h = 0; h < kHeads; ++h)
-#pragma unroll
-        for (int c = 0; c < 2 * kMaxPairs; ++c) acc[h][c] *= corr[h];
-      const int jn = min(kTileK, k - j0);
-      for (int j = 0; j < jn; ++j) {
-        const float4 p = *reinterpret_cast<const float4*>(ps + j * kHeads);
-        const __nv_bfloat16* vr = ks + j * ks_stride + vc;
-#pragma unroll
-        for (int i = 0; i < kMaxPairs; ++i) {
-          const int pr = tid + i * kThreads;
-          if (pr < n_pairs) {
-            float2 v = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(vr + 2 * pr));
-            acc[0][2 * i] = fmaf(p.x, v.x, acc[0][2 * i]);
-            acc[0][2 * i + 1] = fmaf(p.x, v.y, acc[0][2 * i + 1]);
-            acc[1][2 * i] = fmaf(p.y, v.x, acc[1][2 * i]);
-            acc[1][2 * i + 1] = fmaf(p.y, v.y, acc[1][2 * i + 1]);
-            acc[2][2 * i] = fmaf(p.z, v.x, acc[2][2 * i]);
-            acc[2][2 * i + 1] = fmaf(p.z, v.y, acc[2][2 * i + 1]);
-            acc[3][2 * i] = fmaf(p.w, v.x, acc[3][2 * i]);
-            acc[3][2 * i + 1] = fmaf(p.w, v.y, acc[3][2 * i + 1]);
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int h = 0; h < kHeads; ++h) {
-    if (h0 + h >= H) break;
-    const float inv = 1.f / fmaxf(l_s[h], 1e-30f);
-    float* o = out + ((long long)b * H + h0 + h) * dv;
-#pragma unroll
-    for (int i = 0; i < kMaxPairs; ++i) {
-      const int pr = tid + i * kThreads;
-      if (pr < n_pairs) {
-        o[2 * pr] = acc[h][2 * i] * inv;
-        o[2 * pr + 1] = acc[h][2 * i + 1] * inv;
-      }
-    }
-  }
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-}  // namespace
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
 
-// ---------------------------------------------------------------------------
-// GQA / MQA form:
-//   out[b, g*n_rep + r] = softmax_j(scale * q[b, g*n_rep + r] . K_g[b, j]
-//                                   + bias[b, j]) @ V_g[b]
-// where an entry row is [2, n_kv, hd] (repro/models/dsa.py::gqa_kv_entry):
-// K_g[b, j] = E[b, j, g*hd : (g+1)*hd] and
-// V_g[b, j] = E[b, j, (n_kv+g)*hd : (n_kv+g+1)*hd].
-//
-// Replaces: the same Pallas kernel, src/repro/kernels/sparse_attn.py::
-// sparse_attn, in the GQA form that repro/kernels/ops.py::
-// batched_sparse_gqa vmaps over requests and KV groups (keys and values
-// split out of the entries and transposed per group first).
-//
-// Bound on an H100: bytes.  Qwen2-1.5B decode (B=8, 12 heads over 2 KV
-// groups, hd=128, k=2049) reads 16.8 MB of entries (5.0 us at 3.35 TB/s)
-// and does 101 MFLOP (0.1 us on the tensor cores).
-//
-// Design: one launch for the whole layer, one block per (request, KV
-// group); the block owns ALL n_rep query heads of its group, so every
-// entry is read from device memory once (MQA's 48 heads share one staged
-// tile).  Per tile of 64 entries it stages only the group's two hd-wide
-// column ranges (keys and values; never the n_kv*hd + hd columns between
-// them, which overflow shared memory at 36 heads of 64), rows padded by 8
-// bf16 so the 16-byte reads of eight lanes on eight rows hit distinct
-// banks.  Scores: thread (j, hq) keeps one key row's 8 dims in registers
-// and updates the dot products of heads hq, hq+4, ... (q in shared memory,
-// read as a broadcast).  Running max and sum: one warp per head.  p @ V:
-// each thread owns one value column pair of heads hg, hg+HG, ... (HG =
-// 256 / (hd/2) head groups) in f32 registers.  n_rep = 1..48 at hd = 128
-// (up to 12 heads per thread in both phases); the ragged end of k is
-// masked (lanes past k score -inf and stage zeros).  This first version
-// runs on the CUDA cores with one block per (request, group); a split-k
-// pass and wgmma are the tuning steps.
-// ---------------------------------------------------------------------------
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-namespace {
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-constexpr int kGqaHeadSlots = 4;   // score phase: kTileK x 4 threads
-constexpr int kGqaMaxHpt = 12;     // heads per thread, either phase
+// mbarrier and bulk copy, for q: thread 0 arms the barrier with the bytes
+// to expect and issues the copy; every thread waits on the phase.
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
 
-__global__ void __launch_bounds__(kThreads)
-sparse_gqa_kernel(const float* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ ent,
-                  const float* __restrict__ bias, float* __restrict__ out,
-                  int H, int n_kv, int k, int hd, long long ent_batch,
-                  long long ent_row, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int n_rep = H / n_kv;
-  const int stride = hd + 8;                            // bf16 per row
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* vs = ks + kTileK * stride;
-  float* qs = reinterpret_cast<float*>(vs + kTileK * stride);  // [n_rep][hd]
-  float* ps = qs + n_rep * hd;                          // [n_rep][kTileK]
-  float* m_s = ps + n_rep * kTileK;                     // [n_rep]
-  float* l_s = m_s + n_rep;                             // [n_rep]
-  float* c_s = l_s + n_rep;                             // [n_rep]
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "{\n .reg .b64 st;\n"
+      " mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
+          bar),
+      "r"(bytes)
+      : "memory");
+}
 
-  const int g = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int h0 = g * n_rep;
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
 
-  for (int i = tid; i < n_rep * hd; i += kThreads)
-    qs[i] = q[((long long)b * H + h0) * hd + i];
-  for (int i = tid; i < n_rep; i += kThreads) {
-    m_s[i] = kNegInf;
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// c += a b: a 16x16 bf16 (row), b 16x8 bf16 (col), c 16x8 f32
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8x8 bf16 matrices: an A fragment, or the B fragments of two n-tiles
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// four 8x8 bf16 matrices, transposed: the B fragments of two n-tiles
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// Shared memory of pass 1, in bytes: the tile ring, q as bf16 hi and lo,
+// the two k-halves' partial scores (f32), P as bf16 hi and lo, and m, l,
+// corr per head row.
+size_t partial_smem(int ranges, int stages, int stride, int rows, int qs) {
+  return sizeof(__nv_bfloat16) *
+             ((size_t)stages * ranges * kTile * stride
+              + 2 * (size_t)rows * qs + 2 * (size_t)rows * kPStride) +
+         sizeof(float) * (2 * (size_t)rows * kPStride + 3 * (size_t)rows);
+}
+
+// Pass 1.  kShared: one staged range holds keys and values (MLA); else the
+// key and value ranges are staged into two tiles (GQA).  kStages: depth of
+// the tile ring (1 only where two stages overflow shared memory).  Scores
+// are in log2 units (q carries scale * log2 e): p = 2^(s - m).
+template <bool kShared, int kStages>
+__device__ __forceinline__ void partial_body(const Params& p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t qbar_s;              // q's bulk copy
+  constexpr int kRanges = kShared ? 1 : 2;
+  constexpr int kB = (int)sizeof(__nv_bfloat16);
+  constexpr float kLog2e = 1.4426950408889634f;
+  const int rows = 16 * p.ht;
+  const int qs = p.dqp + 8;
+  const int tile_elems = kTile * p.stride;
+  __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* qhi = tiles + kStages * kRanges * tile_elems;  // [rows][qs]
+  __nv_bfloat16* qlo = qhi + rows * qs;
+  float* ssp = reinterpret_cast<float*>(qlo + rows * qs);  // [2][rows][72]
+  __nv_bfloat16* ph =
+      reinterpret_cast<__nv_bfloat16*>(ssp + 2 * rows * kPStride);
+  __nv_bfloat16* pl = ph + rows * kPStride;
+  float* m_s = reinterpret_cast<float*>(pl + rows * kPStride);
+  float* l_s = m_s + rows;
+  float* c_s = l_s + rows;
+
+  const int split = blockIdx.x, grp = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int h0 = grp * p.hb;
+  const int nh = min(p.hb, p.H - h0);
+  const int lane0 = split * p.chunk;
+  const int n_tiles = (min(p.chunk, p.k - lane0) + kTile - 1) / kTile;
+  const __nv_bfloat16* eb = p.ent + (long long)b * p.ent_batch;
+  const uint8_t* vb = p.valid + (long long)b * p.k;
+  const uint32_t qbar = smem_u32(&qbar_s);
+
+  // copies of tile t: thread (row r0, 16-byte column c) copies rows r0,
+  // r0 + rpp, ... of its column with cp.async (rows past k read as zeros)
+  const int v0 = p.w0 / 8, per_row = v0 + (kShared ? 0 : p.w1 / 8);
+  const int rpp = kThreads / per_row;
+  const int cp_r0 = tid / per_row, cp_c = tid % per_row;
+  const bool second = !kShared && cp_c >= v0;
+  const int cp_cc = second ? cp_c - v0 : cp_c;
+  const __nv_bfloat16* cp_src0 =
+      eb + (second ? p.c1 : p.c0) + grp * p.col_step + cp_cc * 8;
+  const uint32_t cp_dst0 =
+      smem_u32(tiles + (second ? tile_elems : 0) + cp_r0 * p.stride
+               + cp_cc * 8);
+  auto issue = [&](int t) {
+    if (cp_r0 < rpp) {
+      int row = lane0 + t * kTile + cp_r0;
+      const __nv_bfloat16* src = cp_src0 + (long long)row * p.ent_row;
+      uint32_t dst = cp_dst0 + (uint32_t)((t % kStages) * kRanges
+                                          * tile_elems * kB);
+      const long long src_step = (long long)rpp * p.ent_row;
+      const uint32_t dst_step = rpp * p.stride * kB;
+      for (int r = cp_r0; r < kTile; r += rpp) {
+        const bool ok = row < p.k;
+        cp_async16(dst, ok ? src : cp_src0, ok ? 16 : 0);
+        row += rpp;
+        src += src_step;
+        dst += dst_step;
+      }
+    }
+    cp_async_commit();
+  };
+
+  // softmax ownership: sixteen threads per head row (4 lanes each), two
+  // rows a warp; the valid bytes of the thread's lanes, one tile ahead
+  const int sm_row = warp * 2 + (lane >> 4), sm_c0 = (lane & 15) * 4;
+  auto load_valid = [&](int t, uint8_t (&raw)[4]) {
+    const int j = lane0 + t * kTile + sm_c0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) raw[e] = j + e < p.k ? vb[j + e] : 0;
+  };
+
+  if (tid == 0) {
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // q rows of the block (f32, one bulk copy) into the last stage (they fit:
+  // gqa_pass1, mla_pass1), tile 0 into stage 0
+  float* qbuf = reinterpret_cast<float*>(tiles + (kStages - 1) * kRanges
+                                         * tile_elems);
+  if (tid == 0) {
+    const uint32_t qbytes = (uint32_t)nh * p.dq * sizeof(float);
+    mbar_expect(qbar, qbytes);
+    bulk_copy(smem_u32(qbuf), p.q + ((long long)b * p.H + h0) * p.dq, qbytes,
+              qbar);
+  }
+  if (kStages > 1) issue(0);
+  uint8_t raw_valid[4], raw_next[4];
+  load_valid(0, raw_valid);
+
+  // q * scale * log2(e) as bf16 hi + lo, zero past the heads and past dq
+  mbar_wait(qbar, 0);
+  {
+    const float qscale = p.scale * kLog2e;
+    const int row4 = p.dqp / 4, dq4 = p.dq / 4;
+    for (int i = tid; i < rows * row4; i += kThreads) {
+      const int r = i / row4, c = i - r * row4;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < nh && c < dq4) v = reinterpret_cast<const float4*>(qbuf)[
+          r * dq4 + c];
+      const float x[4] = {v.x * qscale, v.y * qscale, v.z * qscale,
+                          v.w * qscale};
+      __nv_bfloat162 hi[2], lo[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        hi[e] = __floats2bfloat162_rn(x[2 * e], x[2 * e + 1]);
+        const float2 h = __bfloat1622float2(hi[e]);
+        lo[e] = __floats2bfloat162_rn(x[2 * e] - h.x, x[2 * e + 1] - h.y);
+      }
+      *reinterpret_cast<uint2*>(qhi + r * qs + 4 * c) =
+          *reinterpret_cast<const uint2*>(hi);
+      *reinterpret_cast<uint2*>(qlo + r * qs + 4 * c) =
+          *reinterpret_cast<const uint2*>(lo);
+    }
+  }
+  __syncthreads();            // q converted: its buffer is free again
+  if (kStages == 1) issue(0);
+  // the columns that pad keys and values to 16 stay zero in every stage
+  if (!kShared && (p.w0 < p.dqp || p.w1 < p.dvp)) {
+    for (int i = tid; i < kStages * kTile; i += kThreads) {
+      __nv_bfloat16* row = tiles + (i / kTile) * kRanges * tile_elems
+                           + (i % kTile) * p.stride;
+      for (int c = p.w0; c < p.dqp; ++c) row[c] = __float2bfloat16(0.f);
+      for (int c = p.w1; c < p.dvp; ++c)
+        row[tile_elems + c] = __float2bfloat16(0.f);
+    }
+  }
+  for (int i = tid; i < rows; i += kThreads) {
+    m_s[i] = -INFINITY;
     l_s[i] = 0.f;
   }
 
-  // p @ V ownership: value column pair pv_pair of heads pv_hg + n_hg * i
-  const int n_pairs = hd / 2;
-  const int n_hg = max(1, kThreads / n_pairs);
-  const int pv_pair = tid % n_pairs, pv_hg = tid / n_pairs;
-  const bool pv_on = pv_hg < n_hg;
-  float acc[kGqaMaxHpt][2];
+  const int npairs = p.dvp / 16;
+  const int n_items = p.ht * npairs;
+  float acc[kMaxItems][2][4];
 #pragma unroll
-  for (int i = 0; i < kGqaMaxHpt; ++i) acc[i][0] = acc[i][1] = 0.f;
+  for (int i = 0; i < kMaxItems; ++i)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
 
-  const __nv_bfloat16* eb = ent + (long long)b * ent_batch;
-  const float* bb = bias + (long long)b * k;
-  const int vec_per_row = hd / 8;
-  const int tile_vecs = kTileK * vec_per_row;
-  const int kc = g * hd, vc = (n_kv + g) * hd;
+  // ldmatrix addressing: lane i feeds row (i & 7) of matrix i / 8.  A
+  // fragments (q, P): matrix = (row half, k half); B fragments of keys
+  // (rows = lanes, non-transposed): matrix = (k half, lane half); B
+  // fragments of values (rows = lanes, transposed): (lane half, col half).
+  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_col = (lane >> 4) * 8;
+  const int k_row = (lane & 7) + (lane >> 4) * 8;
+  const int k_col = ((lane >> 3) & 1) * 8;
+  const uint32_t qhi_a = smem_u32(qhi + a_row * qs + a_col);
+  const uint32_t qlo_a = smem_u32(qlo + a_row * qs + a_col);
+  const uint32_t ph_a = smem_u32(ph + a_row * kPStride + a_col);
+  const uint32_t pl_a = smem_u32(pl + a_row * kPStride + a_col);
+  // scores: warp = (k half kh, 16 lanes lg); k-steps [ks0, ks1) of 16 dims
+  const int lg = warp & 3, kh = warp >> 2;
+  const int nks = p.dqp / 16, half = (nks + 1) / 2;
+  const int ks0 = min(nks, kh * half), ks1 = min(nks, ks0 + half);
 
-  for (int j0 = 0; j0 < k; j0 += kTileK) {
-    // stage the group's key and value columns of the tile (zeros past k)
-    for (int i = tid; i < 2 * tile_vecs; i += kThreads) {
-      const int half = i / tile_vecs, rem = i % tile_vecs;
-      const int r = rem / vec_per_row, c = rem % vec_per_row;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (j0 + r < k)
-        v = *reinterpret_cast<const uint4*>(
-            eb + (long long)(j0 + r) * ent_row + (half ? vc : kc) + c * 8);
-      *reinterpret_cast<uint4*>((half ? vs : ks) + r * stride + c * 8) = v;
-    }
-    __syncthreads();
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();          // tile t landed; every warp is past tile t-1
+    if (kStages > 1 && t + 1 < n_tiles) issue(t + 1);
+    if (t + 1 < n_tiles) load_valid(t + 1, raw_next);
+    const __nv_bfloat16* st = tiles + (t % kStages) * kRanges * tile_elems;
+    const __nv_bfloat16* ks = st + p.koff;
+    const __nv_bfloat16* vs = (kShared ? st : st + tile_elems) + p.voff;
 
-    // scores: thread (j, hq) = (tid % 64, tid / 64), heads hq + 4 * i
+    // partial scores of lanes lg*16 .. +15 over this warp's k half
     {
-      const int j = tid % kTileK, hq = tid / kTileK;
-      float s[kGqaMaxHpt];
+      const uint32_t k_a = smem_u32(ks + (lg * 16 + k_row) * p.stride
+                                    + k_col);
+      float* sp_out = ssp + kh * rows * kPStride;
+      for (int h = 0; h < p.ht; ++h) {
+        // four independent chains per n-tile: (even, odd k-step) x (hi, lo)
+        float s[2][2][2][4];
 #pragma unroll
-      for (int i = 0; i < kGqaMaxHpt; ++i) s[i] = 0.f;
-      const bool live = j0 + j < k;
-      if (live) {
-        const __nv_bfloat16* kr = ks + j * stride;
-        for (int d = 0; d < hd; d += 8) {
-          uint4 v = *reinterpret_cast<const uint4*>(kr + d);
-          const __nv_bfloat162* k2 =
-              reinterpret_cast<const __nv_bfloat162*>(&v);
-          const float2 f0 = __bfloat1622float2(k2[0]);
-          const float2 f1 = __bfloat1622float2(k2[1]);
-          const float2 f2 = __bfloat1622float2(k2[2]);
-          const float2 f3 = __bfloat1622float2(k2[3]);
+        for (int a = 0; a < 2; ++a)
 #pragma unroll
-          for (int i = 0; i < kGqaMaxHpt; ++i) {
-            const int h = hq + kGqaHeadSlots * i;
-            if (h < n_rep) {
-              const float* qr = qs + h * hd + d;
-              const float4 qa = *reinterpret_cast<const float4*>(qr);
-              const float4 qb = *reinterpret_cast<const float4*>(qr + 4);
-              float a = s[i];
-              a = fmaf(qa.x, f0.x, a); a = fmaf(qa.y, f0.y, a);
-              a = fmaf(qa.z, f1.x, a); a = fmaf(qa.w, f1.y, a);
-              a = fmaf(qb.x, f2.x, a); a = fmaf(qb.y, f2.y, a);
-              a = fmaf(qb.z, f3.x, a); a = fmaf(qb.w, f3.y, a);
-              s[i] = a;
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int c = 0; c < 2; ++c)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) s[a][n][c][e] = 0.f;
+        const uint32_t qh = qhi_a + h * 16 * qs * kB;
+        const uint32_t ql = qlo_a + h * 16 * qs * kB;
+        auto step = [&](int d, float (&sp)[2][2][4]) {
+          uint32_t ah[4], al[4], bk[4];
+          ldsm_x4(ah, qh + d * kB);
+          ldsm_x4(al, ql + d * kB);
+          ldsm_x4(bk, k_a + d * kB);
+          mma(sp[0][0], ah, bk[0], bk[1]);
+          mma(sp[1][0], ah, bk[2], bk[3]);
+          mma(sp[0][1], al, bk[0], bk[1]);
+          mma(sp[1][1], al, bk[2], bk[3]);
+        };
+        int ksi = ks0;
+        for (; ksi + 2 <= ks1; ksi += 2) {
+          step(ksi * 16, s[0]);
+          step(ksi * 16 + 16, s[1]);
+        }
+        if (ksi < ks1) step(ksi * 16, s[0]);
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {   // rows g and g + 8
+            float v[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int x = 2 * hf + e;
+              v[e] = (s[0][n][0][x] + s[1][n][0][x])
+                     + (s[0][n][1][x] + s[1][n][1][x]);
             }
+            *reinterpret_cast<float2*>(
+                sp_out + (h * 16 + g + 8 * hf) * kPStride + lg * 16 + n * 8
+                + 2 * t4) = make_float2(v[0], v[1]);
           }
+      }
+    }
+    __syncthreads();
+
+    // sum the halves, mask (-1e30 invalid, -inf past k), running max and
+    // sum, P as bf16 hi + lo
+    {
+      const int j0 = lane0 + t * kTile + sm_c0;
+      for (int r = sm_row; r < rows; r += 2 * kWarps) {
+        float s[4];
+        {
+          const float4 a = *reinterpret_cast<const float4*>(
+              ssp + r * kPStride + sm_c0);
+          const float4 c = *reinterpret_cast<const float4*>(
+              ssp + (rows + r) * kPStride + sm_c0);
+          s[0] = a.x + c.x; s[1] = a.y + c.y;
+          s[2] = a.z + c.z; s[3] = a.w + c.w;
         }
-      }
-      const float bj = live ? bb[j0 + j] : 0.f;
+        float mx = -INFINITY;
 #pragma unroll
-      for (int i = 0; i < kGqaMaxHpt; ++i) {
-        const int h = hq + kGqaHeadSlots * i;
-        if (h < n_rep)
-          ps[h * kTileK + j] = live ? s[i] * scale + bj : -INFINITY;
-      }
-    }
-    __syncthreads();
-
-    // running max / sum: one warp per head
-    for (int h = warp; h < n_rep; h += kThreads / 32) {
-      const float s0 = ps[h * kTileK + lane];
-      const float s1 = ps[h * kTileK + lane + 32];
-      float mx = fmaxf(s0, s1);
+        for (int e = 0; e < 4; ++e) {
+          s[e] = j0 + e < p.k ? (raw_valid[e] ? s[e] : kMasked) : -INFINITY;
+          mx = fmaxf(mx, s[e]);
+        }
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = m_s[h];
-      const float m_new = fmaxf(m_prev, mx);
-      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
-      float sum = p0 + p1;
+        for (int off = 8; off > 0; off >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float m_prev = m_s[r];
+        const float m_new = fmaxf(m_prev, mx);
+        float sum = 0.f;
+        __nv_bfloat162 hi[2], lo[2];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      ps[h * kTileK + lane] = p0;
-      ps[h * kTileK + lane + 32] = p1;
-      __syncwarp();
-      if (lane == 0) {
-        const float corr = expf(m_prev - m_new);
-        c_s[h] = corr;
-        l_s[h] = l_s[h] * corr + sum;
-        m_s[h] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * corr + p @ V
-    if (pv_on) {
+        for (int e = 0; e < 4; e += 2) {
+          const float p0 = exp2f(s[e] - m_new), p1 = exp2f(s[e + 1] - m_new);
+          sum += p0 + p1;
+          hi[e / 2] = __floats2bfloat162_rn(p0, p1);
+          const float2 hf = __bfloat1622float2(hi[e / 2]);
+          lo[e / 2] = __floats2bfloat162_rn(p0 - hf.x, p1 - hf.y);
+        }
 #pragma unroll
-      for (int i = 0; i < kGqaMaxHpt; ++i) {
-        const int h = pv_hg + n_hg * i;
-        const float corr = h < n_rep ? c_s[h] : 0.f;
-        acc[i][0] *= corr;
-        acc[i][1] *= corr;
-      }
-      const int jn = min(kTileK, k - j0);
-      const __nv_bfloat16* vcol = vs + 2 * pv_pair;
-      for (int j = 0; j < jn; ++j) {
-        const float2 v = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(vcol + j * stride));
-#pragma unroll
-        for (int i = 0; i < kGqaMaxHpt; ++i) {
-          const int h = pv_hg + n_hg * i;
-          if (h < n_rep) {
-            const float p = ps[h * kTileK + j];
-            acc[i][0] = fmaf(p, v.x, acc[i][0]);
-            acc[i][1] = fmaf(p, v.y, acc[i][1]);
-          }
+        for (int off = 8; off > 0; off >>= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        *reinterpret_cast<uint2*>(ph + r * kPStride + sm_c0) =
+            *reinterpret_cast<const uint2*>(hi);
+        *reinterpret_cast<uint2*>(pl + r * kPStride + sm_c0) =
+            *reinterpret_cast<const uint2*>(lo);
+        if ((lane & 15) == 0) {
+          const float corr = exp2f(m_prev - m_new);
+          c_s[r] = corr;
+          l_s[r] = l_s[r] * corr + sum;
+          m_s[r] = m_new;
         }
       }
     }
     __syncthreads();
+
+    // acc = acc * corr + P V: item = (head tile, 16 value columns)
+#pragma unroll
+    for (int i = 0; i < kMaxItems; ++i) {
+      const int item = warp + kWarps * i;
+      if (item < n_items) {
+        const int h = item / npairs, n0 = (item - h * npairs) * 16;
+        const int r0 = h * 16 + g;
+        const float cg = c_s[r0], cg8 = c_s[r0 + 8];
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          acc[i][n][0] *= cg;
+          acc[i][n][1] *= cg;
+          acc[i][n][2] *= cg8;
+          acc[i][n][3] *= cg8;
+        }
+        const uint32_t pha = ph_a + h * 16 * kPStride * kB;
+        const uint32_t pla = pl_a + h * 16 * kPStride * kB;
+        const uint32_t va = smem_u32(vs + a_row * p.stride + n0 + a_col);
+#pragma unroll
+        for (int kk = 0; kk < kTile; kk += 16) {
+          uint32_t ah[4], al[4], bv[4];
+          ldsm_x4(ah, pha + kk * kB);
+          ldsm_x4(al, pla + kk * kB);
+          ldsm_x4_t(bv, va + kk * p.stride * kB);
+          mma(acc[i][0], ah, bv[0], bv[1]);
+          mma(acc[i][1], ah, bv[2], bv[3]);
+          mma(acc[i][0], al, bv[0], bv[1]);
+          mma(acc[i][1], al, bv[2], bv[3]);
+        }
+      }
+    }
+    if (kStages == 1) {
+      __syncthreads();        // every warp is done with the only stage
+      if (t + 1 < n_tiles) issue(t + 1);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) raw_valid[e] = raw_next[e];
   }
 
-  if (pv_on) {
+  // the partials of this split (m in log2 units)
+  const long long part = ((long long)b * p.H + h0) * p.splits + split;
+  for (int i = tid; i < nh; i += kThreads) {
+    p.m_part[part + (long long)i * p.splits] = m_s[i];
+    p.l_part[part + (long long)i * p.splits] = l_s[i];
+  }
 #pragma unroll
-    for (int i = 0; i < kGqaMaxHpt; ++i) {
-      const int h = pv_hg + n_hg * i;
-      if (h < n_rep) {
-        const float inv = 1.f / fmaxf(l_s[h], 1e-30f);
-        float* o = out + ((long long)b * H + h0 + h) * hd + 2 * pv_pair;
-        o[0] = acc[i][0] * inv;
-        o[1] = acc[i][1] * inv;
+  for (int i = 0; i < kMaxItems; ++i) {
+    const int item = warp + kWarps * i;
+    if (item < n_items) {
+      const int h = item / npairs, n0 = (item - h * npairs) * 16;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = h * 16 + g + 8 * hf;
+        if (r >= nh) continue;
+        float* o = p.acc_part + (part + (long long)r * p.splits) * p.dv;
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const int col = n0 + n * 8 + 2 * t4;
+          if (col < p.dv)
+            *reinterpret_cast<float2*>(o + col) =
+                make_float2(acc[i][n][2 * hf], acc[i][n][2 * hf + 1]);
+        }
       }
     }
   }
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+template <int kStages>
+__global__ void __launch_bounds__(kThreads, 2)
+sparse_gqa_partial_kernel(const Params p) {
+  partial_body<false, kStages>(p);
+}
+
+__global__ void __launch_bounds__(kThreads)
+sparse_mla_partial_kernel(const Params p) {
+  partial_body<true, 2>(p);
+}
+
+// Pass 2: one block per (request, head) merges the splits' partials.
+// The splits are shared out over the threads (dv <= 4 * kThreads): thread
+// (group, column) sums every G-th split of one float4 column.
+__global__ void __launch_bounds__(kThreads)
+sparse_attn_combine_kernel(const float* __restrict__ m_part,
+                           const float* __restrict__ l_part,
+                           const float* __restrict__ acc_part,
+                           float* __restrict__ out, int splits, int dv) {
+  extern __shared__ float w_s[];          // [splits]
+  __shared__ float red[2][kWarps];
+  __shared__ float4 part_s[kThreads];
+  // launched early (programmatic dependent launch): wait for pass 1
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const long long bh = blockIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const float* mp = m_part + bh * splits;
+  const float* lp = l_part + bh * splits;
+
+  float mx = -INFINITY;
+  for (int s = tid; s < splits; s += kThreads) mx = fmaxf(mx, mp[s]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  if (lane == 0) red[0][warp] = mx;
+  __syncthreads();
+  mx = red[0][0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, red[0][w]);
+  float l = 0.f;
+  for (int s = tid; s < splits; s += kThreads) {
+    const float w = exp2f(mp[s] - mx);
+    w_s[s] = w;
+    l += w * lp[s];
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    l += __shfl_xor_sync(0xffffffffu, l, off);
+  if (lane == 0) red[1][warp] = l;
+  __syncthreads();
+
+  const int dv4 = dv / 4, groups = kThreads / dv4;
+  const int grp = tid / dv4, col = tid % dv4;
+  const float4* ap = reinterpret_cast<const float4*>(acc_part
+                                                     + bh * splits * dv);
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (grp < groups) {
+#pragma unroll 4
+    for (int s = grp; s < splits; s += groups) {
+      const float4 x = ap[(long long)s * dv4 + col];
+      const float w = w_s[s];
+      a.x = fmaf(w, x.x, a.x);
+      a.y = fmaf(w, x.y, a.y);
+      a.z = fmaf(w, x.z, a.z);
+      a.w = fmaf(w, x.w, a.w);
+    }
+  }
+  part_s[tid] = a;
+  __syncthreads();
+  if (tid < dv4) {
+    l = red[1][0];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) l += red[1][w];
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    for (int g = 1; g < groups; ++g) {
+      const float4 x = part_s[g * dv4 + tid];
+      a.x += x.x;
+      a.y += x.y;
+      a.z += x.z;
+      a.w += x.w;
+    }
+    reinterpret_cast<float4*>(out + bh * dv)[tid] =
+        make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv);
+  }
+}
+
+// A pass-1 kernel for one shape: the kernel, its dynamic shared memory
+// and the limit already granted to it (raised once, to what it needs).
+struct Pass1 {
+  void (*fn)(const Params);
+  size_t smem;
+  int* granted;
+};
+
+int g_smem_gqa1 = 48 * 1024, g_smem_gqa2 = 48 * 1024, g_smem_mla = 48 * 1024;
+
+// GQA pass 1 for n_rep heads of head dim hd; fn is null for a shape the
+// kernel does not take: hd % 8 != 0 or hd > 512, more than kMaxItems P V
+// items a warp, the group's f32 q rows larger than the ring stage they
+// land in, or shared memory past the limit even with one stage.
+Pass1 gqa_pass1(int n_rep, int hd) {
+  Pass1 k = {nullptr, 0, nullptr};
+  if (n_rep < 1 || hd < 8 || hd % 8 || hd > 512) return k;
+  const int dp = (hd + 15) / 16 * 16, ht = (n_rep + 15) / 16;
+  const size_t stage = 2 * (size_t)kTile * (dp + 8) * sizeof(__nv_bfloat16);
+  if ((ht * (dp / 16) + kWarps - 1) / kWarps > kMaxItems ||
+      (size_t)n_rep * hd * sizeof(float) > stage)
+    return k;
+  k.smem = partial_smem(2, 2, dp + 8, 16 * ht, dp + 8);
+  if (k.smem <= (size_t)kMaxSmem) {
+    k.fn = sparse_gqa_partial_kernel<2>;
+    k.granted = &g_smem_gqa2;
+    return k;
+  }
+  k.smem = partial_smem(2, 1, dp + 8, 16 * ht, dp + 8);
+  if (k.smem <= (size_t)kMaxSmem) {
+    k.fn = sparse_gqa_partial_kernel<1>;
+    k.granted = &g_smem_gqa1;
+  }
+  return k;
+}
+
+// MLA pass 1 for 16 heads over one staged range of st_w >= dq columns (the
+// 16 f32 q rows, 64 * dq bytes, always fit in a stage of 128 * (st_w + 8)).
+Pass1 mla_pass1(int dq, int st_w) {
+  Pass1 k = {nullptr, partial_smem(1, 2, st_w + 8, 16, dq + 8), &g_smem_mla};
+  if (dq <= st_w && k.smem <= (size_t)kMaxSmem)
+    k.fn = sparse_mla_partial_kernel;
+  return k;
+}
+
+cudaError_t allow_smem(const Pass1& k) {
+  if (!k.fn) return cudaErrorInvalidValue;
+  if ((int)k.smem <= *k.granted) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      (const void*)k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)k.smem);
+  if (err == cudaSuccess) *k.granted = (int)k.smem;
+  return err;
+}
+
+// Blocks of pass 1 that one SM holds at once, from the occupancy
+// calculator (registers and shared memory): what the host's split plan
+// fills.
+int blocks_per_sm(const Pass1& k, int* blocks) {
+  cudaError_t err = allow_smem(k);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, (const void*)k.fn, kThreads, k.smem);
+}
+
+// Pass 2 on the same stream, as a programmatic dependent launch: its
+// blocks may start while pass 1 drains and wait for it on the device.
+int combine(const Params& p, float* out, int B, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(B * p.H));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = sizeof(float) * p.splits;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, sparse_attn_combine_kernel, (const float*)p.m_part,
+      (const float*)p.l_part, (const float*)p.acc_part, out, p.splits, p.dv);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// Pass 1 on the grid, then pass 2, on one stream.
+int launch(const Pass1& k, Params p, dim3 grid, float* out, int B,
+           cudaStream_t stream) {
+  cudaError_t err = allow_smem(k);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {&p};
+  err = cudaLaunchKernel((const void*)k.fn, grid, dim3(kThreads), args,
+                         k.smem, stream);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return combine(p, out, B, stream);
 }
 
 }  // namespace
 
+// Blocks of GQA pass 1 one SM holds for n_rep heads of head dim hd, into
+// *blocks; cudaErrorInvalidValue for a shape the kernel does not take.
+SAC_API int sac_sparse_attn_gqa_blocks_per_sm(int n_rep, int hd,
+                                              int* blocks) {
+  return blocks_per_sm(gqa_pass1(n_rep, hd), blocks);
+}
+
+// The same for MLA pass 1 (q of dq columns, a staged range of st_w).
+SAC_API int sac_sparse_attn_blocks_per_sm(int dq, int st_w, int* blocks) {
+  return blocks_per_sm(mla_pass1(dq, st_w), blocks);
+}
+
 // q: [B, H, hd] f32; ent: entry rows [2, n_kv, hd] of bf16 (batch stride
-// ent_batch and row stride ent_row, in elements); bias: [B, k] f32 (0 or
-// -1e30); out: [B, H, hd] f32.  The wrapper checks H % n_kv == 0,
-// hd % 8 == 0, hd <= 512, the heads per thread (n_rep <= 12 * min(4,
-// 256 / (hd / 2))), and 16-byte alignment of the base address and rows.
+// ent_batch and row stride ent_row, in elements); valid: [B, k] bytes;
+// part: f32 scratch of B*H*splits*(hd + 2) (acc, then m, then l); out:
+// [B, H, hd] f32.  Lanes [s*chunk, (s+1)*chunk) go to split s.  A shape
+// that gqa_pass1 refuses returns cudaErrorInvalidValue.  The wrapper
+// checks H % n_kv == 0, 16-byte alignment, and that the splits cover k.
 SAC_API int sac_sparse_attn_gqa(const void* q, const void* ent,
-                                const void* bias, void* out, int B, int H,
-                                int n_kv, int k, int hd, long long ent_batch,
+                                const void* valid, void* part, void* out,
+                                int B, int H, int n_kv, int k, int hd,
+                                int splits, int chunk, long long ent_batch,
                                 long long ent_row, float scale,
                                 void* stream) {
-  const int n_rep = H / n_kv;
-  size_t smem = 2 * sizeof(__nv_bfloat16) * (size_t)kTileK * (hd + 8)
-                + sizeof(float) * ((size_t)n_rep * hd + (size_t)n_rep * kTileK
-                                   + 3 * (size_t)n_rep);
-  cudaError_t err = cudaFuncSetAttribute(
-      sparse_gqa_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  if (B > 0 && n_kv > 0 && k > 0) {
-    dim3 grid(n_kv, B);
-    sparse_gqa_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-        (const float*)q, (const __nv_bfloat16*)ent, (const float*)bias,
-        (float*)out, H, n_kv, k, hd, ent_batch, ent_row, scale);
-  }
-  return (int)cudaGetLastError();
+  if (B <= 0 || n_kv <= 0 || k <= 0) return 0;
+  Params p;
+  p.q = (const float*)q;
+  p.ent = (const __nv_bfloat16*)ent;
+  p.valid = (const uint8_t*)valid;
+  p.acc_part = (float*)part;
+  p.m_part = p.acc_part + (size_t)B * H * splits * hd;
+  p.l_part = p.m_part + (size_t)B * H * splits;
+  p.ent_batch = ent_batch;
+  p.ent_row = ent_row;
+  p.H = H;
+  p.k = k;
+  p.dq = p.dv = hd;
+  p.dqp = p.dvp = (hd + 15) / 16 * 16;
+  p.hb = H / n_kv;
+  p.ht = (p.hb + 15) / 16;
+  p.splits = splits;
+  p.chunk = chunk;
+  p.c0 = 0;
+  p.w0 = hd;
+  p.c1 = n_kv * hd;
+  p.w1 = hd;
+  p.col_step = hd;
+  p.koff = p.voff = 0;
+  p.stride = p.dqp + 8;
+  p.scale = scale;
+  return launch(gqa_pass1(p.hb, hd), p, dim3(splits, n_kv, B), (float*)out,
+                B, (cudaStream_t)stream);
 }
 
 // q: [B, H, dq] f32; ent: entry rows of bf16 (batch stride ent_batch and
-// row stride ent_row, in elements); bias: [B, k] f32 (0 or -1e30);
-// out: [B, H, dv] f32.  The wrapper checks that st_col, st_w, dq, the
-// strides and the base address keep every 16-byte access aligned, that
-// [k_col, k_col + dq) and [v_col, v_col + dv) lie inside the staged
-// columns [st_col, st_col + st_w), and that dv <= 1024 is even.
-SAC_API int sac_sparse_attn(const void* q, const void* ent, const void* bias,
-                            void* out, int B, int H, int k, int dq, int dv,
-                            int k_col, int v_col, int st_col, int st_w,
+// row stride ent_row, in elements); valid: [B, k] bytes; part: f32 scratch
+// of B*H*splits*(dv + 2); out: [B, H, dv] f32.  16 heads per block.  The
+// wrapper checks that the staged columns [st_col, st_col + st_w) hold
+// [k_col, k_col + dq) and [v_col, v_col + dv), that every column offset
+// and st_w are multiples of 8 and dq, dv multiples of 16 with dv <= 512,
+// and 16-byte alignment; a shape mla_pass1 refuses returns
+// cudaErrorInvalidValue.
+SAC_API int sac_sparse_attn(const void* q, const void* ent, const void* valid,
+                            void* part, void* out, int B, int H, int k,
+                            int dq, int dv, int k_col, int v_col, int st_col,
+                            int st_w, int splits, int chunk,
                             long long ent_batch, long long ent_row,
                             float scale, void* stream) {
-  size_t smem = sizeof(__nv_bfloat16) * (size_t)kTileK * (st_w + 8)
-                + sizeof(float) * ((size_t)kHeads * dq + kTileK * kHeads
-                                   + 3 * kHeads);
-  cudaError_t err = cudaFuncSetAttribute(
-      sparse_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  if (B > 0 && H > 0 && k > 0) {
-    dim3 grid((H + kHeads - 1) / kHeads, B);
-    sparse_attn_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-        (const float*)q, (const __nv_bfloat16*)ent, (const float*)bias,
-        (float*)out, H, k, dq, dv, k_col, v_col, st_col, st_w, ent_batch,
-        ent_row, scale);
-  }
-  return (int)cudaGetLastError();
+  if (B <= 0 || H <= 0 || k <= 0) return 0;
+  Params p;
+  p.q = (const float*)q;
+  p.ent = (const __nv_bfloat16*)ent;
+  p.valid = (const uint8_t*)valid;
+  p.acc_part = (float*)part;
+  p.m_part = p.acc_part + (size_t)B * H * splits * dv;
+  p.l_part = p.m_part + (size_t)B * H * splits;
+  p.ent_batch = ent_batch;
+  p.ent_row = ent_row;
+  p.H = H;
+  p.k = k;
+  p.dq = p.dqp = dq;
+  p.dv = p.dvp = dv;
+  p.hb = 16;
+  p.ht = 1;
+  p.splits = splits;
+  p.chunk = chunk;
+  p.c0 = st_col;
+  p.w0 = st_w;
+  p.c1 = p.w1 = 0;
+  p.col_step = 0;
+  p.koff = k_col - st_col;
+  p.voff = v_col - st_col;
+  p.stride = st_w + 8;
+  p.scale = scale;
+  return launch(mla_pass1(dq, st_w), p, dim3(splits, (H + 15) / 16, B),
+                (float*)out, B, (cudaStream_t)stream);
 }

@@ -31,15 +31,16 @@ FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", ARCH)
 
 _VP, _LL, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
     ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "sac_gather_kv": [_VP, _VP, _VP, _LL, _LL, _LL, _LL, _VP],
     "sac_gather_kv_pages": [_VP, _VP, _VP, _LL, _LL, _LL, _VP],
     "sac_scatter_kv": [_VP, _VP, _VP, _LL, _LL, _LL, _LL, _VP],
     "sac_indexer_scores": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _VP],
-    "sac_sparse_attn": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _I, _LL, _LL, _F, _VP],
-    "sac_sparse_attn_gqa": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
-                            _LL, _LL, _F, _VP],
+    "sac_sparse_attn": [_VP] * 5 + [_I] * 11 + [_LL, _LL, _F, _VP],
+    "sac_sparse_attn_gqa": [_VP] * 5 + [_I] * 7 + [_LL, _LL, _F, _VP],
+    "sac_sparse_attn_blocks_per_sm": [_I, _I, _IP],
+    "sac_sparse_attn_gqa_blocks_per_sm": [_I, _I, _IP],
 }
 
 _lib: Optional[ctypes.CDLL] = None

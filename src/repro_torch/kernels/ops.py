@@ -19,7 +19,6 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import scatter_kv as _scatter
 from repro_torch.kernels import sparse_attn as _attn
 
-NEG_INF = ref.NEG_INF
 # kernel name -> (wrapper module, its counter attribute)
 _COUNTERS = {"gather_kv": (_gather, "launches"),
              "gather_kv_pages": (_gather, "launches_pages"),
@@ -71,8 +70,7 @@ def batched_sparse_mla(q_lat: torch.Tensor, q_pe: torch.Tensor,
     -> out_lat [B,H,dc] f32."""
     if _on_cuda(q_lat, q_pe, entries, valid):
         q = torch.cat([q_lat.float(), q_pe.float()], dim=-1).contiguous()
-        bias = torch.where(valid, 0.0, NEG_INF).to(torch.float32)
-        return _attn.sparse_attn(q, entries.contiguous(), bias.contiguous(),
+        return _attn.sparse_attn(q, entries.contiguous(), valid.contiguous(),
                                  scale=scale, dv=dc)
     return torch.stack([ref.sparse_mla_attn_ref(q_lat[b], q_pe[b],
                                                 entries[b], valid[b], dc,
@@ -86,9 +84,8 @@ def batched_sparse_gqa(q: torch.Tensor, entries: torch.Tensor,
 
     Scale 1/sqrt(hd), as the reference divides q before the dot."""
     if _on_cuda(q, entries, valid):
-        bias = torch.where(valid, 0.0, NEG_INF).to(torch.float32)
         return _attn.sparse_attn_gqa(q.float().contiguous(),
-                                     entries.contiguous(), bias.contiguous(),
+                                     entries.contiguous(), valid.contiguous(),
                                      n_kv=n_kv,
                                      scale=1.0 / math.sqrt(q.shape[-1]))
     return torch.stack([ref.sparse_gqa_attn_ref(q[b], entries[b], valid[b],

@@ -72,6 +72,36 @@ def sparse_gqa_attn_ref(q: torch.Tensor, entries: torch.Tensor,
     return out.reshape(H, hd)
 
 
+def split_softmax_combine_ref(q: torch.Tensor, keys: torch.Tensor,
+                              values: torch.Tensor, valid: torch.Tensor,
+                              scale: float, chunk: int) -> torch.Tensor:
+    """The two passes of the split-k attention kernels, in plain PyTorch
+    (for the tests: the kernels' own plain versions are the one-pass
+    functions above).
+
+    q: [H, dq]; keys: [k, dq]; values: [k, dv]; valid: [k] -> [H, dv] f32.
+    Pass 1 gives each chunk of ``chunk`` lanes its running max m, sum l
+    and unnormalised accumulator acc; pass 2 takes m* = max m and returns
+    sum e^(m - m*) acc / max(sum e^(m - m*) l, 1e-30).
+    """
+    s = (q.float() @ keys.float().T) * scale                   # [H, k]
+    s = torch.where(valid[None, :], s, torch.full_like(s, NEG_INF))
+    ms, ls, accs = [], [], []
+    for c0 in range(0, s.shape[1], chunk):
+        sc = s[:, c0:c0 + chunk]
+        m = sc.max(dim=-1).values
+        p = torch.exp(sc - m[:, None])
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(p @ values[c0:c0 + chunk].float())
+    m = torch.stack(ms, dim=-1)                                # [H, splits]
+    w = torch.exp(m - m.max(dim=-1, keepdim=True).values)
+    acc = (w[..., None] * torch.stack(accs, dim=1)).sum(dim=1)
+    return acc / (w * torch.stack(ls, dim=-1)).sum(dim=-1,
+                                                   keepdim=True).clamp_min(
+        1e-30)
+
+
 def scatter_kv_ref(pool: torch.Tensor, entries: torch.Tensor,
                    idx: torch.Tensor) -> torch.Tensor:
     """pool: [S, d]; entries: [k, d]; idx: [k] distinct rows.

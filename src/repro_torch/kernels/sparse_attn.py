@@ -1,19 +1,27 @@
 """Top-k sparse attention on the card (``repro/kernels/sparse_attn.py``).
 
-``sparse_attn`` launches ``sparse_attn_kernel`` of ``csrc/sparse_attn.cu``:
-softmax attention of q against key and value columns of one entry
-tensor, the batch in the grid.  ``ops.batched_sparse_mla`` is its MLA
-form (keys = entries, values = their first dc columns); plain version
-``kernels/ref.py::sparse_mla_attn_ref``.
+Both forms run the split-k design of ``csrc/sparse_attn.cu``: pass 1
+(``sparse_mla_partial_kernel`` / ``sparse_gqa_partial_kernel``) computes
+the unnormalised softmax partials of each chunk of the k lanes into f32
+scratch that the wrapper allocates, pass 2
+(``sparse_attn_combine_kernel``) merges them; one C call launches both.
+``split_plan`` picks the chunk on the host from the shape and from the
+blocks of pass 1 the card holds at once, which the CUDA occupancy
+calculator gives (``gqa_slots`` / ``mla_slots``).
 
-``sparse_attn_gqa`` launches ``sparse_gqa_kernel`` of the same file: the
-GQA/MQA form over entries laid out ``[2, n_kv, hd]``, one launch per
-layer, one block per (request, KV group) owning all the group's query
-heads.  ``ops.batched_sparse_gqa`` calls it; plain version
+``sparse_attn`` is the MLA form (``ops.batched_sparse_mla``: keys =
+entries, values = their first dc columns); plain version
+``kernels/ref.py::sparse_mla_attn_ref``.  ``sparse_attn_gqa`` is the
+GQA/MQA form over entries laid out ``[2, n_kv, hd]``
+(``ops.batched_sparse_gqa``); plain version
 ``kernels/ref.py::sparse_gqa_attn_ref``.  Each form has its own launch
-counter.
+counter, one count per wrapper call.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -24,90 +32,186 @@ from repro_torch.kernels import _lib
 launches = 0
 launches_gqa = 0
 
-_TILE_K, _THREADS, _MAX_HEADS_PER_THREAD = 64, 256, 12
+TILE = 64                       # entry rows per tile of pass 1
+MAX_SCRATCH_BYTES = 16 << 20    # partials stay well inside the 50 MB L2
+MLA_HEADS = 16                  # heads per block of the MLA form
+_INVALID_VALUE = 1              # cudaErrorInvalidValue: a refused shape
 
 
-def sparse_attn(q: torch.Tensor, entries: torch.Tensor, bias: torch.Tensor,
+@functools.lru_cache(maxsize=4096)
+def split_plan(k: int, blocks: int, row_bytes: int,
+               slots: int) -> Tuple[int, int]:
+    """(splits, chunk) for k lanes when the grid without splits has
+    ``blocks`` blocks, the card holds ``slots`` blocks at once and one
+    split costs ``row_bytes`` of scratch.
+
+    Chunks are multiples of ``TILE`` and split s takes lanes
+    [s*chunk, min(k, (s+1)*chunk)), none empty.  A block's time is
+    modelled as its tiles plus one tile of start-up and write-out, so the
+    plan takes the chunk that minimises waves x (tiles per chunk + 1),
+    the fewer splits on a tie, with the scratch under
+    ``MAX_SCRATCH_BYTES``."""
+    n_tiles = -(-k // TILE)
+    best = None
+    for chunk_tiles in range(1, n_tiles + 1):
+        splits = -(-n_tiles // chunk_tiles)
+        if splits > 1 and splits * row_bytes > MAX_SCRATCH_BYTES:
+            continue
+        waves = -(-blocks * splits // max(slots, 1))
+        key = (waves * (chunk_tiles + 1), splits)
+        if best is None or key < best[0]:
+            best = (key, splits, chunk_tiles * TILE)
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=None)
+def _slots(index: int, entry: str, *shape: int) -> int:
+    """Blocks of a pass-1 kernel that card ``index`` holds at once: its
+    SMs times the blocks one SM holds, from the CUDA occupancy calculator
+    at the kernel's registers and shared memory; 0 for a shape the kernel
+    does not take."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        rc = getattr(_lib.lib(), entry)(*shape, ctypes.byref(blocks))
+    if rc == _INVALID_VALUE:
+        return 0
+    _lib.check(rc, entry)
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms * blocks.value
+
+
+def gqa_slots(n_rep: int, hd: int, index: Optional[int] = None) -> int:
+    """Blocks of GQA pass 1 the card holds at once (0: shape refused)."""
+    index = torch.cuda.current_device() if index is None else index
+    return _slots(index, "sac_sparse_attn_gqa_blocks_per_sm", n_rep, hd)
+
+
+def mla_slots(dq: int, st_w: int, index: Optional[int] = None) -> int:
+    """Blocks of MLA pass 1 the card holds at once (0: shape refused)."""
+    index = torch.cuda.current_device() if index is None else index
+    return _slots(index, "sac_sparse_attn_blocks_per_sm", dq, st_w)
+
+
+def mla_plan(B: int, H: int, dv: int, k: int,
+             slots: Optional[int] = None) -> Tuple[int, int]:
+    """(splits, chunk) of the MLA form when the card holds ``slots``
+    blocks (None: ask the current card, at DeepSeek-V3.2's 576 staged
+    columns)."""
+    slots = mla_slots(576, 576) if slots is None else slots
+    return split_plan(k, B * -(-H // MLA_HEADS), B * H * (dv + 2) * 4, slots)
+
+
+def gqa_plan(B: int, H: int, n_kv: int, hd: int, k: int,
+             slots: Optional[int] = None) -> Tuple[int, int]:
+    """(splits, chunk) of the GQA form when the card holds ``slots``
+    blocks (None: ask the current card)."""
+    slots = gqa_slots(H // n_kv, hd) if slots is None else slots
+    return split_plan(k, B * n_kv, B * H * (hd + 2) * 4, slots)
+
+
+def _valid_bytes(name: str, valid: torch.Tensor, B: int, k: int):
+    """valid [B, k] bool, as the bytes the kernels read."""
+    _lib.require_dtype(name, valid, torch.bool, "valid")
+    if tuple(valid.shape) != (B, k):
+        raise ValueError(f"{name}: valid must be [B, k] = {(B, k)}, got "
+                         f"{tuple(valid.shape)}")
+    return valid.view(torch.uint8)
+
+
+def sparse_attn(q: torch.Tensor, entries: torch.Tensor, valid: torch.Tensor,
                 *, scale: float, dv: int, k_col: int = 0,
                 v_col: int = 0) -> torch.Tensor:
-    """q: [B, H, dq] f32; entries: [B, k, de] bf16; bias: [B, k] f32
-    (0 / -1e30) -> out [B, H, dv] f32.
+    """q: [B, H, dq] f32; entries: [B, k, de] bf16; valid: [B, k] bool
+    -> out [B, H, dv] f32.
 
     keys = entries[..., k_col:k_col+dq], values =
-    entries[..., v_col:v_col+dv].  Any k (the ragged end is masked)."""
+    entries[..., v_col:v_col+dv]; invalid lanes score -1e30.  Any k (the
+    ragged end is masked)."""
     global launches
     name = "sparse_attn"
-    dev = _lib.require_cuda(name, q, entries, bias)
+    dev = _lib.require_cuda(name, q, entries, valid)
     _lib.require_dtype(name, q, torch.float32, "q")
     _lib.require_dtype(name, entries, torch.bfloat16, "entries")
-    _lib.require_dtype(name, bias, torch.float32, "bias")
+    if q.dim() != 3 or entries.dim() != 3 or entries.shape[0] != q.shape[0]:
+        raise ValueError(f"{name}: q [B,H,dq] and entries [B,k,de], got "
+                         f"{tuple(q.shape)} and {tuple(entries.shape)}")
     B, H, dq = q.shape
-    if (entries.dim() != 3 or entries.shape[0] != B
-            or tuple(bias.shape) != tuple(entries.shape[:2])):
-        raise ValueError(f"{name}: q [B,H,dq], entries [B,k,de], bias "
-                         f"[B,k]; got {tuple(q.shape)}, "
-                         f"{tuple(entries.shape)}, {tuple(bias.shape)}")
     k, de = entries.shape[1], entries.shape[2]
+    vbytes = _valid_bytes(name, valid, B, k)
     st_col = min(k_col, v_col)
     st_w = max(k_col + dq, v_col + dv) - st_col
     st_w += -st_w % 8
-    if (st_col % 8 or k_col % 8 or v_col % 8 or dq % 8 or de % 8
-            or dv % 2 or dv > 1024 or st_col + st_w > de
-            or entries.data_ptr() % 16):
-        raise ValueError(f"{name}: the kernel takes 8-aligned columns and "
-                         f"dq, dv even <= 1024, inside de={de} "
+    if (st_col % 8 or k_col % 8 or v_col % 8 or dq % 16 or dv % 16
+            or dv > 512 or st_col + st_w > de or de % 8
+            or entries.data_ptr() % 16 or q.data_ptr() % 16):
+        raise ValueError(f"{name}: the kernel takes 8-aligned columns, dq "
+                         f"and dv multiples of 16, dv <= 512, inside de={de} "
                          f"(dq={dq}, dv={dv}, k_col={k_col}, v_col={v_col})")
+    slots = mla_slots(dq, st_w, dev.index)
+    if not slots:
+        raise ValueError(f"{name}: pass 1 does not fit shared memory at "
+                         f"dq={dq}, staged width {st_w}")
+    splits, chunk = mla_plan(B, H, dv, k, slots)
+    part = torch.empty(B * H * splits * (dv + 2), dtype=torch.float32,
+                       device=dev)
     out = torch.empty((B, H, dv), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = _lib.lib().sac_sparse_attn(
-            q.data_ptr(), entries.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), B, H, k, dq, dv, k_col, v_col, st_col, st_w,
-            k * de, de, float(scale), _lib.stream())
+            q.data_ptr(), entries.data_ptr(), vbytes.data_ptr(),
+            part.data_ptr(), out.data_ptr(), B, H, k, dq, dv, k_col, v_col,
+            st_col, st_w, splits, chunk, k * de, de, float(scale),
+            _lib.stream())
     _lib.check(rc, name)
     launches += 1
     return out
 
 
 def sparse_attn_gqa(q: torch.Tensor, entries: torch.Tensor,
-                    bias: torch.Tensor, *, n_kv: int,
+                    valid: torch.Tensor, *, n_kv: int,
                     scale: float) -> torch.Tensor:
     """q: [B, H, hd] f32; entries: [B, k, 2*n_kv*hd] bf16 (rows laid out
-    [2, n_kv, hd]); bias: [B, k] f32 (0 / -1e30) -> out [B, H, hd] f32.
+    [2, n_kv, hd]); valid: [B, k] bool -> out [B, H, hd] f32.
 
-    Head h attends with the keys and values of group h // (H / n_kv).
-    Any k (the ragged end is masked); hd a multiple of 8 up to 512."""
+    Head h attends with the keys and values of group h // (H / n_kv);
+    invalid lanes score -1e30.  Any k (the ragged end is masked); hd a
+    multiple of 8 up to 512."""
     global launches_gqa
     name = "sparse_attn_gqa"
-    dev = _lib.require_cuda(name, q, entries, bias)
+    dev = _lib.require_cuda(name, q, entries, valid)
     _lib.require_dtype(name, q, torch.float32, "q")
     _lib.require_dtype(name, entries, torch.bfloat16, "entries")
-    _lib.require_dtype(name, bias, torch.float32, "bias")
     if q.dim() != 3 or entries.dim() != 3:
         raise ValueError(f"{name}: q [B,H,hd] and entries [B,k,de], got "
                          f"{tuple(q.shape)} and {tuple(entries.shape)}")
     B, H, hd = q.shape
     k = entries.shape[1]
-    if (entries.shape[0] != B or entries.shape[2] != 2 * n_kv * hd
-            or tuple(bias.shape) != (B, k) or n_kv < 1 or H % n_kv):
-        raise ValueError(f"{name}: entries [B,k,2*n_kv*hd], bias [B,k] and "
-                         f"H % n_kv == 0; got q {tuple(q.shape)}, entries "
-                         f"{tuple(entries.shape)}, bias {tuple(bias.shape)}, "
-                         f"n_kv={n_kv}")
+    if (entries.shape[0] != B or n_kv < 1 or H % n_kv
+            or entries.shape[2] != 2 * n_kv * hd):
+        raise ValueError(f"{name}: entries [B,k,2*n_kv*hd] and H % n_kv == "
+                         f"0; got q {tuple(q.shape)}, entries "
+                         f"{tuple(entries.shape)}, n_kv={n_kv}")
+    vbytes = _valid_bytes(name, valid, B, k)
     n_rep = H // n_kv
-    head_slots = min(_THREADS // _TILE_K,
-                     max(1, _THREADS // max(hd // 2, 1)))
-    if (hd % 8 or hd > 512 or n_rep > _MAX_HEADS_PER_THREAD * head_slots
-            or entries.data_ptr() % 16):
-        raise ValueError(f"{name}: the kernel takes hd % 8 == 0, hd <= 512 "
-                         f"and n_rep <= {_MAX_HEADS_PER_THREAD * head_slots} "
-                         f"at hd={hd} (got n_rep={n_rep}), 16-byte aligned "
-                         f"entries")
+    slots = gqa_slots(n_rep, hd, dev.index)
+    if not slots or entries.data_ptr() % 16 or q.data_ptr() % 16:
+        raise ValueError(
+            f"{name}: the kernel takes hd % 8 == 0, hd <= 512, at most 5 "
+            f"P V items (16 heads x 16 columns) a warp, "
+            f"ceil(ceil(n_rep/16) * ceil(hd/16) / 8) <= 5, a group's f32 q "
+            f"rows within one tile stage, n_rep * hd * 4 <= "
+            f"256 * (ceil(hd/16)*16 + 8) bytes, and 16-byte aligned q and "
+            f"entries (got n_rep={n_rep}, hd={hd})")
+    splits, chunk = gqa_plan(B, H, n_kv, hd, k, slots)
+    part = torch.empty(B * H * splits * (hd + 2), dtype=torch.float32,
+                       device=dev)
     out = torch.empty((B, H, hd), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = _lib.lib().sac_sparse_attn_gqa(
-            q.data_ptr(), entries.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), B, H, n_kv, k, hd, k * entries.shape[2],
-            entries.shape[2], float(scale), _lib.stream())
+            q.data_ptr(), entries.data_ptr(), vbytes.data_ptr(),
+            part.data_ptr(), out.data_ptr(), B, H, n_kv, k, hd, splits, chunk,
+            k * entries.shape[2], entries.shape[2], float(scale),
+            _lib.stream())
     _lib.check(rc, name)
     launches_gqa += 1
     return out
+

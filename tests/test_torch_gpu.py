@@ -3,9 +3,11 @@
 Each kernel against its plain PyTorch version on the card, at the
 serving shapes of DeepSeek-V3.2 (B=4, pool S=4160, k=2048 / 2049 lanes
 with invalid lanes) and, for the GQA attention, at the (heads, KV heads,
-head dim) of the dense/MoE configs (B=8, 2049 lanes): gather, page
-gather and scatter bit-exact, indexer and attention at rtol = atol =
-1e-4 (f32 sums in another order).  Plus the port's Engine on the card
+head dim) of the dense/MoE configs (B=8, 2049 lanes), both attention
+forms also at the edges of their split-k plan (ragged k up to 8257, one
+chunk +- 1, a chunk of invalid lanes, no valid lane, B = 1): gather,
+page gather and scatter bit-exact, indexer and attention at rtol = atol
+= 1e-4 (f32 sums in another order).  Plus the port's Engine on the card
 against its CPU path with the same weights on small inputs (reduced
 DeepSeek-V3.2 and reduced Qwen2).
 
@@ -74,41 +76,115 @@ def test_gpu_indexer_close(cuda, S):
                                **F32_TOL)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("k", [2049, 4161, 5])
-def test_gpu_sparse_mla_close(cuda, k):
-    g = torch.Generator(device=cuda).manual_seed(k)
-    ql = torch.randn(4, 128, 512, generator=g, device=cuda)
-    qp = torch.randn(4, 128, 64, generator=g, device=cuda)
-    ent = torch.randn(4, k, 576, generator=g, device=cuda).bfloat16()
-    valid = torch.rand(4, k, generator=g, device=cuda) > 0.1
+def _lanes(dev, g, B, k, pattern, chunk):
+    """valid [B, k]: about 10 % invalid with the last lane valid, or one
+    whole split chunk invalid, or no lane valid."""
+    valid = torch.rand(B, k, generator=g, device=dev) > 0.1
     valid[:, -1] = True
+    if pattern == "chunk_invalid":
+        valid[:, chunk:2 * chunk] = False
+    elif pattern == "all_invalid":
+        valid[:] = False
+    return valid
+
+
+def _edge_k(k, chunk):
+    """k, or the served plan's chunk - 1 / + 1 for "chunk-1" / "chunk+1"."""
+    return {"chunk-1": chunk - 1, "chunk+1": chunk + 1}.get(k, k)
+
+
+# ragged k (dense decode's 8257 included), one split's chunk +- 1, a chunk
+# of invalid lanes, no valid lane, a single request
+EDGES = ([(k, "random") for k in (1, 5, 65, "chunk-1", "chunk+1", 2049,
+                                  8257)]
+         + [(2049, "chunk_invalid"), (2049, "all_invalid")])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,k,pattern", [(4, k, pat) for k, pat in EDGES]
+                         + [(4, 4161, "random"), (1, 2049, "random")])
+def test_gpu_sparse_mla_close(cuda, B, k, pattern):
+    from repro_torch.kernels import sparse_attn
+    k = _edge_k(k, sparse_attn.mla_plan(B, 128, 512, 2049)[1])
+    g = torch.Generator(device=cuda).manual_seed(k)
+    ql = torch.randn(B, 128, 512, generator=g, device=cuda)
+    qp = torch.randn(B, 128, 64, generator=g, device=cuda)
+    ent = torch.randn(B, k, 576, generator=g, device=cuda).bfloat16()
+    valid = _lanes(cuda, g, B, k, pattern,
+                   sparse_attn.mla_plan(B, 128, 512, k)[1])
     scale = 1.0 / math.sqrt(192)
     want = torch.stack([ref.sparse_mla_attn_ref(ql[b], qp[b], ent[b],
                                                 valid[b], 512, scale)
-                        for b in range(4)])
+                        for b in range(B)])
+    n0 = ops.launch_counts()["sparse_attn"]
     got = ops.batched_sparse_mla(ql, qp, ent, valid, dc=512, scale=scale)
+    assert ops.launch_counts()["sparse_attn"] == n0 + 1
     torch.testing.assert_close(got, want, **F32_TOL)
 
 
+GQA_SHAPES = [(12, 2, 128), (36, 36, 64), (48, 1, 128), (48, 8, 128),
+              (64, 8, 128)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("H,n_kv,hd", [(12, 2, 128), (36, 36, 64),
-                                       (48, 1, 128), (48, 8, 128),
-                                       (64, 8, 128)])
-@pytest.mark.parametrize("k", [2049, 5])
-def test_gpu_sparse_gqa_close(cuda, H, n_kv, hd, k):
+@pytest.mark.parametrize("H,n_kv,hd,B,k,pattern",
+                         [(*s, 8, k, "random") for s in GQA_SHAPES
+                          for k in (2049, 5)]
+                         + [(12, 2, 128, 8, k, pat) for k, pat in EDGES
+                            if k not in (2049, 5) or pat != "random"]
+                         + [(12, 2, 128, 1, 2049, "random"),
+                            (6, 2, 72, 8, 2049, "random"),
+                            (8, 2, 512, 2, 2049, "random")])
+def test_gpu_sparse_gqa_close(cuda, H, n_kv, hd, B, k, pattern):
+    """Also hd = 72 (zero-padded to 80 columns in shared memory) and
+    hd = 512 (one tile stage: two overflow shared memory)."""
+    from repro_torch.kernels import sparse_attn
+    k = _edge_k(k, sparse_attn.gqa_plan(B, H, n_kv, hd, 2049)[1])
     g = torch.Generator(device=cuda).manual_seed(H + k)
-    q = torch.randn(8, H, hd, generator=g, device=cuda)
-    ent = torch.randn(8, k, 2 * n_kv * hd, generator=g,
+    q = torch.randn(B, H, hd, generator=g, device=cuda)
+    ent = torch.randn(B, k, 2 * n_kv * hd, generator=g,
                       device=cuda).bfloat16()
-    valid = torch.rand(8, k, generator=g, device=cuda) > 0.1
-    valid[:, -1] = True
+    valid = _lanes(cuda, g, B, k, pattern,
+                   sparse_attn.gqa_plan(B, H, n_kv, hd, k)[1])
     want = torch.stack([ref.sparse_gqa_attn_ref(q[b], ent[b], valid[b], n_kv)
-                        for b in range(8)])
+                        for b in range(B)])
     n0 = ops.launch_counts()["sparse_attn_gqa"]
     got = ops.batched_sparse_gqa(q, ent, valid, n_kv=n_kv)
     assert ops.launch_counts()["sparse_attn_gqa"] == n0 + 1
     torch.testing.assert_close(got, want, **F32_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_rep,hd,taken", [(68, 128, True), (69, 128, False),
+                                            (80, 128, False), (72, 64, True),
+                                            (80, 64, False)])
+def test_gpu_sparse_gqa_q_rows_fit_one_stage(cuda, n_rep, hd, taken):
+    """Pass 1 lands a group's f32 q rows in one stage of its tile ring
+    (2 x 64 rows of ceil(hd/16)*16 + 8 bf16): the largest group that fits
+    agrees with the plain version, one more head is refused."""
+    g = torch.Generator(device=cuda).manual_seed(n_rep)
+    q = torch.randn(2, n_rep, hd, generator=g, device=cuda)
+    ent = torch.randn(2, 2049, 2 * hd, generator=g, device=cuda).bfloat16()
+    valid = _lanes(cuda, g, 2, 2049, "random", 0)
+    if not taken:
+        with pytest.raises(ValueError):
+            ops.batched_sparse_gqa(q, ent, valid, n_kv=1)
+        return
+    want = torch.stack([ref.sparse_gqa_attn_ref(q[b], ent[b], valid[b], 1)
+                        for b in range(2)])
+    torch.testing.assert_close(ops.batched_sparse_gqa(q, ent, valid, n_kv=1),
+                               want, **F32_TOL)
+
+
+@pytest.mark.gpu
+def test_gpu_pass1_occupancy(cuda):
+    """The blocks the split plans fill, from the occupancy calculator: two
+    GQA blocks per SM at Qwen2-1.5B's heads (256 threads, at most 128
+    registers, 90 KB of shared memory) and one MLA block (196 KB)."""
+    from repro_torch.kernels import sparse_attn
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert sparse_attn.gqa_slots(6, 128) == 2 * sms
+    assert sparse_attn.mla_slots(576, 576) == sms
 
 
 @pytest.mark.gpu

@@ -31,6 +31,7 @@ from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config as tget
 from repro_torch.core import pool as tpool
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import sparse_attn as tattn
 from repro_torch.models import dsa as tdsa
 
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
@@ -240,6 +241,124 @@ def test_batched_sparse_gqa_vs_pallas(H, n_kv):
     want = jops.batched_sparse_gqa(q_j, e_j, jnp.asarray(valid), n_kv=n_kv,
                                    use_pallas=True, interpret=True)
     np.testing.assert_allclose(_np(got), _np(want), **BF16_TOL)
+
+
+# ---------------------------------------------------------------------------
+# split-k attention: the host's split plan and the two passes in plain torch
+# ---------------------------------------------------------------------------
+
+# (k, blocks of the grid without splits, scratch bytes of one split,
+#  blocks the H100 holds at once)
+SERVED_SPLITS = {
+    "qwen2-1.5b sparse": (2049, 8 * 2, 8 * 12 * (128 + 2) * 4, 2 * 132),
+    "qwen2-1.5b dense": (8257, 8 * 2, 8 * 12 * (128 + 2) * 4, 2 * 132),
+    "deepseek-v32": (2049, 4 * 128 // tattn.MLA_HEADS, 4 * 128 * 514 * 4,
+                     132),
+}
+
+
+def test_form_plans_are_the_split_plan():
+    """The wrappers' plans are split_plan at each form's grid and scratch,
+    for the blocks the card holds (given here; the card's occupancy, two
+    GQA blocks or one MLA block per SM, is checked on the card)."""
+    assert tattn.gqa_plan(8, 12, 2, 128, 2049, 2 * 132) == tattn.split_plan(
+        *SERVED_SPLITS["qwen2-1.5b sparse"])
+    assert tattn.mla_plan(4, 128, 512, 2049, 132) == tattn.split_plan(
+        *SERVED_SPLITS["deepseek-v32"])
+
+
+@pytest.mark.parametrize("k,blocks,row_bytes,slots",
+                         list(SERVED_SPLITS.values())
+                         + [(1, 16, 100, 264), (5, 1, 100, 264),
+                            (65, 8, 100, 264),
+                            (2049, 8 * 36, 8 * 36 * 66 * 4, 264),
+                            (2049, 8, 8 * 48 * 130 * 4, 132),
+                            (2049, 1, 1 << 22, 264), (8257, 2, 1 << 20, 264)])
+def test_split_plan_covers_k(k, blocks, row_bytes, slots):
+    """Chunks are whole tiles, cover [0, k) exactly with none empty, and
+    the scratch stays under its cap."""
+    splits, chunk = tattn.split_plan(k, blocks, row_bytes, slots)
+    assert chunk > 0 and chunk % tattn.TILE == 0
+    assert (splits - 1) * chunk < k <= splits * chunk
+    assert splits == 1 or splits * row_bytes <= tattn.MAX_SCRATCH_BYTES
+
+
+def _modelled_cost(k, blocks, chunk, slots):
+    splits = -(-k // chunk)
+    return -(-blocks * splits // slots) * (chunk // tattn.TILE + 1)
+
+
+@pytest.mark.parametrize("k,blocks,row_bytes,slots",
+                         list(SERVED_SPLITS.values())
+                         + [(2049, 8 * 36, 1, 264), (777, 3, 1, 264)])
+def test_split_plan_minimises_modelled_time(k, blocks, row_bytes, slots):
+    """No other whole-tile chunk gives fewer waves x (tiles + 1)."""
+    _, chunk = tattn.split_plan(k, blocks, row_bytes, slots)
+    best = min(_modelled_cost(k, blocks, c * tattn.TILE, slots)
+               for c in range(1, -(-k // tattn.TILE) + 1))
+    assert _modelled_cost(k, blocks, chunk, slots) == best
+
+
+@pytest.mark.parametrize("shape", sorted(SERVED_SPLITS))
+def test_split_plan_fills_the_card_at_served_shapes(shape):
+    """One wave that keeps at least half the card's block slots busy."""
+    k, blocks, row_bytes, slots = SERVED_SPLITS[shape]
+    splits, _ = tattn.split_plan(k, blocks, row_bytes, slots)
+    assert slots / 2 <= splits * blocks <= slots
+
+
+def _edge_valid(rng, k, pattern, chunk):
+    valid = rng.random(k) > 0.1
+    valid[-1] = True
+    if pattern == "chunk_invalid":          # one whole chunk of invalid lanes
+        valid[chunk:2 * chunk] = False
+        if k <= chunk + 1:
+            valid[:chunk] = False
+    elif pattern == "all_invalid":
+        valid[:] = False
+    return torch.from_numpy(valid)
+
+
+EDGE_CASES = ([(k, "random") for k in (1, 5, 65, 127, 129, 2049, 8257)]
+              + [(129, "chunk_invalid"), (2049, "chunk_invalid"),
+                 (5, "all_invalid"), (2049, "all_invalid")])
+
+
+@pytest.mark.parametrize("form", ["gqa", "mla"])
+@pytest.mark.parametrize("k,pattern", EDGE_CASES)
+def test_split_softmax_combine_matches_one_pass(form, k, pattern):
+    """Chunked partials merged as pass 2 merges them equal the one-pass
+    softmax of the plain versions within 1e-6 (f32), at ragged k, a chunk
+    of invalid lanes and no valid lane at all (the mean of the values)."""
+    rng = np.random.default_rng(k + len(pattern))
+    chunk = 128
+    valid = _edge_valid(rng, k, pattern, chunk)
+    if form == "gqa":
+        H, n_kv, hd = 6, 2, 16
+        q = torch.from_numpy(rng.standard_normal((H, hd)).astype(np.float32))
+        e = torch.from_numpy(rng.standard_normal((k, 2 * n_kv * hd))
+                             .astype(np.float32)).to(torch.bfloat16)
+        want = ref.sparse_gqa_attn_ref(q, e, valid, n_kv)
+        kv = e.view(k, 2, n_kv, hd)
+        rep = H // n_kv
+        got = torch.cat([ref.split_softmax_combine_ref(
+            q[g * rep:(g + 1) * rep], kv[:, 0, g], kv[:, 1, g], valid,
+            1.0 / math.sqrt(hd), chunk) for g in range(n_kv)])
+        mean_v = kv[:, 1].float().mean(0).repeat_interleave(rep, 0)
+    else:
+        H, dc, dr = 4, 32, 16
+        ql = torch.from_numpy(rng.standard_normal((H, dc)).astype(np.float32))
+        qp = torch.from_numpy(rng.standard_normal((H, dr)).astype(np.float32))
+        e = torch.from_numpy(rng.standard_normal((k, dc + dr))
+                             .astype(np.float32)).to(torch.bfloat16)
+        scale = 1.0 / math.sqrt(dc + dr)
+        want = ref.sparse_mla_attn_ref(ql, qp, e, valid, dc, scale)
+        got = ref.split_softmax_combine_ref(torch.cat([ql, qp], -1), e,
+                                            e[:, :dc], valid, scale, chunk)
+        mean_v = e.float()[:, :dc].mean(0).expand(H, dc)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    if pattern == "all_invalid":
+        torch.testing.assert_close(got, mean_v, rtol=1e-6, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------
