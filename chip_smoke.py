@@ -15,13 +15,18 @@ Phases, each printing one JSON line with its seconds; any failure raises
    PyTorch call computes the same function, that call (``library_ms``;
    the port never calls it): the MLA path's kernels at DeepSeek-V3.2's
    serving shapes (B=4 requests, pool S=4160, top-k 2048 / 2049 lanes
-   with invalid lanes), the GQA sparse attention at the (heads, KV
-   heads, head dim) of every dense/MoE config of the registry (B=8,
-   2049 lanes), and the page gather (on no path) at Qwen2-1.5B's pool;
-   then both attention forms (each a split-k pass and a combine pass)
-   at the edges of their split plan: k in {1, 5, 65, one chunk - 1 and
-   + 1, 2049, 8257}, a chunk of invalid lanes, no valid lane, B = 1,
-   and the GQA form at head dims 72 and 512;
+   with invalid lanes; the pool write also at one row, the floor of a
+   launch), the indexer at DeepSeek-V3.2's and Qwen2-1.5B's serving
+   pools and at a long context past the L2 (B=4, S=65536), the GQA
+   sparse attention at the (heads, KV heads, head dim) of every
+   dense/MoE config of the registry (B=8, 2049 lanes), and the page
+   gather (on no path) at Qwen2-1.5B's pool; then both attention forms
+   (each a split-k pass and a combine pass) at the edges of their split
+   plan: k in {1, 5, 65, one chunk - 1 and + 1, 2049, 8257}, a chunk of
+   invalid lanes, no valid lane, B = 1, and the GQA form at head dims 72
+   and 512; and the indexer at the edges of its plan (S = 1, a chunk
+   - 1 and + 1 tile, a ragged tile, B = 1, a bf16-exact q), each case
+   launched twice for equal bits;
 4. small-input checks: the port on the card against the port's plain
    path on the CPU with the same weights (reduced DeepSeek-V3.2, reduced
    Qwen2 with non-zero QKV biases, reduced Mixtral past its sliding
@@ -134,11 +139,12 @@ def bound_ms(n_bytes: float, n_flops: float):
 
 
 def check_mla_path_kernels(torch, ops, ref, mods):
-    """The DeepSeek-V3.2 path's kernels at its serving shapes.  Returns
-    {name: record}; launches are filled in by the serve phases."""
+    """The DeepSeek-V3.2 path's gather, MLA attention and pool write at
+    its serving shapes (the indexer: check_indexer).  Returns {name:
+    record}; launches are filled in by the serve phases."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    B, S, d, k, di, H_idx = 4, 4160, 576, 2048, 128, 64
+    B, S, d, k = 4, 4160, 576, 2048
     H, dc = 128, 512
     recs = {}
 
@@ -165,25 +171,6 @@ def check_mla_path_kernels(torch, ops, ref, mods):
         plain_ms=cuda_time_ms(plain_gather),
         library_ms=cuda_time_ms(lambda: torch.gather(kv, 1, idx_l)),
         bound=bound_ms(nb, 0.0))
-
-    # -- indexer: q [B, 64, 128] f32, w [B, 64] f32, keys [B, S, 128] bf16
-    q = randn(B, H_idx, di).float()
-    w = randn(B, H_idx).float()
-    keys = randn(B, S, di)
-    out = mods["indexer"].indexer_scores(q, w, keys)
-
-    def plain_indexer():
-        return torch.stack([ref.indexer_scores_ref(q[b], w[b], keys[b])
-                            for b in range(B)])
-    want = plain_indexer()
-    torch.testing.assert_close(out, want, **TOL_F32)
-    nb = B * S * di * 2 + B * H_idx * (di + 1) * 4 + B * S * 4
-    recs["indexer_scores"] = dict(
-        max_abs_err=(out - want).abs().max().item(),
-        ms=cuda_time_ms(lambda: mods["indexer"].indexer_scores(q, w, keys)),
-        plain_ms=cuda_time_ms(plain_indexer),
-        library_ms=None,
-        bound=bound_ms(nb, 2.0 * B * S * H_idx * di))
 
     # -- sparse MLA attention: H=128, dq=576, dv=512, k = 2048 + 1 lanes
     kk = k + 1
@@ -223,7 +210,7 @@ def check_mla_path_kernels(torch, ops, ref, mods):
     #    [1, L*B*S, 576] pool) and the prefill splice (L*S rows)
     L = 2
     pool = randn(1, L * B * S, d)
-    for n_rows in (L * B, L * S):
+    for n_rows in (1, L * B, L * S):
         rows = torch.randperm(L * B * S, generator=g, device=dev)[:n_rows]
         rows = rows.to(torch.int32)[None]
         e = randn(1, n_rows, d)
@@ -232,20 +219,80 @@ def check_mla_path_kernels(torch, ops, ref, mods):
         if not torch.equal(got[0], want):
             raise AssertionError(f"scatter_kv differs from its plain "
                                  f"version ({n_rows} rows)")
-        if n_rows == L * B:
-            dst = pool.clone()
+        dst = pool.clone() if n_rows < L * S else None
+        if n_rows == 1:                # the floor of one launch
+            one_row_ms = cuda_time_ms(lambda: mods["scatter_kv"].scatter_kv(
+                dst, e, rows))
+        elif n_rows == L * B:
             rows_l = rows[0].long()
             nb = n_rows * 4 + 2 * n_rows * d * 2
             recs["scatter_kv"] = dict(
                 max_abs_err=0.0,
                 ms=cuda_time_ms(lambda: mods["scatter_kv"].scatter_kv(
                     dst, e, rows)),
+                ms_one_row=one_row_ms,
                 plain_ms=cuda_time_ms(lambda: ref.scatter_kv_ref(
                     dst[0], e[0], rows[0])),
                 library_ms=cuda_time_ms(lambda: dst[0].index_copy_(
                     0, rows_l, e[0])),
                 bound=bound_ms(nb, 0.0))
     return recs
+
+
+# the indexer's timed shapes (B, S, H, di): DeepSeek-V3.2's and
+# Qwen2-1.5B's serving pools, and a long context whose 67 MB of keys do
+# not fit the 50 MB L2 (so its keys come from HBM on every call)
+INDEXER_SHAPES = {"deepseek-v32": (4, 4160, 64, 128),
+                  "qwen2-1.5b": (8, 8256, 4, 64),
+                  "long-context": (4, 65536, 64, 128)}
+
+
+def check_indexer(torch, ref, mod):
+    """The indexer at each shape of INDEXER_SHAPES against its plain
+    version at TOL_F32, with a general f32 q and with a bf16-exact q as
+    the serving path gives it (whose lo products the kernel skips), each
+    checked and timed (``ms``, ``ms_bf16_q``), the plain version's time
+    and the bound (the function's 2*B*S*H*di FLOPs; no PyTorch call
+    computes it).  Returns the record of DeepSeek-V3.2's shape, with the
+    worst error of every shape and both kinds of q, and every shape's
+    record in ``shapes``."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    per_shape = []
+    for cell, (B, S, H, di) in INDEXER_SHAPES.items():
+        q = torch.randn((B, H, di), generator=g, device=dev)
+        w = torch.randn((B, H), generator=g, device=dev)
+        keys = torch.randn((B, S, di), generator=g, device=dev).bfloat16()
+        q16 = q.bfloat16().float()           # the serving path's q
+        errs = []
+        for qq in (q, q16):
+            got = mod.indexer_scores(qq, w, keys)
+            want = torch.stack([ref.indexer_scores_ref(qq[b], w[b], keys[b])
+                                for b in range(B)])
+            torch.testing.assert_close(got, want, **TOL_F32)
+            errs.append((got - want).abs().max().item())
+            del got, want
+
+        def plain():
+            return torch.stack([ref.indexer_scores_ref(q[b], w[b], keys[b])
+                                for b in range(B)])
+        nb = B * S * di * 2 + B * H * (di + 1) * 4 + B * S * 4
+        per_shape.append(dict(
+            shape=cell, B=B, S=S, H=H, di=di, key_bytes=B * S * di * 2,
+            max_abs_err=errs[0], max_abs_err_bf16_q=errs[1],
+            ms=cuda_time_ms(lambda: mod.indexer_scores(q, w, keys)),
+            ms_bf16_q=cuda_time_ms(lambda: mod.indexer_scores(q16, w, keys)),
+            plain_ms=cuda_time_ms(plain), library_ms=None,
+            bound=bound_ms(nb, 2.0 * B * S * H * di)))
+        del q, q16, w, keys
+    rec = dict(per_shape[0])
+    rec["max_abs_err"] = max(max(r["max_abs_err"], r["max_abs_err_bf16_q"])
+                             for r in per_shape)
+    rec["shapes"] = [dict(r, bound_ms=r["bound"][0], bound_by=r["bound"][1])
+                     for r in per_shape]
+    for r in rec["shapes"]:
+        del r["bound"]
+    return rec
 
 
 def gqa_shapes():
@@ -413,6 +460,45 @@ def check_gather_pages(torch, ref, mod):
         bound=bound_ms(nb, 0.0))
 
 
+def check_indexer_edges(torch, ref, mod):
+    """The indexer at the edges of its plan, each launched twice (the two
+    results must be equal bit for bit) and held against its plain version
+    at TOL_F32: S = 1; the long context's length - 1 tile, + 1 tile and
+    + 1 row (a last chunk one tile short, a last chunk of one tile, a
+    ragged tile); B = 1; a bf16-exact q at both served shapes."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    rows = mod.indexer_slots(64, 128)[1]
+    S_long = INDEXER_SHAPES["long-context"][1]
+    cases = [(4, 1, 64, 128, False), (8, 1, 4, 64, False),
+             (4, S_long - rows, 64, 128, False),
+             (4, S_long + rows, 64, 128, False),
+             (4, S_long + 1, 64, 128, False), (1, 4160, 64, 128, False),
+             (1, 8256, 4, 64, False), (4, 4160, 64, 128, True),
+             (8, 8256, 4, 64, True)]
+    out_cases = []
+    for B, S, H, di, bf16_q in cases:
+        q = torch.randn((B, H, di), generator=g, device=dev)
+        if bf16_q:
+            q = q.bfloat16().float()
+        w = torch.randn((B, H), generator=g, device=dev)
+        keys = torch.randn((B, S, di), generator=g, device=dev).bfloat16()
+        got = mod.indexer_scores(q, w, keys)
+        if not torch.equal(got, mod.indexer_scores(q, w, keys)):
+            raise AssertionError(f"indexer: two launches differ at B={B}, "
+                                 f"S={S}, H={H}, di={di}")
+        want = torch.stack([ref.indexer_scores_ref(q[b], w[b], keys[b])
+                            for b in range(B)])
+        torch.testing.assert_close(got, want, **TOL_F32)
+        slots, rows_k = mod.indexer_slots(H, di)
+        chunks, chunk_tiles = mod.indexer_plan(B, S, rows_k, slots)
+        out_cases.append(dict(B=B, S=S, H=H, di=di, bf16_q=bf16_q,
+                              chunks=chunks, chunk_tiles=chunk_tiles,
+                              max_abs_err=(got - want).abs().max().item()))
+        del q, w, keys, got, want
+    return out_cases
+
+
 # ---------------------------------------------------------------------------
 # phase 4: small input, card vs the plain path on the CPU
 # ---------------------------------------------------------------------------
@@ -420,7 +506,7 @@ def check_gather_pages(torch, ref, mod):
 
 def small_config(name: str):
     """A reduced config the CUDA kernels take: the indexer widened to 32
-    dims (the kernel needs d_idx % 32 == 0) and a dense MLP, so that no
+    dims (the kernel takes d_idx a multiple of 16) and a dense MLP, so that no
     MoE gate sits on a rounding tie between cuBLAS and the CPU (the MoE
     runs on the card in the DeepSeek-V3.2 serve phase)."""
     from repro_torch.configs import get_config
@@ -721,9 +807,11 @@ def main() -> None:
 
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
-    mods = {"gather_kv": gather_kv, "indexer": indexer,
-            "sparse_attn": sparse_attn, "scatter_kv": scatter_kv}
+    mods = {"gather_kv": gather_kv, "sparse_attn": sparse_attn,
+            "scatter_kv": scatter_kv}
     recs = check_mla_path_kernels(torch, ops, ref, mods)
+    recs["indexer_scores"] = check_indexer(torch, ref, indexer)
+    indexer_edges = check_indexer_edges(torch, ref, indexer)
     recs["sparse_attn_gqa"], gqa_per_shape = check_sparse_gqa(
         torch, ops, ref, sparse_attn)
     recs["gather_kv_pages"] = check_gather_pages(torch, ref, gather_kv)
@@ -733,6 +821,7 @@ def main() -> None:
               sparse_attn_splits=sparse_attn.mla_plan(4, 128, 512, 2049)[0],
               sparse_attn_gqa_shapes=gqa_per_shape,
               attention_edges=edges,
+              indexer_edges=indexer_edges,
               seconds=time.perf_counter() - t0))
 
     launches = None
@@ -791,7 +880,8 @@ def main() -> None:
             launches=launches[name] if on_path else None,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound"][0], bound_by=r["bound"][1],
-            library_ms=r["library_ms"]))
+            library_ms=r["library_ms"],
+            **{k: r[k] for k in ("shapes", "ms_one_row") if k in r}))
     emit({"kernels": kernels})
     print(smi[0])
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

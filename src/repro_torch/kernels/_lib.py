@@ -14,13 +14,14 @@ CUDA error: there is no fallback to the plain PyTorch versions.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -36,12 +37,17 @@ _SIGNATURES = {
     "sac_gather_kv": [_VP, _VP, _VP, _LL, _LL, _LL, _LL, _VP],
     "sac_gather_kv_pages": [_VP, _VP, _VP, _LL, _LL, _LL, _VP],
     "sac_scatter_kv": [_VP, _VP, _VP, _LL, _LL, _LL, _LL, _VP],
-    "sac_indexer_scores": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _VP],
+    "sac_indexer_scores": [_VP] * 4 + [_I] * 5 + [_F, _VP],
+    "sac_indexer_blocks_per_sm": [_I, _I, _IP, _IP],
     "sac_sparse_attn": [_VP] * 5 + [_I] * 11 + [_LL, _LL, _F, _VP],
     "sac_sparse_attn_gqa": [_VP] * 5 + [_I] * 7 + [_LL, _LL, _F, _VP],
     "sac_sparse_attn_blocks_per_sm": [_I, _I, _IP],
     "sac_sparse_attn_gqa_blocks_per_sm": [_I, _I, _IP],
 }
+
+#: the code a C entry returns for a shape its kernel does not take
+#: (cudaErrorInvalidValue)
+INVALID_VALUE = 1
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -125,6 +131,25 @@ def check(code: int, name: str) -> None:
     if code != 0:
         msg = lib().sac_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA error {code} ({msg})")
+
+
+@functools.lru_cache(maxsize=None)
+def card_slots(index: int, entry: str, *shape: int,
+               outs: int = 1) -> Tuple[int, ...]:
+    """What the C entry ``entry`` reports of its kernel at ``shape`` on
+    card ``index``: first the blocks of it the card holds at once (its SMs
+    times the blocks one SM holds, which the entry reads from the CUDA
+    occupancy calculator at the kernel's registers and shared memory),
+    then the ``outs - 1`` further ints the entry writes.  All 0 for a
+    shape the kernel does not take."""
+    vals = [ctypes.c_int(0) for _ in range(outs)]
+    with torch.cuda.device(index):
+        rc = getattr(lib(), entry)(*shape, *map(ctypes.byref, vals))
+    if rc == INVALID_VALUE:
+        return (0,) * outs
+    check(rc, entry)
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return (sms * vals[0].value,) + tuple(v.value for v in vals[1:])
 
 
 def stream() -> int:

@@ -19,7 +19,6 @@ counter, one count per wrapper call.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import Optional, Tuple
 
@@ -35,23 +34,23 @@ launches_gqa = 0
 TILE = 64                       # entry rows per tile of pass 1
 MAX_SCRATCH_BYTES = 16 << 20    # partials stay well inside the 50 MB L2
 MLA_HEADS = 16                  # heads per block of the MLA form
-_INVALID_VALUE = 1              # cudaErrorInvalidValue: a refused shape
 
 
 @functools.lru_cache(maxsize=4096)
-def split_plan(k: int, blocks: int, row_bytes: int,
-               slots: int) -> Tuple[int, int]:
+def split_plan(k: int, blocks: int, row_bytes: int, slots: int,
+               tile: int = TILE) -> Tuple[int, int]:
     """(splits, chunk) for k lanes when the grid without splits has
     ``blocks`` blocks, the card holds ``slots`` blocks at once and one
-    split costs ``row_bytes`` of scratch.
+    split costs ``row_bytes`` of scratch (0: none, as in the indexer,
+    whose chunks are independent rows).
 
-    Chunks are multiples of ``TILE`` and split s takes lanes
+    Chunks are multiples of ``tile`` and split s takes lanes
     [s*chunk, min(k, (s+1)*chunk)), none empty.  A block's time is
     modelled as its tiles plus one tile of start-up and write-out, so the
     plan takes the chunk that minimises waves x (tiles per chunk + 1),
     the fewer splits on a tie, with the scratch under
     ``MAX_SCRATCH_BYTES``."""
-    n_tiles = -(-k // TILE)
+    n_tiles = -(-k // tile)
     best = None
     for chunk_tiles in range(1, n_tiles + 1):
         splits = -(-n_tiles // chunk_tiles)
@@ -60,36 +59,22 @@ def split_plan(k: int, blocks: int, row_bytes: int,
         waves = -(-blocks * splits // max(slots, 1))
         key = (waves * (chunk_tiles + 1), splits)
         if best is None or key < best[0]:
-            best = (key, splits, chunk_tiles * TILE)
+            best = (key, splits, chunk_tiles * tile)
     return best[1], best[2]
-
-
-@functools.lru_cache(maxsize=None)
-def _slots(index: int, entry: str, *shape: int) -> int:
-    """Blocks of a pass-1 kernel that card ``index`` holds at once: its
-    SMs times the blocks one SM holds, from the CUDA occupancy calculator
-    at the kernel's registers and shared memory; 0 for a shape the kernel
-    does not take."""
-    blocks = ctypes.c_int(0)
-    with torch.cuda.device(index):
-        rc = getattr(_lib.lib(), entry)(*shape, ctypes.byref(blocks))
-    if rc == _INVALID_VALUE:
-        return 0
-    _lib.check(rc, entry)
-    sms = torch.cuda.get_device_properties(index).multi_processor_count
-    return sms * blocks.value
 
 
 def gqa_slots(n_rep: int, hd: int, index: Optional[int] = None) -> int:
     """Blocks of GQA pass 1 the card holds at once (0: shape refused)."""
     index = torch.cuda.current_device() if index is None else index
-    return _slots(index, "sac_sparse_attn_gqa_blocks_per_sm", n_rep, hd)
+    return _lib.card_slots(index, "sac_sparse_attn_gqa_blocks_per_sm", n_rep,
+                           hd)[0]
 
 
 def mla_slots(dq: int, st_w: int, index: Optional[int] = None) -> int:
     """Blocks of MLA pass 1 the card holds at once (0: shape refused)."""
     index = torch.cuda.current_device() if index is None else index
-    return _slots(index, "sac_sparse_attn_blocks_per_sm", dq, st_w)
+    return _lib.card_slots(index, "sac_sparse_attn_blocks_per_sm", dq,
+                           st_w)[0]
 
 
 def mla_plan(B: int, H: int, dv: int, k: int,

@@ -5,9 +5,10 @@ serving shapes of DeepSeek-V3.2 (B=4, pool S=4160, k=2048 / 2049 lanes
 with invalid lanes) and, for the GQA attention, at the (heads, KV heads,
 head dim) of the dense/MoE configs (B=8, 2049 lanes), both attention
 forms also at the edges of their split-k plan (ragged k up to 8257, one
-chunk +- 1, a chunk of invalid lanes, no valid lane, B = 1): gather,
-page gather and scatter bit-exact, indexer and attention at rtol = atol
-= 1e-4 (f32 sums in another order).  Plus the port's Engine on the card
+chunk +- 1, a chunk of invalid lanes, no valid lane, B = 1), and the
+indexer at three head shapes, ragged and tile-edge S and B in {1, 4, 8}
+with both kinds of q: gather, page gather and scatter bit-exact, indexer
+and attention at rtol = atol = 1e-4 (f32 sums in another order).  Plus the port's Engine on the card
 against its CPU path with the same weights on small inputs (reduced
 DeepSeek-V3.2 and reduced Qwen2).
 
@@ -64,16 +65,56 @@ def test_gpu_scatter_exact(cuda, n_rows):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("S", [4160, 37])
-def test_gpu_indexer_close(cuda, S):
-    g = torch.Generator(device=cuda).manual_seed(2)
-    q = torch.randn(4, 64, 128, generator=g, device=cuda)
-    w = torch.randn(4, 64, generator=g, device=cuda)
-    keys = torch.randn(4, S, 128, generator=g, device=cuda).bfloat16()
+@pytest.mark.parametrize("bf16_q", [False, True])
+@pytest.mark.parametrize("B", [1, 4, 8])
+@pytest.mark.parametrize("S", [1, 37, 63, 64, 65, 127, 128, 129, 4160, 8256])
+@pytest.mark.parametrize("H,di", [(64, 128), (4, 64), (8, 16)])
+def test_gpu_indexer_close(cuda, H, di, S, B, bf16_q):
+    """The tensor-core indexer at DeepSeek-V3.2's heads (64 x 128), the
+    GQA families' (4 x 64) and the smallest dims it takes (8 x 16), at
+    ragged and tile-edge S, with a general f32 q (hi and lo products) and
+    a bf16-exact q (lo products skipped): close to the plain version, and
+    two launches give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(S + B + di)
+    q = torch.randn(B, H, di, generator=g, device=cuda)
+    if bf16_q:
+        q = q.bfloat16().float()
+    w = torch.randn(B, H, generator=g, device=cuda)
+    keys = torch.randn(B, S, di, generator=g, device=cuda).bfloat16()
     want = torch.stack([ref.indexer_scores_ref(q[b], w[b], keys[b])
-                        for b in range(4)])
-    torch.testing.assert_close(ops.batched_indexer_scores(q, w, keys), want,
-                               **F32_TOL)
+                        for b in range(B)])
+    n0 = ops.launch_counts()["indexer_scores"]
+    got = ops.batched_indexer_scores(q, w, keys)
+    assert ops.launch_counts()["indexer_scores"] == n0 + 1
+    torch.testing.assert_close(got, want, **F32_TOL)
+    assert torch.equal(got, ops.batched_indexer_scores(q, w, keys))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,di", [(4, 8), (4, 24), (129, 128), (64, 272)])
+def test_gpu_indexer_refuses_shapes(cuda, H, di):
+    """di must be a multiple of 16 in [16, 256] and H at most 128: the C
+    side refuses other shapes and the wrapper raises ValueError."""
+    from repro_torch.kernels import indexer
+    q = torch.zeros(2, H, di, device=cuda)
+    w = torch.zeros(2, H, device=cuda)
+    keys = torch.zeros(2, 64, di, device=cuda, dtype=torch.bfloat16)
+    assert indexer.indexer_slots(H, di) == (0, 0)
+    with pytest.raises(ValueError):
+        indexer.indexer_scores(q, w, keys)
+
+
+@pytest.mark.gpu
+def test_gpu_indexer_occupancy(cuda):
+    """The blocks the indexer's plan fills, from the occupancy calculator:
+    two blocks of 128 threads per SM at both served shapes (a two-stage
+    ring of 128-row tiles and q's hi and lo halves, 105 KB, at
+    DeepSeek-V3.2's 64 x 128; a four-stage ring, 78 KB, at 4 x 64)."""
+    from repro_torch.kernels import indexer
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert indexer.indexer_slots(64, 128) == (2 * sms, 128)
+    assert indexer.indexer_slots(4, 64) == (2 * sms, 128)
+    assert indexer.indexer_slots(8, 256)[1] == 64
 
 
 def _lanes(dev, g, B, k, pattern, chunk):

@@ -30,6 +30,7 @@ from repro.configs import get_config
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config as tget
 from repro_torch.core import pool as tpool
+from repro_torch.kernels import indexer as tindexer
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import sparse_attn as tattn
 from repro_torch.models import dsa as tdsa
@@ -131,6 +132,74 @@ def test_indexer_scores_vs_jax_model():
     want = _np(jdsa.indexer_scores(p_j, x_j, k_j, cfg))
     got = _np(tdsa.indexer_scores(p_t, x_t, k_t, tcfg))
     np.testing.assert_allclose(got, want, **BF16_TOL)
+
+
+def _indexer_hi_lo(q, w, keys):
+    """The tensor-core indexer's arithmetic in plain torch (for the tests):
+    q [H, di] f32 split into bf16 hi and lo = bf16(q - hi); each product
+    of two bf16 values is exact in f32 and the products sum in f32; then
+    ReLU and w / sqrt(di).  Returns the scores [S] and lo."""
+    hi = q.to(torch.bfloat16)
+    lo = (q - hi.float()).to(torch.bfloat16)
+    k = keys.float()
+    s = k @ hi.float().T + k @ lo.float().T                    # [S, H]
+    return (torch.relu(s) * (w / math.sqrt(q.shape[-1]))).sum(-1), lo
+
+
+@pytest.mark.parametrize("S,di,H", [(512, 64, 4), (1024, 128, 64),
+                                    (300, 16, 8), (37, 256, 128)])
+def test_indexer_hi_lo_split_vs_ref_and_pallas(S, di, H):
+    """Splitting an f32 q into bf16 hi + lo keeps the scores within 1e-5
+    of the largest score against the f32 oracle; a bf16-exact q (the
+    serving path's) has lo = 0 exactly, so the kernel may skip its
+    products; and the split agrees with the Pallas kernel in interpret
+    mode at the bf16 tolerance."""
+    rng = np.random.default_rng(S + di + H)
+    q = torch.from_numpy(rng.standard_normal((H, di)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal(H).astype(np.float32))
+    k_j, k_t = _bf16(rng, S, di)
+    for qq, exact in ((q, False), (q.bfloat16().float(), True)):
+        got, lo = _indexer_hi_lo(qq, w, k_t)
+        want = ref.indexer_scores_ref(qq, w, k_t)
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+        if exact:
+            assert not lo.view(torch.int16).any()
+        else:
+            assert lo.view(torch.int16).any()
+        if S % 256 == 0:      # the Pallas kernel asserts S % block_s == 0
+            np.testing.assert_allclose(
+                _np(got), _np(pl_indexer(jnp.asarray(qq.numpy()),
+                                         jnp.asarray(w.numpy()), k_j,
+                                         block_s=256)), **BF16_TOL)
+
+
+@pytest.mark.parametrize("B", [1, 4, 8])
+@pytest.mark.parametrize("S", [1, 37, 64, 65, 4160, 8256, 65536])
+def test_indexer_plan_covers_s(S, B):
+    """Block (c, b) scores positions [c*chunk, (c+1)*chunk) of request b,
+    chunk = chunk_tiles tiles: together they cover [0, S) once, none is
+    empty, and they fill at least half of the card's block slots when the
+    tiles allow (tiles of 128 or 64 rows; one, two or four blocks of 132
+    SMs)."""
+    for rows, slots in ((128, 264), (64, 132), (128, 528)):
+        chunks, chunk_tiles = tindexer.indexer_plan(B, S, rows, slots)
+        chunk = chunk_tiles * rows
+        starts = [c * chunk for c in range(chunks)]
+        assert chunk_tiles >= 1 and all(s0 < S for s0 in starts)
+        assert starts[-1] + chunk >= S
+        assert B * chunks >= min(slots / 2, B * -(-S // rows))
+
+
+@pytest.mark.parametrize("B,S,slots", [(4, 4160, 264), (8, 8256, 264),
+                                       (4, 65536, 264), (3, 777, 132)])
+def test_indexer_plan_minimises_modelled_time(B, S, slots):
+    """No other chunk gives fewer waves x (tiles per chunk + 1)."""
+    n = -(-S // 128)
+
+    def cost(ct):
+        return -(-B * -(-n // ct) // slots) * (ct + 1)
+    chunk_tiles = tindexer.indexer_plan(B, S, 128, slots)[1]
+    assert cost(chunk_tiles) == min(cost(c) for c in range(1, n + 1))
 
 
 # ---------------------------------------------------------------------------
