@@ -26,14 +26,21 @@ Phases, each printing one JSON line with its seconds; any failure raises
    invalid lanes, no valid lane, B = 1, and the GQA form at head dims 72
    and 512; and the indexer at the edges of its plan (S = 1, a chunk
    - 1 and + 1 tile, a ragged tile, B = 1, a bf16-exact q), each case
-   launched twice for equal bits;
+   launched twice for equal bits; and the gather at the two shapes the
+   fetch pipeline gives it on Qwen2-1.5B's path (the speculation tail,
+   [8, 8256, 512] with 512 lanes; the prefill warm-up, 1536 rows of each
+   of 28 layers addressed with slot offsets in the [28, 8 * 8256, 512]
+   view of the pool), bit-exact;
 4. small-input checks: the port on the card against the port's plain
    path on the CPU with the same weights (reduced DeepSeek-V3.2, reduced
    Qwen2 with non-zero QKV biases, reduced Mixtral past its sliding
    window in SAC and in dense mode; dense MLPs so that no MoE gate sits
    on a rounding tie, indexer widened to 32 dims for the kernel), logits
    and pool within tolerance and the hot-tier integer state exact under
-   an injected top-k;
+   an injected top-k; reduced DeepSeek-V3.2 and Qwen2 again with the
+   fetch pipeline on (an injected speculation, per-request budgets as
+   the arbiter grants them, a warm-up plan gathered as the engine does),
+   the hot tier's integer state and ``pf_*`` counters exact;
 5. serving DeepSeek-V3.2 through the port's ``Engine`` at full width
    with 2 layers (d=7168, 128 heads, latent 512+64, indexer 64x128,
    top-k 2048, hot tier 6144, 256 experts top-8; random bf16 weights
@@ -45,7 +52,21 @@ Phases, each printing one JSON line with its seconds; any failure raises
 6. the same for Qwen2-1.5B at full width and full depth (28 layers,
    12 heads over 2 KV heads of 128, QKV bias, top-k 2048, hot tier
    6144): 8 slots, 16 requests of 8192-token context and 16 output
-   tokens, then its profile.
+   tokens, then its profile;
+7. the fetch pipeline: the same Qwen2-1.5B trace served through the
+   port's CLI (``repro_torch.launch.serve.main``) with ``--prefetch
+   --arbiter --resize-interval 4`` (the config's prefetch width 512,
+   score margin 1.0, warm-up 1024 score + 512 radix seeds): tokens
+   equal to phase 6's token for token, entries prefetched (and no more
+   useful than prefetched), the gather launched twice per layer per
+   decode step (demand and speculation) plus at most once per admitted
+   prompt (its warm-up), at least one online resize; the hit rates with
+   and without prefetch, the precision, the grants' mean width, the
+   median decode-step wall time and, from a profile, the busy share.
+   Then the same trace with ``--prefetch`` alone (no arbiter to cut the
+   grants): tokens equal to phase 6's again, and the speculation (the
+   entries prefetched beyond the warm-up's) filling at least one in
+   ten of its lanes.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -55,8 +76,10 @@ script exits with an error and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
 import subprocess
@@ -236,6 +259,52 @@ def check_mla_path_kernels(torch, ops, ref, mods):
                 library_ms=cuda_time_ms(lambda: dst[0].index_copy_(
                     0, rows_l, e[0])),
                 bound=bound_ms(nb, 0.0))
+    return recs
+
+
+def check_fetch_gathers(torch, ops, ref):
+    """The gather at the two shapes the fetch pipeline adds on Qwen2-1.5B's
+    path, through the wrapper the path calls: the speculation tail (a
+    layer's pool [8, 8256, 512], 512 lanes a request) and the prefill
+    warm-up (every layer's 1536 planned rows of the last of 8 slots,
+    addressed in the contiguous [28, 8 * 8256, 512] view of the pool
+    with offsets lane * S: 1.9 GB, the widest addressing the kernel is
+    given), each bit-exact against the plain gather of the lane's own
+    view, timed beside it.  Returns one record per shape."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    L, slots, S, d = 28, 8, 8256, 512
+    recs = []
+    kv = torch.randn((slots, S, d), generator=g, device=dev,
+                     dtype=torch.bfloat16)
+    idx = torch.randint(0, S, (slots, 512), generator=g, device=dev,
+                        dtype=torch.int32)
+    pool = torch.randn((L, slots, S, d), generator=g, device=dev,
+                       dtype=torch.bfloat16)
+    lane = slots - 1
+    w_idx = torch.randint(0, S, (L, 1536), generator=g, device=dev,
+                          dtype=torch.int32)
+    flat = pool.view(L, slots * S, d)
+    for shape, (src, rows, plain) in {
+            "speculation_tail": (kv, idx, lambda: torch.stack(
+                [ref.gather_kv_ref(kv[b], idx[b]) for b in range(slots)])),
+            "warmup_plan": (flat, w_idx + lane * S, lambda: torch.stack(
+                [ref.gather_kv_ref(pool[l, lane], w_idx[l])
+                 for l in range(L)]))}.items():
+        if not torch.equal(ops.batched_gather(src, rows), plain()):
+            raise AssertionError(f"gather_kv differs from its plain version "
+                                 f"at the {shape} shape")
+        B, k = rows.shape
+        rows_l = rows.long()[..., None].expand(-1, -1, d)
+        bound, by = bound_ms(B * k * 4 + 2 * B * k * d * 2, 0.0)
+        recs.append(dict(
+            shape=shape, kv=list(src.shape), idx=[B, k], max_abs_err=0.0,
+            ms=cuda_time_ms(lambda: ops.batched_gather(src, rows)),
+            plain_ms=cuda_time_ms(plain),
+            library_ms=cuda_time_ms(lambda: torch.gather(src, 1, rows_l)),
+            bound_ms=bound, bound_by=by))
+    del kv, pool, flat
+    torch.cuda.empty_cache()
     return recs
 
 
@@ -516,17 +585,26 @@ def small_config(name: str):
 
 
 def small_check(torch, cfg, *, mode: str = "sac", prompt_len: int = 40,
-                pool_len: int = 64, devices=("cpu", "cuda")):
+                pool_len: int = 64, prefetch: bool = False,
+                devices=("cpu", "cuda")):
     """``cfg`` on the card against the same weights on the CPU (QKV
     biases, where the config has them, set non-zero): per-request
     relative L2 error of the logits and the pool within 5e-2 (bf16
     activations round at other places in cuBLAS and on the CPU; about
     1e-2 is typical), and in SAC mode the hot-tier integer state exact
-    under an injected top-k.  Lane 1 holds the prompt, lane 0 is empty."""
+    under an injected top-k.  Lane 1 holds the prompt, lane 0 is empty.
+
+    ``prefetch``: the fetch pipeline on, its selections injected too (a
+    score-independent speculation of the config's width, per-request
+    budgets that change every step as the arbiter's grants do, and a
+    warm-up plan for lane 1 applied by ``Engine._warm_apply``), so that
+    the hot tier, its ``pf_*`` counters included, must match exactly."""
     from repro_torch.core.pool import pool_write_prefill
     from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Engine
 
     K = 16
+    W = cfg.sac.prefetch_width
 
     def topk(scores, cache_len):      # score-independent, with invalid lanes
         j = torch.arange(K, dtype=torch.int32, device=scores.device)[None]
@@ -534,10 +612,18 @@ def small_check(torch, cfg, *, mode: str = "sac", prompt_len: int = 40,
         pos = (j * 7 + 3 * t) % torch.clamp(t, min=1)
         return pos.to(torch.int32), (j < t) & (j % 5 != 3)
 
+    def spec(scores, cache_len):      # the speculation, also injected
+        j = torch.arange(W, dtype=torch.int32, device=scores.device)[None]
+        t = cache_len[:, None]
+        pos = (t - 1 - (j * j) % 11) % torch.clamp(t, min=1)
+        return pos.to(torch.int32), (j % 4 != 1).expand(t.shape[0], W)
+
+    opts = (dict(prefetch_width=W, prefetch_fn=spec,
+                 score_margin=cfg.sac.score_margin) if prefetch else None)
     runs = []
     params = None
     for dev in devices:
-        m = build_model(cfg, mode=mode, topk_fn=topk, device=dev)
+        m = build_model(cfg, mode=mode, topk_fn=topk, opts=opts, device=dev)
         if params is None:
             gen = torch.Generator(device=dev).manual_seed(1)
             params = m.init(gen)
@@ -555,10 +641,19 @@ def small_check(torch, cfg, *, mode: str = "sac", prompt_len: int = 40,
         for key in ("kv_pool", "idx_pool"):
             pool_write_prefill(state[key], st[key], lane=1)
         state["cache_len"][1] = prompt_len
+        if prefetch:
+            L = m.n_kv
+            j = torch.arange(12, dtype=torch.int32, device=dev)
+            idx = ((prompt_len - 1 - 5 * j)[None] + torch.arange(
+                L, dtype=torch.int32, device=dev)[:, None]) % prompt_len
+            Engine._warm_apply(state["hot_buf"], state["kv_pool"], 1, idx,
+                               (j % 6 != 2)[None].expand(L, 12))
         logits = [first]
         tok = torch.tensor([5, 7], dtype=torch.int32, device=dev)
-        for _ in range(4):
-            state, lg = m.decode(p, state, tok)
+        for step in range(4):
+            budget = (torch.tensor([step % 3, W - 2 * step], dtype=torch.int32,
+                                   device=dev) if prefetch else None)
+            state, lg = m.decode(p, state, tok, pf_budget=budget)
             logits.append(lg)
         runs.append(dict(logits=[x.float().cpu() for x in logits],
                          hot=([t.cpu() for t in state["hot_buf"][1:]]
@@ -581,6 +676,8 @@ def small_check(torch, cfg, *, mode: str = "sac", prompt_len: int = 40,
                              f"L2 error {worst:.4f}")
     if mode == "sac" and not ref_run["hot"]:
         raise AssertionError("no hot tier in the SAC small check")
+    if prefetch and not int(dev_run["hot"][-2].sum()):
+        raise AssertionError(f"{cfg.name}: nothing was warm-inserted")
     for a, b in zip(ref_run["hot"], dev_run["hot"]):
         if not torch.equal(a, b):
             raise AssertionError(f"{cfg.name}: hot-tier state differs "
@@ -604,8 +701,9 @@ def _to(tree, dev):
 def serve(torch, ops, cfg, *, slots: int, max_ctx: int, requests: int,
           context: int, output: int, device="cuda"):
     """Serve the trace through the port's Engine; returns the engine, the
-    kernels' launch counts during the run and a summary.  (``device``
-    lets the same phase run reduced on the CPU as a rehearsal.)"""
+    kernels' launch counts during the run, a summary and each request's
+    decoded tokens.  (``device`` lets the same phase run reduced on the
+    CPU as a rehearsal.)"""
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.request import sharegpt_trace
 
@@ -659,7 +757,7 @@ def serve(torch, ops, cfg, *, slots: int, max_ctx: int, requests: int,
         max_memory_allocated_bytes=(torch.cuda.max_memory_allocated()
                                     if device == "cuda" else None),
         launches=counts)
-    return eng, counts, summary
+    return eng, counts, summary, {r.request_id: r.out_tokens for r in done}
 
 
 def profile_decode(torch, eng, *, requests: int, context: int,
@@ -728,13 +826,16 @@ def profile_decode(torch, eng, *, requests: int, context: int,
                            calls=e.count) for e in host])
 
 
-def check_launches(counts, steps: int, layers: int, attn: str) -> None:
+def check_launches(counts, steps: int, layers: int, attn: str,
+                   gathers: int = 1) -> None:
     """Every kernel of the path ran in the serving run: the per-layer
-    ones (indexer, gather, the path's attention) at least once per layer
-    per decode step, the pool write (one launch writes the new entry of
-    every layer) at least once per step."""
-    for name in ("gather_kv", "indexer_scores", attn):
-        if counts[name] < steps * layers:
+    ones (indexer, the path's attention; the gather ``gathers`` times, 2
+    with speculation) at least once per layer per decode step, the pool
+    write (one launch writes the new entry of every layer) at least once
+    per step."""
+    for name, per_layer in (("gather_kv", gathers), ("indexer_scores", 1),
+                            (attn, 1)):
+        if counts[name] < per_layer * steps * layers:
             raise AssertionError(f"{name}: {counts[name]} launches for "
                                  f"{steps} steps x {layers} layers")
     if counts["scatter_kv"] < steps:
@@ -744,14 +845,14 @@ def check_launches(counts, steps: int, layers: int, attn: str) -> None:
 
 def serve_and_profile(torch, ops, name: str):
     """Phases 5-6 for one config of SERVES; returns the launch counts
-    of its serving run."""
+    of its serving run, its summary and its decoded tokens."""
     from repro_torch.configs import get_config
     spec = SERVES[name]
     cfg = get_config(name)
     if spec["n_layers"]:
         cfg = dataclasses.replace(cfg, n_layers=spec["n_layers"])
     t0 = time.perf_counter()
-    eng, counts, summary = serve(
+    eng, counts, summary, tokens = serve(
         torch, ops, cfg, slots=spec["slots"], max_ctx=spec["max_ctx"],
         requests=spec["requests"], context=spec["context"],
         output=spec["output"])
@@ -767,7 +868,141 @@ def serve_and_profile(torch, ops, name: str):
     del eng
     gc.collect()
     torch.cuda.empty_cache()
-    return counts
+    return counts, summary, tokens
+
+
+# phase 7's runs of the port's CLI: the whole fetch pipeline (profiled),
+# then speculation alone, whose grants are never cut by the arbiter
+FETCH_RUNS = {
+    "prefetch_arbiter_resize": ["--prefetch", "--arbiter",
+                                "--resize-interval", "4"],
+    "prefetch": ["--prefetch"],
+}
+
+
+def serve_cli(torch, ops, argv):
+    """Serve through the port's CLI (``repro_torch.launch.serve.main``);
+    returns the engine, its requests, the CLI's printed JSON, the
+    kernels' launch counts, each step's wall time (as serve() takes it:
+    the CLI runs Engine.run, whose steps a wrapper times and
+    synchronizes) and the entries the prefill warm-up inserted (so the
+    speculation's share of ``prefetched_entries`` is known)."""
+    from repro_torch.launch import serve as serve_cli_mod
+    from repro_torch.serving.engine import Engine
+    step_s, warm = [], [0]
+    plain_step, plain_warm = Engine.step, Engine._warm_apply
+
+    def timed_step(self, *args, **kwargs):
+        s0 = self.stats.steps
+        t1 = time.perf_counter()
+        finished = plain_step(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        if self.stats.steps > s0:
+            step_s.append(time.perf_counter() - t1)
+        return finished
+
+    def counted_warm(*args):
+        hot, n_ins = plain_warm(*args)
+        warm[0] += int(n_ins)
+        return hot, n_ins
+
+    ops.reset_launch_counts()
+    Engine.step, Engine._warm_apply = timed_step, staticmethod(counted_warm)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            eng, reqs, _ = serve_cli_mod.main(argv)
+    finally:
+        Engine.step, Engine._warm_apply = plain_step, staticmethod(plain_warm)
+    counts = ops.launch_counts()
+    text = printed.getvalue()
+    return (eng, reqs, json.loads(text[text.index("{"):]), counts, step_s,
+            warm[0])
+
+
+def fetch_pipeline(torch, ops, off_summary, off_tokens):
+    """Phase 7: Qwen2-1.5B's serve trace through the port's CLI, held
+    against the prefetch-off run of phase 6 (its summary and tokens):
+    first with the fetch pipeline, the arbiter and online resizing on,
+    then a profile of its decode steps; then with speculation alone, at
+    the grants' full width.  Returns the launch counts of the served
+    runs."""
+    spec = SERVES["qwen2-1.5b"]
+    base = ["--arch", "qwen2-1.5b", "--requests", str(spec["requests"]),
+            "--ctx", str(spec["context"]), "--out-len", str(spec["output"]),
+            "--slots", str(spec["slots"]), "--max-ctx", str(spec["max_ctx"]),
+            "--device", "cuda"]
+    total = None
+    for run, flags in FETCH_RUNS.items():
+        argv = base + flags
+        t0 = time.perf_counter()
+        eng, reqs, cli_out, counts, step_s, warm_entries = serve_cli(
+            torch, ops, argv)
+        run_s = time.perf_counter() - t0
+        st = eng.stats
+        steps, layers = st.steps, eng.cfg.n_layers
+        width = eng.cfg.sac.prefetch_width
+        tokens = {r.request_id: r.out_tokens for r in reqs}
+        # each decoded token after the prefill's first speculated on
+        # every layer: the lanes the speculation could fill
+        spec_lanes = (st.tokens - len(reqs)) * layers * width
+        spec_entries = st.prefetched_entries - warm_entries
+        step_sorted = sorted(step_s)
+        emit(dict(
+            phase="fetch_pipeline", run=run, argv=argv, config=eng.cfg.name,
+            n_layers=layers, steps=steps, tokens_equal_prefetch_off=(
+                tokens == off_tokens),
+            buffer_hit_rate=st.hit_rate,
+            buffer_hit_rate_prefetch_off=off_summary["buffer_hit_rate"],
+            prefetched_entries=st.prefetched_entries,
+            warmup_entries=warm_entries, speculated_entries=spec_entries,
+            speculation_lanes=spec_lanes,
+            prefetch_useful=st.prefetch_useful,
+            prefetch_wasted=st.prefetch_wasted,
+            prefetch_precision=st.prefetch_precision,
+            arbiter_width_mean=cli_out.get("arbiter_width_mean"),
+            resizes=st.resizes, resize_skips=st.resize_skips,
+            buffer_sizes_min_max=(eng.buffer_sizes and [
+                min(eng.buffer_sizes), max(eng.buffer_sizes)]),
+            buffer_width=eng.buffer_width,
+            wall_s_per_decode_step_median=step_sorted[len(step_sorted) // 2],
+            wall_s_per_decode_step_median_prefetch_off=off_summary[
+                "wall_s_per_decode_step_median"],
+            wall_s_per_step_max=step_sorted[-1], run_wall_s=run_s,
+            launches=counts, cli=cli_out))
+        if tokens != off_tokens:
+            raise AssertionError(f"{run}: prefetch on and off decoded "
+                                 f"different tokens")
+        if not 0 < st.prefetched_entries or \
+                st.prefetch_useful > st.prefetched_entries:
+            raise AssertionError(f"{run}: prefetched "
+                                 f"{st.prefetched_entries}, useful "
+                                 f"{st.prefetch_useful}")
+        check_launches(counts, steps, layers, "sparse_attn_gqa", gathers=2)
+        if counts["gather_kv"] > 2 * steps * layers + len(reqs):
+            raise AssertionError(f"{run}: gather_kv: {counts['gather_kv']} "
+                                 f"launches, more than 2 per layer per step "
+                                 f"and one warm-up per prompt")
+        if "--resize-interval" in flags and not st.resizes:
+            raise AssertionError(f"{run}: no resize in {steps} steps")
+        if "--arbiter" not in flags and 10 * spec_entries < spec_lanes:
+            # ungated speculation must do real work: at least one in ten
+            # of its lanes inserted an entry
+            raise AssertionError(f"{run}: {spec_entries} speculated entries "
+                                 f"in {spec_lanes} lanes")
+        if run == "prefetch_arbiter_resize":
+            t0 = time.perf_counter()
+            prof = profile_decode(torch, eng, requests=spec["slots"],
+                                  context=spec["context"],
+                                  device_kernels=spec["device_kernels"])
+            prof["seconds"] = time.perf_counter() - t0
+            prof["phase"] = "profile_fetch_pipeline"
+            emit(prof)
+        del eng, reqs
+        gc.collect()
+        torch.cuda.empty_cache()
+        total = counts if total is None else {
+            k: total[k] + n for k, n in counts.items()}
+    return total
 
 
 def main() -> None:
@@ -810,6 +1045,7 @@ def main() -> None:
     mods = {"gather_kv": gather_kv, "sparse_attn": sparse_attn,
             "scatter_kv": scatter_kv}
     recs = check_mla_path_kernels(torch, ops, ref, mods)
+    recs["gather_kv"]["shapes"] = check_fetch_gathers(torch, ops, ref)
     recs["indexer_scores"] = check_indexer(torch, ref, indexer)
     indexer_edges = check_indexer_edges(torch, ref, indexer)
     recs["sparse_attn_gqa"], gqa_per_shape = check_sparse_gqa(
@@ -830,20 +1066,23 @@ def main() -> None:
         path_kernels = {
             "sac": ("gather_kv", "indexer_scores", "scatter_kv"),
             "dense": ("gather_kv", "scatter_kv")}
-        for name, mode, plen, slen in (
-                ("deepseek-v32", "sac", 40, 64),
-                ("qwen2-1.5b", "sac", 40, 64),
-                ("mixtral-8x22b", "sac", 80, 96),
-                ("mixtral-8x22b", "dense", 80, 96)):
+        for name, mode, plen, slen, prefetch in (
+                ("deepseek-v32", "sac", 40, 64, False),
+                ("qwen2-1.5b", "sac", 40, 64, False),
+                ("mixtral-8x22b", "sac", 80, 96, False),
+                ("mixtral-8x22b", "dense", 80, 96, False),
+                ("deepseek-v32", "sac", 40, 64, True),
+                ("qwen2-1.5b", "sac", 40, 64, True)):
             t0 = time.perf_counter()
             cfg = small_config(name)
             ops.reset_launch_counts()
             err = small_check(torch, cfg, mode=mode, prompt_len=plen,
-                              pool_len=slen)
+                              pool_len=slen, prefetch=prefetch)
             small_counts = ops.launch_counts()
             emit(dict(phase="small_check", config=name, mode=mode,
-                      context=plen, window=cfg.sliding_window,
-                      max_rel_l2_err=err, launches=small_counts,
+                      prefetch=prefetch, context=plen,
+                      window=cfg.sliding_window, max_rel_l2_err=err,
+                      launches=small_counts,
                       seconds=time.perf_counter() - t0))
             attn = "sparse_attn" if cfg.mla else "sparse_attn_gqa"
             missing = [k for k in path_kernels[mode] + (attn,)
@@ -851,10 +1090,16 @@ def main() -> None:
             if missing:
                 raise AssertionError(f"small check {name} ({mode}) did not "
                                      f"run {missing}")
-        # 5-6. serving at full width, then a profile of its decode steps
+        # 5-6. serving at full width, then a profile of its decode steps;
+        # 7. the fetch pipeline against phase 6's run
         launches = {k: 0 for k in ops.launch_counts()}
+        runs = {}
         for name in SERVES:
-            for k, n in serve_and_profile(torch, ops, name).items():
+            runs[name] = serve_and_profile(torch, ops, name)
+        _, off_summary, off_tokens = runs["qwen2-1.5b"]
+        fetch_counts = fetch_pipeline(torch, ops, off_summary, off_tokens)
+        for counts in [r[0] for r in runs.values()] + [fetch_counts]:
+            for k, n in counts.items():
                 launches[k] += n
 
     info = {

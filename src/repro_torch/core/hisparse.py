@@ -14,9 +14,10 @@ argsort, and the ``.at[].min/.max`` reductions are ``scatter_reduce``
 with ``include_self``.  ``hits``/``misses`` drive the miss-only fabric
 charging of the engine.
 
-The fetch-pipeline parts (``warm_insert``, ``warm_lane``) and online
-re-sizing (``resize_layers``) wait for the fetch-pipeline slice
-(ROADMAP).
+The fetch pipeline inserts without reading (``warm_insert``, and
+``warm_lane`` for one request lane of the layered buffer), and the
+engine re-apportions the layers' capacities online (``resize_layers``),
+with the same integer semantics.
 """
 from __future__ import annotations
 
@@ -77,6 +78,66 @@ def _pad(t: torch.Tensor, value) -> torch.Tensor:
                                     device=t.device)], dim=1)
 
 
+def _first_wanted(idx, want, S):
+    """Keep only the first wanted occurrence of each position in idx
+    [B, k]: a first-occurrence scatter-min over ``S + 1`` columns, with
+    column ``S`` the sink of the unwanted lanes."""
+    B, k = idx.shape
+    order = torch.arange(k, dtype=torch.int32, device=idx.device).expand(B, k)
+    idx_dedup = torch.where(want, idx, S)
+    first_occ = torch.full((B, S + 1), k, dtype=torch.int32,
+                           device=idx.device) \
+        .scatter_reduce(1, idx_dedup, order, "amin", include_self=True)
+    return want & (first_occ.gather(1, idx_dedup) == order)
+
+
+def _assign_slots(last_use, empty, disabled, prot, want, n_free):
+    """Victim slot for each wanted lane; ``buf`` (the sink) for the rest.
+
+    Eviction order: empty slots first, then LRU, ``prot`` second-to-last,
+    DISABLED strictly last.  The r-th wanted lane takes the r-th victim
+    while ``r < n_free`` [B].  Returns (fill [B, k], assign [B, k]).
+    """
+    B, buf = last_use.shape
+    ar = torch.arange(buf, dtype=torch.int32, device=last_use.device) \
+        .expand(B, buf)
+    key = torch.where(empty, ar - _BIG,
+                      torch.where(disabled, _BIG,
+                                  torch.where(prot, _BIG - 1, last_use)))
+    victim_order = torch.argsort(key, dim=1, stable=True)      # [B, buf]
+    rank = torch.cumsum(want.to(torch.int32), dim=1) - 1       # [B, k]
+    fill = want & (rank < n_free[:, None])
+    assign = torch.where(
+        fill, victim_order.gather(1, torch.clamp(rank, 0, buf - 1).long()),
+        buf)
+    return fill, assign
+
+
+def _write_slots(entries, slot_pos, page_table, last_use, clock, idx, vals,
+                 fill, assign, touched):
+    """Write the filled lanes into their slots: unmap the evicted
+    positions, map the new ones, store ``vals`` and stamp ``clock`` on
+    the ``touched`` slots.  Column ``S`` / column ``buf`` of the padded
+    copies are the write sinks of the other lanes."""
+    B, buf = slot_pos.shape
+    k = idx.shape[1]
+    S = page_table.shape[1]
+    pt = _pad(page_table, EMPTY)
+    sp = _pad(slot_pos, EMPTY)
+    old_pos = sp.gather(1, assign)                             # evicted pos
+    pt.scatter_(1, torch.where(old_pos >= 0, old_pos, S).long(), EMPTY)
+    pt.scatter_(1, torch.where(fill, idx, S), assign.to(torch.int32))
+    sp.scatter_(1, assign, torch.where(fill, idx, EMPTY).to(torch.int32))
+
+    ent = _pad(entries, 0)
+    d = entries.shape[-1]
+    ent.scatter_(1, assign[..., None].expand(B, k, d), vals.to(entries.dtype))
+
+    lu = _pad(last_use, 0)
+    lu.scatter_(1, touched, clock[:, None].expand(B, k).contiguous())
+    return ent[:, :buf], sp[:, :buf], pt[:, :S], lu[:, :buf]
+
+
 def _swap_in(entries, slot_pos, page_table, last_use, clock, pf_flag,
              idx, fetched, valid):
     """Batched swap-in: the reference's ``_swap_in_one`` with the batch
@@ -88,70 +149,33 @@ def _swap_in(entries, slot_pos, page_table, last_use, clock, pf_flag,
     exact because reads happen before the swap-in.
     """
     B, buf = slot_pos.shape
-    k = idx.shape[1]
     S = page_table.shape[1]
-    dev = idx.device
     idx = idx.long()
-    order = torch.arange(k, dtype=torch.int32, device=dev).expand(B, k)
 
     slots = page_table.gather(1, idx)                          # [B, k]
     hit = (slots >= 0) & valid
-    miss = (~hit) & valid
-    # dedupe repeated positions: only the first VALID occurrence fills
-    idx_dedup = torch.where(valid, idx, S)
-    first_occ = torch.full((B, S + 1), k, dtype=torch.int32, device=dev) \
-        .scatter_reduce(1, idx_dedup, order, "amin", include_self=True)
-    miss = miss & (first_occ.gather(1, idx_dedup) == order)
+    miss = _first_wanted(idx, (~hit) & valid, S)
 
-    # eviction order: empty slots first, then LRU, protected (current
-    # hits) second-to-last, DISABLED strictly last and never assigned
-    prot = torch.zeros((B, buf), dtype=torch.int32, device=dev) \
+    # the current hits are protected; DISABLED slots are never assigned
+    prot = torch.zeros_like(slot_pos) \
         .scatter_reduce(1, torch.where(hit, slots, buf - 1).long(),
                         hit.to(torch.int32), "amax", include_self=True) \
         .bool()
     empty = slot_pos == EMPTY
     disabled = slot_pos == DISABLED
-    ar = torch.arange(buf, dtype=torch.int32, device=dev).expand(B, buf)
-    key = torch.where(empty, ar - _BIG,
-                      torch.where(disabled, _BIG,
-                                  torch.where(prot, _BIG - 1, last_use)))
-    victim_order = torch.argsort(key, dim=1, stable=True)      # [B, buf]
     n_slots = buf - disabled.sum(1, dtype=torch.int32)         # [B]
-
-    miss_rank = torch.cumsum(miss.to(torch.int32), dim=1) - 1  # [B, k]
-    fillable = miss & (miss_rank < n_slots[:, None])
-    assign = torch.where(
-        fillable,
-        victim_order.gather(1, torch.clamp(miss_rank, 0, buf - 1).long()),
-        buf)                                                   # buf = sink
-
-    # --- padded updates: column S / column buf are write sinks ---
-    pt = _pad(page_table, EMPTY)
-    sp = _pad(slot_pos, EMPTY)
-    old_pos = sp.gather(1, assign)                             # evicted pos
-    pt.scatter_(1, torch.where(old_pos >= 0, old_pos, S).long(), EMPTY)
-    pt.scatter_(1, torch.where(fillable, idx, S),
-                assign.to(torch.int32))
-    page_table = pt[:, :S]
-
-    sp.scatter_(1, assign,
-                torch.where(fillable, idx, EMPTY).to(torch.int32))
-    slot_pos = sp[:, :buf]
-
-    ent = _pad(entries, 0)
-    d = entries.shape[-1]
-    ent.scatter_(1, assign[..., None].expand(B, k, d),
-                 fetched.to(entries.dtype))
-    entries = ent[:, :buf]
+    fillable, assign = _assign_slots(last_use, empty, disabled, prot, miss,
+                                     n_slots)
 
     touched = torch.where(hit, slots.long(), assign)           # in [0, buf]
-    lu = _pad(last_use, 0)
-    lu.scatter_(1, touched, clock[:, None].expand(B, k).contiguous())
-    last_use = lu[:, :buf]
+    entries, slot_pos, page_table, last_use = _write_slots(
+        entries, slot_pos, page_table, last_use, clock, idx, fetched,
+        fillable, assign, touched)
 
     # prefetch accounting: a demand hit on a prefetched slot consumes its
     # flag (once per slot); demand fills clear any stale flag
-    hit_mask = torch.zeros((B, buf + 1), dtype=torch.int32, device=dev) \
+    hit_mask = torch.zeros((B, buf + 1), dtype=torch.int32,
+                           device=idx.device) \
         .scatter_reduce(1, torch.where(hit, slots.long(), buf),
                         hit.to(torch.int32), "amax",
                         include_self=True)[:, :buf].bool()
@@ -200,6 +224,84 @@ def read_through(state: BufferState, idx: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# warm inserts (fetch pipeline: speculative prefetch + prefill warm-up)
+# ---------------------------------------------------------------------------
+
+
+def _warm_insert(entries, slot_pos, page_table, last_use, clock, pf_flag,
+                 idx, vals, valid):
+    """Batched warm insert: the reference's ``_warm_insert_one`` with
+    the batch written out.
+
+    Insert-without-read: resident positions are skipped (no hit, no
+    recency bump), and the step's working set (slots with ``last_use >=
+    clock``: this step's hits, demand fills and earlier warm inserts) is
+    never evicted.  Inserted slots get the current clock.  Returns the
+    new fields and the inserted count per request.
+    """
+    buf = slot_pos.shape[1]
+    S = page_table.shape[1]
+    idx = idx.long()
+
+    resident = page_table.gather(1, idx) >= 0
+    want = _first_wanted(idx, valid & ~resident, S)
+
+    empty = slot_pos == EMPTY
+    disabled = slot_pos == DISABLED
+    prot = (last_use >= clock[:, None]) & ~empty & ~disabled
+    avail = (buf - prot.sum(1, dtype=torch.int32)              # evictable
+             - disabled.sum(1, dtype=torch.int32))
+    fill, assign = _assign_slots(last_use, empty, disabled, prot, want,
+                                 avail)
+
+    entries, slot_pos, page_table, last_use = _write_slots(
+        entries, slot_pos, page_table, last_use, clock, idx, vals, fill,
+        assign, assign)
+
+    pf = _pad(pf_flag, False)
+    pf.scatter_(1, assign, fill)
+    pf_flag = pf[:, :buf]
+
+    return (entries, slot_pos, page_table, last_use, pf_flag,
+            fill.sum(1, dtype=torch.int32))
+
+
+def warm_insert(state: BufferState, idx: torch.Tensor, vals: torch.Tensor,
+                valid: torch.Tensor) -> Tuple[BufferState, torch.Tensor]:
+    """Batched warm insert.  idx: [B, w]; vals: [B, w, d]; valid: [B, w].
+
+    Inserts pool values into the hot tier WITHOUT serving a read: no
+    hit/miss is counted, the step's hits are never evicted, resident
+    positions are skipped.  Returns (state', inserted [B]); ``state`` is
+    not modified, and ``pf_inserted`` advances by ``inserted``.
+    """
+    (entries, slot_pos, page_table, last_use, pf_flag, ins) = _warm_insert(
+        state.entries, state.slot_pos, state.page_table, state.last_use,
+        state.clock, state.pf_flag, idx, vals, valid)
+    return (BufferState(entries, slot_pos, page_table, last_use,
+                        state.clock, pf_flag, state.pf_inserted + ins,
+                        state.pf_used),
+            ins)
+
+
+def warm_lane(state: BufferState, lane: int, idx: torch.Tensor,
+              vals: torch.Tensor, valid: torch.Tensor
+              ) -> Tuple[BufferState, torch.Tensor]:
+    """Warm-insert into one request lane of a layered buffer, IN PLACE.
+
+    state: layered ([L, B, ...]); idx: [L, w]; vals: [L, w, d]; valid:
+    [L, w].  The lane's per-layer slices form the batched layout (L
+    plays the batch axis), so this is ``warm_insert`` over layers.
+    Returns (state, total entries inserted): the prefill warm-up path.
+    """
+    sub = BufferState(*(t[:, lane] for t in state))
+    sub, ins = warm_insert(sub, idx, vals, valid)
+    for full, part in zip(state, sub):
+        full[:, lane].copy_(part)
+    return state, ins.sum()
+
+
+# ---------------------------------------------------------------------------
 # layered layout (serving engine: one buffer per pool layer)
 # ---------------------------------------------------------------------------
 
@@ -242,6 +344,43 @@ def init_layered_buffer(n_layers: int, batch: int,
         pf_inserted=torch.zeros((n_layers, batch), **i32),
         pf_used=torch.zeros((n_layers, batch), **i32),
     )
+
+
+def resize_layers(state: BufferState, sizes: Sequence[int]) -> BufferState:
+    """Re-apportion a layered buffer's per-layer capacities IN PLACE and
+    return it.
+
+    state: layered ([L, B, buf_max, ...]); sizes: [L] new per-layer slot
+    budgets (each <= buf_max, the allocation width).  Layer ``l`` keeps
+    its first ``sizes[l]`` slots enabled and the rest DISABLED: entries
+    displaced by a shrink are evicted (their positions unmapped, so the
+    next demand read is an honest miss); slots enabled in both layouts
+    keep their entries, clocks and prefetch flags; the cumulative
+    ``pf_inserted`` / ``pf_used`` counters are kept.
+    """
+    L, B, buf_max = state.slot_pos.shape
+    S = state.page_table.shape[2]
+    sz = np.asarray([int(s) for s in sizes], np.int32)
+    if sz.shape != (L,) or sz.max(initial=0) > buf_max \
+            or sz.min(initial=1) < 0:
+        raise ValueError(f"resize_layers: {L} sizes in [0, {buf_max}] "
+                         f"wanted, got {list(sizes)}")
+    dev = state.slot_pos.device
+    enabled = (torch.arange(buf_max, device=dev)[None, :]
+               < torch.from_numpy(sz).to(dev)[:, None])       # [L, buf]
+    enabled = enabled[:, None, :].expand(L, B, buf_max)
+    slot_pos = state.slot_pos
+    displaced = ~enabled & (slot_pos >= 0)
+    pt = _pad(state.page_table.view(L * B, S), EMPTY)
+    pt.scatter_(1, torch.where(displaced, slot_pos, S).view(L * B, buf_max)
+                .long(), EMPTY)
+    state.page_table.copy_(pt[:, :S].view(L, B, S))
+    slot_pos.copy_(torch.where(~enabled, DISABLED,
+                               torch.where(slot_pos == DISABLED, EMPTY,
+                                           slot_pos)).to(torch.int32))
+    state.last_use.masked_fill_(~enabled, 0)
+    state.pf_flag.logical_and_(enabled)
+    return state
 
 
 def reset_lane(state: BufferState, lane: int) -> BufferState:

@@ -6,8 +6,9 @@ Two halves:
    ``dense_attend``): the per-layer decode attention of the paper's
    Figure 6 -- indexer scoring -> masked top-k -> pool fetch (injected
    ``fetch_fn``, the gather kernel by default) -> sparse attention,
-   absorbed-MLA or GQA.  Speculative prefetch (``prefetch_width > 0``)
-   waits for the fetch-pipeline slice (ROADMAP).
+   absorbed-MLA or GQA; with the hot tier and ``prefetch_width > 0``
+   the step's speculated entrants are fetched (the gather kernel again)
+   and warm-inserted for the next step.
 
 2. **On the host** (``SACSystem``): pool page placement, metadata
    publishing and fabric-cost accounting for the serving engine, copied
@@ -53,7 +54,10 @@ def sparse_attend(p_attn: Dict, p_idx: Dict, x: torch.Tensor,
                   topk_fn: Optional[Callable] = None,
                   window: int = 0,
                   buf_state: Optional[hisparse.BufferState] = None,
-                  prefetch_width: int = 0):
+                  prefetch_width: int = 0,
+                  prefetch_fn: Optional[Callable] = None,
+                  score_margin: float = -1.0,
+                  pf_budget: Optional[torch.Tensor] = None):
     """One layer of SAC decode attention.  x: [B, D] -> [B, D].
 
     kv_pool_l: [B, S, d_entry]; idx_pool_l: [B, S, d_idx]; own_entry:
@@ -66,25 +70,52 @@ def sparse_attend(p_attn: Dict, p_idx: Dict, x: torch.Tensor,
     through ``hisparse.read_through``: values are bit-identical, and
     the hits/misses are measured.  Returns the plain output when
     ``buf_state`` is None, else ``(out, new_buf_state, hits, misses)``.
+
+    ``prefetch_width`` > 0 (buffered path only) also warm-inserts the
+    next step's speculated entrants after the demand swap-in:
+    ``prefetch_fn(scores, cache_len) -> (idx [B, w], valid)``, by
+    default ranks [k, k+w) of this step's scores (from the same top-k as
+    the demand set, unless ``topk_fn`` replaces that).  ``score_margin
+    >= 0`` cuts the default tail at a score threshold; ``pf_budget``
+    ([B] int32, the arbiter's grants) caps the lanes each request may
+    issue.  Prefetch touches only the hot tier, so the output does not
+    depend on any of these; the buffer's ``pf_*`` counters measure it.
     """
-    if prefetch_width > 0:
-        raise NotImplementedError(
-            "speculative prefetch waits for the fetch-pipeline slice "
-            "(ROADMAP: serving/prefetch.py)")
     scores = dsa.indexer_scores(p_idx, x, idx_pool_l, cfg)
     if window:
         pos = torch.arange(scores.shape[-1], dtype=torch.int32,
                            device=scores.device)
         in_win = pos[None, :] > (cache_len[:, None] - window)
         scores = torch.where(in_win, scores, dsa.NEG_INF)
+    speculate = buf_state is not None and prefetch_width > 0
+    spec_idx = spec_valid = None
     if topk_fn is not None:
         idx, valid = topk_fn(scores, cache_len)
+    elif speculate and prefetch_fn is None:
+        # fused selection: one top-(k+w) gives the (bit-identical)
+        # demand set and the speculation tail
+        idx, valid, spec_idx, spec_valid = dsa.topk_select_with_tail(
+            scores, cache_len, cfg.sac.topk, prefetch_width, score_margin)
     else:
         idx, valid = dsa.topk_select(scores, cache_len, cfg.sac.topk)
     fetched = fetch_fn(kv_pool_l, idx)
     if buf_state is not None:
         fetched, buf_state, hits, misses = hisparse.read_through(
             buf_state, idx, fetched, valid)
+        if speculate:
+            if spec_idx is None:
+                spec_idx, spec_valid = (
+                    prefetch_fn(scores, cache_len) if prefetch_fn is not None
+                    else dsa.speculate_next_topk(scores, cache_len,
+                                                 cfg.sac.topk,
+                                                 prefetch_width,
+                                                 score_margin))
+            if pf_budget is not None:
+                spec_valid = dsa.budget_mask(spec_valid, pf_budget)
+            spec_vals = fetch_fn(kv_pool_l, torch.clamp(
+                spec_idx, 0, kv_pool_l.shape[1] - 1))
+            buf_state, _ = hisparse.warm_insert(buf_state, spec_idx,
+                                                spec_vals, spec_valid)
     fetched = torch.cat([fetched, own_entry[:, None, :].to(fetched.dtype)],
                         dim=1)
     valid = torch.cat([valid, torch.ones_like(valid[:, :1])], dim=1)

@@ -1,12 +1,14 @@
 """DeepSeek Sparse Attention building blocks and the MLA and GQA decode
-paths (``repro/models/dsa.py``, all but the speculation helpers).
+paths (``repro/models/dsa.py``).
 
 - **Lightning indexer**: per-token keys of ``d_idx`` dims; at decode the
   query scores every cached position, ``I[s] = sum_h w[h] *
   ReLU(q[h] . k[s]) / sqrt(d_idx)``, through ``kernels/ops.py`` (the
   indexer kernel on the card).  The q and w projections stay matmuls.
 - **Selection**: masked top-k in ``jax.lax.top_k`` order (ties to the
-  lower index), then position-sorted.
+  lower index), then position-sorted.  With speculation one top-(k+w)
+  yields the demand set (bit-identical to the unfused one) and the
+  tail of ranks [k, k+w) that the fetch pipeline warm-inserts.
 - **MLA**: prefill runs the non-absorbed form and emits the latent entry
   (c_kv, k_rope); decode runs the absorbed form over fetched entries,
   its softmax core through ``ops.batched_sparse_mla`` (the sparse
@@ -15,9 +17,6 @@ paths (``repro/models/dsa.py``, all but the speculation helpers).
   ``[2, n_kv, hd]``; decode attends over fetched entries through
   ``ops.batched_sparse_gqa`` (the GQA sparse attention kernel on the
   card).  The reference's einsum form is only the tests' oracle.
-
-The speculation helpers of the reference wait for the fetch-pipeline
-slice (ROADMAP).
 """
 from __future__ import annotations
 
@@ -25,6 +24,7 @@ import math
 from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (ParamSpec, apply_rope,
@@ -65,6 +65,13 @@ def indexer_scores(p, xq, idx_keys, cfg) -> torch.Tensor:
     return ops.batched_indexer_scores(q, w, idx_keys)
 
 
+def _masked(scores: torch.Tensor, cache_len: torch.Tensor) -> torch.Tensor:
+    """Scores with positions >= cache_len set to NEG_INF."""
+    pos = torch.arange(scores.shape[-1], dtype=torch.int32,
+                       device=scores.device)
+    return torch.where(pos[None, :] < cache_len[:, None], scores, NEG_INF)
+
+
 def topk_select(scores: torch.Tensor, cache_len: torch.Tensor, k: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mask positions >= cache_len, take top-k.
@@ -72,9 +79,7 @@ def topk_select(scores: torch.Tensor, cache_len: torch.Tensor, k: int
     scores: [B, S]; cache_len: [B] -> (idx [B, k] int32, valid [B, k]).
     """
     S = scores.shape[-1]
-    pos = torch.arange(S, dtype=torch.int32, device=scores.device)
-    masked = torch.where(pos[None, :] < cache_len[:, None], scores, NEG_INF)
-    top_scores, idx = top_k(masked, min(k, S))
+    top_scores, idx = top_k(_masked(scores, cache_len), min(k, S))
     valid = top_scores > NEG_INF / 2
     # position-sort the selected set (invalid lanes pushed last): with
     # k >= context the sparse decode is then bit-exact vs dense
@@ -86,6 +91,75 @@ def _position_sort(idx: torch.Tensor, valid: torch.Tensor, S: int
     """Sort a selected set by position (invalid lanes pushed last)."""
     order = torch.argsort(torch.where(valid, idx, S), dim=-1, stable=True)
     return idx.gather(-1, order), valid.gather(-1, order)
+
+
+def _spec_tail(top_scores, idx, k: int, width: int,
+               score_margin: float = -1.0
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Ranks [k, k+width) of a top-(k+width) result, padded to width.
+
+    ``score_margin >= 0`` switches the tail from a pure rank window to
+    score-threshold selection: a tail entry qualifies while its score
+    is within ``margin * (s_max - s_k)`` of the k-th demand score
+    ``s_k``.  A negative margin keeps the rank window.
+    """
+    lo = min(k, idx.shape[-1])
+    tail_idx = idx[..., lo:].to(torch.int32)
+    tail_scores = top_scores[..., lo:]
+    tail_valid = tail_scores > NEG_INF / 2
+    if score_margin >= 0 and lo > 0:
+        s_max = top_scores[..., :1]
+        s_k = top_scores[..., lo - 1:lo]
+        thr = s_k - score_margin * (s_max - s_k)
+        tail_valid = tail_valid & (tail_scores >= thr)
+    pad = width - tail_idx.shape[-1]
+    if pad > 0:
+        tail_idx = F.pad(tail_idx, (0, pad))
+        tail_valid = F.pad(tail_valid, (0, pad))
+    return tail_idx, tail_valid
+
+
+def speculate_next_topk(scores: torch.Tensor, cache_len: torch.Tensor,
+                        k: int, width: int, score_margin: float = -1.0
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Speculative next-step candidates: ranks [k, k+width) of this
+    step's indexer scores (the likeliest entrants of the next step's
+    top-k).  scores: [B, S] -> (idx [B, width] int32, valid [B, width]).
+    Used when the demand selection is injected (``topk_fn``); the decode
+    path otherwise fuses both into :func:`topk_select_with_tail`."""
+    S = scores.shape[-1]
+    top_scores, idx = top_k(_masked(scores, cache_len), min(k + width, S))
+    return _spec_tail(top_scores, idx, k, width, score_margin)
+
+
+def topk_select_with_tail(scores: torch.Tensor, cache_len: torch.Tensor,
+                          k: int, width: int, score_margin: float = -1.0):
+    """Fused demand top-k + speculation tail: one ``top_k(k+width)``.
+
+    ``top_k`` orders by (score desc, index asc), so the first ``min(k,
+    S)`` lanes are exactly :func:`topk_select`'s set; position-sorted
+    the same way, the demand half is bit-identical to the unfused path.
+    ``score_margin`` applies to the tail only.  Returns ``(idx [B,
+    min(k,S)], valid, tail_idx [B, width], tail_valid)``.
+    """
+    S = scores.shape[-1]
+    kk = min(k + width, S)
+    top_scores, idx = top_k(_masked(scores, cache_len), kk)
+    lo = min(k, kk)
+    d_idx, d_valid = _position_sort(idx[..., :lo].to(torch.int32),
+                                    top_scores[..., :lo] > NEG_INF / 2, S)
+    return d_idx, d_valid, *_spec_tail(top_scores, idx, k, width,
+                                       score_margin)
+
+
+def budget_mask(valid: torch.Tensor, budget: torch.Tensor) -> torch.Tensor:
+    """Cap a best-first speculation candidate set to a per-request
+    granted budget: valid [B, w], budget [B] (the arbiter's widths) ->
+    only the first ``budget[b]`` lanes survive.  Demand selection never
+    flows through this mask."""
+    lanes = torch.arange(valid.shape[-1], dtype=torch.int32,
+                         device=valid.device)
+    return valid & (lanes[None, :] < budget[:, None].to(torch.int32))
 
 
 # ---------------------------------------------------------------------------

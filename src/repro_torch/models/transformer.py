@@ -8,11 +8,14 @@ parameters with ``lax.scan``, the port loops over a list of per-layer
 parameter dicts.  Entry points:
 
   ``prefill`` -- the prompt forward, emitting the SAC pool (latent
-                 entries + indexer keys);
+                 entries + indexer keys) and, with the ``warmup_w`` opt,
+                 each layer's warm-up candidates (``warm_idx``);
   ``decode``  -- one token per request over the pool: indexer -> top-k
                  -> fetch (the gather kernel, or ``fetch_fn``) -> sparse
                  attention -> MLP or MoE, then the write-back of the new
-                 entries (the scatter kernel).
+                 entries (the scatter kernel); with the ``prefetch_width``
+                 opt and a hot tier, the speculated entrants are fetched
+                 and warm-inserted too.
 
 ``decode`` updates the serve state IN PLACE (pools, hot tier) and
 returns the same dict.  Other segment kinds and the fp8 pool raise
@@ -34,7 +37,8 @@ from repro_torch.core.pool import FetchFn, local_fetch, pool_write
 from repro_torch.models import dsa, moe
 from repro_torch.models.layers import (DTYPE, ParamSpec, attn_param_specs,
                                        dense_attention_block, init_params,
-                                       mlp_block, mlp_param_specs, rms_norm)
+                                       mlp_block, mlp_param_specs, rms_norm,
+                                       top_k)
 
 _PORTED_KINDS = ("dense", "moe", "mla_dense", "mla_moe")
 _OTHER_FAMILIES = ("segment kind {!r} waits for its slice (ROADMAP: module "
@@ -156,8 +160,16 @@ def _mlp_apply(p_mlp, x, cfg, *, groups: int = 1):
     return mlp_block(p_mlp, x), torch.zeros((), device=x.device)
 
 
-def _layer_fwd(p, x, cfg, positions, window, groups):
-    """Full (attn + mlp) prefill layer.  Returns (x', entry, idx_keys)."""
+def _layer_fwd(p, x, cfg, positions, window, groups, warm_w=0):
+    """Full (attn + mlp) prefill layer.  Returns (x', entry, idx_keys,
+    warm_idx).
+
+    ``warm_idx`` ([B, w] int32, or None when ``warm_w`` is 0) is the
+    layer's warm-up candidate set: the top-``w`` prompt positions by
+    indexer score against the LAST prompt position (the closest proxy
+    for the first decode query), lanes of -1 where masked (outside a
+    windowed layer's trailing window).
+    """
     xn = rms_norm(x, p["ln1"])
     if cfg.mla:
         out, entry = dsa.mla_prefill_attention(p["attn"], xn, cfg, positions)
@@ -166,9 +178,20 @@ def _layer_fwd(p, x, cfg, positions, window, groups):
                                             window=window)
         entry = dsa.pack_kv_entry(k, v)
     idx_keys = dsa.indexer_keys(p["idx"], xn) if cfg.sac.enabled else None
+    warm = None
+    if warm_w and cfg.sac.enabled:
+        scores = dsa.indexer_scores(p["idx"], xn[:, -1], idx_keys, cfg)
+        S = scores.shape[-1]
+        if window:
+            # windowed layers only select from the trailing window
+            pos = torch.arange(S, dtype=torch.int32, device=x.device)
+            scores = torch.where(pos[None, :] > S - window, scores,
+                                 dsa.NEG_INF)
+        ws, warm = top_k(scores, min(warm_w, S))
+        warm = torch.where(ws > dsa.NEG_INF / 2, warm, -1).to(torch.int32)
     x = x + out
     out, _ = _mlp_apply(p["mlp"], rms_norm(x, p["ln2"]), cfg, groups=groups)
-    return x + out, entry, idx_keys
+    return x + out, entry, idx_keys, warm
 
 
 def _attn_decode(p, x, cfg, ctx, kv_slice, idx_slice, window, hbuf=None):
@@ -206,10 +229,14 @@ def _attn_decode(p, x, cfg, ctx, kv_slice, idx_slice, window, hbuf=None):
             topk_fn=ctx["topk_fn"], window=window)
         return delta, own, new_key, None, None, None
     # buffered read-through: bit-identical values, measured residency
+    # (prefetch_width > 0 also warm-inserts next-step speculation)
     delta, hbuf, hits, misses = sac_core.sparse_attend(
         p["attn"], p["idx"], xn, cfg, kv_slice, idx_slice, cache_len,
         positions, own, fetch_fn=ctx["fetch_fn"], topk_fn=ctx["topk_fn"],
-        window=window, buf_state=hbuf)
+        window=window, buf_state=hbuf,
+        prefetch_width=ctx["prefetch_width"],
+        prefetch_fn=ctx["prefetch_fn"], score_margin=ctx["score_margin"],
+        pf_budget=ctx["pf_budget"])
     return delta, own, new_key, hbuf, hits, misses
 
 
@@ -238,12 +265,6 @@ class TransformerLM:
         self.mode = mode if cfg.sac.enabled else "dense"
         self.topk_fn = topk_fn
         self.opts = dict(opts or {})
-        unported = sorted(set(self.opts) - {"moe_groups", "pool_closure"})
-        if unported:
-            # warmup_w / prefetch_* belong to the fetch pipeline
-            raise NotImplementedError(
-                f"model opts {unported} wait for the fetch-pipeline slice "
-                "(ROADMAP: serving/prefetch.py)")
         self.segments = build_segments(cfg)
         self.specs = model_param_specs(cfg)
         self.n_kv = n_kv_layers(cfg)
@@ -266,7 +287,9 @@ class TransformerLM:
         """tokens [B, S] -> (serve_state, last_logits [B, V]).
 
         Emits every position's latent entry and indexer key as the pool
-        of a fresh serve state.  Logits are computed for the last
+        of a fresh serve state; with the ``warmup_w`` opt also
+        ``warm_idx`` [L, B, w], the warm-up candidates (popped by the
+        engine: not part of the serve state).  Logits are computed for the last
         prompt position only (the reference computes all S and keeps the
         last; the result is the same)."""
         cfg = self.cfg
@@ -278,18 +301,22 @@ class TransformerLM:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=dev)[None, :].expand(B, S)
         groups = int(self.opts.get("moe_groups", 1))
-        entries, ikeys = [], []
+        warm_w = int(self.opts.get("warmup_w", 0))
+        entries, ikeys, warms = [], [], []
         for si, seg in enumerate(self.segments):
             for p in params["segments"][si]:
-                x, entry, ik = _layer_fwd(p, x, cfg, positions, seg.window,
-                                          groups)
+                x, entry, ik, wm = _layer_fwd(p, x, cfg, positions,
+                                              seg.window, groups, warm_w)
                 entries.append(entry)
                 ikeys.append(ik)
+                warms.append(wm)
         state: Dict[str, Any] = {}
         if entries:
             state["kv_pool"] = torch.stack(entries).to(self.kv_dtype)
             if cfg.sac.enabled:
                 state["idx_pool"] = torch.stack(ikeys).to(DTYPE)
+            if warms[0] is not None:
+                state["warm_idx"] = torch.stack(warms)
         state["cache_len"] = lengths.to(torch.int32)
         last_idx = torch.clamp(lengths.long() - 1, 0, S - 1)
         x_last = x[torch.arange(B, device=dev), last_idx]
@@ -299,11 +326,11 @@ class TransformerLM:
     @torch.no_grad()
     def decode(self, params, state, tokens, pf_budget=None):
         """One decode step.  tokens [B] -> (state, logits [B, V]); the
-        state dict is updated IN PLACE (pools, hot tier, counters)."""
-        if pf_budget is not None:
-            raise NotImplementedError(
-                "arbiter budgets wait for the fetch-pipeline slice "
-                "(ROADMAP: serving/prefetch.py, then the arbiter)")
+        state dict is updated IN PLACE (pools, hot tier, counters).
+
+        ``pf_budget`` ([B] int32 or None) is the step's arbiter-granted
+        speculative width per request: it caps the speculation lanes
+        each request may warm-insert (traffic only, never tokens)."""
         cfg = self.cfg
         x = params["embed"][tokens.long()].to(DTYPE)
         cache_len = state["cache_len"]
@@ -313,6 +340,10 @@ class TransformerLM:
             "fetch_fn": self.fetch_fn,
             "topk_fn": self.topk_fn,
             "mode": self.mode,
+            "prefetch_width": int(self.opts.get("prefetch_width", 0)),
+            "prefetch_fn": self.opts.get("prefetch_fn"),
+            "score_margin": float(self.opts.get("score_margin", -1.0)),
+            "pf_budget": pf_budget,
         }
         kv_pool, idx_pool = state.get("kv_pool"), state.get("idx_pool")
         hot = state.get("hot_buf")

@@ -12,11 +12,18 @@ deterministic virtual clock (modeled compute from the simulator's
 ``ModelProfile`` + exposed fabric), so the timeline and ``TrafficStats``
 are comparable with the reference engine's number for number.
 
+The fetch pipeline (``prefetch=True``, serving/prefetch.py) adds
+speculative next-step prefetch (on the device, inside the decode step),
+prefill-time warm-up of the hot tier (radix-reused prefix tail +
+top-scoring prompt entries, gathered for all layers in one launch and
+applied with ``hisparse.warm_lane``) and overlap-aware charging; the
+budget arbiter (``arbiter=True``) grants each step's speculative widths,
+and ``cfg.sac.resize_interval > 0`` re-apportions the hot tier's
+per-layer sizes online from measured miss rates.  None of it changes
+decoded tokens.
+
 The port runs eagerly (nothing is jitted).  The serve state is updated
-in place.  The fetch pipeline (``prefetch=True``: speculative prefetch,
-prefill warm-up and, with it, the budget arbiter) and online hot-tier
-re-sizing (``cfg.sac.resize_interval > 0``) raise NotImplementedError
-until their slice lands (ROADMAP).
+in place.
 """
 from __future__ import annotations
 
@@ -32,13 +39,17 @@ from repro_torch.core.sac import SACSystem
 from repro_torch.core.traffic import TrafficStats
 from repro_torch.core.transfer import PipelineModel
 from repro_torch.core.pool import pool_write_prefill
+from repro_torch.kernels import ops
 from repro_torch.models.model import build_model
 from repro_torch.models.transformer import kv_layer_windows
-from repro_torch.serving.arbiter import DemandTracker, LayerSizer
+from repro_torch.serving.arbiter import (ArbiterConfig, BudgetArbiter,
+                                         DemandTracker, LayerSizer,
+                                         resize_allocation_width)
 from repro_torch.serving.policy import (LocalityBonus, PrefillSchedule,
                                   PressureFeed, RadixAdmission,
                                   ReplicationPolicy, WarmupPressureSeed,
                                   make_admission)
+from repro_torch.serving.prefetch import FetchPlanner, cap_warmup
 from repro_torch.serving.radix import RadixIndex
 from repro_torch.serving.request import Request, summarize
 from repro_torch.serving.simulator import profile_from_config
@@ -195,10 +206,6 @@ class Engine:
     default, and ``device="cpu"`` runs the plain PyTorch versions of the
     kernels.
 
-    NOT YET PORTED (raise NotImplementedError): ``prefetch=True`` and
-    with it the arbiter, and ``cfg.sac.resize_interval > 0``.  The
-    reference's description of them follows for orientation.
-
     ``prefetch`` turns on the fetch pipeline (serving/prefetch.py):
     speculative in-graph prefetch of ``cfg.sac.prefetch_width`` entries
     per layer per step, prefill warm-up of the hot tier, and overlap
@@ -300,14 +307,6 @@ class Engine:
                  prefill_lanes: Optional[int] = None,
                  topk_fn=None, seed: int = 0, device="cuda"):
         self.device = _resolve_device(device)
-        if prefetch:
-            raise NotImplementedError(
-                "prefetch=True (and the arbiter) waits for the fetch-"
-                "pipeline slice (ROADMAP: serving/prefetch.py)")
-        if cfg.sac.resize_interval > 0:
-            raise NotImplementedError(
-                "online hot-tier re-sizing (resize_interval > 0) waits for "
-                "the fetch-pipeline slice (ROADMAP: hisparse.resize_layers)")
         # f32 products (MLA absorption, attention oracles) stay f32
         torch.backends.cuda.matmul.allow_tf32 = False
         self.cfg = cfg
@@ -319,12 +318,20 @@ class Engine:
         if buffered:
             self.device_buffer = (cfg.sac.device_buffer_size
                                   if device_buffer is None else device_buffer)
-        self.prefetch = False
+        self.prefetch = bool(prefetch and self.device_buffer)
         # topk_fn overrides the indexer's top-k selection inside the
         # decode step (scores, cache_len) -> (idx, valid); used by parity
         # tests to replay controlled top-k traces through the buffer
+        opts = {}
+        if self.prefetch:
+            opts["prefetch_width"] = int(cfg.sac.prefetch_width)
+            opts["score_margin"] = float(cfg.sac.score_margin)
+            if prefetch_fn is not None:
+                opts["prefetch_fn"] = prefetch_fn
+            if cfg.sac.warmup_entries > 0:
+                opts["warmup_w"] = int(cfg.sac.warmup_entries)
         self.model = build_model(cfg, mode=mode, topk_fn=topk_fn,
-                                 device=self.device)
+                                 opts=opts or None, device=self.device)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.params = self.model.init(gen)
         self.placement = placement if placement is not None \
@@ -410,6 +417,9 @@ class Engine:
         # the engine's stats share the SACSystem accountant's TrafficStats:
         # every charged fetch/write and recorded hit/miss lands here
         self.stats = EngineStats(traffic=self.sac.traffic.stats)
+        self.planner = (FetchPlanner(cfg, n_layers=max(self.model.n_kv, 1),
+                                     device=self.device)
+                        if self.prefetch else None)
         self.pipeline = PipelineModel(depth=cfg.sac.pipeline_depth,
                                       overlap_frac=cfg.sac.overlap_frac)
         self.overlap_on = (bool(self.prefetch or cfg.sac.overlap_fetch)
@@ -421,6 +431,14 @@ class Engine:
         # engine/simulator timing is built from the same model
         self.profile = profile_from_config(cfg)
         self.clock_s = 0.0
+        # fabric budget arbiter (serving/arbiter.py): grants per-slot
+        # speculative widths from last step's measured demand backlog
+        self.arbiter_on = bool((cfg.sac.arbiter if arbiter is None
+                                else arbiter) and self.prefetch)
+        self.arbiter: Optional[BudgetArbiter] = None
+        self.last_grants: Dict[int, int] = {}
+        self._grant_sum = 0
+        self._grant_n = 0
         # per-link AND per-request demand-step deltas (serving/arbiter.py
         # DemandTracker): the pressure feed subtracts a finishing
         # request's own share from its link immediately at departure
@@ -445,19 +463,46 @@ class Engine:
         self.prefill_schedule = PrefillSchedule.from_knobs(
             self.disagg_on, self.chunk_tokens, self.prefill_lanes)
         self.shed: List[Request] = []
+        if self.arbiter_on:
+            self.arbiter = BudgetArbiter.from_fabric(
+                ArbiterConfig(max_width=int(cfg.sac.prefetch_width),
+                              min_width=int(cfg.sac.min_prefetch_width),
+                              link_budget_frac=float(
+                                  cfg.sac.link_budget_frac),
+                              precision_weighted=bool(
+                                  cfg.sac.precision_weighted)),
+                self.sac.fabric, self.sac.entry_bytes,
+                n_layers=max(self.model.n_kv, 1), pipeline=self.pipeline,
+                topology=self.topology)
         # per-layer hot-tier sizing: apportion the uniform total
-        # (device_buffer * n_layers) by the LayerSizer's windowed prior
-        # (static sizes; the online re-sizing of the reference raises)
+        # (device_buffer * n_layers) by the LayerSizer's windowed prior.
+        # resize_interval > 0 re-apportions ONLINE from the measured
+        # per-layer miss rates: the allocation then carries headroom (2x
+        # the widest initial layer, capped at the total) so layers can
+        # grow past their initial share, and the resize-time LayerSizer
+        # gets that width as its hard per-layer cap.
         self.layer_sizing = (cfg.sac.layer_sizing if layer_sizing is None
                              else layer_sizing)
+        self.resize_interval = (int(cfg.sac.resize_interval)
+                                if self.device_buffer else 0)
         self.buffer_sizes: Optional[List[int]] = None
         self.buffer_width: Optional[int] = None
-        if self.device_buffer and self.layer_sizing != "uniform":
+        self._sizer: Optional[LayerSizer] = None
+        if self.device_buffer and (self.layer_sizing != "uniform"
+                                   or self.resize_interval):
             n_kv = max(self.model.n_kv, 1)
+            total = self.device_buffer * n_kv
+            wins = (kv_layer_windows(cfg)
+                    if self.layer_sizing != "uniform" else None)
             self.buffer_sizes = LayerSizer(
-                n_kv, self.device_buffer * n_kv,
-                layer_windows=kv_layer_windows(cfg),
+                n_kv, total, layer_windows=wins,
                 topk=cfg.sac.topk).sizes()
+            if self.resize_interval:
+                self.buffer_width = resize_allocation_width(
+                    self.buffer_sizes, self.device_buffer)
+                self._sizer = LayerSizer(
+                    n_kv, total, layer_windows=wins, topk=cfg.sac.topk,
+                    max_slots=self.buffer_width)
 
         # eager steps: the port runs its model without tracing
         self._decode = self.model.decode
@@ -470,9 +515,16 @@ class Engine:
             n_kv = max(self.model.n_kv, 1)
             self.stats.layer_hits = np.zeros(n_kv)
             self.stats.layer_misses = np.zeros(n_kv)
+            # resize-interval snapshot of the cumulative layer counters
+            self._layer_mark = (np.zeros(n_kv), np.zeros(n_kv))
         self.slot_req: List[Optional[Request]] = [None] * slots
         self.slot_tokens: List[List[int]] = [[] for _ in range(slots)]
         self.queue: List[Request] = []
+        # resize hysteresis: rates at the last sizer EVALUATION (skips
+        # keep the reference, so slow drift accumulates against it) —
+        # when no layer moved more than cfg.sac.resize_epsilon since,
+        # the sizer run (and its sentinel churn) is skipped
+        self._resize_rates_ref: Optional[List[float]] = None
 
     @property
     def _last_demand_s(self) -> List[float]:
@@ -508,11 +560,42 @@ class Engine:
             "request exceeds engine max_ctx"
         self.queue.append(req)
 
+    def _interval_miss_rates(self) -> Optional[List[float]]:
+        """Per-layer miss rates of the CURRENT resize interval: deltas
+        of the cumulative layer counters against the snapshot taken at
+        the previous resize.  Layers with no reads this interval fall
+        back to rate 0 (the sizer's epsilon keeps them eligible)."""
+        if self.stats.layer_hits is None:
+            return None
+        hits = self.stats.layer_hits.copy()
+        misses = self.stats.layer_misses.copy()
+        mark_h, mark_m = self._layer_mark
+        self._layer_mark = (hits, misses)
+        dh, dm = hits - mark_h, misses - mark_m
+        return [float(m) / max(float(h + m), 1.0)
+                for h, m in zip(dh, dm)]
+
     # -- modeled step time --------------------------------------------------------
     def step_compute_s(self, batch: int) -> float:
         """Modeled decode-step compute for ``batch`` occupied slots."""
         return (self.profile.base_step_s
                 + batch * self.profile.per_token_compute_s())
+
+    @staticmethod
+    def _warm_apply(hot, kv_pool, lane: int, idx: torch.Tensor,
+                    valid: torch.Tensor):
+        """Seed one slot's hot-tier lanes from its pool slice (prefill
+        warm-up), IN PLACE: gather the planned positions' entries and
+        warm-insert them (insert-without-read; never evicts the step's
+        hits).  idx, valid: [L, w].  The lane's rows are addressed in the
+        contiguous [L, slots * S, d] view of the pool, so one gather
+        launch serves every layer and no layer stack of the lane is
+        copied.  Returns (hot, entries inserted as a tensor)."""
+        L, B, S, d = kv_pool.shape
+        idx = torch.clamp(idx, 0, S - 1)
+        vals = ops.batched_gather(kv_pool.view(L, B * S, d),
+                                  idx + lane * S)               # [L, w, d]
+        return hisparse.warm_lane(hot, lane, idx, vals, valid)
 
     # -- slot refill -------------------------------------------------------------
     def _locality_bonus_s(self, prompt_len: int, matched: int) -> float:
@@ -685,6 +768,7 @@ class Engine:
         toks = torch.as_tensor(np.asarray(prompt)[None, :],
                                dtype=torch.int32, device=self.device)
         st, _ = self._prefill_one(self.params, toks)
+        warm_idx = st.pop("warm_idx", None)
         self._splice_state(s, st, len(prompt))
         page_tokens = (len(prompt) // self.cfg.sac.page_size) \
             * self.cfg.sac.page_size
@@ -708,6 +792,36 @@ class Engine:
             job.pins.append(own)
         self._slot_radix[s] = (job.pins, keep)
         self._slot_prefix[s] = (job.copies, job.frac)
+        # prefill-time warm-up: seed the recycled (cold) lane from the
+        # radix-reused prefix tail + top-scoring prompt entries
+        if self.planner is not None:
+            plan = self.planner.warmup_plan(
+                None if warm_idx is None else warm_idx[:, 0],
+                matched, len(prompt))
+            if plan is not None and self.arbiter is not None:
+                # warm-up arbitration: the prefill warm burst draws
+                # from the same per-device link budget as decode
+                # speculation — its hide window is the (radix-
+                # shortened) prefill compute this burst rides behind
+                w_cap = self.arbiter.grant_warmup(
+                    self.profile.prefill_s(len(prompt) - matched),
+                    self._last_demand_s, req.pool_device,
+                    int(plan.idx.shape[1]))
+                plan = cap_warmup(plan, w_cap)
+            if plan is not None:
+                _, n_ins = self._warm_apply(
+                    self.state["hot_buf"], self.state["kv_pool"], s,
+                    plan.idx, plan.valid)
+                n_ins = int(n_ins)
+                if n_ins:
+                    # deliberately UNkeyed: warm seeds cannot have
+                    # been demand-hit yet, so keying them would book
+                    # (n_ins, 0) against the request and tank its
+                    # precision right at its first grants — the
+                    # cold-start starvation the weighting must avoid
+                    self.sac.traffic.record_prefetch(n_ins, 0)
+                    self.sac.prefetch_fetch_time(
+                        n_ins, device=req.pool_device)
         self.slot_req[s] = req
         self.slot_tokens[s] = [int(prompt[-1])]
 
@@ -898,7 +1012,8 @@ class Engine:
         scatter per pool (``pool_write_prefill``), and the rows past the
         prompt are zeroed, as the reference's zero padding does.  The
         hot buffer has no prefill counterpart: the slot's lane is reset
-        (a fresh request starts cold)."""
+        (a fresh request starts cold) and then optionally re-seeded by
+        the warm-up plan."""
         for key, dst in self.state.items():
             if key == "hot_buf":
                 hisparse.reset_lane(dst, slot)
@@ -984,7 +1099,39 @@ class Engine:
                 if own < len(pres):
                     pres[own] += (1.0 - frac) * est_s
             reads[s] = (own, rd, frac)
-        self.state, logits = self._decode(self.params, self.state, tokens)
+        if self.arbiter is not None:
+            # cross-request budget arbitration: last step's measured
+            # per-device demand backlog shapes this step's speculation;
+            # with precision weighting on, each slot's measured prefetch
+            # precision (per-request TrafficStats attribution) tilts its
+            # share of the device budget
+            dev_slots: Dict[int, List[int]] = {}
+            precision = None
+            if self.arbiter.cfg.precision_weighted:
+                precision = {}
+            for s in occupied:
+                req = self.slot_req[s]
+                # group under the slot's READ device: a replica-
+                # redirected slot's granted fetches flow on the chosen
+                # copy's path, so its budget must be consumed there
+                dev_slots.setdefault(reads[s][1], []).append(s)
+                if precision is not None:
+                    precision[s] = self.stats.traffic.request_precision(
+                        req.request_id)
+            self.last_grants = self.arbiter.grant(
+                t_comp, self._last_demand_s, dev_slots,
+                precision=precision)
+            budgets = np.zeros((self.slots,), np.int32)
+            for s, w in self.last_grants.items():
+                budgets[s] = w
+                self._grant_sum += w
+                self._grant_n += 1
+            self.state, logits = self._decode(
+                self.params, self.state, tokens,
+                torch.from_numpy(budgets).to(self.device))
+        else:
+            self.state, logits = self._decode(self.params, self.state,
+                                              tokens)
         next_tokens = logits.argmax(dim=-1).cpu().numpy()
         self.stats.steps += 1
         # the first decode step closes the warm-up seeding window:
@@ -1007,6 +1154,9 @@ class Engine:
                 self.stats.layer_misses += \
                     self.state["buf_misses_l"].cpu().numpy()[:, occupied] \
                     .sum(1)
+                if self.prefetch:
+                    pf_ins = self.state["pf_inserted"].cpu().numpy()
+                    pf_use = self.state["pf_useful"].cpu().numpy()
                 for s in occupied:
                     req = self.slot_req[s]
                     dev, read_dev, frac = reads[s]
@@ -1029,6 +1179,21 @@ class Engine:
                             self.sac.sparse_fetch_time(
                                 n_miss - n_pfx, device=dev,
                                 key=req.request_id)
+                    if self.prefetch:
+                        # measured speculation outcomes (the buffer's
+                        # pf_* counters): issued entries cross the fabric
+                        # as prefetch traffic; useful ones were demand
+                        # hits.  Keyed by request so the arbiter's
+                        # precision weighting sees per-request precision.
+                        # Charged to the READ device — the same path the
+                        # grant that authorized these entries was
+                        # budgeted on.
+                        self.sac.traffic.record_prefetch(
+                            int(pf_ins[s]), int(pf_use[s]),
+                            key=req.request_id)
+                        if int(pf_ins[s]):
+                            self.sac.prefetch_fetch_time(int(pf_ins[s]),
+                                                         device=read_dev)
             else:
                 # cold-read convention: every step is charged the full
                 # top-k transfer per layer
@@ -1054,6 +1219,37 @@ class Engine:
             self.stats.traffic,
             [self.slot_req[s].request_id for s in occupied])
         self.sac.note_pressure_update()
+        # online LayerSizer re-sizing: every resize_interval steps the
+        # measured per-layer miss rates re-apportion the hot tier by
+        # re-marking the DISABLED sentinels in place — displaced entries
+        # are evicted, resident ones survive, tokens never change.  The
+        # sizer consumes the rates of THIS interval (deltas against the
+        # last resize's snapshot), not lifetime averages — a lifetime
+        # signal goes stale after the first resize or a demand shift and
+        # the loop would stop adapting.
+        if (self._sizer is not None and self.resize_interval
+                and self.stats.steps % self.resize_interval == 0):
+            rates = self._interval_miss_rates()
+            # hysteresis (cfg.sac.resize_epsilon): when no layer's
+            # per-interval miss rate moved by more than epsilon since
+            # the last sizer evaluation, skip the run entirely — a
+            # stable workload stops churning DISABLED sentinels every
+            # interval, while slow drift accumulates against the kept
+            # reference until it crosses the epsilon
+            eps = float(self.cfg.sac.resize_epsilon)
+            if (eps > 0.0 and rates is not None
+                    and self._resize_rates_ref is not None
+                    and len(rates) == len(self._resize_rates_ref)
+                    and max(abs(r - p) for r, p in
+                            zip(rates, self._resize_rates_ref)) < eps):
+                self.stats.resize_skips += 1
+            else:
+                new_sizes = self._sizer.sizes(rates)
+                self._resize_rates_ref = rates
+                if new_sizes != list(self.buffer_sizes):
+                    self.stats.resizes += 1
+                    hisparse.resize_layers(self.state["hot_buf"], new_sizes)
+                    self.buffer_sizes = new_sizes
         self.clock_s += t_comp + exposed
         if now is None:
             now = self.clock_s
@@ -1154,4 +1350,7 @@ class Engine:
                    pool_bytes_per_req=(self.sac.booked_pages_cum
                                        * self.sac.page_bytes
                                        / max(len(requests), 1)))
+        if self.arbiter is not None:
+            out["arbiter_width_mean"] = (self._grant_sum / self._grant_n
+                                         if self._grant_n else 0.0)
         return out

@@ -10,7 +10,10 @@ indexer at three head shapes, ragged and tile-edge S and B in {1, 4, 8}
 with both kinds of q: gather, page gather and scatter bit-exact, indexer
 and attention at rtol = atol = 1e-4 (f32 sums in another order).  Plus the port's Engine on the card
 against its CPU path with the same weights on small inputs (reduced
-DeepSeek-V3.2 and reduced Qwen2).
+DeepSeek-V3.2 and reduced Qwen2), also with the fetch pipeline, the
+arbiter and online re-sizing on; and the fused selection (demand top-k
+and speculation tail from one sort) on the indexer kernel's scores
+against the unfused one and against the CPU, bit for bit.
 
 This file imports no JAX, so it runs on the machine with the card:
 
@@ -20,6 +23,7 @@ Without a card every test skips (decided inside the tests, so every
 pytest worker collects the same tests).
 """
 import dataclasses
+import itertools
 import math
 
 import pytest
@@ -282,6 +286,113 @@ def test_gpu_engine_matches_cpu_path(cuda, arch, attn):
             (b.dispatch_s, b.first_token_s, b.finish_s)
     assert dataclasses.asdict(engines[0].stats.traffic) == \
         dataclasses.asdict(engines[1].stats.traffic)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("margin", [-1.0, 1.0])
+@pytest.mark.parametrize("ties", [False, True])
+def test_gpu_fused_selection_matches_unfused(cuda, margin, ties):
+    """Decoded tokens with prefetch on and off are equal only if the
+    fused selection's demand half is the unfused set: checked on the
+    indexer kernel's scores at Qwen2-1.5B's serving shape (B=8, S=8256,
+    top-k 2048 + a 512-lane tail), ragged cache lengths, and with scores
+    rounded to a coarse grid so that many tie; the card's selection also
+    equals the CPU's."""
+    from repro_torch.models import dsa
+
+    g = torch.Generator(device=cuda).manual_seed(int(ties))
+    B, S, H, di = 8, 8256, 4, 64
+    q = torch.randn(B, H, di, generator=g, device=cuda).bfloat16().float()
+    w = torch.randn(B, H, generator=g, device=cuda)
+    keys = torch.randn(B, S, di, generator=g, device=cuda).bfloat16()
+    scores = ops.batched_indexer_scores(q, w, keys)
+    assert torch.equal(scores, ops.batched_indexer_scores(q, w, keys))
+    if ties:
+        scores = torch.round(scores * 4) / 4
+    cache_len = torch.tensor([8192, 8000, 2047, 2048, 2049, 2560, 1, 8256],
+                             dtype=torch.int32, device=cuda)
+    fused = dsa.topk_select_with_tail(scores, cache_len, 2048, 512, margin)
+    unfused = dsa.topk_select(scores, cache_len, 2048)
+    assert torch.equal(fused[0], unfused[0])
+    assert torch.equal(fused[1], unfused[1])
+    cpu = dsa.topk_select_with_tail(scores.cpu(), cache_len.cpu(), 2048,
+                                    512, margin)
+    for a, b in zip(fused, cpu):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek-v32", "qwen2-1.5b"])
+def test_gpu_engine_fetch_pipeline_matches_cpu_path(cuda, arch):
+    """The port's Engine with prefetch, the arbiter and the re-sizing
+    evaluated every 2 steps, on the card against the CPU with the same
+    weights and an injected top-k and speculation (score seeds off: they
+    rank f32 scores): the traffic (prefetch included), the grants, the
+    layer sizes and the hot tier's integer state are exact, and each
+    step launched the gather twice a layer.  The injected top-k churns
+    on odd layers only, so the layers' miss rates differ and the
+    re-sizing moves slots between them."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import sharegpt_trace
+
+    base = get_config(arch).reduced()
+    cfg = dataclasses.replace(base, n_experts=0, topk_experts=0,
+                              sac=dataclasses.replace(
+                                  base.sac, d_idx=32, warmup_entries=0,
+                                  resize_interval=2, link_budget_frac=300.0))
+
+    def layer_skewed_topk():
+        # decode calls the top-k once per layer, layer by layer
+        calls = itertools.count()
+
+        def topk(scores, cache_len):
+            odd = next(calls) % cfg.n_layers % 2
+            j = torch.arange(16, dtype=torch.int32, device=scores.device)[None]
+            t = cache_len[:, None]
+            churn = 13 * torch.div(t + j, 5, rounding_mode="floor") * odd
+            return ((j * 7 + churn) % torch.clamp(t, min=1)) \
+                .to(torch.int32), (j < t) & (j % 5 != 3)
+        return topk
+
+    def spec(scores, cache_len):
+        j = torch.arange(8, dtype=torch.int32, device=scores.device)[None]
+        t = cache_len[:, None]
+        pos = (t - 1 - (j * j) % 11) % torch.clamp(t, min=1)
+        return pos.to(torch.int32), (j % 4 != 1).expand(t.shape[0], 8)
+
+    engines, grants, hot = [], [], []
+    for dev in ("cpu", "cuda"):
+        eng = Engine(cfg, slots=2, max_ctx=96, topk_fn=layer_skewed_topk(),
+                     prefetch_fn=spec, prefetch=True, arbiter=True, seed=3,
+                     device=dev)
+        if engines:
+            eng.params = _to(engines[0].params, dev)
+        for r in sharegpt_trace(4, context_len=40, output_len=5, seed=1,
+                                vocab=cfg.vocab):
+            eng.submit(r)
+        ops.reset_launch_counts()
+        g, h = [], []
+        while eng.queue or any(eng.slot_req):
+            eng.step()
+            g.append((dict(eng.last_grants), list(eng.buffer_sizes)))
+            h.append([t.to("cpu", copy=True)
+                      for t in eng.state["hot_buf"][1:]])
+        engines.append(eng)
+        grants.append(g)
+        hot.append(h)
+    counts = ops.launch_counts()
+    cpu, card = engines
+    assert counts["gather_kv"] >= 2 * card.stats.steps * cfg.n_layers
+    assert grants[0] == grants[1]
+    for a, b in zip(*hot):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    assert dataclasses.asdict(cpu.stats.traffic) == \
+        dataclasses.asdict(card.stats.traffic)
+    assert card.stats.prefetched_entries > 0
+    assert card.stats.resizes == cpu.stats.resizes > 0
+    assert len({tuple(s) for _, s in grants[1]}) > 1
 
 
 def _to(tree, dev):

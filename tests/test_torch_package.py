@@ -7,9 +7,15 @@
 - the host modules the port copies whole stay equal to their references,
   apart from the import prefix ``repro.`` -> ``repro_torch.`` and the
   trailing ``# sacheck: disable=`` justifications, so a later fix to a
-  reference host module cannot silently miss the port.
+  reference host module cannot silently miss the port;
+- the serving CLI (``repro_torch.launch.serve``) takes the reference's
+  flags with the same defaults, plus ``--device``, and on the CPU prints
+  the reference's JSON keys for the same served trace.
 """
 import ast
+import contextlib
+import io
+import json
 import re
 import subprocess
 import sys
@@ -30,7 +36,9 @@ COPIED = sorted(
     + [p.relative_to(REF).as_posix()
        for p in (REF / "serving" / "policy").glob("*.py")])
 # classes/functions copied whole into a port module that is not a copy
-COPIED_DEFS = [("serving/simulator.py", "ModelProfile"),
+COPIED_DEFS = [("serving/prefetch.py", "analytic_prefetch"),
+               ("serving/prefetch.py", "analytic_warmup"),
+               ("serving/simulator.py", "ModelProfile"),
                ("serving/simulator.py", "profile_from_config"),
                ("core/sac.py", "RequestPages"),
                ("core/sac.py", "SACSystem")]
@@ -62,9 +70,19 @@ def test_port_imports_with_jax_blocked():
     assert out.stdout.startswith("ok")
 
 
-@pytest.mark.parametrize("path", sorted(
-    [p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")]
-    + ["chip_smoke.py"]))
+# every module of the port and chip_smoke.py: none may import JAX or repro
+SCANNED = sorted([p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")]
+                 + ["chip_smoke.py"])
+
+
+def test_scan_covers_the_entry_points():
+    for path in ("src/repro_torch/launch/serve.py",
+                 "src/repro_torch/serving/engine.py",
+                 "src/repro_torch/serving/prefetch.py", "chip_smoke.py"):
+        assert path in SCANNED
+
+
+@pytest.mark.parametrize("path", SCANNED)
 def test_no_reference_or_jax_import(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):
@@ -123,3 +141,45 @@ def test_host_definitions_match_reference(rel, name):
     got = segment(PORT / rel)
     assert got == (want[0], want[1].replace("repro.", "repro_torch.")), \
         f"{rel}::{name} drifted from the reference"
+
+
+def _cli_flags(path):
+    """flag -> its add_argument keywords but ``help``, as source text."""
+    flags = {}
+    for node in ast.walk(ast.parse(path.read_text())):
+        if (isinstance(node, ast.Call)
+                and getattr(node.func, "attr", None) == "add_argument"):
+            flags[node.args[0].value] = {
+                kw.arg: ast.unparse(kw.value) for kw in node.keywords
+                if kw.arg != "help"}
+    return flags
+
+
+def test_serve_cli_flags_match_reference():
+    want = _cli_flags(REF / "launch" / "serve.py")
+    got = _cli_flags(PORT / "launch" / "serve.py")
+    assert got.pop("--device") == {"default": "'cuda'"}
+    assert got == want
+
+
+def test_serve_cli_on_cpu_prints_the_reference_keys(monkeypatch):
+    """The same trace through both CLIs with the fetch pipeline, the
+    arbiter and online re-sizing on: the same JSON keys, requests served
+    and tokens."""
+    import repro.launch.serve as jserve
+    from repro_torch.launch import serve as tserve
+    args = ["--reduced", "--prefetch", "--arbiter", "--resize-interval",
+            "2", "--requests", "3", "--ctx", "24", "--out-len", "3"]
+    outs = []
+    for run in (lambda: jserve.main(),
+                lambda: tserve.main(args + ["--device", "cpu"])):
+        monkeypatch.setattr(sys, "argv", ["serve"] + args)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            run()
+        text = buf.getvalue()
+        outs.append(json.loads(text[text.index("{"):]))
+    want, got = outs
+    assert list(got) == list(want)
+    assert (got["n_done"], got["engine_tokens"]) == \
+        (want["n_done"], want["engine_tokens"]) == (3, 9)
