@@ -13,18 +13,28 @@ Phases, each printing one JSON line with its seconds; any failure raises
 3. each kernel against its plain PyTorch version on the card, with
    CUDA-event times of the kernel, the plain version and, where one
    PyTorch call computes the same function, that call (``library_ms``;
-   the port never calls it): the MLA path's kernels at DeepSeek-V3.2's
-   serving shapes (B=4 requests, pool S=4160, top-k 2048 / 2049 lanes
-   with invalid lanes; the pool write also at one row, the floor of a
-   launch), the indexer at DeepSeek-V3.2's and Qwen2-1.5B's serving
-   pools and at a long context past the L2 (B=4, S=65536), the GQA
-   sparse attention at the (heads, KV heads, head dim) of every
-   dense/MoE config of the registry (B=8, 2049 lanes), and the page
-   gather (on no path) at Qwen2-1.5B's pool; then both attention forms
-   (each a split-k pass and a combine pass) at the edges of their split
-   plan: k in {1, 5, 65, one chunk - 1 and + 1, 2049, 8257}, a chunk of
-   invalid lanes, no valid lane, B = 1, and the GQA form at head dims 72
-   and 512; and the indexer at the edges of its plan (S = 1, a chunk
+   the port never calls it): the MLA path's gather and pool write at
+   DeepSeek-V3.2's serving shapes (B=4 requests, pool S=4160, top-k
+   2048; the pool write also at one row, the floor of a launch), the
+   indexer at DeepSeek-V3.2's and Qwen2-1.5B's serving pools and at a
+   long context past the L2 (B=4, S=65536); both attention forms, in
+   bf16 and with the fp8 pool's e4m3 entries, at DeepSeek-V3.2's and
+   Qwen2-1.5B's serving shapes (2049 lanes, about 10% invalid) and at
+   Gemma3-12B's 16 heads over 8 of 240, at B=8 and as served (4 slots: a
+   global layer's lanes, and a local layer's, whose window leaves 1024
+   of the 2049 valid), and the GQA form in bf16 at the (heads, KV heads,
+   head dim) of every other dense/MoE and local:global config of the
+   registry (B=8); the page gather (on no path) at Qwen2-1.5B's pool;
+   the gather at Gemma3-12B's width in bf16 and e4m3, and the pool
+   write at Gemma3-12B's row width in both (the 48-layer pool of 4
+   slots: a decode step's 192 rows and a prefill splice), bit-exact;
+   then both attention forms
+   (each a split-k pass and a combine pass), with bf16 and with e4m3
+   entries, at the edges of their split plan, each case launched twice
+   for equal bits: k in {1, 5, 65, one chunk - 1 and + 1, 2049, 8257}, a
+   chunk of invalid lanes, no valid lane, B = 1, and the GQA form at
+   head dims 72 and 512 (refused in e4m3); and the indexer at the edges
+   of its plan (S = 1, a chunk
    - 1 and + 1 tile, a ragged tile, B = 1, a bf16-exact q), each case
    launched twice for equal bits; and the gather at the two shapes the
    fetch pipeline gives it on Qwen2-1.5B's path (the speculation tail,
@@ -40,7 +50,9 @@ Phases, each printing one JSON line with its seconds; any failure raises
    an injected top-k; reduced DeepSeek-V3.2 and Qwen2 again with the
    fetch pipeline on (an injected speculation, per-request budgets as
    the arbiter grants them, a warm-up plan gathered as the engine does),
-   the hot tier's integer state and ``pf_*`` counters exact;
+   the hot tier's integer state and ``pf_*`` counters exact; reduced
+   Gemma3 (its local window of 32 below the context), and reduced
+   Gemma3, Qwen2 and DeepSeek-V3.2 with the fp8 pool;
 5. serving DeepSeek-V3.2 through the port's ``Engine`` at full width
    with 2 layers (d=7168, 128 heads, latent 512+64, indexer 64x128,
    top-k 2048, hot tier 6144, 256 experts top-8; random bf16 weights
@@ -66,7 +78,23 @@ Phases, each printing one JSON line with its seconds; any failure raises
    Then the same trace with ``--prefetch`` alone (no arbiter to cut the
    grants): tokens equal to phase 6's again, and the speculation (the
    entries prefetched beyond the warm-up's) filling at least one in
-   ten of its lanes.
+   ten of its lanes;
+8. serving Gemma3-12B at full width and depth (48 layers: 8
+   super-blocks of 5 local layers with window 1024 and 1 global layer;
+   d=3840, 16 heads over 8 KV heads of 240, d_ff 15360, vocab 262144,
+   indexer 4x64, top-k 2048, hot tier 6144): 4 slots, ``max_ctx`` 8256,
+   8 requests of 8192 tokens and 8 output tokens, every kernel of the
+   path on every layer of every decode step, the pool's bytes and the
+   peak device memory; then its profile;
+9. the same trace with the fp8 pool (``kv_quant="fp8"``): the pool's and
+   the hot tier's entries exactly half the bytes, the indexer pool
+   unchanged, every kernel on every layer; the first decode step's
+   largest logit difference from phase 8 and the share of equal tokens
+   (reported); then its profile.  Every serve run of phases 5-9 checks
+   that every logit of every decode step is finite;
+10. ``python -m repro_torch.launch.serve --arch gemma3-12b`` at the
+   CLI's defaults (4 slots, max_ctx 96, 8 requests of 48 tokens) through
+   its ``main``: every request served, every kernel on every layer.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -100,22 +128,31 @@ BF16_FLOP_PER_S = 989e12
 # about 1e-6 relative, checked at 1e-4
 TOL_F32 = dict(rtol=1e-4, atol=1e-4)
 
-# the served paths: config, depth, engine and trace sizes, the attention
-# kernel of the path and the device kernel names the profile looks for
+# the served paths: arch, depth (None: the config's), pool dtype, engine
+# and trace sizes, the attention kernel of the path and the device
+# kernel names the profile looks for.  Gemma3-12B holds 4 slots: 8 would
+# need about 68 GB in bf16 before transients
+GQA_DEVICE_KERNELS = ("gather_rows", "indexer_kernel",
+                      "sparse_gqa_partial_kernel",
+                      "sparse_attn_combine_kernel", "scatter_rows")
 SERVES = {
-    "deepseek-v32": dict(n_layers=2, slots=4, max_ctx=4160, requests=8,
-                         context=4096, output=8, attn="sparse_attn",
+    "deepseek-v32": dict(arch="deepseek-v32", n_layers=2, slots=4,
+                         max_ctx=4160, requests=8, context=4096, output=8,
+                         attn="sparse_attn",
                          device_kernels=("gather_rows", "indexer_kernel",
                                          "sparse_mla_partial_kernel",
                                          "sparse_attn_combine_kernel",
                                          "scatter_rows")),
-    "qwen2-1.5b": dict(n_layers=None, slots=8, max_ctx=8256, requests=16,
-                       context=8192, output=16, attn="sparse_attn_gqa",
-                       device_kernels=("gather_rows", "indexer_kernel",
-                                       "sparse_gqa_partial_kernel",
-                                       "sparse_attn_combine_kernel",
-                                       "scatter_rows")),
+    "qwen2-1.5b": dict(arch="qwen2-1.5b", slots=8, max_ctx=8256,
+                       requests=16, context=8192, output=16,
+                       attn="sparse_attn_gqa",
+                       device_kernels=GQA_DEVICE_KERNELS),
+    "gemma3-12b": dict(arch="gemma3-12b", slots=4, max_ctx=8256,
+                       requests=8, context=8192, output=8,
+                       attn="sparse_attn_gqa",
+                       device_kernels=GQA_DEVICE_KERNELS),
 }
+SERVES["gemma3-12b-fp8"] = dict(SERVES["gemma3-12b"], kv_quant="fp8")
 
 
 def fail(msg: str) -> None:
@@ -162,13 +199,13 @@ def bound_ms(n_bytes: float, n_flops: float):
 
 
 def check_mla_path_kernels(torch, ops, ref, mods):
-    """The DeepSeek-V3.2 path's gather, MLA attention and pool write at
-    its serving shapes (the indexer: check_indexer).  Returns {name:
-    record}; launches are filled in by the serve phases."""
+    """The DeepSeek-V3.2 path's gather and pool write at its serving
+    shapes (the indexer: check_indexer; the attention:
+    check_attention).  Returns {name: record}; launches are filled in by
+    the serve phases."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     B, S, d, k = 4, 4160, 576, 2048
-    H, dc = 128, 512
     recs = {}
 
     def randn(*shape, dtype=torch.bfloat16):
@@ -194,40 +231,6 @@ def check_mla_path_kernels(torch, ops, ref, mods):
         plain_ms=cuda_time_ms(plain_gather),
         library_ms=cuda_time_ms(lambda: torch.gather(kv, 1, idx_l)),
         bound=bound_ms(nb, 0.0))
-
-    # -- sparse MLA attention: H=128, dq=576, dv=512, k = 2048 + 1 lanes
-    kk = k + 1
-    q_lat = randn(B, H, dc).float()
-    q_pe = randn(B, H, d - dc).float()
-    ent = randn(B, kk, d)
-    valid = torch.rand((B, kk), generator=g, device=dev) > 0.1
-    valid[:, -1] = True                          # the own entry
-    scale = 1.0 / math.sqrt(192)
-    out = ops.batched_sparse_mla(q_lat, q_pe, ent, valid, dc=dc, scale=scale)
-
-    def plain_attn():
-        return torch.stack([ref.sparse_mla_attn_ref(
-            q_lat[b], q_pe[b], ent[b], valid[b], dc, scale)
-            for b in range(B)])
-    want = plain_attn()
-    torch.testing.assert_close(out, want, **TOL_F32)
-    qcat = torch.cat([q_lat, q_pe], -1).contiguous()
-    bias = torch.where(valid, 0.0, ref.NEG_INF).float()
-    kf = ent.float()[:, None]                    # [B, 1, k, 576]
-    vf = ent[..., :dc].float()[:, None]
-    mask = bias[:, None, None, :]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    n_valid = int(valid.sum().item())
-    # valid entry rows, q and out in f32, the valid mask a byte a lane
-    nb = n_valid * d * 2 + B * H * d * 4 + B * kk + B * H * dc * 4
-    recs["sparse_attn"] = dict(
-        max_abs_err=(out - want).abs().max().item(),
-        ms=cuda_time_ms(lambda: mods["sparse_attn"].sparse_attn(
-            qcat, ent, valid, scale=scale, dv=dc)),
-        plain_ms=cuda_time_ms(plain_attn),
-        library_ms=cuda_time_ms(lambda: sdpa(
-            qcat[:, None], kf, vf, attn_mask=mask, scale=scale)),
-        bound=bound_ms(nb, 2.0 * n_valid * H * (d + dc)))
 
     # -- scatter: the decode write (L*B = 8 rows of 576 into the flattened
     #    [1, L*B*S, 576] pool) and the prefill splice (L*S rows)
@@ -365,8 +368,8 @@ def check_indexer(torch, ref, mod):
 
 
 def gqa_shapes():
-    """(heads, KV heads, head dim) of every dense/MoE config of the
-    registry, Qwen2-1.5B's (the served one) first."""
+    """(heads, KV heads, head dim) of every dense/MoE and local:global
+    config of the registry, Qwen2-1.5B's (the served one) first."""
     from repro_torch.configs import ARCHS
     from repro_torch.models.transformer import build_segments
     shapes = []
@@ -376,130 +379,324 @@ def gqa_shapes():
             continue
         kinds = {s.kind for s in build_segments(cfg)}
         shape = (cfg.n_heads, cfg.n_kv_heads, cfg.hd)
-        if kinds <= {"dense", "moe"} and shape not in shapes:
+        if kinds <= {"dense", "moe", "lg_super"} and shape not in shapes:
             shapes.append(shape)
     return shapes
 
 
-def check_sparse_gqa(torch, ops, ref, mod, B: int = 8, k: int = 2049):
-    """The GQA sparse attention at every dense/MoE shape of the registry
-    (k = topk + 1 lanes, about 10% invalid).  The row's times and bound
-    are Qwen2-1.5B's; every shape's error and times go to ``shapes``."""
+# the attention's cases, each in bf16 and with the fp8 pool's e4m3
+# entries: (cell, form, B, heads, then (dc, dr) for MLA or (KV heads,
+# head dim) for GQA, then the lanes a local layer's window leaves valid,
+# or None for about 10 % invalid at random).  DeepSeek-V3.2's and
+# Qwen2-1.5B's serving shapes; Gemma3-12B's heads at B = 8 (126 MB of
+# bf16 entries, past the L2) and as it is served (4 slots), a global
+# layer and a local one, whose window of 1024 leaves its 1023 latest
+# positions valid: the position-sorted top-k puts them first, the other
+# 1025 lanes but the own entry are invalid
+ATTN_CASES = (("deepseek-v32", "mla", 4, 128, 512, 64, None),
+              ("qwen2-1.5b", "gqa", 8, 12, 2, 128, None),
+              ("gemma3-12b", "gqa", 8, 16, 8, 240, None),
+              ("gemma3-12b served, global", "gqa", 4, 16, 8, 240, None),
+              ("gemma3-12b served, local", "gqa", 4, 16, 8, 240, 1023))
+
+
+def attention_case(torch, ref, mod, g, case, dtype, k: int = 2049):
+    """One case of ATTN_CASES (k = top-k + the own entry lanes) with
+    entries of ``dtype``: held against the plain version at TOL_F32 and
+    timed beside it and SDPA on f32 copies (``library_ms``); e4m3 also
+    on the same values in bf16 (``ms_bf16``; e4m3 widens to bf16
+    exactly).  The bound counts the valid entry rows at the dtype's
+    bytes, q and out in f32 and the mask a byte a lane."""
+    from repro_torch.core.pool import E4M3, to_kv_dtype
+    cell, form, B, H, a, b, local = case
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(3)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    rec, per_shape, worst = None, [], 0.0
-    for H, n_kv, hd in gqa_shapes():
-        q = torch.randn((B, H, hd), generator=g, device=dev)
-        ent = torch.randn((B, k, 2 * n_kv * hd), generator=g,
-                          device=dev).bfloat16()
+    fp8 = dtype == E4M3
+    if local is None:
         valid = torch.rand((B, k), generator=g, device=dev) > 0.1
-        valid[:, -1] = True                      # the own entry
-        out = ops.batched_sparse_gqa(q, ent, valid, n_kv=n_kv)
+    else:
+        valid = (torch.arange(k, device=dev) < local)[None].repeat(B, 1)
+    valid[:, -1] = True                          # the own entry
+    n_valid = int(valid.sum().item())
+    bias = torch.where(valid, 0.0, ref.NEG_INF).float()[:, None, None]
+    if form == "mla":
+        dc, dr = a, b
+        dq, dv, row, scale = dc + dr, dc, dc + dr, 1.0 / math.sqrt(192)
+    else:
+        n_kv, hd = a, b
+        dq, dv, row, scale = hd, hd, 2 * n_kv * hd, 1.0 / math.sqrt(hd)
+    q = torch.randn((B, H, dq), generator=g, device=dev)
+    ent = to_kv_dtype(torch.randn((B, k, row), generator=g, device=dev),
+                      dtype)
+    f = ent.float()
+    if form == "mla":
+        def kernel(e):
+            return mod.sparse_attn(q, e, valid, scale=scale, dv=dc)
+
+        def plain():
+            return torch.stack([ref.sparse_mla_attn_ref(
+                q[i, :, :dc], q[i, :, dc:], ent[i], valid[i], dc, scale)
+                for i in range(B)])
+        kf, vf = f[:, None], f[..., :dc][:, None]
+
+        def library():                  # the H heads as one query sequence
+            return torch.nn.functional.scaled_dot_product_attention(
+                q[:, None], kf, vf, attn_mask=bias, scale=scale)[:, 0]
+        flops = 2.0 * n_valid * H * (dq + dv)
+        splits = mod.mla_plan(B, H, dc, k, fp8=fp8)[0]
+        shape = dict(heads=H, dq=dq, dv=dv)
+    else:
+        def kernel(e):
+            return mod.sparse_attn_gqa(q, e, valid, n_kv=n_kv, scale=scale)
 
         def plain():
             return torch.stack([ref.sparse_gqa_attn_ref(
-                q[b], ent[b], valid[b], n_kv) for b in range(B)])
-        want = plain()
-        torch.testing.assert_close(out, want, **TOL_F32)
-        err = (out - want).abs().max().item()
-        worst = max(worst, err)
-        scale = 1.0 / math.sqrt(hd)
-        bias = torch.where(valid, 0.0, ref.NEG_INF).float()
-        kv = ent.float().view(B, k, 2, n_kv, hd)
+                q[i], ent[i], valid[i], n_kv) for i in range(B)])
+        kv = f.view(B, k, 2, n_kv, hd)
         kf = kv[:, :, 0].transpose(1, 2).contiguous()  # [B, n_kv, k, hd]
         vf = kv[:, :, 1].transpose(1, 2).contiguous()
-        mask = bias[:, None, None, :]
 
         def library():
-            return sdpa(q[:, :, None], kf, vf, attn_mask=mask, scale=scale,
-                        enable_gqa=True)
-        lib_diff = (library()[:, :, 0] - want).abs().max().item()
-        n_valid = int(valid.sum().item())
-        # valid entry rows (keys and values of every group), q and out
-        # in f32, the valid mask a byte a lane
-        nb = n_valid * 2 * n_kv * hd * 2 + 2 * B * H * hd * 4 + B * k
-        r = dict(heads=H, kv_heads=n_kv, head_dim=hd, max_abs_err=err,
-                 library_max_abs_diff=lib_diff,
-                 splits=mod.gqa_plan(B, H, n_kv, hd, k)[0],
-                 ms=cuda_time_ms(lambda: mod.sparse_attn_gqa(
-                     q, ent, valid, n_kv=n_kv, scale=scale)),
-                 plain_ms=cuda_time_ms(plain),
-                 library_ms=cuda_time_ms(library),
-                 bound=bound_ms(nb, 4.0 * n_valid * H * hd))
-        per_shape.append(r)
-        if rec is None:
-            rec = dict(r)
-    rec["max_abs_err"] = worst
-    return rec, per_shape
+            return torch.nn.functional.scaled_dot_product_attention(
+                q[:, :, None], kf, vf, attn_mask=bias, scale=scale,
+                enable_gqa=True)[:, :, 0]
+        flops = 4.0 * n_valid * H * hd
+        splits = mod.gqa_plan(B, H, n_kv, hd, k, fp8=fp8)[0]
+        shape = dict(heads=H, kv_heads=n_kv, head_dim=hd)
+    got, want = kernel(ent), plain()
+    torch.testing.assert_close(got, want, **TOL_F32)
+    bound, by = bound_ms(n_valid * row * ent.element_size()
+                         + B * H * (dq + dv) * 4 + B * k, flops)
+    rec = dict(cell=cell, form=form, dtype=str(dtype), B=B, k=k,
+               valid_lanes=n_valid, **shape, splits=splits,
+               max_abs_err=(got - want).abs().max().item(),
+               library_max_abs_diff=(library() - want).abs().max().item(),
+               ms=cuda_time_ms(lambda: kernel(ent)),
+               plain_ms=cuda_time_ms(plain),
+               library_ms=cuda_time_ms(library), bound_ms=bound,
+               bound_by=by)
+    if fp8:
+        e16 = ent.bfloat16()
+        # reported, not required: the two dtypes may plan other splits
+        rec["equal_to_bf16_launch"] = torch.equal(kernel(e16), got)
+        rec["ms_bf16"] = cuda_time_ms(lambda: kernel(e16))
+    return rec
+
+
+def check_attention(torch, ref, mod):
+    """Both attention forms at the cases of ATTN_CASES in both dtypes,
+    and the GQA form in bf16 at the (heads, KV heads, head dim) of every
+    dense/MoE and local:global config of the registry (B = 8).  Returns
+    {kernel name: record}: the row's times and bound are the first bf16
+    case's (DeepSeek-V3.2's MLA, Qwen2-1.5B's GQA), ``max_abs_err`` the
+    worst of the form's cases, ``e4m3`` its e4m3 cases; and every case's
+    record."""
+    from repro_torch.core.pool import E4M3
+    g = torch.Generator(device="cuda").manual_seed(3)
+    cases = [(c, dt) for c in ATTN_CASES for dt in (torch.bfloat16, E4M3)]
+    cases += [(("registry", "gqa", 8, *shape, None), torch.bfloat16)
+              for shape in gqa_shapes()
+              if ("gqa", 8, *shape, None) not in [c[1:] for c in ATTN_CASES]]
+    out = [attention_case(torch, ref, mod, g, case, dt)
+           for case, dt in cases]
+    torch.cuda.empty_cache()
+    recs = {}
+    for name, form in (("sparse_attn", "mla"), ("sparse_attn_gqa", "gqa")):
+        mine = [r for r in out if r["form"] == form]
+        first = next(r for r in mine if r["dtype"] == str(torch.bfloat16))
+        recs[name] = dict(
+            first, bound=(first["bound_ms"], first["bound_by"]),
+            max_abs_err=max(r["max_abs_err"] for r in mine),
+            e4m3=[r for r in mine if r["dtype"] == str(E4M3)])
+    return recs, out
 
 
 def check_attention_edges(torch, ops, ref, mod):
-    """Both attention forms at the edges of the split-k design, against
-    their plain versions at TOL_F32: ragged k (1, 5, 65, one chunk - 1 and
-    + 1 of the served plan, 2049 and dense decode's 8257), a chunk whose
-    lanes are all invalid, no valid lane at all, and a single request.
-    GQA at Qwen2-1.5B's heads (B=8), MLA at DeepSeek-V3.2's (B=4); then
-    GQA at head dims 72 and 512."""
+    """Both attention forms at the edges of the split-k design, with bf16
+    and with e4m3 entries (the fp8 pool's), against their plain versions
+    at TOL_F32, each case launched twice for equal bits: ragged k (1, 5,
+    65, one chunk - 1 and + 1 of the served plan, 2049 and dense
+    decode's 8257), a chunk whose lanes are all invalid, no valid lane at
+    all, and a single request.  GQA at Qwen2-1.5B's heads (B=8), MLA at
+    DeepSeek-V3.2's (B=4); then GQA at head dims 72 and 512 (in e4m3 both
+    are refused: 72 is not a multiple of 16, and at 512 the e4m3 ring and
+    its bf16 tile overflow shared memory)."""
+    from repro_torch.core.pool import E4M3, to_kv_dtype
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(5)
     H_g, n_kv, hd, H_m, dc, dr = 12, 2, 128, 128, 512, 64
-    plans = {"gqa": lambda B, k: mod.gqa_plan(B, H_g, n_kv, hd, k),
-             "mla": lambda B, k: mod.mla_plan(B, H_m, dc, k)}
+
+    def entries(shape, dtype):
+        x = torch.randn(shape, generator=g, device=dev)
+        return to_kv_dtype(x, E4M3) if dtype == E4M3 else x.to(dtype)
+
+    def twice(fn, what):
+        got = fn()
+        if not torch.equal(got, fn()):
+            raise AssertionError(f"{what}: two launches differ")
+        return got
+
     out_cases = []
-    for form, B in (("gqa", 8), ("mla", 4)):
-        chunk = plans[form](B, 2049)[1]
-        runs = ([(B, k, "random")
-                 for k in (1, 5, 65, chunk - 1, chunk + 1, 2049, 8257)]
-                + [(B, 2049, "chunk_invalid"), (B, 2049, "all_invalid"),
-                   (1, 2049, "random")])
-        for Bc, k, pattern in runs:
-            splits, ck = plans[form](Bc, k)
-            valid = torch.rand((Bc, k), generator=g, device=dev) > 0.1
-            valid[:, -1] = True
-            if pattern == "chunk_invalid":
-                valid[:, ck:2 * ck] = False
-            elif pattern == "all_invalid":
-                valid[:] = False
-            if form == "gqa":
-                q = torch.randn((Bc, H_g, hd), generator=g, device=dev)
-                ent = torch.randn((Bc, k, 2 * n_kv * hd), generator=g,
-                                  device=dev).bfloat16()
-                got = ops.batched_sparse_gqa(q, ent, valid, n_kv=n_kv)
-                want = torch.stack([ref.sparse_gqa_attn_ref(
-                    q[b], ent[b], valid[b], n_kv) for b in range(Bc)])
-            else:
-                ql = torch.randn((Bc, H_m, dc), generator=g, device=dev)
-                qp = torch.randn((Bc, H_m, dr), generator=g, device=dev)
-                ent = torch.randn((Bc, k, dc + dr), generator=g,
-                                  device=dev).bfloat16()
-                scale = 1.0 / math.sqrt(192)
-                got = ops.batched_sparse_mla(ql, qp, ent, valid, dc=dc,
-                                             scale=scale)
-                want = torch.stack([ref.sparse_mla_attn_ref(
-                    ql[b], qp[b], ent[b], valid[b], dc, scale)
-                    for b in range(Bc)])
+    for dtype in (torch.bfloat16, E4M3):
+        fp8 = dtype == E4M3
+        plans = {"gqa": lambda B, k: mod.gqa_plan(B, H_g, n_kv, hd, k,
+                                                  fp8=fp8),
+                 "mla": lambda B, k: mod.mla_plan(B, H_m, dc, k, fp8=fp8)}
+        for form, B in (("gqa", 8), ("mla", 4)):
+            chunk = plans[form](B, 2049)[1]
+            runs = ([(B, k, "random")
+                     for k in (1, 5, 65, chunk - 1, chunk + 1, 2049, 8257)]
+                    + [(B, 2049, "chunk_invalid"), (B, 2049, "all_invalid"),
+                       (1, 2049, "random")])
+            for Bc, k, pattern in runs:
+                splits, ck = plans[form](Bc, k)
+                valid = torch.rand((Bc, k), generator=g, device=dev) > 0.1
+                valid[:, -1] = True
+                if pattern == "chunk_invalid":
+                    valid[:, ck:2 * ck] = False
+                elif pattern == "all_invalid":
+                    valid[:] = False
+                what = f"{form} {dtype} B={Bc} k={k} {pattern}"
+                if form == "gqa":
+                    q = torch.randn((Bc, H_g, hd), generator=g, device=dev)
+                    ent = entries((Bc, k, 2 * n_kv * hd), dtype)
+                    got = twice(lambda: ops.batched_sparse_gqa(
+                        q, ent, valid, n_kv=n_kv), what)
+                    want = torch.stack([ref.sparse_gqa_attn_ref(
+                        q[b], ent[b], valid[b], n_kv) for b in range(Bc)])
+                else:
+                    ql = torch.randn((Bc, H_m, dc), generator=g, device=dev)
+                    qp = torch.randn((Bc, H_m, dr), generator=g, device=dev)
+                    ent = entries((Bc, k, dc + dr), dtype)
+                    scale = 1.0 / math.sqrt(192)
+                    got = twice(lambda: ops.batched_sparse_mla(
+                        ql, qp, ent, valid, dc=dc, scale=scale), what)
+                    want = torch.stack([ref.sparse_mla_attn_ref(
+                        ql[b], qp[b], ent[b], valid[b], dc, scale)
+                        for b in range(Bc)])
+                torch.testing.assert_close(got, want, **TOL_F32)
+                out_cases.append(dict(form=form, dtype=str(dtype), B=Bc, k=k,
+                                      pattern=pattern, splits=splits,
+                                      chunk=ck, equal_bits_twice=True,
+                                      max_abs_err=(got - want).abs().max()
+                                      .item()))
+        # GQA head dims off the served ones: 72 (zero-padded to 80
+        # columns) and 512 (a one-stage tile ring: two stages overflow
+        # shared memory), both refused in e4m3
+        for H, kv, d in ((6, 2, 72), (8, 2, 512)):
+            q = torch.randn((2, H, d), generator=g, device=dev)
+            ent = entries((2, 2049, 2 * kv * d), dtype)
+            valid = torch.rand((2, 2049), generator=g, device=dev) > 0.1
+            if fp8:
+                try:
+                    ops.batched_sparse_gqa(q, ent, valid, n_kv=kv)
+                except ValueError:
+                    out_cases.append(dict(form="gqa", dtype=str(dtype),
+                                          heads=H, kv_heads=kv, head_dim=d,
+                                          refused=True))
+                    continue
+                raise AssertionError(f"e4m3 GQA took head dim {d}")
+            got = twice(lambda: ops.batched_sparse_gqa(q, ent, valid,
+                                                       n_kv=kv),
+                        f"gqa hd={d}")
+            want = torch.stack([ref.sparse_gqa_attn_ref(
+                q[b], ent[b], valid[b], kv) for b in range(2)])
             torch.testing.assert_close(got, want, **TOL_F32)
-            out_cases.append(dict(form=form, B=Bc, k=k, pattern=pattern,
-                                  splits=splits, chunk=ck,
+            out_cases.append(dict(form="gqa", dtype=str(dtype), heads=H,
+                                  kv_heads=kv, head_dim=d, B=2, k=2049,
+                                  pattern="random",
+                                  splits=mod.gqa_plan(2, H, kv, d, 2049)[0],
                                   max_abs_err=(got - want).abs().max()
                                   .item()))
-    # GQA head dims off the served one: 72 (zero-padded to 80 columns) and
-    # 512 (a one-stage tile ring: two stages overflow shared memory)
-    for H, kv, d in ((6, 2, 72), (8, 2, 512)):
-        q = torch.randn((2, H, d), generator=g, device=dev)
-        ent = torch.randn((2, 2049, 2 * kv * d), generator=g,
-                          device=dev).bfloat16()
-        valid = torch.rand((2, 2049), generator=g, device=dev) > 0.1
-        got = ops.batched_sparse_gqa(q, ent, valid, n_kv=kv)
-        want = torch.stack([ref.sparse_gqa_attn_ref(q[b], ent[b], valid[b],
-                                                    kv) for b in range(2)])
-        torch.testing.assert_close(got, want, **TOL_F32)
-        out_cases.append(dict(form="gqa", heads=H, kv_heads=kv, head_dim=d,
-                              B=2, k=2049, pattern="random",
-                              splits=mod.gqa_plan(2, H, kv, d, 2049)[0],
-                              max_abs_err=(got - want).abs().max().item()))
     return out_cases
+
+
+def check_gather_gemma3(torch, ops, ref):
+    """The gather at Gemma3-12B's pool width (a layer's [4, 8256, 3840]
+    pool, 2048 lanes a request) in bf16 and in e4m3, bit-exact against
+    the plain gather, each timed.  Returns one record per dtype."""
+    from repro_torch.core.pool import E4M3, to_kv_dtype
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+    B, S, d, k = 4, 8256, 3840, 2048
+    x = torch.randn((B, S, d), generator=g, device=dev)
+    idx = torch.randint(0, S, (B, k), generator=g, device=dev,
+                        dtype=torch.int32)
+    recs = []
+    for kv in (x.bfloat16(), to_kv_dtype(x, E4M3)):
+        def plain():
+            return torch.stack([ref.gather_kv_ref(kv[b], idx[b])
+                                for b in range(B)])
+        got = ops.batched_gather(kv, idx)
+        if not torch.equal(got.view(torch.uint8), plain().view(torch.uint8)):
+            raise AssertionError(f"gather_kv differs from its plain version "
+                                 f"at Gemma3's width ({kv.dtype})")
+        raw = kv.view(torch.uint8)           # torch.gather takes no fp8
+        idx_l = idx.long()[..., None].expand(-1, -1, raw.shape[-1])
+        bound, by = bound_ms(B * k * 4 + 2 * B * k * d * kv.element_size(),
+                             0.0)
+        recs.append(dict(
+            shape="gemma3-12b", dtype=str(kv.dtype), kv=[B, S, d], idx=[B, k],
+            max_abs_err=0.0,
+            ms=cuda_time_ms(lambda: ops.batched_gather(kv, idx)),
+            plain_ms=cuda_time_ms(plain),
+            library_ms=cuda_time_ms(lambda: torch.gather(raw, 1, idx_l)),
+            bound_ms=bound, bound_by=by))
+    del x
+    torch.cuda.empty_cache()
+    return recs
+
+
+def check_scatter_gemma3(torch, ref, mod):
+    """The pool write at Gemma3-12B's row width in bf16 and in e4m3: the
+    flattened pool of 48 layers x 4 slots x 8256 positions ([1, 1585152,
+    3840]: 12.2 GB in bf16) takes a decode step's 192 rows (a layer's and
+    a slot's each) and a prefill splice (48 x 8256 rows), each bit for
+    bit against the plain version on the same bytes (random bits: the
+    kernel moves bytes); the decode write is timed.  Returns one record
+    per dtype."""
+    from repro_torch.core.pool import E4M3
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(10)
+    L, slots, S, d = 48, 4, 8256, 3840
+    n = L * slots * S
+    recs = []
+    for dtype in (torch.bfloat16, E4M3):
+        width = d * dtype.itemsize
+
+        def rand_rows(rows):
+            return torch.randint(0, 256, (1, rows, width), generator=g,
+                                 device=dev, dtype=torch.uint8).view(dtype)
+        pool = rand_rows(n)
+        for n_rows in (L * slots, L * S):
+            rows = torch.randperm(n, generator=g, device=dev)[:n_rows]
+            rows = rows.to(torch.int32)[None]
+            e = rand_rows(n_rows)
+            got = mod.scatter_kv(pool.clone(), e, rows)
+            want = ref.scatter_kv_ref(pool[0].view(torch.uint8).clone(),
+                                      e[0].view(torch.uint8), rows[0])
+            if not torch.equal(got[0].view(torch.uint8), want):
+                raise AssertionError(f"scatter_kv differs from its plain "
+                                     f"version at Gemma3's width ({dtype}, "
+                                     f"{n_rows} rows)")
+            del want
+            if n_rows == L * slots:
+                raw, e_raw = got[0].view(torch.uint8), e[0].view(torch.uint8)
+                rows_l = rows[0].long()
+                bound, by = bound_ms(n_rows * 4 + 2 * n_rows * width, 0.0)
+                recs.append(dict(
+                    shape="gemma3-12b", dtype=str(dtype), pool=[1, n, d],
+                    rows=n_rows, splice_rows=L * S, max_abs_err=0.0,
+                    ms=cuda_time_ms(lambda: mod.scatter_kv(got, e, rows)),
+                    plain_ms=cuda_time_ms(lambda: ref.scatter_kv_ref(
+                        raw, e_raw, rows[0])),
+                    library_ms=cuda_time_ms(lambda: raw.index_copy_(
+                        0, rows_l, e_raw)),
+                    bound_ms=bound, bound_by=by))
+                del raw
+            del got, e
+        del pool
+        torch.cuda.empty_cache()
+    return recs
 
 
 def check_gather_pages(torch, ref, mod):
@@ -573,15 +770,18 @@ def check_indexer_edges(torch, ref, mod):
 # ---------------------------------------------------------------------------
 
 
-def small_config(name: str):
+def small_config(name: str, fp8: bool = False):
     """A reduced config the CUDA kernels take: the indexer widened to 32
     dims (the kernel takes d_idx a multiple of 16) and a dense MLP, so that no
     MoE gate sits on a rounding tie between cuBLAS and the CPU (the MoE
-    runs on the card in the DeepSeek-V3.2 serve phase)."""
+    runs on the card in the DeepSeek-V3.2 serve phase); ``fp8``: the fp8
+    pool (``kv_quant="fp8"``)."""
     from repro_torch.configs import get_config
     base = get_config(name).reduced()
     return dataclasses.replace(base, n_experts=0, topk_experts=0,
-                               sac=dataclasses.replace(base.sac, d_idx=32))
+                               sac=dataclasses.replace(
+                                   base.sac, d_idx=32,
+                                   kv_quant="fp8" if fp8 else None))
 
 
 def small_check(torch, cfg, *, mode: str = "sac", prompt_len: int = 40,
@@ -701,9 +901,11 @@ def _to(tree, dev):
 def serve(torch, ops, cfg, *, slots: int, max_ctx: int, requests: int,
           context: int, output: int, device="cuda"):
     """Serve the trace through the port's Engine; returns the engine, the
-    kernels' launch counts during the run, a summary and each request's
-    decoded tokens.  (``device`` lets the same phase run reduced on the
-    CPU as a rehearsal.)"""
+    kernels' launch counts during the run, a summary (with the bytes and
+    dtypes of the pool, the hot tier's entries and the indexer pool),
+    each request's decoded tokens and the first decode step's logits.
+    Every logit of every decode step must be finite.  (``device`` lets
+    the same phase run reduced on the CPU as a rehearsal.)"""
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.request import sharegpt_trace
 
@@ -712,6 +914,16 @@ def serve(torch, ops, cfg, *, slots: int, max_ctx: int, requests: int,
     eng = Engine(cfg, slots=slots, max_ctx=max_ctx, device=device, seed=0)
     sync()
     init_s = time.perf_counter() - t0
+    first, nonfinite = [], []
+    plain_decode = eng._decode
+
+    def decode(*args, **kwargs):           # the engine's model.decode
+        state, logits = plain_decode(*args, **kwargs)
+        if not first:
+            first.append(logits.float().cpu())
+        nonfinite.append((~torch.isfinite(logits)).sum())
+        return state, logits
+    eng._decode = decode
     reqs = sharegpt_trace(requests, context_len=context, output_len=output,
                           ctx_jitter=0.0, seed=0, vocab=cfg.vocab)
     if device == "cuda":
@@ -740,6 +952,13 @@ def serve(torch, ops, cfg, *, slots: int, max_ctx: int, requests: int,
         if len(r.out_tokens) != output or not all(
                 0 <= t < cfg.vocab for t in r.out_tokens):
             raise AssertionError(f"request {r.request_id}: bad tokens")
+    n_nonfinite = int(sum(n.item() for n in nonfinite))
+    if n_nonfinite:
+        raise AssertionError(f"{cfg.name}: {n_nonfinite} non-finite logits")
+    eng._decode = plain_decode
+    tensors = dict(kv_pool=eng.state["kv_pool"],
+                   hot_tier_entries=eng.state["hot_buf"].entries,
+                   idx_pool=eng.state["idx_pool"])
     # wall time of the decode steps alone (steps that also ran a prefill
     # are the slowest; the median is a pure decode step)
     step_sorted = sorted(step_s)
@@ -756,8 +975,11 @@ def serve(torch, ops, cfg, *, slots: int, max_ctx: int, requests: int,
         run_wall_s=run_s, engine_init_s=init_s,
         max_memory_allocated_bytes=(torch.cuda.max_memory_allocated()
                                     if device == "cuda" else None),
-        launches=counts)
-    return eng, counts, summary, {r.request_id: r.out_tokens for r in done}
+        pool_bytes={k: t.nbytes for k, t in tensors.items()},
+        pool_dtypes={k: str(t.dtype) for k, t in tensors.items()},
+        logits_finite=True, launches=counts)
+    return (eng, counts, summary, {r.request_id: r.out_tokens for r in done},
+            first[0])
 
 
 def profile_decode(torch, eng, *, requests: int, context: int,
@@ -844,19 +1066,24 @@ def check_launches(counts, steps: int, layers: int, attn: str,
 
 
 def serve_and_profile(torch, ops, name: str):
-    """Phases 5-6 for one config of SERVES; returns the launch counts
-    of its serving run, its summary and its decoded tokens."""
+    """Phases 5-6 and 8-9 for one entry of SERVES; returns the launch
+    counts of its serving run, its summary, its decoded tokens and the
+    first decode step's logits."""
     from repro_torch.configs import get_config
     spec = SERVES[name]
-    cfg = get_config(name)
-    if spec["n_layers"]:
+    cfg = get_config(spec["arch"])
+    if spec.get("n_layers"):
         cfg = dataclasses.replace(cfg, n_layers=spec["n_layers"])
+    if spec.get("kv_quant"):
+        cfg = dataclasses.replace(cfg, sac=dataclasses.replace(
+            cfg.sac, kv_quant=spec["kv_quant"]))
     t0 = time.perf_counter()
-    eng, counts, summary, tokens = serve(
+    eng, counts, summary, tokens, first = serve(
         torch, ops, cfg, slots=spec["slots"], max_ctx=spec["max_ctx"],
         requests=spec["requests"], context=spec["context"],
         output=spec["output"])
     summary["seconds"] = time.perf_counter() - t0
+    summary["run"] = name
     emit(summary)
     check_launches(counts, summary["steps"], cfg.n_layers, spec["attn"])
     t0 = time.perf_counter()
@@ -864,11 +1091,12 @@ def serve_and_profile(torch, ops, name: str):
                           context=spec["context"],
                           device_kernels=spec["device_kernels"])
     prof["seconds"] = time.perf_counter() - t0
+    prof["run"] = name
     emit(prof)
     del eng
     gc.collect()
     torch.cuda.empty_cache()
-    return counts, summary, tokens
+    return counts, summary, tokens, first
 
 
 # phase 7's runs of the port's CLI: the whole fetch pipeline (profiled),
@@ -1005,6 +1233,58 @@ def fetch_pipeline(torch, ops, off_summary, off_tokens):
     return total
 
 
+def cli_defaults(torch, ops):
+    """Phase 10: ``python -m repro_torch.launch.serve --arch gemma3-12b`` at
+    the CLI's defaults (on the card; 4 slots, max_ctx 96, 8 requests of
+    48 tokens, 8 output tokens) through its ``main``: every request
+    served, every kernel of the path on every layer of every decode
+    step.  Returns the launch counts."""
+    argv = ["--arch", "gemma3-12b"]
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    eng, reqs, cli_out, counts, step_s, _ = serve_cli(torch, ops, argv)
+    st = eng.stats
+    emit(dict(phase="cli", argv=argv, config=eng.cfg.name,
+              n_layers=eng.cfg.n_layers, slots=eng.slots,
+              requests=len(reqs), tokens=st.tokens, steps=st.steps,
+              wall_s_per_decode_step_median=sorted(step_s)[len(step_s) // 2],
+              max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+              launches=counts, cli=cli_out,
+              seconds=time.perf_counter() - t0))
+    if cli_out["n_done"] != len(reqs) or any(
+            len(r.out_tokens) != r.output_len for r in reqs):
+        raise AssertionError(f"the CLI served {cli_out['n_done']} of "
+                             f"{len(reqs)} requests")
+    check_launches(counts, st.steps, eng.cfg.n_layers, "sparse_attn_gqa")
+    del eng, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def compare_fp8(bf16, fp8) -> None:
+    """Phase 9 against phase 8 (each serve_and_profile's result): the
+    pool's and the hot tier's entries e4m3 and exactly half the bytes,
+    the indexer pool unchanged; the first decode step's largest logit
+    difference and the share of equal decoded tokens are reported, not
+    gated (quantisation changes results)."""
+    (_, s16, t16, l16), (_, s8, t8, l8) = bf16, fp8
+    want = {k: v // (1 if k == "idx_pool" else 2)
+            for k, v in s16["pool_bytes"].items()}
+    pairs = [(a, b) for r, toks in t8.items() for a, b in zip(toks, t16[r])]
+    emit(dict(phase="fp8_vs_bf16", config=s8["config"],
+              pool_bytes=s8["pool_bytes"], pool_bytes_bf16=s16["pool_bytes"],
+              pool_dtypes=s8["pool_dtypes"],
+              first_step_max_abs_logit_diff=(l8 - l16).abs().max().item(),
+              first_step_max_abs_logit_bf16=l16.abs().max().item(),
+              tokens_equal=sum(a == b for a, b in pairs), tokens=len(pairs)))
+    e4m3 = "torch.float8_e4m3fn"
+    if s8["pool_bytes"] != want or s8["pool_dtypes"] != dict(
+            s16["pool_dtypes"], kv_pool=e4m3, hot_tier_entries=e4m3):
+        raise AssertionError(f"fp8 pool bytes {s8['pool_bytes']} "
+                             f"({s8['pool_dtypes']}), want {want}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels", action="store_true",
@@ -1042,21 +1322,21 @@ def main() -> None:
 
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
-    mods = {"gather_kv": gather_kv, "sparse_attn": sparse_attn,
-            "scatter_kv": scatter_kv}
+    mods = {"gather_kv": gather_kv, "scatter_kv": scatter_kv}
     recs = check_mla_path_kernels(torch, ops, ref, mods)
     recs["gather_kv"]["shapes"] = check_fetch_gathers(torch, ops, ref)
     recs["indexer_scores"] = check_indexer(torch, ref, indexer)
     indexer_edges = check_indexer_edges(torch, ref, indexer)
-    recs["sparse_attn_gqa"], gqa_per_shape = check_sparse_gqa(
-        torch, ops, ref, sparse_attn)
+    attn, attn_cases = check_attention(torch, ref, sparse_attn)
+    recs.update(attn)
     recs["gather_kv_pages"] = check_gather_pages(torch, ref, gather_kv)
+    recs["gather_kv"]["shapes"] += check_gather_gemma3(torch, ops, ref)
+    recs["scatter_kv"]["shapes"] = check_scatter_gemma3(torch, ref,
+                                                        scatter_kv)
     edges = check_attention_edges(torch, ops, ref, sparse_attn)
     emit(dict(phase="kernels_vs_plain", tolerance_f32=TOL_F32,
               max_abs_err={k: v["max_abs_err"] for k, v in recs.items()},
-              sparse_attn_splits=sparse_attn.mla_plan(4, 128, 512, 2049)[0],
-              sparse_attn_gqa_shapes=gqa_per_shape,
-              attention_edges=edges,
+              attention_cases=attn_cases, attention_edges=edges,
               indexer_edges=indexer_edges,
               seconds=time.perf_counter() - t0))
 
@@ -1066,23 +1346,30 @@ def main() -> None:
         path_kernels = {
             "sac": ("gather_kv", "indexer_scores", "scatter_kv"),
             "dense": ("gather_kv", "scatter_kv")}
-        for name, mode, plen, slen, prefetch in (
-                ("deepseek-v32", "sac", 40, 64, False),
-                ("qwen2-1.5b", "sac", 40, 64, False),
-                ("mixtral-8x22b", "sac", 80, 96, False),
-                ("mixtral-8x22b", "dense", 80, 96, False),
-                ("deepseek-v32", "sac", 40, 64, True),
-                ("qwen2-1.5b", "sac", 40, 64, True)):
+        # (reduced Gemma3's local window of 32 lies below the context)
+        for name, mode, plen, slen, prefetch, fp8 in (
+                ("deepseek-v32", "sac", 40, 64, False, False),
+                ("qwen2-1.5b", "sac", 40, 64, False, False),
+                ("mixtral-8x22b", "sac", 80, 96, False, False),
+                ("mixtral-8x22b", "dense", 80, 96, False, False),
+                ("deepseek-v32", "sac", 40, 64, True, False),
+                ("qwen2-1.5b", "sac", 40, 64, True, False),
+                ("gemma3-12b", "sac", 40, 64, False, False),
+                ("gemma3-12b", "sac", 40, 64, False, True),
+                ("qwen2-1.5b", "sac", 40, 64, False, True),
+                ("deepseek-v32", "sac", 40, 64, False, True)):
             t0 = time.perf_counter()
-            cfg = small_config(name)
+            cfg = small_config(name, fp8)
             ops.reset_launch_counts()
             err = small_check(torch, cfg, mode=mode, prompt_len=plen,
                               pool_len=slen, prefetch=prefetch)
             small_counts = ops.launch_counts()
             emit(dict(phase="small_check", config=name, mode=mode,
-                      prefetch=prefetch, context=plen,
-                      window=cfg.sliding_window, max_rel_l2_err=err,
-                      launches=small_counts,
+                      prefetch=prefetch, kv_quant=cfg.sac.kv_quant,
+                      context=plen, window=cfg.sliding_window,
+                      local_window=(cfg.local_window
+                                    if cfg.local_global_ratio else None),
+                      max_rel_l2_err=err, launches=small_counts,
                       seconds=time.perf_counter() - t0))
             attn = "sparse_attn" if cfg.mla else "sparse_attn_gqa"
             missing = [k for k in path_kernels[mode] + (attn,)
@@ -1090,15 +1377,22 @@ def main() -> None:
             if missing:
                 raise AssertionError(f"small check {name} ({mode}) did not "
                                      f"run {missing}")
-        # 5-6. serving at full width, then a profile of its decode steps;
-        # 7. the fetch pipeline against phase 6's run
+        # 5-6. serving at full width, then a profile of its decode steps
         launches = {k: 0 for k in ops.launch_counts()}
         runs = {}
-        for name in SERVES:
+        for name in ("deepseek-v32", "qwen2-1.5b"):
             runs[name] = serve_and_profile(torch, ops, name)
-        _, off_summary, off_tokens = runs["qwen2-1.5b"]
+        # 7. the fetch pipeline against phase 6's run
+        _, off_summary, off_tokens, _ = runs["qwen2-1.5b"]
         fetch_counts = fetch_pipeline(torch, ops, off_summary, off_tokens)
-        for counts in [r[0] for r in runs.values()] + [fetch_counts]:
+        # 8-9. Gemma3-12B at full width and depth, bf16 then fp8 pool
+        for name in ("gemma3-12b", "gemma3-12b-fp8"):
+            runs[name] = serve_and_profile(torch, ops, name)
+        compare_fp8(runs["gemma3-12b"], runs["gemma3-12b-fp8"])
+        # 10. the CLI at its defaults
+        cli_counts = cli_defaults(torch, ops)
+        for counts in ([r[0] for r in runs.values()]
+                       + [fetch_counts, cli_counts]):
             for k, n in counts.items():
                 launches[k] += n
 
@@ -1126,7 +1420,8 @@ def main() -> None:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound"][0], bound_by=r["bound"][1],
             library_ms=r["library_ms"],
-            **{k: r[k] for k in ("shapes", "ms_one_row") if k in r}))
+            **{k: r[k] for k in ("shapes", "ms_one_row", "e4m3")
+               if k in r}))
     emit({"kernels": kernels})
     print(smi[0])
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -18,6 +18,13 @@ The fetch pipeline inserts without reading (``warm_insert``, and
 ``warm_lane`` for one request lane of the layered buffer), and the
 engine re-apportions the layers' capacities online (``resize_layers``),
 with the same integer semantics.
+
+Entries of the fp8 pool (``float8_e4m3fn``) move through the row
+gathers, scatters and copies as raw integers (``_raw``): pairs of bytes
+as ``int16`` where a row has an even width (every served one), so that
+PyTorch's kernels move them at the 2-byte rate of bf16 rows; bit for
+bit the same, and PyTorch on the CPU has no gather or scatter for
+float8.
 """
 from __future__ import annotations
 
@@ -25,6 +32,8 @@ from typing import NamedTuple, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+
+from repro_torch.core.pool import to_kv_dtype
 
 EMPTY = -1
 # a DISABLED slot belongs to no layer budget: never empty, never a
@@ -44,6 +53,22 @@ class BufferState(NamedTuple):
     pf_flag: torch.Tensor      # [B, buf]      slot prefetched, not yet used
     pf_inserted: torch.Tensor  # [B]           cumulative warm-inserted entries
     pf_used: torch.Tensor      # [B]           cumulative prefetched-then-hit
+
+
+def _raw(t: torch.Tensor) -> torch.Tensor:
+    """A 1-byte float tensor (the fp8 hot tier) as raw integers: int16
+    pairs of bytes when its rows have an even width (the last dim
+    halves), else uint8; any other tensor as it is."""
+    if t.is_floating_point() and t.element_size() == 1:
+        return t.view(torch.int16 if t.shape[-1] % 2 == 0 else torch.uint8)
+    return t
+
+
+def store(dst: BufferState, src: BufferState) -> None:
+    """Copy ``src`` into ``dst`` (a layer's or a lane's views of a
+    layered buffer) IN PLACE, fp8 entries through their raw view."""
+    for full, part in zip(dst, src):
+        _raw(full).copy_(_raw(part))
 
 
 def init_buffer(batch: int, buf_size: int, seq_len: int, entry_dim: int,
@@ -129,13 +154,14 @@ def _write_slots(entries, slot_pos, page_table, last_use, clock, idx, vals,
     pt.scatter_(1, torch.where(fill, idx, S), assign.to(torch.int32))
     sp.scatter_(1, assign, torch.where(fill, idx, EMPTY).to(torch.int32))
 
-    ent = _pad(entries, 0)
-    d = entries.shape[-1]
-    ent.scatter_(1, assign[..., None].expand(B, k, d), vals.to(entries.dtype))
+    ent = _pad(_raw(entries), 0)
+    ent.scatter_(1, assign[..., None].expand(B, k, ent.shape[-1]),
+                 _raw(to_kv_dtype(vals, entries.dtype)))
 
     lu = _pad(last_use, 0)
     lu.scatter_(1, touched, clock[:, None].expand(B, k).contiguous())
-    return ent[:, :buf], sp[:, :buf], pt[:, :S], lu[:, :buf]
+    return (ent[:, :buf].view(entries.dtype), sp[:, :buf], pt[:, :S],
+            lu[:, :buf])
 
 
 def _swap_in(entries, slot_pos, page_table, last_use, clock, pf_flag,
@@ -213,12 +239,12 @@ def read_through(state: BufferState, idx: torch.Tensor,
     hits [B], misses [B]).  Values are bit-identical with or without the
     buffer: the hot tier changes traffic, never results."""
     slots, hit = lookup(state, idx)
-    buf, d = state.entries.shape[1], state.entries.shape[2]
-    buffered = state.entries.gather(
-        1, torch.clamp(slots, 0, buf - 1).long()[..., None].expand(
-            -1, -1, d))
-    vals = torch.where((hit & valid)[..., None],
-                       buffered.to(fetched.dtype), fetched)
+    ent = _raw(state.entries)
+    buffered = ent.gather(
+        1, torch.clamp(slots, 0, ent.shape[1] - 1).long()[..., None].expand(
+            -1, -1, ent.shape[2])).view(state.entries.dtype).to(fetched.dtype)
+    vals = torch.where((hit & valid)[..., None], _raw(buffered),
+                       _raw(fetched)).view(fetched.dtype)
     new_state, hits, misses = swap_in(state, idx, fetched, valid)
     return vals, new_state, hits, misses
 
@@ -294,10 +320,9 @@ def warm_lane(state: BufferState, lane: int, idx: torch.Tensor,
     plays the batch axis), so this is ``warm_insert`` over layers.
     Returns (state, total entries inserted): the prefill warm-up path.
     """
-    sub = BufferState(*(t[:, lane] for t in state))
-    sub, ins = warm_insert(sub, idx, vals, valid)
-    for full, part in zip(state, sub):
-        full[:, lane].copy_(part)
+    view = BufferState(*(t[:, lane] for t in state))
+    sub, ins = warm_insert(view, idx, vals, valid)
+    store(view, sub)
     return state, ins.sum()
 
 

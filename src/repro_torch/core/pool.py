@@ -7,6 +7,11 @@ path scatters rows into the pool IN PLACE (``pool_write`` and
 ``pool_write_prefill`` -> the scatter kernel on the card), so a decode
 step writes L*B rows and never copies the pool.
 
+With ``kv_quant="fp8"`` the pool holds ``float8_e4m3fn`` entries:
+``to_kv_dtype`` is the one cast into the pool's dtype that the port
+uses (prefill pool, write-back, the own entry appended at decode), and
+it rounds as the reference's ``astype`` does.
+
 ``make_pooled_fetch`` (the pool sharded over devices, gathered with a
 collective) waits for the distributed slice (ROADMAP).
 """
@@ -19,6 +24,27 @@ import torch
 from repro_torch.kernels import ops
 
 FetchFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+E4M3 = torch.float8_e4m3fn
+# the largest magnitude that rounds into e4m3's range (448 and the
+# midpoint to the next step, 480, which rounds to even: 448)
+_E4M3_LIMIT = 464.0
+
+
+def to_kv_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` cast to the pool dtype ``dtype``, as the reference's
+    ``astype`` casts it.
+
+    For ``float8_e4m3fn`` PyTorch's cast saturates values past the range
+    to +-448, where the reference (ml_dtypes) gives NaN with the sign
+    kept (bits ``0x7f`` / ``0xff``); every other value rounds to nearest
+    even in both.  So the saturated lanes become NaN here, compared in
+    ``x``'s own dtype (no f32 copy of a prefill pool)."""
+    if dtype != E4M3 or x.dtype == E4M3:
+        return x.to(dtype)
+    bits = x.to(E4M3).view(torch.uint8)
+    nan = (torch.signbit(x).to(torch.uint8) << 7) | 0x7F
+    return torch.where(x.abs() > _E4M3_LIMIT, nan, bits).view(E4M3)
 
 
 # ---------------------------------------------------------------------------
@@ -48,14 +74,17 @@ def pool_write(pool: torch.Tensor, new_entries: torch.Tensor,
     """Write one new entry per (layer, request) at per-request positions.
 
     pool: [L, B, S, d]; new_entries: [L, B, d]; pos: [B] -> ``pool``,
-    updated IN PLACE by one scatter of L*B distinct rows.  Positions are
-    clamped to S-1, as in the reference.
+    updated IN PLACE by one scatter of L*B distinct rows (the entries
+    cast to the pool's dtype).  Positions are clamped to S-1, as in the
+    reference.
     """
     L, B, S, d = pool.shape
     pos_c = torch.clamp(pos.long(), 0, S - 1)                    # [B]
     lanes = torch.arange(L * B, device=pool.device).reshape(L, B)
     rows = (lanes * S + pos_c[None, :]).reshape(1, L * B)
-    ops.batched_scatter(_flat_rows(pool), new_entries.reshape(1, L * B, d),
+    ops.batched_scatter(_flat_rows(pool),
+                        to_kv_dtype(new_entries, pool.dtype).reshape(
+                            1, L * B, d),
                         rows.to(torch.int32))
     return pool
 
@@ -81,6 +110,7 @@ def pool_write_prefill(pool: torch.Tensor, entries: torch.Tensor,
                   + lanes[None, :])                              # [L, b]
     rows = (layer_lane[..., None] * S + offset
             + torch.arange(T, device=pool.device))               # [L, b, T]
-    ops.batched_scatter(_flat_rows(pool), entries.reshape(1, -1, d),
+    ops.batched_scatter(_flat_rows(pool),
+                        to_kv_dtype(entries, pool.dtype).reshape(1, -1, d),
                         rows.reshape(1, -1).to(torch.int32))
     return pool

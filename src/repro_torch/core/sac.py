@@ -28,7 +28,7 @@ from repro_torch.core.fabric import FabricTopology
 from repro_torch.core.metadata import PageDirectory, PoolAllocator
 from repro_torch.core.placement import (Placer, pages_for_tokens,
                                         policy_for_interleave)
-from repro_torch.core.pool import FetchFn, local_fetch
+from repro_torch.core.pool import FetchFn, local_fetch, to_kv_dtype
 from repro_torch.core.traffic import FabricAccountant
 from repro_torch.core.transfer import FABRICS, FabricModel
 from repro_torch.models import dsa
@@ -116,8 +116,8 @@ def sparse_attend(p_attn: Dict, p_idx: Dict, x: torch.Tensor,
                 spec_idx, 0, kv_pool_l.shape[1] - 1))
             buf_state, _ = hisparse.warm_insert(buf_state, spec_idx,
                                                 spec_vals, spec_valid)
-    fetched = torch.cat([fetched, own_entry[:, None, :].to(fetched.dtype)],
-                        dim=1)
+    fetched = torch.cat([fetched, to_kv_dtype(own_entry[:, None, :],
+                                              fetched.dtype)], dim=1)
     valid = torch.cat([valid, torch.ones_like(valid[:, :1])], dim=1)
     out = _attend(p_attn, x, cfg, fetched, valid, positions)
     if buf_state is not None:
@@ -140,8 +140,8 @@ def window_attend(p_attn: Dict, x: torch.Tensor, cfg: ModelConfig,
     valid = idx >= 0
     idx = torch.clamp(idx, 0, kv_pool_l.shape[1] - 1).to(torch.int32)
     fetched = fetch_fn(kv_pool_l, idx)
-    fetched = torch.cat([fetched, own_entry[:, None, :].to(fetched.dtype)],
-                        dim=1)
+    fetched = torch.cat([fetched, to_kv_dtype(own_entry[:, None, :],
+                                              fetched.dtype)], dim=1)
     valid = torch.cat([valid, torch.ones((B, 1), dtype=torch.bool,
                                          device=x.device)], dim=1)
     return _attend(p_attn, x, cfg, fetched, valid, positions)
@@ -153,8 +153,8 @@ def dense_attend(p_attn: Dict, x: torch.Tensor, cfg: ModelConfig,
                  ) -> torch.Tensor:
     """Dense decode over the full pool slice (full-prefetch baseline)."""
     B, S, _ = kv_pool_l.shape
-    pool = torch.cat([kv_pool_l, own_entry[:, None, :].to(kv_pool_l.dtype)],
-                     dim=1)
+    pool = torch.cat([kv_pool_l, to_kv_dtype(own_entry[:, None, :],
+                                             kv_pool_l.dtype)], dim=1)
     pos = torch.arange(S, dtype=torch.int32, device=kv_pool_l.device)
     valid = torch.cat([pos[None, :] < cache_len[:, None],
                        torch.ones((B, 1), dtype=torch.bool,

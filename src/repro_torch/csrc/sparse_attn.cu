@@ -51,7 +51,15 @@
 //   f32 accumulator (relative error about 2^-17, against 2^-9 for a single
 //   bf16 rounding).  Scores are in log2 units (q carries scale * log2 e);
 //   max, sum and correction stay f32 and the division comes last.
+// - Entries of the fp8 pool (kv_quant="fp8", float8_e4m3fn) take the same
+//   path at half the bytes: the ring holds the raw e4m3 tiles (16 entry
+//   values per 16-byte cp.async instead of 8), and once a tile has landed
+//   the block converts it into one bf16 tile in shared memory (exact:
+//   e4m3's 3 mantissa bits and exponents fit bf16), which the ldmatrix /
+//   mma.sync path above reads unchanged.  The entries are read from
+//   memory once, as e4m3; the block's q rows land in the bf16 tile.
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -70,7 +78,7 @@ constexpr float kMasked = -1e30f;
 
 struct Params {
   const float* q;                    // [B, H, dq]
-  const __nv_bfloat16* ent;          // entry rows
+  const void* ent;                   // entry rows, bf16 or e4m3
   const uint8_t* valid;              // [B, k]
   float* m_part;                     // [B, H, splits]
   float* l_part;                     // [B, H, splits]
@@ -82,36 +90,69 @@ struct Params {
   int c0, w0, c1, w1;                // staged column ranges of group 0
   int col_step;                      // column shift from one group to the next
   int koff, voff;                    // keys / values inside the staged tiles
-  int stride;                        // staged row stride, bf16
+  int stride;                        // row stride of a bf16 tile
+  int rstride;                       // e4m3: row stride of a raw tile, bytes
   float scale;
 };
 
-// Shared memory of pass 1, in bytes: the tile ring, q as bf16 hi and lo,
-// the two k-halves' partial scores (f32), P as bf16 hi and lo, and m, l,
-// corr per head row.
-size_t partial_smem(int ranges, int stages, int stride, int rows, int qs) {
-  return sizeof(__nv_bfloat16) *
-             ((size_t)stages * ranges * kTile * stride
-              + 2 * (size_t)rows * qs + 2 * (size_t)rows * kPStride) +
+// Shared memory of pass 1, in bytes: the tile ring (bf16 tiles, or raw
+// e4m3 tiles of rstride bytes a row and one bf16 tile they are converted
+// into), q as bf16 hi and lo, the two k-halves' partial scores (f32), P as
+// bf16 hi and lo, and m, l, corr per head row.
+size_t partial_smem(int ranges, int stages, int stride, int rows, int qs,
+                    int rstride) {
+  const size_t bf16_tile = sizeof(__nv_bfloat16) * kTile * stride;
+  const size_t ring = rstride ? (size_t)ranges * (stages * (size_t)kTile
+                                                  * rstride + bf16_tile)
+                              : (size_t)stages * ranges * bf16_tile;
+  return ring + sizeof(__nv_bfloat16) * (2 * (size_t)rows * qs
+                                         + 2 * (size_t)rows * kPStride) +
          sizeof(float) * (2 * (size_t)rows * kPStride + 3 * (size_t)rows);
+}
+
+// 16 e4m3 values (one 16-byte word) -> 16 bf16 values (two), exactly:
+// each pair through the hardware's e4m3x2 -> f16x2 conversion, then f32.
+__device__ __forceinline__ uint32_t e4m3x2_to_bf16x2(uint32_t pair) {
+  const __half2 h(__nv_cvt_fp8x2_to_halfraw2(
+      (__nv_fp8x2_storage_t)(pair & 0xffffu), __NV_E4M3));
+  const float2 f = __half22float2(h);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(f.x, f.y);
+  return *reinterpret_cast<const uint32_t*>(&b);
+}
+
+__device__ __forceinline__ void e4m3x16_to_bf16(const uint4 v, uint4 (&o)[2]) {
+  o[0] = make_uint4(e4m3x2_to_bf16x2(v.x), e4m3x2_to_bf16x2(v.x >> 16),
+                    e4m3x2_to_bf16x2(v.y), e4m3x2_to_bf16x2(v.y >> 16));
+  o[1] = make_uint4(e4m3x2_to_bf16x2(v.z), e4m3x2_to_bf16x2(v.z >> 16),
+                    e4m3x2_to_bf16x2(v.w), e4m3x2_to_bf16x2(v.w >> 16));
 }
 
 // Pass 1.  kShared: one staged range holds keys and values (MLA); else the
 // key and value ranges are staged into two tiles (GQA).  kStages: depth of
-// the tile ring (1 only where two stages overflow shared memory).  Scores
-// are in log2 units (q carries scale * log2 e): p = 2^(s - m).
-template <bool kShared, int kStages>
+// the tile ring (1 only where two stages overflow shared memory).  kFp8:
+// the entries are e4m3 bytes (converted to a bf16 tile as each lands),
+// else bf16.  Scores are in log2 units (q carries scale * log2 e):
+// p = 2^(s - m).
+template <bool kShared, int kStages, bool kFp8>
 __device__ __forceinline__ void partial_body(const Params& p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t qbar_s;              // q's bulk copy
   constexpr int kRanges = kShared ? 1 : 2;
   constexpr int kB = (int)sizeof(__nv_bfloat16);
+  constexpr int kEB = kFp8 ? 1 : kB;                    // bytes an entry value
+  constexpr int kEpc = 16 / kEB;                        // values a cp.async
   constexpr float kLog2e = 1.4426950408889634f;
   const int rows = 16 * p.ht;
   const int qs = p.dqp + 8;
   const int tile_elems = kTile * p.stride;
-  __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* qhi = tiles + kStages * kRanges * tile_elems;  // [rows][qs]
+  // the ring's row pitch and tile size in bytes; the bf16 tiles the
+  // products read (the ring itself, or the one tile e4m3 converts into)
+  const int pitch = kFp8 ? p.rstride : p.stride * kB;
+  const int ring_tile = kTile * pitch;
+  __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(
+      smem_raw + (kFp8 ? kStages * kRanges * ring_tile : 0));
+  constexpr int kCompute = kFp8 ? 1 : kStages;          // bf16 tile sets
+  __nv_bfloat16* qhi = tiles + kCompute * kRanges * tile_elems;  // [rows][qs]
   __nv_bfloat16* qlo = qhi + rows * qs;
   float* ssp = reinterpret_cast<float*>(qlo + rows * qs);  // [2][rows][72]
   __nv_bfloat16* ph =
@@ -128,30 +169,31 @@ __device__ __forceinline__ void partial_body(const Params& p) {
   const int nh = min(p.hb, p.H - h0);
   const int lane0 = split * p.chunk;
   const int n_tiles = (min(p.chunk, p.k - lane0) + kTile - 1) / kTile;
-  const __nv_bfloat16* eb = p.ent + (long long)b * p.ent_batch;
+  const unsigned char* eb = static_cast<const unsigned char*>(p.ent)
+                            + (long long)b * p.ent_batch * kEB;
   const uint8_t* vb = p.valid + (long long)b * p.k;
   const uint32_t qbar = smem_u32(&qbar_s);
 
   // copies of tile t: thread (row r0, 16-byte column c) copies rows r0,
   // r0 + rpp, ... of its column with cp.async (rows past k read as zeros)
-  const int v0 = p.w0 / 8, per_row = v0 + (kShared ? 0 : p.w1 / 8);
+  const int v0 = p.w0 / kEpc, per_row = v0 + (kShared ? 0 : p.w1 / kEpc);
   const int rpp = kThreads / per_row;
   const int cp_r0 = tid / per_row, cp_c = tid % per_row;
   const bool second = !kShared && cp_c >= v0;
   const int cp_cc = second ? cp_c - v0 : cp_c;
-  const __nv_bfloat16* cp_src0 =
-      eb + (second ? p.c1 : p.c0) + grp * p.col_step + cp_cc * 8;
-  const uint32_t cp_dst0 =
-      smem_u32(tiles + (second ? tile_elems : 0) + cp_r0 * p.stride
-               + cp_cc * 8);
+  const unsigned char* cp_src0 =
+      eb + (long long)((second ? p.c1 : p.c0) + grp * p.col_step
+                       + cp_cc * kEpc) * kEB;
+  const uint32_t cp_dst0 = smem_u32(smem_raw) + (second ? ring_tile : 0)
+                           + cp_r0 * pitch + cp_cc * 16;
   auto issue = [&](int t) {
     if (cp_r0 < rpp) {
       int row = lane0 + t * kTile + cp_r0;
-      const __nv_bfloat16* src = cp_src0 + (long long)row * p.ent_row;
+      const unsigned char* src = cp_src0 + (long long)row * p.ent_row * kEB;
       uint32_t dst = cp_dst0 + (uint32_t)((t % kStages) * kRanges
-                                          * tile_elems * kB);
-      const long long src_step = (long long)rpp * p.ent_row;
-      const uint32_t dst_step = rpp * p.stride * kB;
+                                          * ring_tile);
+      const long long src_step = (long long)rpp * p.ent_row * kEB;
+      const uint32_t dst_step = rpp * pitch;
       for (int r = cp_r0; r < kTile; r += rpp) {
         const bool ok = row < p.k;
         cp_async16(dst, ok ? src : cp_src0, ok ? 16 : 0);
@@ -177,9 +219,9 @@ __device__ __forceinline__ void partial_body(const Params& p) {
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  // q rows of the block (f32, one bulk copy) into the last stage (they fit:
-  // gqa_pass1, mla_pass1), tile 0 into stage 0
-  float* qbuf = reinterpret_cast<float*>(tiles + (kStages - 1) * kRanges
+  // q rows of the block (f32, one bulk copy) into the last bf16 tile set
+  // (they fit: gqa_pass1, mla_pass1), tile 0 into stage 0
+  float* qbuf = reinterpret_cast<float*>(tiles + (kCompute - 1) * kRanges
                                          * tile_elems);
   if (tid == 0) {
     const uint32_t qbytes = (uint32_t)nh * p.dq * sizeof(float);
@@ -187,7 +229,8 @@ __device__ __forceinline__ void partial_body(const Params& p) {
     bulk_copy(smem_u32(qbuf), p.q + ((long long)b * p.H + h0) * p.dq, qbytes,
               qbar);
   }
-  if (kStages > 1) issue(0);
+  constexpr bool kEarly = kFp8 || kStages > 1;          // q not in the ring
+  if (kEarly) issue(0);
   uint8_t raw_valid[4], raw_next[4];
   load_valid(0, raw_valid);
 
@@ -217,10 +260,10 @@ __device__ __forceinline__ void partial_body(const Params& p) {
     }
   }
   __syncthreads();            // q converted: its buffer is free again
-  if (kStages == 1) issue(0);
-  // the columns that pad keys and values to 16 stay zero in every stage
+  if (!kEarly) issue(0);
+  // the columns that pad keys and values to 16 stay zero in every tile set
   if (!kShared && (p.w0 < p.dqp || p.w1 < p.dvp)) {
-    for (int i = tid; i < kStages * kTile; i += kThreads) {
+    for (int i = tid; i < kCompute * kTile; i += kThreads) {
       __nv_bfloat16* row = tiles + (i / kTile) * kRanges * tile_elems
                            + (i % kTile) * p.stride;
       for (int c = p.w0; c < p.dqp; ++c) row[c] = __float2bfloat16(0.f);
@@ -265,7 +308,28 @@ __device__ __forceinline__ void partial_body(const Params& p) {
     __syncthreads();          // tile t landed; every warp is past tile t-1
     if (kStages > 1 && t + 1 < n_tiles) issue(t + 1);
     if (t + 1 < n_tiles) load_valid(t + 1, raw_next);
-    const __nv_bfloat16* st = tiles + (t % kStages) * kRanges * tile_elems;
+    if (kFp8) {
+      // the landed e4m3 tile -> the bf16 tile (every warp is past tile t-1)
+      const unsigned char* raw = smem_raw + (t % kStages) * kRanges
+                                            * ring_tile;
+#pragma unroll
+      for (int r = 0; r < kRanges; ++r) {
+        const int per = (r ? p.w1 : p.w0) / 16;
+        for (int i = tid; i < kTile * per; i += kThreads) {
+          const int row = i / per, c = i - row * per;
+          uint4 o[2];
+          e4m3x16_to_bf16(*reinterpret_cast<const uint4*>(
+                              raw + r * ring_tile + row * pitch + c * 16),
+                          o);
+          uint4* dst = reinterpret_cast<uint4*>(
+              tiles + r * tile_elems + row * p.stride + c * 16);
+          dst[0] = o[0];
+          dst[1] = o[1];
+        }
+      }
+      __syncthreads();
+    }
+    const __nv_bfloat16* st = tiles + (t % kCompute) * kRanges * tile_elems;
     const __nv_bfloat16* ks = st + p.koff;
     const __nv_bfloat16* vs = (kShared ? st : st + tile_elems) + p.voff;
 
@@ -442,15 +506,16 @@ __device__ __forceinline__ void partial_body(const Params& p) {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
-template <int kStages>
+template <int kStages, bool kFp8>
 __global__ void __launch_bounds__(kThreads, 2)
 sparse_gqa_partial_kernel(const Params p) {
-  partial_body<false, kStages>(p);
+  partial_body<false, kStages, kFp8>(p);
 }
 
+template <bool kFp8>
 __global__ void __launch_bounds__(kThreads)
 sparse_mla_partial_kernel(const Params p) {
-  partial_body<true, 2>(p);
+  partial_body<true, 2, kFp8>(p);
 }
 
 // Pass 2: one block per (request, head) merges the splits' partials.
@@ -536,40 +601,49 @@ struct Pass1 {
   int* granted;
 };
 
-int g_smem_gqa1 = 48 * 1024, g_smem_gqa2 = 48 * 1024, g_smem_mla = 48 * 1024;
+// the dynamic shared memory granted so far to each pass-1 kernel:
+// [stages - 1][fp8] for GQA, [fp8] for MLA
+int g_smem_gqa[2][2] = {{48 * 1024, 48 * 1024}, {48 * 1024, 48 * 1024}};
+int g_smem_mla[2] = {48 * 1024, 48 * 1024};
 
-// GQA pass 1 for n_rep heads of head dim hd; fn is null for a shape the
-// kernel does not take: hd % 8 != 0 or hd > 512, more than kMaxItems P V
-// items a warp, the group's f32 q rows larger than the ring stage they
-// land in, or shared memory past the limit even with one stage.
-Pass1 gqa_pass1(int n_rep, int hd) {
+// GQA pass 1 for n_rep heads of head dim hd, bf16 or (fp8) e4m3 entries;
+// fn is null for a shape the kernel does not take: hd * (entry bytes) not
+// a multiple of 16 or hd > 512, more than kMaxItems P V items a warp, the
+// group's f32 q rows larger than the bf16 tile set they land in, or shared
+// memory past the limit even with one stage.
+Pass1 gqa_pass1(int n_rep, int hd, bool fp8) {
   Pass1 k = {nullptr, 0, nullptr};
-  if (n_rep < 1 || hd < 8 || hd % 8 || hd > 512) return k;
+  const int epc = fp8 ? 16 : 8;
+  if (n_rep < 1 || hd < epc || hd % epc || hd > 512) return k;
   const int dp = (hd + 15) / 16 * 16, ht = (n_rep + 15) / 16;
   const size_t stage = 2 * (size_t)kTile * (dp + 8) * sizeof(__nv_bfloat16);
   if ((ht * (dp / 16) + kWarps - 1) / kWarps > kMaxItems ||
       (size_t)n_rep * hd * sizeof(float) > stage)
     return k;
-  k.smem = partial_smem(2, 2, dp + 8, 16 * ht, dp + 8);
-  if (k.smem <= (size_t)kMaxSmem) {
-    k.fn = sparse_gqa_partial_kernel<2>;
-    k.granted = &g_smem_gqa2;
+  const int rstride = fp8 ? hd : 0;
+  for (int stages = 2; stages >= 1; --stages) {
+    k.smem = partial_smem(2, stages, dp + 8, 16 * ht, dp + 8, rstride);
+    if (k.smem > (size_t)kMaxSmem) continue;
+    k.fn = stages == 2 ? (fp8 ? sparse_gqa_partial_kernel<2, true>
+                              : sparse_gqa_partial_kernel<2, false>)
+                       : (fp8 ? sparse_gqa_partial_kernel<1, true>
+                              : sparse_gqa_partial_kernel<1, false>);
+    k.granted = &g_smem_gqa[stages - 1][fp8];
     return k;
-  }
-  k.smem = partial_smem(2, 1, dp + 8, 16 * ht, dp + 8);
-  if (k.smem <= (size_t)kMaxSmem) {
-    k.fn = sparse_gqa_partial_kernel<1>;
-    k.granted = &g_smem_gqa1;
   }
   return k;
 }
 
 // MLA pass 1 for 16 heads over one staged range of st_w >= dq columns (the
-// 16 f32 q rows, 64 * dq bytes, always fit in a stage of 128 * (st_w + 8)).
-Pass1 mla_pass1(int dq, int st_w) {
-  Pass1 k = {nullptr, partial_smem(1, 2, st_w + 8, 16, dq + 8), &g_smem_mla};
+// 16 f32 q rows, 64 * dq bytes, always fit in a bf16 tile of
+// 128 * (st_w + 8)); with fp8 the range is st_w bytes a row.
+Pass1 mla_pass1(int dq, int st_w, bool fp8) {
+  Pass1 k = {nullptr,
+             partial_smem(1, 2, st_w + 8, 16, dq + 8, fp8 ? st_w : 0),
+             &g_smem_mla[fp8]};
   if (dq <= st_w && k.smem <= (size_t)kMaxSmem)
-    k.fn = sparse_mla_partial_kernel;
+    k.fn = fp8 ? sparse_mla_partial_kernel<true>
+               : sparse_mla_partial_kernel<false>;
   return k;
 }
 
@@ -628,20 +702,23 @@ int launch(const Pass1& k, Params p, dim3 grid, float* out, int B,
 
 }  // namespace
 
-// Blocks of GQA pass 1 one SM holds for n_rep heads of head dim hd, into
-// *blocks; cudaErrorInvalidValue for a shape the kernel does not take.
-SAC_API int sac_sparse_attn_gqa_blocks_per_sm(int n_rep, int hd,
+// Blocks of GQA pass 1 one SM holds for n_rep heads of head dim hd (fp8:
+// e4m3 entries), into *blocks; cudaErrorInvalidValue for a shape the
+// kernel does not take.
+SAC_API int sac_sparse_attn_gqa_blocks_per_sm(int n_rep, int hd, int fp8,
                                               int* blocks) {
-  return blocks_per_sm(gqa_pass1(n_rep, hd), blocks);
+  return blocks_per_sm(gqa_pass1(n_rep, hd, fp8 != 0), blocks);
 }
 
 // The same for MLA pass 1 (q of dq columns, a staged range of st_w).
-SAC_API int sac_sparse_attn_blocks_per_sm(int dq, int st_w, int* blocks) {
-  return blocks_per_sm(mla_pass1(dq, st_w), blocks);
+SAC_API int sac_sparse_attn_blocks_per_sm(int dq, int st_w, int fp8,
+                                          int* blocks) {
+  return blocks_per_sm(mla_pass1(dq, st_w, fp8 != 0), blocks);
 }
 
-// q: [B, H, hd] f32; ent: entry rows [2, n_kv, hd] of bf16 (batch stride
-// ent_batch and row stride ent_row, in elements); valid: [B, k] bytes;
+// q: [B, H, hd] f32; ent: entry rows [2, n_kv, hd] of bf16, or of e4m3
+// when fp8 (batch stride ent_batch and row stride ent_row, in elements);
+// valid: [B, k] bytes;
 // part: f32 scratch of B*H*splits*(hd + 2) (acc, then m, then l); out:
 // [B, H, hd] f32.  Lanes [s*chunk, (s+1)*chunk) go to split s.  A shape
 // that gqa_pass1 refuses returns cudaErrorInvalidValue.  The wrapper
@@ -650,12 +727,12 @@ SAC_API int sac_sparse_attn_gqa(const void* q, const void* ent,
                                 const void* valid, void* part, void* out,
                                 int B, int H, int n_kv, int k, int hd,
                                 int splits, int chunk, long long ent_batch,
-                                long long ent_row, float scale,
+                                long long ent_row, float scale, int fp8,
                                 void* stream) {
   if (B <= 0 || n_kv <= 0 || k <= 0) return 0;
   Params p;
   p.q = (const float*)q;
-  p.ent = (const __nv_bfloat16*)ent;
+  p.ent = ent;
   p.valid = (const uint8_t*)valid;
   p.acc_part = (float*)part;
   p.m_part = p.acc_part + (size_t)B * H * splits * hd;
@@ -677,29 +754,30 @@ SAC_API int sac_sparse_attn_gqa(const void* q, const void* ent,
   p.col_step = hd;
   p.koff = p.voff = 0;
   p.stride = p.dqp + 8;
+  p.rstride = hd;
   p.scale = scale;
-  return launch(gqa_pass1(p.hb, hd), p, dim3(splits, n_kv, B), (float*)out,
-                B, (cudaStream_t)stream);
+  return launch(gqa_pass1(p.hb, hd, fp8 != 0), p, dim3(splits, n_kv, B),
+                (float*)out, B, (cudaStream_t)stream);
 }
 
-// q: [B, H, dq] f32; ent: entry rows of bf16 (batch stride ent_batch and
-// row stride ent_row, in elements); valid: [B, k] bytes; part: f32 scratch
-// of B*H*splits*(dv + 2); out: [B, H, dv] f32.  16 heads per block.  The
-// wrapper checks that the staged columns [st_col, st_col + st_w) hold
-// [k_col, k_col + dq) and [v_col, v_col + dv), that every column offset
-// and st_w are multiples of 8 and dq, dv multiples of 16 with dv <= 512,
-// and 16-byte alignment; a shape mla_pass1 refuses returns
-// cudaErrorInvalidValue.
+// q: [B, H, dq] f32; ent: entry rows of bf16, or of e4m3 when fp8 (batch
+// stride ent_batch and row stride ent_row, in elements); valid: [B, k]
+// bytes; part: f32 scratch of B*H*splits*(dv + 2); out: [B, H, dv] f32.
+// 16 heads per block.  The wrapper checks that the staged columns
+// [st_col, st_col + st_w) hold [k_col, k_col + dq) and [v_col, v_col + dv),
+// that every column offset and st_w are multiples of 16 bytes and dq, dv
+// multiples of 16 with dv <= 512, and 16-byte alignment; a shape mla_pass1
+// refuses returns cudaErrorInvalidValue.
 SAC_API int sac_sparse_attn(const void* q, const void* ent, const void* valid,
                             void* part, void* out, int B, int H, int k,
                             int dq, int dv, int k_col, int v_col, int st_col,
                             int st_w, int splits, int chunk,
                             long long ent_batch, long long ent_row,
-                            float scale, void* stream) {
+                            float scale, int fp8, void* stream) {
   if (B <= 0 || H <= 0 || k <= 0) return 0;
   Params p;
   p.q = (const float*)q;
-  p.ent = (const __nv_bfloat16*)ent;
+  p.ent = ent;
   p.valid = (const uint8_t*)valid;
   p.acc_part = (float*)part;
   p.m_part = p.acc_part + (size_t)B * H * splits * dv;
@@ -721,7 +799,9 @@ SAC_API int sac_sparse_attn(const void* q, const void* ent, const void* valid,
   p.koff = k_col - st_col;
   p.voff = v_col - st_col;
   p.stride = st_w + 8;
+  p.rstride = st_w;
   p.scale = scale;
-  return launch(mla_pass1(dq, st_w), p, dim3(splits, (H + 15) / 16, B),
-                (float*)out, B, (cudaStream_t)stream);
+  return launch(mla_pass1(dq, st_w, fp8 != 0), p,
+                dim3(splits, (H + 15) / 16, B), (float*)out, B,
+                (cudaStream_t)stream);
 }

@@ -39,10 +39,10 @@ _SIGNATURES = {
     "sac_scatter_kv": [_VP, _VP, _VP, _LL, _LL, _LL, _LL, _VP],
     "sac_indexer_scores": [_VP] * 4 + [_I] * 5 + [_F, _VP],
     "sac_indexer_blocks_per_sm": [_I, _I, _IP, _IP],
-    "sac_sparse_attn": [_VP] * 5 + [_I] * 11 + [_LL, _LL, _F, _VP],
-    "sac_sparse_attn_gqa": [_VP] * 5 + [_I] * 7 + [_LL, _LL, _F, _VP],
-    "sac_sparse_attn_blocks_per_sm": [_I, _I, _IP],
-    "sac_sparse_attn_gqa_blocks_per_sm": [_I, _I, _IP],
+    "sac_sparse_attn": [_VP] * 5 + [_I] * 11 + [_LL, _LL, _F, _I, _VP],
+    "sac_sparse_attn_gqa": [_VP] * 5 + [_I] * 7 + [_LL, _LL, _F, _I, _VP],
+    "sac_sparse_attn_blocks_per_sm": [_I, _I, _I, _IP],
+    "sac_sparse_attn_gqa_blocks_per_sm": [_I, _I, _I, _IP],
 }
 
 #: the code a C entry returns for a shape its kernel does not take

@@ -95,10 +95,15 @@ def batched_sparse_gqa(q: torch.Tensor, entries: torch.Tensor,
 
 def batched_scatter(pool: torch.Tensor, entries: torch.Tensor,
                     idx: torch.Tensor) -> torch.Tensor:
-    """pool: [B, S, d]; entries: [B, k, d]; idx: [B, k] -> ``pool``,
-    updated IN PLACE (the reference's aliased output)."""
+    """pool: [B, S, d]; entries: [B, k, d] in the pool's dtype (callers
+    cast with ``core/pool.py::to_kv_dtype``, which rounds e4m3 as the
+    reference does); idx: [B, k] -> ``pool``, updated IN PLACE (the
+    reference's aliased output)."""
+    if entries.dtype != pool.dtype:
+        raise TypeError(f"batched_scatter: entries are {entries.dtype}, the "
+                        f"pool {pool.dtype}: cast with to_kv_dtype first")
     if _on_cuda(pool, entries, idx):
-        return _scatter.scatter_kv(pool, entries.to(pool.dtype).contiguous(),
+        return _scatter.scatter_kv(pool, entries.contiguous(),
                                    idx.to(torch.int32).contiguous())
     for b in range(pool.shape[0]):
         ref.scatter_kv_ref(pool[b], entries[b], idx[b])

@@ -1,9 +1,10 @@
 """build_model(cfg) -> the model facade (``repro/models/model.py``).
 
 The port builds the decoder-only attention families whose layers are
-all ``dense``, ``moe``, ``mla_dense`` or ``mla_moe`` segments
-(DeepSeek-V3.2, Qwen2, MiniCPM, Granite, Chameleon, Mixtral, DBRX);
-every other family raises until its slice lands (ROADMAP).
+all ``dense``, ``moe``, ``mla_dense``, ``mla_moe`` or ``lg_super``
+segments (DeepSeek-V3.2, Qwen2, MiniCPM, Granite, Chameleon, Mixtral,
+DBRX, Gemma3); every other family raises until its slice lands
+(ROADMAP).
 """
 from __future__ import annotations
 
@@ -21,8 +22,6 @@ def _unported_family(cfg: ModelConfig) -> Optional[str]:
         return "xLSTM (xlstm_super)"
     if cfg.ssm_state:
         return "zamba/mamba hybrid (zamba_super, mamba_tail, models/ssm.py)"
-    if cfg.local_global_ratio:
-        return "local:global attention (lg_super)"
     return None
 
 

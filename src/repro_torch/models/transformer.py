@@ -1,11 +1,16 @@
 """Decoder-only LM assembly (``repro/models/transformer.py``): the MLA
-segments (``mla_dense``, ``mla_moe``: DeepSeek-V3.2) and the GQA segments
+segments (``mla_dense``, ``mla_moe``: DeepSeek-V3.2), the GQA segments
 (``dense``, ``moe``: Qwen2, MiniCPM, Granite, Chameleon, Mixtral, DBRX;
-sliding window where the config has one).
+sliding window where the config has one) and Gemma3's ``lg_super``
+(super-blocks of ``local_global_ratio`` local layers with the window
+``local_window``, then one global layer).
 
 A model is a list of segments; where the reference scans stacked
 parameters with ``lax.scan``, the port loops over a list of per-layer
-parameter dicts.  Entry points:
+parameter dicts in pool-layer order (an ``lg_super`` segment's list is
+super-block i's local layers 0..r-1 then its global layer, for each i:
+layer ``(r + 1) i + j``), and each layer takes its window from
+``kv_layer_windows``.  Entry points:
 
   ``prefill`` -- the prompt forward, emitting the SAC pool (latent
                  entries + indexer keys) and, with the ``warmup_w`` opt,
@@ -18,14 +23,17 @@ parameter dicts.  Entry points:
                  and warm-inserted too.
 
 ``decode`` updates the serve state IN PLACE (pools, hot tier) and
-returns the same dict.  Other segment kinds and the fp8 pool raise
-``NotImplementedError`` naming their ROADMAP item.  f32 products assume
-``torch.backends.cuda.matmul.allow_tf32 = False`` (PyTorch's default,
-set by the engine).
+returns the same dict.  With ``kv_quant="fp8"`` the pool and the hot
+tier hold ``float8_e4m3fn`` entries (cast by ``core/pool.py::
+to_kv_dtype``) and the indexer pool stays bf16, as in the reference.
+Other segment kinds raise ``NotImplementedError`` naming their ROADMAP
+item.  f32 products assume ``torch.backends.cuda.matmul.allow_tf32 =
+False`` (PyTorch's default, set by the engine).
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
@@ -33,14 +41,15 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import hisparse
 from repro_torch.core import sac as sac_core
-from repro_torch.core.pool import FetchFn, local_fetch, pool_write
+from repro_torch.core.pool import (E4M3, FetchFn, local_fetch, pool_write,
+                                   to_kv_dtype)
 from repro_torch.models import dsa, moe
 from repro_torch.models.layers import (DTYPE, ParamSpec, attn_param_specs,
                                        dense_attention_block, init_params,
                                        mlp_block, mlp_param_specs, rms_norm,
                                        top_k)
 
-_PORTED_KINDS = ("dense", "moe", "mla_dense", "mla_moe")
+_PORTED_KINDS = ("dense", "moe", "mla_dense", "mla_moe", "lg_super")
 _OTHER_FAMILIES = ("segment kind {!r} waits for its slice (ROADMAP: module "
                    "item 'The other model families')")
 
@@ -131,11 +140,12 @@ def _attn_layer_specs(cfg) -> Dict[str, Any]:
 
 
 def segment_specs(seg: Segment, cfg: ModelConfig) -> List[Dict[str, Any]]:
-    """One spec dict per layer (the reference stacks them on a leading
-    [n] axis for its scan)."""
+    """One spec dict per layer, in pool-layer order (the reference
+    stacks them on a leading [n] axis for its scan; an ``lg_super``
+    segment as ``{"local": [n, r, ...], "global": [n, ...]}``)."""
     if seg.kind not in _PORTED_KINDS:
         raise NotImplementedError(_OTHER_FAMILIES.format(seg.kind))
-    return [_attn_layer_specs(cfg) for _ in range(seg.n)]
+    return [_attn_layer_specs(cfg) for _ in range(seg.n * seg.kv_per_iter)]
 
 
 def model_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -269,11 +279,10 @@ class TransformerLM:
         self.specs = model_param_specs(cfg)
         self.n_kv = n_kv_layers(cfg)
         self.kv_dim = kv_entry_dim(cfg)
-        if cfg.sac.kv_quant == "fp8":
-            raise NotImplementedError(
-                "the fp8 pool waits for its slice (ROADMAP: module item "
-                "'The kv_quant=\"fp8\" pool')")
-        self.kv_dtype = DTYPE
+        self.windows = kv_layer_windows(cfg)     # per pool layer
+        # beyond the paper: fp8 pool storage halves the pool's and the
+        # hot tier's bytes and the fetch traffic
+        self.kv_dtype = E4M3 if cfg.sac.kv_quant == "fp8" else DTYPE
 
     # -- params ------------------------------------------------------------
     def init(self, generator: torch.Generator) -> Dict:
@@ -302,21 +311,24 @@ class TransformerLM:
                                  device=dev)[None, :].expand(B, S)
         groups = int(self.opts.get("moe_groups", 1))
         warm_w = int(self.opts.get("warmup_w", 0))
-        entries, ikeys, warms = [], [], []
-        for si, seg in enumerate(self.segments):
-            for p in params["segments"][si]:
-                x, entry, ik, wm = _layer_fwd(p, x, cfg, positions,
-                                              seg.window, groups, warm_w)
-                entries.append(entry)
-                ikeys.append(ik)
-                warms.append(wm)
-        state: Dict[str, Any] = {}
-        if entries:
-            state["kv_pool"] = torch.stack(entries).to(self.kv_dtype)
-            if cfg.sac.enabled:
-                state["idx_pool"] = torch.stack(ikeys).to(DTYPE)
-            if warms[0] is not None:
-                state["warm_idx"] = torch.stack(warms)
+        # each layer's entries land in the pool as they are made (no
+        # second copy of a long prompt's pool from a stack); every layer
+        # of a ported segment kind is an attention layer
+        state: Dict[str, Any] = {"kv_pool": torch.empty(
+            (self.n_kv, B, S, self.kv_dim), dtype=self.kv_dtype, device=dev)}
+        if cfg.sac.enabled:
+            state["idx_pool"] = torch.empty(
+                (self.n_kv, B, S, cfg.sac.d_idx), dtype=DTYPE, device=dev)
+        warms = []
+        for layer, p in enumerate(itertools.chain(*params["segments"])):
+            x, entry, ik, wm = _layer_fwd(p, x, cfg, positions,
+                                          self.windows[layer], groups, warm_w)
+            state["kv_pool"][layer] = to_kv_dtype(entry, self.kv_dtype)
+            if ik is not None:
+                state["idx_pool"][layer] = ik.to(DTYPE)
+            warms.append(wm)
+        if warms[0] is not None:
+            state["warm_idx"] = torch.stack(warms)
         state["cache_len"] = lengths.to(torch.int32)
         last_idx = torch.clamp(lengths.long() - 1, 0, S - 1)
         x_last = x[torch.arange(B, device=dev), last_idx]
@@ -351,22 +363,19 @@ class TransformerLM:
         pf_use0 = hot.pf_used.sum(0) if hot is not None else None
         use_idx = idx_pool is not None and self.mode == "sac"
         new_entries, new_keys, hits_l, misses_l = [], [], [], []
-        layer = 0
-        for si, seg in enumerate(self.segments):
-            for p in params["segments"][si]:
-                hb = (None if hot is None
-                      else hisparse.BufferState(*(t[layer] for t in hot)))
-                x, own, key, hb2, h, m = _layer_decode(
-                    p, x, cfg, ctx, kv_pool[layer],
-                    idx_pool[layer] if use_idx else None, seg.window, hb)
-                new_entries.append(own)
-                new_keys.append(key)
-                if hb2 is not None:
-                    for full, part in zip(hot, hb2):
-                        full[layer].copy_(part)
-                    hits_l.append(h)
-                    misses_l.append(m)
-                layer += 1
+        for layer, p in enumerate(itertools.chain(*params["segments"])):
+            hb = (None if hot is None
+                  else hisparse.BufferState(*(t[layer] for t in hot)))
+            x, own, key, hb2, h, m = _layer_decode(
+                p, x, cfg, ctx, kv_pool[layer],
+                idx_pool[layer] if use_idx else None, self.windows[layer],
+                hb)
+            new_entries.append(own)
+            new_keys.append(key)
+            if hb2 is not None:
+                hisparse.store(hb, hb2)
+                hits_l.append(h)
+                misses_l.append(m)
         if new_entries and kv_pool is not None:
             pool_write(kv_pool, torch.stack(new_entries), cache_len)
             if idx_pool is not None:

@@ -13,7 +13,13 @@ against its CPU path with the same weights on small inputs (reduced
 DeepSeek-V3.2 and reduced Qwen2), also with the fetch pipeline, the
 arbiter and online re-sizing on; and the fused selection (demand top-k
 and speculation tail from one sort) on the indexer kernel's scores
-against the unfused one and against the CPU, bit for bit.
+against the unfused one and against the CPU, bit for bit.  Both
+attention forms also take the fp8 pool's e4m3 entries: at the edges of
+their plans, twice for equal bits, and GQA at Gemma3-12B's (16, 8, 240)
+in both dtypes, also at its 4 served slots with a local layer's lanes;
+the pool write at Gemma3-12B's row width in both dtypes, byte for byte;
+the e4m3 shapes outside the 16-byte rule are refused;
+and reduced Gemma3 (bf16 and fp8 pools) on the card against the CPU.
 
 This file imports no JAX, so it runs on the machine with the card:
 
@@ -56,16 +62,29 @@ def test_gpu_gather_exact(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_rows", [8, 8320])
-def test_gpu_scatter_exact(cuda, n_rows):
+@pytest.mark.parametrize("d,dtype,S,n_rows", [
+    (576, "bf16", 4160, 8), (576, "bf16", 4160, 8320),
+    (3840, "bf16", 8256, 8), (3840, "bf16", 8256, 8256),
+    (3840, "e4m3", 8256, 8), (3840, "e4m3", 8256, 8256)])
+def test_gpu_scatter_exact(cuda, d, dtype, S, n_rows):
+    """The pool write into 2 layers x 4 slots of S positions, DeepSeek-V3.2's
+    rows (576) and Gemma3-12B's (3840: 7680 B in bf16, 3840 B in e4m3), on
+    random bits: a decode write and a layer's splice, byte for byte
+    against the plain version on the same bytes."""
+    from repro_torch.core.pool import E4M3
+    dt = torch.bfloat16 if dtype == "bf16" else E4M3
+    width = d * dt.itemsize
     g = torch.Generator(device=cuda).manual_seed(n_rows)
-    pool = torch.randn(1, 2 * 4 * 4160, 576, generator=g,
-                       device=cuda).bfloat16()
+    pool = torch.randint(0, 256, (1, 2 * 4 * S, width), generator=g,
+                         device=cuda, dtype=torch.uint8)
     rows = torch.randperm(pool.shape[1], generator=g, device=cuda)[:n_rows]
-    e = torch.randn(1, n_rows, 576, generator=g, device=cuda).bfloat16()
+    e = torch.randint(0, 256, (1, n_rows, width), generator=g, device=cuda,
+                      dtype=torch.uint8)
     want = ref.scatter_kv_ref(pool[0].clone(), e[0], rows)
-    got = ops.batched_scatter(pool.clone(), e, rows[None].to(torch.int32))
-    assert torch.equal(got[0], want)
+    got = ops.batched_scatter(pool.clone().view(dt), e.view(dt),
+                              rows[None].to(torch.int32))
+    assert got.dtype == dt
+    assert torch.equal(got[0].view(torch.uint8), want)
 
 
 @pytest.mark.gpu
@@ -123,10 +142,14 @@ def test_gpu_indexer_occupancy(cuda):
 
 def _lanes(dev, g, B, k, pattern, chunk):
     """valid [B, k]: about 10 % invalid with the last lane valid, or one
-    whole split chunk invalid, or no lane valid."""
+    whole split chunk invalid, or no lane valid, or a local layer's lanes
+    (Gemma3-12B's window of 1024 leaves its 1023 latest positions valid,
+    first in the position-sorted top-k, and the own entry)."""
     valid = torch.rand(B, k, generator=g, device=dev) > 0.1
     valid[:, -1] = True
-    if pattern == "chunk_invalid":
+    if pattern == "local":
+        valid[:, :-1] = torch.arange(k - 1, device=dev) < 1023
+    elif pattern == "chunk_invalid":
         valid[:, chunk:2 * chunk] = False
     elif pattern == "all_invalid":
         valid[:] = False
@@ -168,7 +191,7 @@ def test_gpu_sparse_mla_close(cuda, B, k, pattern):
 
 
 GQA_SHAPES = [(12, 2, 128), (36, 36, 64), (48, 1, 128), (48, 8, 128),
-              (64, 8, 128)]
+              (64, 8, 128), (16, 8, 240)]
 
 
 @pytest.mark.gpu
@@ -178,6 +201,8 @@ GQA_SHAPES = [(12, 2, 128), (36, 36, 64), (48, 1, 128), (48, 8, 128),
                          + [(12, 2, 128, 8, k, pat) for k, pat in EDGES
                             if k not in (2049, 5) or pat != "random"]
                          + [(12, 2, 128, 1, 2049, "random"),
+                            (16, 8, 240, 4, 2049, "random"),
+                            (16, 8, 240, 4, 2049, "local"),
                             (6, 2, 72, 8, 2049, "random"),
                             (8, 2, 512, 2, 2049, "random")])
 def test_gpu_sparse_gqa_close(cuda, H, n_kv, hd, B, k, pattern):
@@ -197,6 +222,100 @@ def test_gpu_sparse_gqa_close(cuda, H, n_kv, hd, B, k, pattern):
     got = ops.batched_sparse_gqa(q, ent, valid, n_kv=n_kv)
     assert ops.launch_counts()["sparse_attn_gqa"] == n0 + 1
     torch.testing.assert_close(got, want, **F32_TOL)
+
+
+def _e4m3(shape, g, dev):
+    from repro_torch.core.pool import E4M3, to_kv_dtype
+    return to_kv_dtype(torch.randn(shape, generator=g, device=dev), E4M3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,k,pattern", [(4, k, pat) for k, pat in EDGES]
+                         + [(1, 2049, "random")])
+def test_gpu_sparse_mla_e4m3_close(cuda, B, k, pattern):
+    """The MLA form on e4m3 entries at DeepSeek-V3.2's heads, at the
+    edges of its e4m3 plan: close to the plain version (which widens the
+    entries exactly), equal bits on a second launch."""
+    from repro_torch.kernels import sparse_attn
+    k = _edge_k(k, sparse_attn.mla_plan(B, 128, 512, 2049, fp8=True)[1])
+    g = torch.Generator(device=cuda).manual_seed(k + 1)
+    ql = torch.randn(B, 128, 512, generator=g, device=cuda)
+    qp = torch.randn(B, 128, 64, generator=g, device=cuda)
+    ent = _e4m3((B, k, 576), g, cuda)
+    valid = _lanes(cuda, g, B, k, pattern,
+                   sparse_attn.mla_plan(B, 128, 512, k, fp8=True)[1])
+    scale = 1.0 / math.sqrt(192)
+    want = torch.stack([ref.sparse_mla_attn_ref(ql[b], qp[b], ent[b],
+                                                valid[b], 512, scale)
+                        for b in range(B)])
+    got = ops.batched_sparse_mla(ql, qp, ent, valid, dc=512, scale=scale)
+    torch.testing.assert_close(got, want, **F32_TOL)
+    assert torch.equal(got, ops.batched_sparse_mla(ql, qp, ent, valid,
+                                                   dc=512, scale=scale))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,n_kv,hd,B,k,pattern",
+                         [(*s, 8, k, "random") for s in GQA_SHAPES
+                          if s[2] % 16 == 0 for k in (2049, 5)]
+                         + [(12, 2, 128, 8, k, pat) for k, pat in EDGES
+                            if k not in (2049, 5) or pat != "random"]
+                         + [(12, 2, 128, 1, 2049, "random"),
+                            (16, 8, 240, 4, 8257, "random"),
+                            (16, 8, 240, 4, 2049, "random"),
+                            (16, 8, 240, 4, 2049, "local"),
+                            (4, 4, 16, 2, 70, "random")])
+def test_gpu_sparse_gqa_e4m3_close(cuda, H, n_kv, hd, B, k, pattern):
+    """The GQA form on e4m3 entries at the served head shapes (Gemma3's
+    hd = 240 among them, also at its 4 served slots with a global and a
+    local layer's lanes; 16: the reduced configs'), at the edges of its
+    plan: close to the plain version, equal bits on a second launch."""
+    from repro_torch.kernels import sparse_attn
+    k = _edge_k(k, sparse_attn.gqa_plan(B, H, n_kv, hd, 2049, fp8=True)[1])
+    g = torch.Generator(device=cuda).manual_seed(H + k + 1)
+    q = torch.randn(B, H, hd, generator=g, device=cuda)
+    ent = _e4m3((B, k, 2 * n_kv * hd), g, cuda)
+    valid = _lanes(cuda, g, B, k, pattern,
+                   sparse_attn.gqa_plan(B, H, n_kv, hd, k, fp8=True)[1])
+    want = torch.stack([ref.sparse_gqa_attn_ref(q[b], ent[b], valid[b], n_kv)
+                        for b in range(B)])
+    n0 = ops.launch_counts()["sparse_attn_gqa"]
+    got = ops.batched_sparse_gqa(q, ent, valid, n_kv=n_kv)
+    assert ops.launch_counts()["sparse_attn_gqa"] == n0 + 1
+    torch.testing.assert_close(got, want, **F32_TOL)
+    assert torch.equal(got, ops.batched_sparse_gqa(q, ent, valid, n_kv=n_kv))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form,shape", [
+    ("gqa", (6, 2, 72)),        # hd not a multiple of 16
+    ("gqa", (4, 2, 8)),
+    ("gqa", (8, 2, 512)),       # e4m3 ring + bf16 tile overflow shared memory
+    ("mla", (8, 0)),            # staged column offset not on 16 bytes
+    ("mla", (0, 520))])         # row of 520 values, not a 16-multiple
+def test_gpu_e4m3_refused_shapes(cuda, form, shape):
+    """e4m3 shapes outside the 16-byte rule (or shared memory) raise
+    ValueError, as the bf16 ones do, and launch nothing."""
+    from repro_torch.kernels import sparse_attn
+    g = torch.Generator(device=cuda).manual_seed(7)
+    n0 = ops.launch_counts()
+    if form == "gqa":
+        H, n_kv, hd = shape
+        q = torch.randn(2, H, hd, generator=g, device=cuda)
+        ent = _e4m3((2, 65, 2 * n_kv * hd), g, cuda)
+        valid = _lanes(cuda, g, 2, 65, "random", 0)
+        with pytest.raises(ValueError):
+            ops.batched_sparse_gqa(q, ent, valid, n_kv=n_kv)
+    else:
+        col, de = shape
+        de = de or 584
+        q = torch.randn(2, 16, 64, generator=g, device=cuda)
+        ent = _e4m3((2, 65, de), g, cuda)
+        valid = _lanes(cuda, g, 2, 65, "random", 0)
+        with pytest.raises(ValueError):
+            sparse_attn.sparse_attn(q, ent, valid, scale=0.1, dv=64,
+                                    k_col=col, v_col=col)
+    assert ops.launch_counts() == n0
 
 
 @pytest.mark.gpu
@@ -245,20 +364,27 @@ def test_gpu_gather_pages_exact(cuda, d, page):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch,attn", [("deepseek-v32", "sparse_attn"),
-                                       ("qwen2-1.5b", "sparse_attn_gqa")])
-def test_gpu_engine_matches_cpu_path(cuda, arch, attn):
+@pytest.mark.parametrize("arch,attn,kv_quant", [
+    ("deepseek-v32", "sparse_attn", None),
+    ("qwen2-1.5b", "sparse_attn_gqa", None),
+    ("gemma3-12b", "sparse_attn_gqa", None),
+    ("gemma3-12b", "sparse_attn_gqa", "fp8"),
+    ("deepseek-v32", "sparse_attn", "fp8")])
+def test_gpu_engine_matches_cpu_path(cuda, arch, attn, kv_quant):
     """The port's Engine on the card against the same engine on the CPU
-    (a reduced config with a 32-dim indexer, dense MLP), the same
-    weights and an injected top-k: the timeline, the traffic and the
-    hot-tier outcome are exact, and every kernel of the path ran."""
+    (a reduced config with a 32-dim indexer, dense MLP; Gemma3's local
+    window of 32 under a 40-token context), the same weights and an
+    injected top-k, with the bf16 or the fp8 pool: the timeline, the
+    traffic and the hot-tier outcome are exact, and every kernel of the
+    path ran."""
     from repro_torch.configs import get_config
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.request import sharegpt_trace
 
     base = get_config(arch).reduced()
     cfg = dataclasses.replace(base, n_experts=0, topk_experts=0,
-                              sac=dataclasses.replace(base.sac, d_idx=32))
+                              sac=dataclasses.replace(base.sac, d_idx=32,
+                                                      kv_quant=kv_quant))
 
     def topk(scores, cache_len):
         j = torch.arange(16, dtype=torch.int32, device=scores.device)[None]

@@ -4,7 +4,8 @@ the reference, step by step on the same request streams.
 Every integer field of ``BufferState`` (``page_table``, ``slot_pos``,
 ``last_use``, ``clock``, ``pf_*``) and the per-step hits/misses must be
 EXACT; the buffered entries and the served values are copied bf16 rows
-and must be exact too.
+(or the fp8 pool's e4m3 rows, moved as raw integers) and must be exact
+too.
 """
 import jax
 import jax.numpy as jnp
@@ -112,3 +113,61 @@ def test_disabled_layers_and_reset_lane():
             tl = th.reset_lane(tl, 1)
             _assert_same(jl, tl, "after reset_lane")
     assert (tl.slot_pos[0, :, 3:] == th.DISABLED).all()
+
+
+@pytest.mark.parametrize("d", [8, 7])
+def test_hot_tier_moves_e4m3_rows_exactly(d):
+    """The hot tier on e4m3 entries, rows of an even width (moved as int16
+    pairs of bytes) and of an odd one (moved as bytes), against the
+    reference step by step: a batched read-through, then a warm insert
+    into one lane of a layered buffer (copied back in place).  Served
+    values and entries byte for byte, the integer state exact."""
+    rng = np.random.default_rng(d)
+    B, S, buf, k, L = 3, 40, 8, 6, 2
+
+    def u8(x):
+        if isinstance(x, torch.Tensor):
+            return x.view(torch.uint8).numpy()
+        return np.asarray(x).view(np.uint8)
+
+    def e4m3(shape):
+        x = jnp.asarray(rng.standard_normal(shape), jnp.float32).astype(
+            jnp.float8_e4m3fn)
+        return x, torch.from_numpy(u8(x).copy()).view(torch.float8_e4m3fn)
+
+    def same(js, ts):
+        np.testing.assert_array_equal(u8(ts.entries), u8(js.entries))
+        for name in _INT_FIELDS:
+            np.testing.assert_array_equal(getattr(ts, name).numpy(),
+                                          np.asarray(getattr(js, name)),
+                                          err_msg=name)
+
+    js = jh.init_buffer(B, buf, S, d, dtype=jnp.float8_e4m3fn)
+    ts = th.init_buffer(B, buf, S, d, dtype=torch.float8_e4m3fn,
+                        device="cpu")
+    read = jax.jit(jh.read_through)
+    for _ in range(6):
+        idx = rng.integers(0, 12, (B, k)).astype(np.int32)
+        valid = rng.random((B, k)) >= 0.2
+        jvals, tvals = e4m3((B, k, d))
+        jv, js, jhit, jmiss = read(js, jnp.asarray(idx), jvals,
+                                   jnp.asarray(valid))
+        tv, ts, thit, tmiss = th.read_through(ts, torch.from_numpy(idx),
+                                              tvals, torch.from_numpy(valid))
+        np.testing.assert_array_equal(u8(tv), u8(jv))
+        np.testing.assert_array_equal(thit.numpy(), np.asarray(jhit))
+        np.testing.assert_array_equal(tmiss.numpy(), np.asarray(jmiss))
+        same(js, ts)
+    jl = jh.init_layered_buffer(L, B, buf, S, d, dtype=jnp.float8_e4m3fn)
+    tl = th.init_layered_buffer(L, B, buf, S, d, dtype=torch.float8_e4m3fn,
+                                device="cpu")
+    for lane in (1, 1, 2):
+        idx = rng.integers(0, S, (L, 5)).astype(np.int32)
+        valid = rng.random((L, 5)) >= 0.2
+        jvals, tvals = e4m3((L, 5, d))
+        jl, jn = jh.warm_lane(jl, lane, jnp.asarray(idx), jvals,
+                              jnp.asarray(valid))
+        tl, tn = th.warm_lane(tl, lane, torch.from_numpy(idx), tvals,
+                              torch.from_numpy(valid))
+        assert int(tn) == int(jn)
+        same(jl, tl)

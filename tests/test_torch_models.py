@@ -235,7 +235,7 @@ def test_bridge_round_trip(bridged):
     cfg, tcfg, params, tp = bridged
     assert len(tp["segments"][0]) == cfg.n_layers
     assert tp["embed"].dtype == torch.bfloat16
-    back = params_to_numpy(tp)
+    back = params_to_numpy(tp, tcfg)
     flat_j = jax.tree_util.tree_leaves_with_path(params)
     for path, leaf in flat_j:
         node = back
