@@ -13,34 +13,39 @@ Phases, each printing one JSON line with its seconds; any failure raises
 3. each kernel against its plain PyTorch version on the card, with
    CUDA-event times of the kernel, the plain version and, where one
    PyTorch call computes the same function, that call (``library_ms``;
-   the port never calls it): the MLA path's gather and pool write at
-   DeepSeek-V3.2's serving shapes (B=4 requests, pool S=4160, top-k
-   2048; the pool write also at one row, the floor of a launch), the
-   indexer at DeepSeek-V3.2's and Qwen2-1.5B's serving pools and at a
-   long context past the L2 (B=4, S=65536); both attention forms, in
-   bf16 and with the fp8 pool's e4m3 entries, at DeepSeek-V3.2's and
-   Qwen2-1.5B's serving shapes (2049 lanes, about 10% invalid) and at
-   Gemma3-12B's 16 heads over 8 of 240, at B=8 and as served (4 slots: a
-   global layer's lanes, and a local layer's, whose window leaves 1024
-   of the 2049 valid), and the GQA form in bf16 at the (heads, KV heads,
-   head dim) of every other dense/MoE and local:global config of the
-   registry (B=8); the page gather (on no path) at Qwen2-1.5B's pool;
-   the gather at Gemma3-12B's width in bf16 and e4m3, and the pool
-   write at Gemma3-12B's row width in both (the 48-layer pool of 4
-   slots: a decode step's 192 rows and a prefill splice), bit-exact;
-   then both attention forms
-   (each a split-k pass and a combine pass), with bf16 and with e4m3
-   entries, at the edges of their split plan, each case launched twice
-   for equal bits: k in {1, 5, 65, one chunk - 1 and + 1, 2049, 8257}, a
-   chunk of invalid lanes, no valid lane, B = 1, and the GQA form at
-   head dims 72 and 512 (refused in e4m3); and the indexer at the edges
-   of its plan (S = 1, a chunk
-   - 1 and + 1 tile, a ragged tile, B = 1, a bf16-exact q), each case
-   launched twice for equal bits; and the gather at the two shapes the
-   fetch pipeline gives it on Qwen2-1.5B's path (the speculation tail,
-   [8, 8256, 512] with 512 lanes; the prefill warm-up, 1536 rows of each
-   of 28 layers addressed with slot offsets in the [28, 8 * 8256, 512]
-   view of the pool), bit-exact;
+   the port never calls it), each taken per call (an event pair around
+   each of 20 calls: ``ms``) and, for the row movers, also batched (one
+   pair around 200 back-to-back calls: ``ms_batched``; the gathers cycle
+   through copies of their inputs so that each call reads from HBM).
+   The row movers, bit-exact, each form one launch: the gather at
+   DeepSeek-V3.2's and Qwen2-1.5B's decode shapes, the fetch pipeline's
+   fused demand set and speculation tail (k=2048 plus w=512), the tail
+   alone, the prefill warm-up (1536 rows of each of 28 layers in the
+   [28, 8 * 8256, 512] view of the pool) and Gemma3-12B's width in bf16
+   and e4m3; the scatter
+   kernel in its index form (DeepSeek-V3.2's width: 1 row, 8 rows, a
+   layer's splice rows), its decode form (both pools, every layer, one
+   launch, at DeepSeek-V3.2's, Qwen2-1.5B's and Gemma3-12B's shapes,
+   Gemma3's in bf16 and e4m3) and its splice form (a Gemma3-12B prompt,
+   48 x 8192 rows, into the 4-slot pools with the tail zeroed, bf16 and
+   e4m3), each beside the port's earlier code for the same write
+   (``ms_was``); the indexer at DeepSeek-V3.2's and Qwen2-1.5B's serving
+   pools and at a long context past the L2 (B=4, S=65536); both
+   attention forms, in bf16 and with the fp8 pool's e4m3 entries, at
+   DeepSeek-V3.2's and Qwen2-1.5B's serving shapes (2049 lanes, about
+   10% invalid) and at Gemma3-12B's 16 heads over 8 of 240, at B=8 and
+   as served (4 slots: a global layer's lanes, and a local layer's,
+   whose window leaves 1024 of the 2049 valid), and the GQA form in bf16
+   at the (heads, KV heads, head dim) of every other dense/MoE and
+   local:global config of the registry (B=8); the page gather (on no
+   path) at Qwen2-1.5B's pool; then both attention forms (each a split-k
+   pass and a combine pass), with bf16 and with e4m3 entries, at the
+   edges of their split plan, each case launched twice for equal bits:
+   k in {1, 5, 65, one chunk - 1 and + 1, 2049, 8257}, a chunk of
+   invalid lanes, no valid lane, B = 1, and the GQA form at head dims 72
+   and 512 (refused in e4m3); and the indexer at the edges of its plan
+   (S = 1, a chunk - 1 and + 1 tile, a ragged tile, B = 1, a bf16-exact
+   q), each case launched twice for equal bits;
 4. small-input checks: the port on the card against the port's plain
    path on the CPU with the same weights (reduced DeepSeek-V3.2, reduced
    Qwen2 with non-zero QKV biases, reduced Mixtral past its sliding
@@ -70,9 +75,10 @@ Phases, each printing one JSON line with its seconds; any failure raises
    --arbiter --resize-interval 4`` (the config's prefetch width 512,
    score margin 1.0, warm-up 1024 score + 512 radix seeds): tokens
    equal to phase 6's token for token, entries prefetched (and no more
-   useful than prefetched), the gather launched twice per layer per
-   decode step (demand and speculation) plus at most once per admitted
-   prompt (its warm-up), at least one online resize; the hit rates with
+   useful than prefetched), the gather launched once per layer per
+   decode step (the demand set and the speculation tail in one launch)
+   plus at most once per admitted prompt (its warm-up), at least one
+   online resize; the hit rates with
    and without prefetch, the precision, the grants' mean width, the
    median decode-step wall time and, from a profile, the busy share.
    Then the same trace with ``--prefetch`` alone (no arbiter to cut the
@@ -134,7 +140,7 @@ TOL_F32 = dict(rtol=1e-4, atol=1e-4)
 # need about 68 GB in bf16 before transients
 GQA_DEVICE_KERNELS = ("gather_rows", "indexer_kernel",
                       "sparse_gqa_partial_kernel",
-                      "sparse_attn_combine_kernel", "scatter_rows")
+                      "sparse_attn_combine_kernel", "write_rows_at")
 SERVES = {
     "deepseek-v32": dict(arch="deepseek-v32", n_layers=2, slots=4,
                          max_ctx=4160, requests=8, context=4096, output=8,
@@ -142,7 +148,7 @@ SERVES = {
                          device_kernels=("gather_rows", "indexer_kernel",
                                          "sparse_mla_partial_kernel",
                                          "sparse_attn_combine_kernel",
-                                         "scatter_rows")),
+                                         "write_rows_at")),
     "qwen2-1.5b": dict(arch="qwen2-1.5b", slots=8, max_ctx=8256,
                        requests=16, context=8192, output=16,
                        attn="sparse_attn_gqa",
@@ -169,8 +175,8 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     ``iters`` calls, all queued behind a ~50 ms busy-wait kernel so that
     the host has enqueued them before the first starts (a call that
     synchronizes the host, as a boolean-mask index does, still includes
-    host time).  The inputs stay warm in the 50 MB L2 between calls, as
-    the profile phase finds them on the serving path."""
+    host time).  The inputs stay warm in the 50 MB L2 between calls
+    (the row movers' ``ms_batched`` reads them cold where it says so)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -198,117 +204,372 @@ def bound_ms(n_bytes: float, n_flops: float):
 # ---------------------------------------------------------------------------
 
 
-def check_mla_path_kernels(torch, ops, ref, mods):
-    """The DeepSeek-V3.2 path's gather and pool write at its serving
-    shapes (the indexer: check_indexer; the attention:
-    check_attention).  Returns {name: record}; launches are filled in by
-    the serve phases."""
+def cuda_batched_ms(fns, n: int = 200, warmup: int = 3) -> float:
+    """Device time per call over a run of ``n`` back-to-back calls
+    between one pair of CUDA events, queued behind a ~50 ms busy-wait so
+    that the host has enqueued them all before the first starts: the
+    device time of the kernel alone, free of the cost of an event pair
+    around every call (about 5.6 us, which ``cuda_time_ms`` includes).
+    ``fns``: one callable, or a list that the run cycles through (the
+    same call on copies of its inputs, so that each call finds its inputs
+    out of the L2: ``cold_copies``)."""
+    import torch
+    fns = fns if isinstance(fns, list) else [fns]
+    for i in range(max(warmup, len(fns))):
+        fns[i % len(fns)]()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)          # ~50 ms of GPU cycles
+    start.record()
+    for i in range(n):
+        fns[i % len(fns)]()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def both_times(fn, rotation=None) -> dict:
+    """``ms`` (an event pair around each of 20 calls of ``fn``) and
+    ``ms_batched`` (one pair around 200 calls, cycling through
+    ``rotation`` when given, else of ``fn``)."""
+    return dict(ms=cuda_time_ms(fn),
+                ms_batched=cuda_batched_ms(rotation or fn))
+
+
+L2_BYTES = 50 * 2 ** 20                    # the H100's L2
+
+
+def cold_copies(pairs, read_bytes: int, budget: int = 2 << 30):
+    """Copies of a gather's (kv, idx) pairs for a batched run to cycle
+    through, so that each call reads its rows from HBM, as on the serving
+    path, where a layer's other kernels run between two gathers: enough
+    copies of each kv that the rows read across them exceed twice the L2
+    (one when a call alone reads that much).  None when the copies would
+    take more than ``budget`` bytes."""
+    n = -(-2 * L2_BYTES // read_bytes)
+    kvs = {id(kv): kv for kv, _ in pairs}
+    if (n - 1) * sum(kv.nbytes for kv in kvs.values()) > budget:
+        return None
+    copies = [pairs]
+    for _ in range(n - 1):
+        clone = {i: kv.clone() for i, kv in kvs.items()}
+        copies.append([(clone[id(kv)], idx) for kv, idx in pairs])
+    return copies
+
+
+def _equal_bits(torch, a, b) -> bool:
+    """Equal bytes (the row movers copy bits, also of fp8 entries)."""
+    return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def gather_case(torch, ref, mod, shape: str, pairs, copies=None,
+                was=None):
+    """One launch of the gather over ``pairs`` [(kv [B,S,d], idx [B,k])],
+    bit-exact against the plain version; timed per call and batched (the
+    batched run cycling through ``copies`` of the pairs, by default
+    ``cold_copies``: ``l2`` says whether each call read from HBM),
+    beside the plain version, one ``torch.gather`` over the concatenated
+    indices (the same bytes, batched over the same copies), ``was(pairs)``
+    (the earlier calls for the same rows: ``ms_was``) and the bound.
+    Returns its record."""
+    want = ref.gather_kv_many_ref(pairs)
+    got = mod.gather_kv_many(pairs)
+    if not all(_equal_bits(torch, a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"gather_kv differs from its plain version at "
+                             f"the {shape} shape")
+    del got, want
+    rows = [(kv.shape[0] * idx.shape[1], kv.shape[-1] * kv.element_size())
+            for kv, idx in pairs]
+    bound, by = bound_ms(sum(n * 4 + 2 * n * w for n, w in rows), 0.0)
+    if copies is None:
+        copies = cold_copies(pairs, sum(n * w for n, w in rows))
+    rec = dict(shape=shape,
+               segments=[dict(kv=list(kv.shape), idx=list(idx.shape))
+                         for kv, idx in pairs],
+               dtype=str(pairs[0][0].dtype), max_abs_err=0.0,
+               l2="cold" if copies else "warm",
+               copies=len(copies) if copies else 1,
+               bound_ms=bound, bound_by=by)
+    rec.update(both_times(
+        lambda: mod.gather_kv_many(pairs),
+        copies and [lambda c=c: mod.gather_kv_many(c) for c in copies]))
+    rec["plain_ms"] = cuda_time_ms(lambda: ref.gather_kv_many_ref(pairs))
+    if was is not None:
+        rec.update({f"{k}_was": v for k, v in both_times(
+            lambda: was(pairs),
+            copies and [lambda c=c: was(c) for c in copies]).items()})
+    if all(k is pairs[0][0] for k, _ in pairs):
+        # torch.gather takes no fp8: gather the bytes
+        width = pairs[0][0].view(torch.uint8).shape[-1]
+        idx_l = torch.cat([i for _, i in pairs], 1).long().clamp(
+            0, pairs[0][0].shape[1] - 1)[..., None].expand(-1, -1, width)
+        lib = both_times(
+            lambda: torch.gather(pairs[0][0].view(torch.uint8), 1, idx_l),
+            copies and [lambda c=c: torch.gather(c[0][0].view(torch.uint8),
+                                                 1, idx_l) for c in copies])
+        rec["library_ms"], rec["library_ms_batched"] = lib["ms"], \
+            lib["ms_batched"]
+    return rec
+
+
+def check_gathers(torch, ref, mod):
+    """The gather at every shape the main paths give it, each one launch,
+    bit-exact (gather_case): DeepSeek-V3.2's decode (the
+    record's own fields); Qwen2-1.5B's decode ([8, 8256, 512], k=2048);
+    the fetch pipeline's fused demand set and speculation tail at Qwen2's
+    shape (k=2048 plus w=512 from one pool, some tail indices out of
+    range: the kernel clamps them), beside the earlier unfused calls (a
+    launch each, the tail clamped by ``torch.clamp``: ``ms_was``); the tail alone; the prefill warm-up
+    (every layer's 1536 planned rows of the last of 8 slots, addressed in
+    the contiguous [28, 8 * 8256, 512] view of the pool with offsets
+    lane * S: 1.9 GB, the widest addressing the kernel is given; its
+    batched run cycles through the 8 lanes' disjoint rows in place of
+    copies of the pool); Gemma3-12B's width ([4, 8256, 3840], k=2048) in
+    bf16 and e4m3.  Returns the gather's record."""
+    from repro_torch.core.pool import E4M3, to_kv_dtype
+    from repro_torch.kernels import ops
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    B, S, d, k = 4, 4160, 576, 2048
-    recs = {}
 
-    def randn(*shape, dtype=torch.bfloat16):
-        return torch.randn(shape, generator=g, device=dev).to(dtype)
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).bfloat16()
 
-    # -- gather: kv [B, S, 576] bf16, idx [B, 2048]
-    kv = randn(B, S, d)
-    idx = torch.randint(0, S, (B, k), generator=g, device=dev,
-                        dtype=torch.int32)
-    out = mods["gather_kv"].gather_kv(kv, idx)
+    def randidx(B, k, S, lo=0, hi=None):
+        return torch.randint(lo, S if hi is None else hi, (B, k),
+                             generator=g, device=dev, dtype=torch.int32)
 
-    def plain_gather():
-        return torch.stack([ref.gather_kv_ref(kv[b], idx[b])
-                            for b in range(B)])
-    want = plain_gather()
-    if not torch.equal(out, want):
-        raise AssertionError("gather_kv differs from its plain version")
-    idx_l = idx.long()[..., None].expand(-1, -1, d)
-    nb = B * k * 4 + 2 * B * k * d * 2
-    recs["gather_kv"] = dict(
-        max_abs_err=0.0,
-        ms=cuda_time_ms(lambda: mods["gather_kv"].gather_kv(kv, idx)),
-        plain_ms=cuda_time_ms(plain_gather),
-        library_ms=cuda_time_ms(lambda: torch.gather(kv, 1, idx_l)),
-        bound=bound_ms(nb, 0.0))
+    kv = randn(4, 4160, 576)
+    rec = gather_case(torch, ref, mod, "deepseek-v32",
+                      [(kv, randidx(4, 2048, 4160))])
+    rec["bound"] = (rec.pop("bound_ms"), rec.pop("bound_by"))
+    shapes = []
+    kv = randn(8, 8256, 512)
+    demand, tail = randidx(8, 2048, 8256), randidx(8, 512, 8256, -4, 8260)
+    shapes.append(gather_case(torch, ref, mod, "qwen2-1.5b",
+                              [(kv, demand)]))
+    shapes.append(gather_case(
+        torch, ref, mod, "fetch_demand_and_tail", [(kv, demand), (kv, tail)],
+        was=lambda p: [ops.batched_gather(p[0][0], p[0][1]),
+                       ops.batched_gather(p[1][0], torch.clamp(
+                           p[1][1], 0, p[1][0].shape[1] - 1))]))
+    shapes.append(gather_case(torch, ref, mod, "speculation_tail",
+                              [(kv, tail)]))
+    L, slots, S, lane = 28, 8, 8256, 7
+    pool = randn(L, slots, S, 512).view(L, slots * S, 512)
+    plan = randidx(L, 1536, S)
+    shapes.append(gather_case(
+        torch, ref, mod, "warmup_plan", [(pool, plan + lane * S)],
+        copies=[[(pool, plan + b * S)] for b in range(slots)]))
+    del kv, pool
+    x = torch.randn((4, 8256, 3840), generator=g, device=dev)
+    idx = randidx(4, 2048, 8256)
+    for kv in (x.bfloat16(), to_kv_dtype(x, E4M3)):
+        shapes.append(gather_case(torch, ref, mod, "gemma3-12b",
+                                  [(kv, idx)]))
+    del x, kv
+    torch.cuda.empty_cache()
+    rec["shapes"] = shapes
+    return rec
 
-    # -- scatter: the decode write (L*B = 8 rows of 576 into the flattened
-    #    [1, L*B*S, 576] pool) and the prefill splice (L*S rows)
-    L = 2
-    pool = randn(1, L * B * S, d)
+
+# the decode write's two pools (L, B, S, entry width, indexer-key width)
+# at each served model's shape; Gemma3-12B's entries in bf16 and e4m3
+WRITE_SHAPES = {"deepseek-v32": (2, 4, 4160, 576, 128),
+                "qwen2-1.5b": (28, 8, 8256, 512, 64),
+                "gemma3-12b": (48, 4, 8256, 3840, 64)}
+
+
+def _rand_pool(torch, g, shape, dtype):
+    """Random bits in ``dtype`` (the row movers move bytes)."""
+    width = shape[-1] * dtype.itemsize
+    return torch.randint(0, 256, (*shape[:-1], width), generator=g,
+                         device="cuda", dtype=torch.uint8).view(dtype)
+
+
+def check_pool_writes(torch, ref, mod):
+    """The scatter kernel in its three forms, bit-exact on the card
+    against the plain versions on the same bytes:
+
+    - the index form (the TPU kernel's; on no path of the port, held as
+      the TPU kernel's counterpart) at DeepSeek-V3.2's width: one
+      row (the floor of a launch), a decode step's 8 rows and a layer's
+      splice rows, into the flattened [1, 2*4*4160, 576] pool;
+    - the decode write (WRITE_SHAPES: both pools, every layer, one
+      launch; positions include out-of-range ones, which clamp), beside
+      the port's earlier write (the row arithmetic in PyTorch and one
+      index-form launch a pool: ``ms_was``) and ``index_copy_`` of both
+      pools (the library call);
+    - the prefill splice of a Gemma3-12B prompt (48 x 8192 rows, the
+      indexer keys too) into the last lane of the 4-slot, 8256-position
+      pools with the tail zeroed, in bf16 and e4m3, beside the earlier
+      splice (zero padding by torch.cat, then an index-form scatter of
+      L*S rows a pool: ``ms_was``) and ``copy_`` + ``zero_`` of the
+      lane's slices (the library call).
+
+    The index form and the decode write move kilobytes, so their inputs
+    stay in the L2 across a batched run, as the decode write's entries,
+    just computed by the layer, are on the serving path (``l2``:
+    "warm"); the splice moves 3-6 GB a call, far past the L2 ("cold").
+    Returns the scatter's record: the decode write at DeepSeek-V3.2's
+    shape in its own fields, every case in ``shapes``."""
+    from repro_torch.core.pool import E4M3
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(10)
+    shapes = []
+    # -- the index form
+    L, B, S, d = 2, 4, 4160, 576
+    pool = _rand_pool(torch, g, (1, L * B * S, d), torch.bfloat16)
     for n_rows in (1, L * B, L * S):
         rows = torch.randperm(L * B * S, generator=g, device=dev)[:n_rows]
         rows = rows.to(torch.int32)[None]
-        e = randn(1, n_rows, d)
-        got = mods["scatter_kv"].scatter_kv(pool.clone(), e, rows)
+        e = _rand_pool(torch, g, (1, n_rows, d), torch.bfloat16)
         want = ref.scatter_kv_ref(pool[0].clone(), e[0], rows[0])
-        if not torch.equal(got[0], want):
+        got = mod.scatter_kv(pool.clone(), e, rows)
+        if not _equal_bits(torch, got[0], want):
             raise AssertionError(f"scatter_kv differs from its plain "
                                  f"version ({n_rows} rows)")
-        dst = pool.clone() if n_rows < L * S else None
-        if n_rows == 1:                # the floor of one launch
-            one_row_ms = cuda_time_ms(lambda: mods["scatter_kv"].scatter_kv(
-                dst, e, rows))
-        elif n_rows == L * B:
-            rows_l = rows[0].long()
+        if n_rows < L * S:
             nb = n_rows * 4 + 2 * n_rows * d * 2
-            recs["scatter_kv"] = dict(
-                max_abs_err=0.0,
-                ms=cuda_time_ms(lambda: mods["scatter_kv"].scatter_kv(
-                    dst, e, rows)),
-                ms_one_row=one_row_ms,
+            rows_l = rows[0].long()
+            bound, by = bound_ms(nb, 0.0)
+            shapes.append(dict(
+                shape="deepseek-v32", form="index", rows=n_rows,
+                max_abs_err=0.0, l2="warm", bound_ms=bound, bound_by=by,
                 plain_ms=cuda_time_ms(lambda: ref.scatter_kv_ref(
-                    dst[0], e[0], rows[0])),
-                library_ms=cuda_time_ms(lambda: dst[0].index_copy_(
+                    got[0], e[0], rows[0])),
+                library_ms=cuda_time_ms(lambda: got[0].index_copy_(
                     0, rows_l, e[0])),
-                bound=bound_ms(nb, 0.0))
-    return recs
+                **both_times(lambda: mod.scatter_kv(got, e, rows))))
+    del pool, got, want
+    # -- the decode write
+    rec = None
+    for name, (L, B, S, d, di) in WRITE_SHAPES.items():
+        for dtype in ((torch.bfloat16, E4M3) if name == "gemma3-12b"
+                      else (torch.bfloat16,)):
+            pools = [_rand_pool(torch, g, (L, B, S, d), dtype),
+                     _rand_pool(torch, g, (L, B, S, di), torch.bfloat16)]
+            entries = [_rand_pool(torch, g, (L, B, w), p.dtype)
+                       for w, p in ((d, pools[0]), (di, pools[1]))]
+            pos = torch.randint(-2, S + 2, (B,), generator=g, device=dev,
+                                dtype=torch.int32)
+            want = [p.clone() for p in pools]
+            for p, e in zip(want, entries):
+                ref.write_rows_at_ref(p.view(torch.uint8),
+                                      e.view(torch.uint8), pos)
+            got = [p.clone() for p in pools]
+            mod.write_rows_at(got, entries, pos)
+            if not all(_equal_bits(torch, a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"write_rows_at differs from its plain "
+                                     f"version at the {name} shape "
+                                     f"({dtype})")
+            del want
+            flat = [p.view(-1, p.shape[-1]) for p in got]
+            rows_l = (torch.arange(L * B, device=dev).reshape(L, B) * S
+                      + pos.long().clamp(0, S - 1)).reshape(-1)
+            e_flat = [e.reshape(L * B, -1) for e in entries]
 
+            def was():            # the port's earlier pool_write, twice
+                for f, e in zip(flat, e_flat):
+                    pos_c = torch.clamp(pos.long(), 0, S - 1)
+                    lanes = torch.arange(L * B, device=dev).reshape(L, B)
+                    r = (lanes * S + pos_c[None, :]).reshape(1, L * B)
+                    mod.scatter_kv(f[None], e[None], r.to(torch.int32))
 
-def check_fetch_gathers(torch, ops, ref):
-    """The gather at the two shapes the fetch pipeline adds on Qwen2-1.5B's
-    path, through the wrapper the path calls: the speculation tail (a
-    layer's pool [8, 8256, 512], 512 lanes a request) and the prefill
-    warm-up (every layer's 1536 planned rows of the last of 8 slots,
-    addressed in the contiguous [28, 8 * 8256, 512] view of the pool
-    with offsets lane * S: 1.9 GB, the widest addressing the kernel is
-    given), each bit-exact against the plain gather of the lane's own
-    view, timed beside it.  Returns one record per shape."""
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(3)
-    L, slots, S, d = 28, 8, 8256, 512
-    recs = []
-    kv = torch.randn((slots, S, d), generator=g, device=dev,
-                     dtype=torch.bfloat16)
-    idx = torch.randint(0, S, (slots, 512), generator=g, device=dev,
-                        dtype=torch.int32)
-    pool = torch.randn((L, slots, S, d), generator=g, device=dev,
-                       dtype=torch.bfloat16)
-    lane = slots - 1
-    w_idx = torch.randint(0, S, (L, 1536), generator=g, device=dev,
-                          dtype=torch.int32)
-    flat = pool.view(L, slots * S, d)
-    for shape, (src, rows, plain) in {
-            "speculation_tail": (kv, idx, lambda: torch.stack(
-                [ref.gather_kv_ref(kv[b], idx[b]) for b in range(slots)])),
-            "warmup_plan": (flat, w_idx + lane * S, lambda: torch.stack(
-                [ref.gather_kv_ref(pool[l, lane], w_idx[l])
-                 for l in range(L)]))}.items():
-        if not torch.equal(ops.batched_gather(src, rows), plain()):
-            raise AssertionError(f"gather_kv differs from its plain version "
-                                 f"at the {shape} shape")
-        B, k = rows.shape
-        rows_l = rows.long()[..., None].expand(-1, -1, d)
-        bound, by = bound_ms(B * k * 4 + 2 * B * k * d * 2, 0.0)
-        recs.append(dict(
-            shape=shape, kv=list(src.shape), idx=[B, k], max_abs_err=0.0,
-            ms=cuda_time_ms(lambda: ops.batched_gather(src, rows)),
-            plain_ms=cuda_time_ms(plain),
-            library_ms=cuda_time_ms(lambda: torch.gather(src, 1, rows_l)),
-            bound_ms=bound, bound_by=by))
-    del kv, pool, flat
-    torch.cuda.empty_cache()
-    return recs
+            def library():
+                for f, e in zip(flat, e_flat):
+                    f.view(torch.uint8).index_copy_(0, rows_l,
+                                                    e.view(torch.uint8))
+            nb = B * 4 + sum(2 * L * B * e.shape[-1] * e.element_size()
+                             for e in entries)
+            bound, by = bound_ms(nb, 0.0)
+            case = dict(
+                shape=name, form="decode", dtype=str(dtype),
+                pools=[list(p.shape) for p in pools], rows=2 * L * B,
+                max_abs_err=0.0, l2="warm", bound_ms=bound, bound_by=by,
+                plain_ms=cuda_time_ms(lambda: [ref.write_rows_at_ref(
+                    p.view(torch.uint8), e.view(torch.uint8), pos)
+                    for p, e in zip(got, entries)]),
+                **both_times(lambda: mod.write_rows_at(got, entries, pos)))
+            case.update({f"{k}_was": v for k, v in both_times(was).items()})
+            lib = both_times(library)
+            case["library_ms"], case["library_ms_batched"] = \
+                lib["ms"], lib["ms_batched"]
+            if name == "deepseek-v32":
+                rec = dict(case, bound=(case.pop("bound_ms"),
+                                        case.pop("bound_by")))
+            else:
+                shapes.append(case)
+            del pools, got, flat, entries
+            torch.cuda.empty_cache()
+    # -- the Gemma3-12B prefill splice
+    L, slots, S, d, di, T, lane = 48, 4, 8256, 3840, 64, 8192, 3
+    for dtype in (torch.bfloat16, E4M3):
+        pools = [_rand_pool(torch, g, (L, slots, S, d), dtype),
+                 _rand_pool(torch, g, (L, slots, S, di), torch.bfloat16)]
+        srcs = [_rand_pool(torch, g, (L, 1, T, d), dtype),
+                _rand_pool(torch, g, (L, 1, T, di), torch.bfloat16)]
+        want = [p.clone() for p in pools]
+        for p, s in zip(want, srcs):
+            ref.splice_ref(p.view(torch.uint8), s.view(torch.uint8),
+                           lane=lane, zero_tail=True)
+        got = [p.clone() for p in pools]
+        mod.splice(got, srcs, lane=lane, zero_tail=True)
+        if not all(_equal_bits(torch, a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"splice differs from its plain version "
+                                 f"({dtype})")
+        del want, pools
+
+        def was():                # the port's earlier splice, both pools
+            for p, s in zip(got, srcs):
+                s = torch.cat([s, s.new_zeros(L, 1, S - T, s.shape[3])], 2)
+                layer_lane = torch.arange(L, device=dev)[:, None] * slots \
+                    + torch.tensor([lane], device=dev)[None, :]
+                rows = (layer_lane[..., None] * S
+                        + torch.arange(S, device=dev))
+                mod.scatter_kv(p.view(1, -1, p.shape[-1]),
+                               s.reshape(1, -1, s.shape[-1]),
+                               rows.reshape(1, -1).to(torch.int32))
+
+        def library():
+            for p, s in zip(got, srcs):
+                p = p.view(torch.uint8)
+                p[:, lane, :T].copy_(s[:, 0].view(torch.uint8))
+                p[:, lane, T:].zero_()
+        nb = sum(L * T * s.shape[-1] * s.element_size()
+                 + L * S * s.shape[-1] * s.element_size() for s in srcs)
+        bound, by = bound_ms(nb, 0.0)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        was()
+        torch.cuda.synchronize()
+        was_peak = torch.cuda.max_memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        mod.splice(got, srcs, lane=lane, zero_tail=True)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        case = dict(
+            shape="gemma3-12b", form="splice", dtype=str(dtype),
+            pools=[list(p.shape) for p in got],
+            srcs=[list(s.shape) for s in srcs], lane=lane, max_abs_err=0.0,
+            l2="cold",
+            bound_ms=bound, bound_by=by, transient_bytes=peak,
+            transient_bytes_was=was_peak,
+            plain_ms=cuda_time_ms(lambda: [ref.splice_ref(
+                p.view(torch.uint8), s.view(torch.uint8), lane=lane,
+                zero_tail=True)
+                for p, s in zip(got, srcs)], iters=3, warmup=1),
+            ms_was=cuda_time_ms(was, iters=5, warmup=1),
+            **both_times(lambda: mod.splice(got, srcs, lane=lane,
+                                            zero_tail=True)))
+        lib = both_times(library)
+        case["library_ms"], case["library_ms_batched"] = \
+            lib["ms"], lib["ms_batched"]
+        shapes.append(case)
+        del got, srcs
+        torch.cuda.empty_cache()
+    rec["shapes"] = shapes
+    return rec
 
 
 # the indexer's timed shapes (B, S, H, di): DeepSeek-V3.2's and
@@ -608,95 +869,6 @@ def check_attention_edges(torch, ops, ref, mod):
                                   max_abs_err=(got - want).abs().max()
                                   .item()))
     return out_cases
-
-
-def check_gather_gemma3(torch, ops, ref):
-    """The gather at Gemma3-12B's pool width (a layer's [4, 8256, 3840]
-    pool, 2048 lanes a request) in bf16 and in e4m3, bit-exact against
-    the plain gather, each timed.  Returns one record per dtype."""
-    from repro_torch.core.pool import E4M3, to_kv_dtype
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(9)
-    B, S, d, k = 4, 8256, 3840, 2048
-    x = torch.randn((B, S, d), generator=g, device=dev)
-    idx = torch.randint(0, S, (B, k), generator=g, device=dev,
-                        dtype=torch.int32)
-    recs = []
-    for kv in (x.bfloat16(), to_kv_dtype(x, E4M3)):
-        def plain():
-            return torch.stack([ref.gather_kv_ref(kv[b], idx[b])
-                                for b in range(B)])
-        got = ops.batched_gather(kv, idx)
-        if not torch.equal(got.view(torch.uint8), plain().view(torch.uint8)):
-            raise AssertionError(f"gather_kv differs from its plain version "
-                                 f"at Gemma3's width ({kv.dtype})")
-        raw = kv.view(torch.uint8)           # torch.gather takes no fp8
-        idx_l = idx.long()[..., None].expand(-1, -1, raw.shape[-1])
-        bound, by = bound_ms(B * k * 4 + 2 * B * k * d * kv.element_size(),
-                             0.0)
-        recs.append(dict(
-            shape="gemma3-12b", dtype=str(kv.dtype), kv=[B, S, d], idx=[B, k],
-            max_abs_err=0.0,
-            ms=cuda_time_ms(lambda: ops.batched_gather(kv, idx)),
-            plain_ms=cuda_time_ms(plain),
-            library_ms=cuda_time_ms(lambda: torch.gather(raw, 1, idx_l)),
-            bound_ms=bound, bound_by=by))
-    del x
-    torch.cuda.empty_cache()
-    return recs
-
-
-def check_scatter_gemma3(torch, ref, mod):
-    """The pool write at Gemma3-12B's row width in bf16 and in e4m3: the
-    flattened pool of 48 layers x 4 slots x 8256 positions ([1, 1585152,
-    3840]: 12.2 GB in bf16) takes a decode step's 192 rows (a layer's and
-    a slot's each) and a prefill splice (48 x 8256 rows), each bit for
-    bit against the plain version on the same bytes (random bits: the
-    kernel moves bytes); the decode write is timed.  Returns one record
-    per dtype."""
-    from repro_torch.core.pool import E4M3
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(10)
-    L, slots, S, d = 48, 4, 8256, 3840
-    n = L * slots * S
-    recs = []
-    for dtype in (torch.bfloat16, E4M3):
-        width = d * dtype.itemsize
-
-        def rand_rows(rows):
-            return torch.randint(0, 256, (1, rows, width), generator=g,
-                                 device=dev, dtype=torch.uint8).view(dtype)
-        pool = rand_rows(n)
-        for n_rows in (L * slots, L * S):
-            rows = torch.randperm(n, generator=g, device=dev)[:n_rows]
-            rows = rows.to(torch.int32)[None]
-            e = rand_rows(n_rows)
-            got = mod.scatter_kv(pool.clone(), e, rows)
-            want = ref.scatter_kv_ref(pool[0].view(torch.uint8).clone(),
-                                      e[0].view(torch.uint8), rows[0])
-            if not torch.equal(got[0].view(torch.uint8), want):
-                raise AssertionError(f"scatter_kv differs from its plain "
-                                     f"version at Gemma3's width ({dtype}, "
-                                     f"{n_rows} rows)")
-            del want
-            if n_rows == L * slots:
-                raw, e_raw = got[0].view(torch.uint8), e[0].view(torch.uint8)
-                rows_l = rows[0].long()
-                bound, by = bound_ms(n_rows * 4 + 2 * n_rows * width, 0.0)
-                recs.append(dict(
-                    shape="gemma3-12b", dtype=str(dtype), pool=[1, n, d],
-                    rows=n_rows, splice_rows=L * S, max_abs_err=0.0,
-                    ms=cuda_time_ms(lambda: mod.scatter_kv(got, e, rows)),
-                    plain_ms=cuda_time_ms(lambda: ref.scatter_kv_ref(
-                        raw, e_raw, rows[0])),
-                    library_ms=cuda_time_ms(lambda: raw.index_copy_(
-                        0, rows_l, e_raw)),
-                    bound_ms=bound, bound_by=by))
-                del raw
-            del got, e
-        del pool
-        torch.cuda.empty_cache()
-    return recs
 
 
 def check_gather_pages(torch, ref, mod):
@@ -1030,6 +1202,12 @@ def profile_decode(torch, eng, *, requests: int, context: int,
                          calls=sum(n for _, n in hits))
         if not ours[key]["calls"]:
             raise AssertionError(f"no {key} on the device in the profile")
+        ours[key]["us_per_call"] = (ours[key]["seconds"] * 1e6
+                                    / ours[key]["calls"])
+    # kernel launches the host made through cudaLaunchKernel (the count
+    # earlier records give; cuBLAS's cudaLaunchKernelExC apart)
+    launches = {k: sum(e.count for e in prof.key_averages() if e.key == k)
+                for k in ("cudaLaunchKernel", "cudaLaunchKernelExC")}
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     # where the host's share goes: operators by their own (self) host time
     host = sorted((e for e in prof.key_averages()
@@ -1040,6 +1218,9 @@ def profile_decode(torch, eng, *, requests: int, context: int,
         slots=requests, wall_s=wall_s, device_busy_s=busy_us * 1e-6,
         device_busy_share=busy_us * 1e-6 / wall_s,
         device_s_total=sum(t for t, _ in by_name.values()),
+        launches_per_step=launches["cudaLaunchKernel"] / n_steps,
+        launches_ex_per_step=launches["cudaLaunchKernelExC"] / n_steps,
+        peak_memory_bytes=torch.cuda.max_memory_allocated(),
         port_kernels=ours,
         top_kernels=[dict(name=name[:96], seconds=t, calls=n)
                      for name, (t, n) in ranked],
@@ -1049,20 +1230,29 @@ def profile_decode(torch, eng, *, requests: int, context: int,
 
 
 def check_launches(counts, steps: int, layers: int, attn: str,
-                   gathers: int = 1) -> None:
+                   prompts: int, warmups: int = 0) -> None:
     """Every kernel of the path ran in the serving run: the per-layer
-    ones (indexer, the path's attention; the gather ``gathers`` times, 2
-    with speculation) at least once per layer per decode step, the pool
-    write (one launch writes the new entry of every layer) at least once
-    per step."""
-    for name, per_layer in (("gather_kv", gathers), ("indexer_scores", 1),
-                            (attn, 1)):
-        if counts[name] < per_layer * steps * layers:
+    ones (the gather, the indexer, the path's attention) at least once
+    per layer per decode step, the gather exactly once per layer per
+    step (the fetch pipeline's speculation tail rides on the demand
+    set's launch) plus at most ``warmups`` launches (the prefill
+    warm-up, one a prompt); the scatter kernel's decode write exactly
+    once per step (every layer of both pools in one launch) and its
+    splice exactly once per admitted prompt (``prompts``)."""
+    for name in ("gather_kv", "indexer_scores", attn):
+        if counts[name] < steps * layers:
             raise AssertionError(f"{name}: {counts[name]} launches for "
                                  f"{steps} steps x {layers} layers")
-    if counts["scatter_kv"] < steps:
-        raise AssertionError(f"scatter_kv: {counts['scatter_kv']} launches "
-                             f"for {steps} steps")
+    if counts["gather_kv"] > steps * layers + warmups:
+        raise AssertionError(f"gather_kv: {counts['gather_kv']} launches, "
+                             f"more than one a layer a step for {steps} "
+                             f"steps x {layers} layers and {warmups} "
+                             f"warm-ups")
+    for form, want in (("rows_at", steps), ("splice", prompts)):
+        if counts[f"scatter_kv.{form}"] != want:
+            raise AssertionError(f"scatter_kv ({form}): "
+                                 f"{counts[f'scatter_kv.{form}']} launches, "
+                                 f"want {want}")
 
 
 def serve_and_profile(torch, ops, name: str):
@@ -1085,7 +1275,8 @@ def serve_and_profile(torch, ops, name: str):
     summary["seconds"] = time.perf_counter() - t0
     summary["run"] = name
     emit(summary)
-    check_launches(counts, summary["steps"], cfg.n_layers, spec["attn"])
+    check_launches(counts, summary["steps"], cfg.n_layers, spec["attn"],
+                   prompts=spec["requests"])
     t0 = time.perf_counter()
     prof = profile_decode(torch, eng, requests=spec["slots"],
                           context=spec["context"],
@@ -1205,11 +1396,8 @@ def fetch_pipeline(torch, ops, off_summary, off_tokens):
             raise AssertionError(f"{run}: prefetched "
                                  f"{st.prefetched_entries}, useful "
                                  f"{st.prefetch_useful}")
-        check_launches(counts, steps, layers, "sparse_attn_gqa", gathers=2)
-        if counts["gather_kv"] > 2 * steps * layers + len(reqs):
-            raise AssertionError(f"{run}: gather_kv: {counts['gather_kv']} "
-                                 f"launches, more than 2 per layer per step "
-                                 f"and one warm-up per prompt")
+        check_launches(counts, steps, layers, "sparse_attn_gqa",
+                       prompts=len(reqs), warmups=len(reqs))
         if "--resize-interval" in flags and not st.resizes:
             raise AssertionError(f"{run}: no resize in {steps} steps")
         if "--arbiter" not in flags and 10 * spec_entries < spec_lanes:
@@ -1255,7 +1443,8 @@ def cli_defaults(torch, ops):
             len(r.out_tokens) != r.output_len for r in reqs):
         raise AssertionError(f"the CLI served {cli_out['n_done']} of "
                              f"{len(reqs)} requests")
-    check_launches(counts, st.steps, eng.cfg.n_layers, "sparse_attn_gqa")
+    check_launches(counts, st.steps, eng.cfg.n_layers, "sparse_attn_gqa",
+                   prompts=len(reqs))
     del eng, reqs
     gc.collect()
     torch.cuda.empty_cache()
@@ -1322,17 +1511,13 @@ def main() -> None:
 
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
-    mods = {"gather_kv": gather_kv, "scatter_kv": scatter_kv}
-    recs = check_mla_path_kernels(torch, ops, ref, mods)
-    recs["gather_kv"]["shapes"] = check_fetch_gathers(torch, ops, ref)
+    recs = dict(gather_kv=check_gathers(torch, ref, gather_kv),
+                scatter_kv=check_pool_writes(torch, ref, scatter_kv))
     recs["indexer_scores"] = check_indexer(torch, ref, indexer)
     indexer_edges = check_indexer_edges(torch, ref, indexer)
     attn, attn_cases = check_attention(torch, ref, sparse_attn)
     recs.update(attn)
     recs["gather_kv_pages"] = check_gather_pages(torch, ref, gather_kv)
-    recs["gather_kv"]["shapes"] += check_gather_gemma3(torch, ops, ref)
-    recs["scatter_kv"]["shapes"] = check_scatter_gemma3(torch, ref,
-                                                        scatter_kv)
     edges = check_attention_edges(torch, ops, ref, sparse_attn)
     emit(dict(phase="kernels_vs_plain", tolerance_f32=TOL_F32,
               max_abs_err={k: v["max_abs_err"] for k, v in recs.items()},
@@ -1420,8 +1605,14 @@ def main() -> None:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound"][0], bound_by=r["bound"][1],
             library_ms=r["library_ms"],
-            **{k: r[k] for k in ("shapes", "ms_one_row", "e4m3")
+            **{k: r[k] for k in ("ms_batched", "library_ms_batched", "l2",
+                                 "copies", "ms_was", "ms_batched_was",
+                                 "shapes", "e4m3")
                if k in r}))
+        if name == "scatter_kv" and on_path:
+            kernels[-1]["launches_by_form"] = {
+                k.split(".")[1]: n for k, n in launches.items()
+                if k.startswith("scatter_kv.")}
     emit({"kernels": kernels})
     print(smi[0])
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

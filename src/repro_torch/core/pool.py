@@ -3,9 +3,11 @@
 The pool is one tensor ``[L, B, S, d]`` per kind (latent entries,
 indexer keys).  The read path is a row gather of each request's top-k
 positions (``local_fetch`` -> the gather kernel on the card); the write
-path scatters rows into the pool IN PLACE (``pool_write`` and
-``pool_write_prefill`` -> the scatter kernel on the card), so a decode
-step writes L*B rows and never copies the pool.
+path writes rows into the pool IN PLACE (``pool_write`` /
+``pool_write_step``, ``pool_write_prefill`` / ``pool_splice_lane`` ->
+the scatter kernel's decode and splice forms on the card), so a decode
+step writes L*B rows of every pool in one launch and never copies a
+pool, and a splice copies the prompt's rows once.
 
 With ``kv_quant="fp8"`` the pool holds ``float8_e4m3fn`` entries:
 ``to_kv_dtype`` is the one cast into the pool's dtype that the port
@@ -17,7 +19,7 @@ collective) waits for the distributed slice (ROADMAP).
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -62,31 +64,40 @@ def local_fetch(pool_layer: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _flat_rows(pool: torch.Tensor) -> torch.Tensor:
-    L, B, S, d = pool.shape
-    if not pool.is_contiguous():
-        raise ValueError("the pool must be contiguous: it is written in place")
-    return pool.view(1, L * B * S, d)
-
-
 def pool_write(pool: torch.Tensor, new_entries: torch.Tensor,
                pos: torch.Tensor) -> torch.Tensor:
     """Write one new entry per (layer, request) at per-request positions.
 
     pool: [L, B, S, d]; new_entries: [L, B, d]; pos: [B] -> ``pool``,
-    updated IN PLACE by one scatter of L*B distinct rows (the entries
-    cast to the pool's dtype).  Positions are clamped to S-1, as in the
-    reference.
+    updated IN PLACE (the entries cast to the pool's dtype).  Positions
+    are clamped to S-1, as in the reference.  One launch on the card,
+    which computes the rows itself.
     """
-    L, B, S, d = pool.shape
-    pos_c = torch.clamp(pos.long(), 0, S - 1)                    # [B]
-    lanes = torch.arange(L * B, device=pool.device).reshape(L, B)
-    rows = (lanes * S + pos_c[None, :]).reshape(1, L * B)
-    ops.batched_scatter(_flat_rows(pool),
-                        to_kv_dtype(new_entries, pool.dtype).reshape(
-                            1, L * B, d),
-                        rows.to(torch.int32))
-    return pool
+    return pool_write_step([pool], [new_entries], pos)[0]
+
+
+def pool_write_step(pools: Sequence[torch.Tensor],
+                    new_entries: Sequence[torch.Tensor], pos: torch.Tensor
+                    ) -> Sequence[torch.Tensor]:
+    """``pool_write`` of several pools (a decode step's latent or (k, v)
+    entries and its indexer keys) at the same positions, IN PLACE, in one
+    launch on the card; returns ``pools``."""
+    for pool in pools:
+        _check_contiguous(pool)
+    ops.pool_rows_at(pools, [to_kv_dtype(e, p.dtype)
+                             for e, p in zip(new_entries, pools)], pos)
+    return pools
+
+
+def _check_contiguous(pool: torch.Tensor) -> None:
+    if not pool.is_contiguous():
+        raise ValueError("the pool must be contiguous: it is written in place")
+
+
+def _check_fits(S: int, offset: int, T: int) -> None:
+    if offset < 0 or offset + T > S:
+        raise ValueError(f"prefill rows [{offset}, {offset + T}) do not fit "
+                         f"a pool of {S} positions")
 
 
 def pool_write_prefill(pool: torch.Tensor, entries: torch.Tensor,
@@ -96,21 +107,26 @@ def pool_write_prefill(pool: torch.Tensor, entries: torch.Tensor,
 
     pool: [L, B, S, d]; entries: [L, B, T, d] -> ``pool`` with rows
     [offset, offset+T) of every (layer, request) written.  With ``lane``
-    the entries are [L, 1, T, d] and go to that request lane only (the
-    engine's slot splice).  One scatter of L*B*T (or L*T) rows.
+    the entries are [L, 1, T, d] and go to that request lane only.  One
+    launch on the card: each (layer, lane)'s T rows are one contiguous
+    run in both the entries and the pool.
     """
-    L, B, S, d = pool.shape
-    T = entries.shape[2]
-    if offset < 0 or offset + T > S:
-        raise ValueError(f"prefill rows [{offset}, {offset + T}) do not fit "
-                         f"a pool of {S} positions")
-    lanes = (torch.arange(B, device=pool.device) if lane is None
-             else torch.tensor([lane], device=pool.device))
-    layer_lane = (torch.arange(L, device=pool.device)[:, None] * B
-                  + lanes[None, :])                              # [L, b]
-    rows = (layer_lane[..., None] * S + offset
-            + torch.arange(T, device=pool.device))               # [L, b, T]
-    ops.batched_scatter(_flat_rows(pool),
-                        to_kv_dtype(entries, pool.dtype).reshape(1, -1, d),
-                        rows.reshape(1, -1).to(torch.int32))
+    _check_contiguous(pool)
+    _check_fits(pool.shape[2], offset, entries.shape[2])
+    ops.pool_splice([pool], [to_kv_dtype(entries, pool.dtype)],
+                    offset=offset, lane=lane)
     return pool
+
+
+def pool_splice_lane(pools: Sequence[torch.Tensor],
+                     prompts: Sequence[torch.Tensor], lane: int) -> None:
+    """The engine's slot splice, IN PLACE, in one launch on the card: each
+    prompt's pool [L, 1, T, d] into rows [0, T) of lane ``lane`` of its
+    pool [L, B, S, d], and zeros into rows [T, S), as the reference's
+    copy of the prompt's pool padded with zeros to S gives."""
+    for pool, src in zip(pools, prompts):
+        _check_contiguous(pool)
+        _check_fits(pool.shape[2], 0, src.shape[2])
+    ops.pool_splice(pools, [to_kv_dtype(s, p.dtype)
+                            for s, p in zip(prompts, pools)],
+                    lane=lane, zero_tail=True)

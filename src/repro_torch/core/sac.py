@@ -7,8 +7,9 @@ Two halves:
    Figure 6 -- indexer scoring -> masked top-k -> pool fetch (injected
    ``fetch_fn``, the gather kernel by default) -> sparse attention,
    absorbed-MLA or GQA; with the hot tier and ``prefetch_width > 0``
-   the step's speculated entrants are fetched (the gather kernel again)
-   and warm-inserted for the next step.
+   the step's speculated entrants are fetched too (with the default
+   fetch, by the same gather launch as the demand set) and
+   warm-inserted for the next step.
 
 2. **On the host** (``SACSystem``): pool page placement, metadata
    publishing and fabric-cost accounting for the serving engine, copied
@@ -31,6 +32,7 @@ from repro_torch.core.placement import (Placer, pages_for_tokens,
 from repro_torch.core.pool import FetchFn, local_fetch, to_kv_dtype
 from repro_torch.core.traffic import FabricAccountant
 from repro_torch.core.transfer import FABRICS, FabricModel
+from repro_torch.kernels import ops
 from repro_torch.models import dsa
 
 
@@ -98,22 +100,28 @@ def sparse_attend(p_attn: Dict, p_idx: Dict, x: torch.Tensor,
             scores, cache_len, cfg.sac.topk, prefetch_width, score_margin)
     else:
         idx, valid = dsa.topk_select(scores, cache_len, cfg.sac.topk)
-    fetched = fetch_fn(kv_pool_l, idx)
+    if speculate and spec_idx is None:
+        spec_idx, spec_valid = (
+            prefetch_fn(scores, cache_len) if prefetch_fn is not None
+            else dsa.speculate_next_topk(scores, cache_len, cfg.sac.topk,
+                                         prefetch_width, score_margin))
+    spec_vals = None
+    if speculate and fetch_fn is local_fetch:
+        # the demand set and the speculation tail in one gather launch
+        # (which clamps the tail's indices into the pool itself)
+        fetched, spec_vals = ops.batched_gather_many(
+            [(kv_pool_l, idx), (kv_pool_l, spec_idx)])
+    else:
+        fetched = fetch_fn(kv_pool_l, idx)
     if buf_state is not None:
         fetched, buf_state, hits, misses = hisparse.read_through(
             buf_state, idx, fetched, valid)
         if speculate:
-            if spec_idx is None:
-                spec_idx, spec_valid = (
-                    prefetch_fn(scores, cache_len) if prefetch_fn is not None
-                    else dsa.speculate_next_topk(scores, cache_len,
-                                                 cfg.sac.topk,
-                                                 prefetch_width,
-                                                 score_margin))
             if pf_budget is not None:
                 spec_valid = dsa.budget_mask(spec_valid, pf_budget)
-            spec_vals = fetch_fn(kv_pool_l, torch.clamp(
-                spec_idx, 0, kv_pool_l.shape[1] - 1))
+            if spec_vals is None:
+                spec_vals = fetch_fn(kv_pool_l, torch.clamp(
+                    spec_idx, 0, kv_pool_l.shape[1] - 1))
             buf_state, _ = hisparse.warm_insert(buf_state, spec_idx,
                                                 spec_vals, spec_valid)
     fetched = torch.cat([fetched, to_kv_dtype(own_entry[:, None, :],

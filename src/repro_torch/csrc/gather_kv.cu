@@ -1,4 +1,5 @@
-// Sparse KV row gather: out[b, i] = kv[b, idx[b, i]].
+// Sparse KV row gather: out[b, i] = kv[b, idx[b, i]], for up to four
+// (kv, idx, out) segments in one launch.
 //
 // Replaces: src/repro/kernels/gather_kv.py::gather_kv (Pallas: the top-k
 // indices are scalar-prefetched and drive one DMA per row).
@@ -7,12 +8,13 @@
 // no arithmetic (DeepSeek-V3.2 decode: B=4, k=2048, 1152-byte rows,
 // 18.9 MB, about 5.6 us at 3.35 TB/s).
 //
-// Design: Hopper has no scalar prefetch, so each warp reads its own row
-// index and copies one row with 16-byte vector loads and stores, lane i
-// taking every 32nd vector: neighbouring lanes touch neighbouring
-// addresses, so each warp instruction moves 512 contiguous bytes.  The
-// batch is the leading part of the flat warp index (no Python loop).
-// Indices are clamped into [0, S) so a stray index cannot fault.
+// Design: the row movers' engine (rowmove.cuh).  Hopper has no scalar
+// prefetch, so the kernel reads its own row indices, clamped into [0, S)
+// so a stray index cannot fault.  A launch takes several segments (the
+// decode step's demand set and its speculation tail: one launch a layer
+// in place of two), the grid spread over all their rows, a warp a row
+// (a piece of at most 8 KB) with all of a lane's loads before its
+// stores.
 //
 // gather_pages (below) is the page-granular form:
 //   out[i * page : (i + 1) * page] = kv[p * page : (p + 1) * page],
@@ -24,38 +26,39 @@
 // block of 256 threads copies one whole page with 16-byte vectors, each
 // thread taking every 256th vector: the block's loads and stores are
 // fully coalesced and one block per page id fills the card.
-#include "common.cuh"
+#include "rowmove.cuh"
 
 namespace {
 
-template <typename V>
-__global__ void gather_rows(const char* __restrict__ kv,
-                            const int32_t* __restrict__ idx,
-                            char* __restrict__ out, long long S,
-                            long long k, long long n_rows,
-                            long long row_bytes) {
-  long long row = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
-  int lane = threadIdx.x & 31;
-  if (row >= n_rows) return;
-  long long b = row / k;
-  long long r = idx[row];
-  r = r < 0 ? 0 : (r >= S ? S - 1 : r);
-  const V* src = reinterpret_cast<const V*>(kv + (b * S + r) * row_bytes);
-  V* dst = reinterpret_cast<V*>(out + row * row_bytes);
-  long long n = row_bytes / (long long)sizeof(V);
-  for (long long i = lane; i < n; i += 32) dst[i] = src[i];
-}
+struct GatherSeg {
+  const char* kv;
+  const int32_t* idx;
+  char* out;
+  long long S, row_bytes, first_piece;
+  unsigned k, chunks;              // lanes a request, pieces a row
+};
 
-template <typename V>
-void launch(const void* kv, const void* idx, void* out, long long S,
-            long long k, long long n_rows, long long row_bytes,
-            cudaStream_t stream) {
-  const int threads = 256;                       // 8 rows per block
-  long long blocks = (n_rows * 32 + threads - 1) / threads;
-  gather_rows<V><<<(unsigned)blocks, threads, 0, stream>>>(
-      (const char*)kv, (const int32_t*)idx, (char*)out, S, k, n_rows,
-      row_bytes);
-}
+struct gather_rows {
+  GatherSeg seg[rowmove::kMaxSegs];
+  int n_segs;
+
+  // 32-bit index arithmetic: a launch moves fewer than 2^31 pieces
+  __device__ rowmove::Piece piece(long long p) const {
+    int s = 0;
+    while (s + 1 < n_segs && p >= seg[s + 1].first_piece) ++s;
+    const GatherSeg& g = seg[s];
+    const unsigned q = (unsigned)(p - g.first_piece);
+    const unsigned row = g.chunks == 1 ? q : q / g.chunks;
+    const long long off = (long long)(q - row * g.chunks) * rowmove::kChunk;
+    const long long b = row / g.k;
+    const long long r = rowmove::clamp_row(g.idx[row], g.S);
+    const long long left = g.row_bytes - off;
+    return rowmove::Piece{g.kv + (b * g.S + r) * g.row_bytes + off,
+                          g.out + (long long)row * g.row_bytes + off,
+                          (int)(left < rowmove::kChunk ? left
+                                                       : rowmove::kChunk)};
+  }
+};
 
 template <typename V>
 __global__ void gather_pages(const char* __restrict__ kv,
@@ -82,22 +85,36 @@ void launch_pages(const void* kv, const void* page_idx, void* out,
 
 }  // namespace
 
-// kv: [B, S, row_bytes] bytes; idx: [B, k] int32; out: [B, k, row_bytes].
-SAC_API int sac_gather_kv(const void* kv, const void* idx, void* out,
-                          long long B, long long S, long long k,
-                          long long row_bytes, void* stream) {
-  long long n_rows = B * k;
-  if (n_rows > 0) {
-    cudaStream_t st = (cudaStream_t)stream;
-    switch (sac_vec_bytes(row_bytes, kv, out)) {
-      case 16: launch<uint4>(kv, idx, out, S, k, n_rows, row_bytes, st); break;
-      case 8: launch<uint2>(kv, idx, out, S, k, n_rows, row_bytes, st); break;
-      case 4: launch<uint32_t>(kv, idx, out, S, k, n_rows, row_bytes, st); break;
-      case 2: launch<uint16_t>(kv, idx, out, S, k, n_rows, row_bytes, st); break;
-      default: launch<uint8_t>(kv, idx, out, S, k, n_rows, row_bytes, st);
-    }
+// One segment of a gather: kv [B, S, row_bytes] bytes, idx [B, k] int32,
+// out [B, k, row_bytes].
+struct sac_gather_seg {
+  const void* kv;
+  const void* idx;
+  void* out;
+  long long B, S, k, row_bytes;
+};
+
+// Gathers n_segs (1..4) segments in one launch.
+SAC_API int sac_gather_kv(const sac_gather_seg* segs, int n_segs,
+                          void* stream) {
+  if (n_segs < 1 || n_segs > rowmove::kMaxSegs)
+    return (int)cudaErrorInvalidValue;
+  gather_rows m{};
+  m.n_segs = n_segs;
+  long long n_pieces = 0;
+  unsigned long long align = 0;
+  for (int i = 0; i < n_segs; ++i) {
+    const sac_gather_seg& s = segs[i];
+    const int chunks = (int)rowmove::ceil_div(s.row_bytes, rowmove::kChunk);
+    m.seg[i] = GatherSeg{(const char*)s.kv, (const int32_t*)s.idx,
+                         (char*)s.out, s.S, s.row_bytes, n_pieces,
+                         (unsigned)s.k, (unsigned)chunks};
+    n_pieces += s.B * s.k * chunks;
+    align |= (unsigned long long)(uintptr_t)s.kv |
+             (unsigned long long)(uintptr_t)s.out |
+             (unsigned long long)s.row_bytes;
   }
-  return (int)cudaGetLastError();
+  return rowmove::move(m, n_pieces, align, (cudaStream_t)stream);
 }
 
 // kv: [n_pages_kv * page_bytes] bytes (S rows of a [S, d] tensor with

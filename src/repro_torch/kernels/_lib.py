@@ -33,10 +33,37 @@ FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", ARCH)
 _VP, _LL, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
     ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
+
+
+class GatherSeg(ctypes.Structure):
+    """``sac_gather_seg`` (csrc/gather_kv.cu): kv [B, S, row_bytes], idx
+    [B, k] int32, out [B, k, row_bytes]."""
+    _fields_ = [("kv", _VP), ("idx", _VP), ("out", _VP), ("B", _LL),
+                ("S", _LL), ("k", _LL), ("row_bytes", _LL)]
+
+
+class WriteSeg(ctypes.Structure):
+    """``sac_write_seg`` (csrc/scatter_kv.cu): pool [L, B, S, row_bytes],
+    src [L, B, row_bytes]."""
+    _fields_ = [("pool", _VP), ("src", _VP), ("L", _LL), ("B", _LL),
+                ("S", _LL), ("row_bytes", _LL)]
+
+
+class SpliceSeg(ctypes.Structure):
+    """``sac_splice_seg`` (csrc/scatter_kv.cu): pool [L, B, S, row_bytes],
+    src [L, n_lanes, T, row_bytes] into lanes [lane0, lane0 + n_lanes),
+    rows [offset, offset + T); zero_tail zeroes rows [offset + T, S)."""
+    _fields_ = [("pool", _VP), ("src", _VP), ("L", _LL), ("B", _LL),
+                ("S", _LL), ("lane0", _LL), ("n_lanes", _LL), ("T", _LL),
+                ("offset", _LL), ("zero_tail", _LL), ("row_bytes", _LL)]
+
+
 _SIGNATURES = {
-    "sac_gather_kv": [_VP, _VP, _VP, _LL, _LL, _LL, _LL, _VP],
+    "sac_gather_kv": [ctypes.POINTER(GatherSeg), _I, _VP],
     "sac_gather_kv_pages": [_VP, _VP, _VP, _LL, _LL, _LL, _VP],
     "sac_scatter_kv": [_VP, _VP, _VP, _LL, _LL, _LL, _LL, _VP],
+    "sac_write_rows_at": [ctypes.POINTER(WriteSeg), _I, _VP, _VP],
+    "sac_splice_kv": [ctypes.POINTER(SpliceSeg), _I, _VP],
     "sac_indexer_scores": [_VP] * 4 + [_I] * 5 + [_F, _VP],
     "sac_indexer_blocks_per_sm": [_I, _I, _IP, _IP],
     "sac_sparse_attn": [_VP] * 5 + [_I] * 11 + [_LL, _LL, _F, _I, _VP],

@@ -9,7 +9,7 @@ is no fallback from a CUDA tensor to the plain version.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -25,13 +25,20 @@ _COUNTERS = {"gather_kv": (_gather, "launches"),
              "indexer_scores": (_indexer, "launches"),
              "sparse_attn": (_attn, "launches"),
              "sparse_attn_gqa": (_attn, "launches_gqa"),
-             "scatter_kv": (_scatter, "launches")}
+             "scatter_kv.scatter": (_scatter, "launches"),
+             "scatter_kv.rows_at": (_scatter, "launches_rows_at"),
+             "scatter_kv.splice": (_scatter, "launches_splice")}
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches per kernel since the last reset."""
-    return {name: getattr(mod, attr)
-            for name, (mod, attr) in _COUNTERS.items()}
+    """Kernel launches per kernel since the last reset; ``scatter_kv`` is
+    the sum over its three forms, each also given as ``scatter_kv.<form>``
+    (``scatter``, ``rows_at``: the decode write, ``splice``)."""
+    counts = {name: getattr(mod, attr)
+              for name, (mod, attr) in _COUNTERS.items()}
+    counts["scatter_kv"] = sum(n for name, n in counts.items()
+                               if name.startswith("scatter_kv."))
+    return counts
 
 
 def reset_launch_counts() -> None:
@@ -51,6 +58,16 @@ def batched_gather(kv: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return _gather.gather_kv(kv, idx.to(torch.int32).contiguous())
     return torch.stack([ref.gather_kv_ref(kv[b], idx[b])
                         for b in range(kv.shape[0])])
+
+
+def batched_gather_many(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]]
+                        ) -> List[torch.Tensor]:
+    """Each (kv [B, S, d], idx [B, k]) -> [B, k, d]; on the card one
+    launch for all the pairs."""
+    if _on_cuda(*(t for pair in pairs for t in pair)):
+        return _gather.gather_kv_many([(kv, idx.to(torch.int32).contiguous())
+                                       for kv, idx in pairs])
+    return ref.gather_kv_many_ref(pairs)
 
 
 def batched_indexer_scores(q: torch.Tensor, w: torch.Tensor,
@@ -108,3 +125,40 @@ def batched_scatter(pool: torch.Tensor, entries: torch.Tensor,
     for b in range(pool.shape[0]):
         ref.scatter_kv_ref(pool[b], entries[b], idx[b])
     return pool
+
+
+def _same_dtype(name: str, pools, srcs) -> None:
+    for pool, src in zip(pools, srcs):
+        if src.dtype != pool.dtype:
+            raise TypeError(f"{name}: a source is {src.dtype}, its pool "
+                            f"{pool.dtype}: cast with to_kv_dtype first")
+
+
+def pool_rows_at(pools: Sequence[torch.Tensor],
+                 entries: Sequence[torch.Tensor], pos: torch.Tensor) -> None:
+    """The decode write into each pool [L, B, S, d] of its entries [L, B,
+    d] (the pool's dtype) at the positions pos [B] (clamped into [0, S)),
+    IN PLACE; on the card one launch for all the pools."""
+    _same_dtype("pool_rows_at", pools, entries)
+    if _on_cuda(pos, *pools, *entries):
+        _scatter.write_rows_at(pools, [e.contiguous() for e in entries],
+                               pos.to(torch.int32).contiguous())
+        return
+    for pool, e in zip(pools, entries):
+        ref.write_rows_at_ref(pool, e, pos)
+
+
+def pool_splice(pools: Sequence[torch.Tensor], srcs: Sequence[torch.Tensor],
+                *, offset: int = 0, lane: Optional[int] = None,
+                zero_tail: bool = False) -> None:
+    """Each source [L, b, T, d] (the pool's dtype; b = B, or 1 with
+    ``lane``) into rows [offset, offset+T) of its pool [L, B, S, d], and
+    with ``zero_tail`` zeros into rows [offset+T, S) of those lanes, IN
+    PLACE; on the card one launch for all the pools."""
+    _same_dtype("pool_splice", pools, srcs)
+    if _on_cuda(*pools, *srcs):
+        _scatter.splice(pools, [s.contiguous() for s in srcs], offset=offset,
+                        lane=lane, zero_tail=zero_tail)
+        return
+    for pool, src in zip(pools, srcs):
+        ref.splice_ref(pool, src, offset, lane, zero_tail)

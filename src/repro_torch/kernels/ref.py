@@ -7,6 +7,7 @@ Layouts and dtypes follow the reference: one request per call, f32 out.
 from __future__ import annotations
 
 import math
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -17,6 +18,15 @@ def gather_kv_ref(kv: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """kv: [S, d]; idx: [k] int -> [k, d].  Indices are clamped into
     [0, S), as the CUDA kernel clamps them."""
     return kv[idx.long().clamp(0, kv.shape[0] - 1)]
+
+
+def gather_kv_many_ref(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]]
+                       ) -> List[torch.Tensor]:
+    """The multi-segment gather: each (kv [B, S, d], idx [B, k]) pair ->
+    [B, k, d], request by request through ``gather_kv_ref``."""
+    return [torch.stack([gather_kv_ref(kv[b], idx[b])
+                         for b in range(kv.shape[0])])
+            for kv, idx in pairs]
 
 
 def gather_kv_pages_ref(kv: torch.Tensor, page_idx: torch.Tensor,
@@ -112,4 +122,42 @@ def scatter_kv_ref(pool: torch.Tensor, entries: torch.Tensor,
     idx = idx.long()
     keep = (idx >= 0) & (idx < pool.shape[0])
     pool[idx[keep]] = entries[keep].to(pool.dtype)
+    return pool
+
+
+def write_rows_at_ref(pool: torch.Tensor, entries: torch.Tensor,
+                      pos: torch.Tensor) -> torch.Tensor:
+    """The decode write: pool [L, B, S, d]; entries [L, B, d]; pos [B].
+    Row (l, b) at clamp(pos[b], 0, S-1) takes entries[l, b], IN PLACE,
+    through ``scatter_kv_ref`` on the [L*B*S, d] rows; returns ``pool``."""
+    L, B, S, d = pool.shape
+    lanes = torch.arange(L * B, device=pool.device).reshape(L, B)
+    rows = lanes * S + pos.long().clamp(0, S - 1)[None, :]
+    scatter_kv_ref(pool.view(L * B * S, d), entries.reshape(L * B, d),
+                   rows.reshape(-1))
+    return pool
+
+
+def splice_ref(pool: torch.Tensor, src: torch.Tensor, offset: int = 0,
+               lane: Optional[int] = None, zero_tail: bool = False
+               ) -> torch.Tensor:
+    """The prefill splice: pool [L, B, S, d]; src [L, b, T, d] (b = B, or
+    1 with ``lane``).  Rows [offset, offset+T) of every layer of the lanes
+    take src's rows and, with ``zero_tail``, rows [offset+T, S) become
+    zeros, IN PLACE, through ``scatter_kv_ref`` on the [L*B*S, d] rows;
+    returns ``pool``."""
+    L, B, S, d = pool.shape
+    T = src.shape[2]
+    lanes = (torch.arange(B, device=pool.device) if lane is None
+             else torch.tensor([lane], device=pool.device))
+    first = (torch.arange(L, device=pool.device)[:, None] * B
+             + lanes[None, :])[..., None] * S                   # [L, b, 1]
+    rows = pool.view(L * B * S, d)
+    scatter_kv_ref(rows, src.reshape(-1, d),
+                   (first + offset + torch.arange(T, device=pool.device)
+                    ).reshape(-1))
+    if zero_tail and offset + T < S:
+        tail = (first + torch.arange(offset + T, S, device=pool.device)
+                ).reshape(-1)
+        scatter_kv_ref(rows, pool.new_zeros(tail.shape[0], d), tail)
     return pool

@@ -1,16 +1,46 @@
-"""In-place KV row scatter on the card (``repro/kernels/scatter_kv.py``).
+"""In-place KV row writes on the card (``repro/kernels/scatter_kv.py``).
 
-``scatter_kv`` launches ``csrc/scatter_kv.cu`` with the batch in the
-grid; its plain version is ``kernels/ref.py::scatter_kv_ref``.
+Three forms of ``csrc/scatter_kv.cu``, each with its plain version in
+``kernels/ref.py``:
+
+- ``scatter_kv``: rows at given indices (``ref.scatter_kv_ref``), the
+  TPU kernel's own form, which no path of the port calls (the two forms
+  below took its place); kept as the TPU kernel's tested counterpart;
+- ``write_rows_at``: the decode write, one entry per (layer, request) at
+  the request's position, the rows computed in the kernel, several pools
+  in one launch (``ref.write_rows_at_ref``);
+- ``splice``: a prompt's contiguous rows of every layer into one lane
+  (or every lane), optionally zeroing the rest of the lane, several pools
+  in one launch (``ref.splice_ref``).
 """
 from __future__ import annotations
+
+from typing import Optional, Sequence
 
 import torch
 
 from repro_torch.kernels import _lib
+from repro_torch.kernels.gather_kv import MAX_SEGMENTS
 
-#: kernel launches since the last reset (read by chip_smoke.py)
+#: kernel launches since the last reset, one counter per form (read by
+#: chip_smoke.py)
 launches = 0
+launches_rows_at = 0
+launches_splice = 0
+
+
+def _check_pools(name: str, pools: Sequence[torch.Tensor],
+                 srcs: Sequence[torch.Tensor], src_dim: int) -> None:
+    if not 1 <= len(pools) <= MAX_SEGMENTS or len(srcs) != len(pools):
+        raise ValueError(f"{name}: 1 to {MAX_SEGMENTS} pools, each with its "
+                         f"source; got {len(pools)} and {len(srcs)}")
+    for pool, src in zip(pools, srcs):
+        _lib.require_dtype(name, src, pool.dtype, "the source")
+        if pool.dim() != 4 or src.dim() != src_dim \
+                or src.shape[-1] != pool.shape[-1]:
+            raise ValueError(f"{name}: pool [L,B,S,d], got "
+                             f"{tuple(pool.shape)} and source "
+                             f"{tuple(src.shape)}")
 
 
 def scatter_kv(pool: torch.Tensor, entries: torch.Tensor,
@@ -40,3 +70,64 @@ def scatter_kv(pool: torch.Tensor, entries: torch.Tensor,
     _lib.check(rc, name)
     launches += 1
     return pool
+
+
+def write_rows_at(pools: Sequence[torch.Tensor],
+                  entries: Sequence[torch.Tensor], pos: torch.Tensor
+                  ) -> None:
+    """The decode write, IN PLACE, in one launch: for each pool [L, B, S,
+    d] and its entries [L, B, d] (the pool's dtype), row (l, b) at
+    position clamp(pos[b], 0, S-1) takes entries[l, b].  pos: [B]
+    int32, shared by the pools."""
+    global launches_rows_at
+    name = "write_rows_at"
+    _check_pools(name, pools, entries, src_dim=3)
+    dev = _lib.require_cuda(name, pos, *pools, *entries)
+    _lib.require_dtype(name, pos, torch.int32, "pos")
+    segs = (_lib.WriteSeg * len(pools))()
+    for seg, pool, src in zip(segs, pools, entries):
+        L, B, S, d = pool.shape
+        if tuple(src.shape[:2]) != (L, B) or tuple(pos.shape) != (B,):
+            raise ValueError(f"{name}: entries [L,B,d] and pos [B] for a "
+                             f"pool {tuple(pool.shape)}; got "
+                             f"{tuple(src.shape)} and {tuple(pos.shape)}")
+        seg.pool, seg.src = pool.data_ptr(), src.data_ptr()
+        seg.L, seg.B, seg.S, seg.row_bytes = L, B, S, d * pool.element_size()
+    with torch.cuda.device(dev):
+        rc = _lib.lib().sac_write_rows_at(segs, len(pools), pos.data_ptr(),
+                                          _lib.stream())
+    _lib.check(rc, name)
+    launches_rows_at += 1
+
+
+def splice(pools: Sequence[torch.Tensor], srcs: Sequence[torch.Tensor], *,
+           offset: int = 0, lane: Optional[int] = None,
+           zero_tail: bool = False) -> None:
+    """The prefill splice, IN PLACE, in one launch: for each pool [L, B,
+    S, d] and its source [L, b, T, d] (the pool's dtype; b = B, or 1 with
+    ``lane``), rows [offset, offset+T) of every layer of the lanes (all,
+    or ``lane``) take the source's rows; with ``zero_tail`` rows
+    [offset+T, S) of those lanes become zeros."""
+    global launches_splice
+    name = "splice"
+    _check_pools(name, pools, srcs, src_dim=4)
+    dev = _lib.require_cuda(name, *pools, *srcs)
+    segs = (_lib.SpliceSeg * len(pools))()
+    for seg, pool, src in zip(segs, pools, srcs):
+        L, B, S, d = pool.shape
+        T = src.shape[2]
+        n_lanes = B if lane is None else 1
+        if (tuple(src.shape[:2]) != (L, n_lanes) or offset < 0
+                or offset + T > S or not 0 <= (lane or 0) < B):
+            raise ValueError(f"{name}: source {tuple(src.shape)} at rows "
+                             f"[{offset}, {offset + T}) of lane {lane} does "
+                             f"not fit a pool {tuple(pool.shape)}")
+        seg.pool, seg.src = pool.data_ptr(), src.data_ptr()
+        seg.L, seg.B, seg.S = L, B, S
+        seg.lane0, seg.n_lanes = lane or 0, n_lanes
+        seg.T, seg.offset, seg.zero_tail = T, offset, int(zero_tail)
+        seg.row_bytes = d * pool.element_size()
+    with torch.cuda.device(dev):
+        rc = _lib.lib().sac_splice_kv(segs, len(pools), _lib.stream())
+    _lib.check(rc, name)
+    launches_splice += 1

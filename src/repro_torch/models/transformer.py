@@ -41,8 +41,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import hisparse
 from repro_torch.core import sac as sac_core
-from repro_torch.core.pool import (E4M3, FetchFn, local_fetch, pool_write,
-                                   to_kv_dtype)
+from repro_torch.core.pool import (E4M3, FetchFn, local_fetch,
+                                   pool_write_step, to_kv_dtype)
 from repro_torch.models import dsa, moe
 from repro_torch.models.layers import (DTYPE, ParamSpec, attn_param_specs,
                                        dense_attention_block, init_params,
@@ -377,9 +377,12 @@ class TransformerLM:
                 hits_l.append(h)
                 misses_l.append(m)
         if new_entries and kv_pool is not None:
-            pool_write(kv_pool, torch.stack(new_entries), cache_len)
+            # one launch writes every layer's entry and indexer key
+            pools, rows = [kv_pool], [torch.stack(new_entries)]
             if idx_pool is not None:
-                pool_write(idx_pool, torch.stack(new_keys), cache_len)
+                pools.append(idx_pool)
+                rows.append(torch.stack(new_keys))
+            pool_write_step(pools, rows, cache_len)
         if hot is not None:
             B = tokens.shape[0]
             zeros = torch.zeros((self.n_kv, B), dtype=torch.int32,

@@ -38,7 +38,7 @@ from repro_torch.core import hisparse
 from repro_torch.core.sac import SACSystem
 from repro_torch.core.traffic import TrafficStats
 from repro_torch.core.transfer import PipelineModel
-from repro_torch.core.pool import pool_write_prefill
+from repro_torch.core.pool import pool_splice_lane
 from repro_torch.kernels import ops
 from repro_torch.models.model import build_model
 from repro_torch.models.transformer import kv_layer_windows
@@ -1008,12 +1008,13 @@ class Engine:
 
     def _splice_state(self, slot: int, st_one: Dict, length: int):
         """Copy a 1-batch prefill state into slot ``slot`` of the engine
-        state, IN PLACE.  The prompt's pool rows are written by one
-        scatter per pool (``pool_write_prefill``), and the rows past the
-        prompt are zeroed, as the reference's zero padding does.  The
+        state, IN PLACE.  One launch copies the prompt's rows of every
+        pool (``pool_splice_lane``) and zeroes the rows past the prompt,
+        as the reference's zero padding does, with no padded copy.  The
         hot buffer has no prefill counterpart: the slot's lane is reset
         (a fresh request starts cold) and then optionally re-seeded by
         the warm-up plan."""
+        pools, prompts = [], []
         for key, dst in self.state.items():
             if key == "hot_buf":
                 hisparse.reset_lane(dst, slot)
@@ -1023,17 +1024,14 @@ class Engine:
             elif key in ("buf_hits_l", "buf_misses_l"):   # [L, B] layouts
                 dst[:, slot] = 0
             elif key in ("kv_pool", "idx_pool"):
-                src = st_one[key]
-                pad = dst.shape[2] - src.shape[2]
-                if pad:
-                    src = torch.cat([src, src.new_zeros(
-                        src.shape[0], src.shape[1], pad, src.shape[3])],
-                        dim=2)
-                pool_write_prefill(dst, src, lane=slot)
+                pools.append(dst)
+                prompts.append(st_one[key])
             elif key == "cache_len":
                 dst[slot] = st_one[key][0]
             else:
                 raise KeyError(f"serve-state key {key!r} has no splice rule")
+        if pools:
+            pool_splice_lane(pools, prompts, slot)
 
     # -- stepping -----------------------------------------------------------------
     def step(self, now: Optional[float] = None) -> List[Request]:

@@ -503,6 +503,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                     torch.zeros(1, 4), n_kv=1, scale=1.0)
     with pytest.raises(ValueError):
         gather_kv.gather_kv_pages(kv[0], idx[0], page=2)
+    with pytest.raises(ValueError):
+        gather_kv.gather_kv_many([(kv, idx), (kv, idx)])
+    pool = kv[None]
+    with pytest.raises(ValueError):
+        scatter_kv.write_rows_at([pool], [kv[:, :1]], idx[0, :1])
+    with pytest.raises(ValueError):
+        scatter_kv.splice([pool], [pool[:, :, :2]], lane=0, zero_tail=True)
     assert ops.launch_counts() == {"gather_kv": 0, "gather_kv_pages": 0,
                                    "indexer_scores": 0, "sparse_attn": 0,
-                                   "sparse_attn_gqa": 0, "scatter_kv": 0}
+                                   "sparse_attn_gqa": 0, "scatter_kv": 0,
+                                   "scatter_kv.scatter": 0,
+                                   "scatter_kv.rows_at": 0,
+                                   "scatter_kv.splice": 0}
