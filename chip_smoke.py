@@ -21,12 +21,12 @@ Phases, each printing one JSON line with its seconds; any failure raises
    DeepSeek-V3.2's and Qwen2-1.5B's decode shapes, the fetch pipeline's
    fused demand set and speculation tail (k=2048 plus w=512), the tail
    alone, the prefill warm-up (1536 rows of each of 28 layers in the
-   [28, 8 * 8256, 512] view of the pool) and Gemma3-12B's width in bf16
-   and e4m3; the scatter
+   [28, 8 * 8256, 512] view of the pool), Gemma3-12B's width in bf16
+   and e4m3 and Zamba2-7B's (rows of 14,336 B); the scatter
    kernel in its index form (DeepSeek-V3.2's width: 1 row, 8 rows, a
    layer's splice rows), its decode form (both pools, every layer, one
-   launch, at DeepSeek-V3.2's, Qwen2-1.5B's and Gemma3-12B's shapes,
-   Gemma3's in bf16 and e4m3) and its splice form (a Gemma3-12B prompt,
+   launch, at DeepSeek-V3.2's, Qwen2-1.5B's, Gemma3-12B's and Zamba2-7B's
+   shapes, Gemma3's in bf16 and e4m3) and its splice form (a Gemma3-12B prompt,
    48 x 8192 rows, into the 4-slot pools with the tail zeroed, bf16 and
    e4m3), each beside the port's earlier code for the same write
    (``ms_was``); the indexer at DeepSeek-V3.2's and Qwen2-1.5B's serving
@@ -35,9 +35,10 @@ Phases, each printing one JSON line with its seconds; any failure raises
    DeepSeek-V3.2's and Qwen2-1.5B's serving shapes (2049 lanes, about
    10% invalid) and at Gemma3-12B's 16 heads over 8 of 240, at B=8 and
    as served (4 slots: a global layer's lanes, and a local layer's,
-   whose window leaves 1024 of the 2049 valid), and the GQA form in bf16
-   at the (heads, KV heads, head dim) of every other dense/MoE and
-   local:global config of the registry (B=8); the page gather (on no
+   whose window leaves 1024 of the 2049 valid), and at Zamba2-7B's 32
+   heads over 32 KV heads of 112 (B=8), and the GQA form in bf16 at the
+   (heads, KV heads, head dim) of every other dense/MoE, local:global
+   and Mamba2-hybrid config of the registry (B=8); the page gather (on no
    path) at Qwen2-1.5B's pool; then both attention forms (each a split-k
    pass and a combine pass), with bf16 and with e4m3 entries, at the
    edges of their split plan, each case launched twice for equal bits:
@@ -57,7 +58,12 @@ Phases, each printing one JSON line with its seconds; any failure raises
    the arbiter grants them, a warm-up plan gathered as the engine does),
    the hot tier's integer state and ``pf_*`` counters exact; reduced
    Gemma3 (its local window of 32 below the context), and reduced
-   Gemma3, Qwen2 and DeepSeek-V3.2 with the fp8 pool;
+   Gemma3, Qwen2 and DeepSeek-V3.2 with the fp8 pool; reduced Zamba2 in
+   SAC mode (its recurrent state ``rec_*`` too), and reduced xLSTM in
+   dense mode with no pool (logits and ``rec_*``; no kernel may launch);
+   every check held to one fixed limit (``SMALL_TOL``), and each also
+   runs a control, the card with its weights rounded through e4m3, that
+   must exceed that limit;
 5. serving DeepSeek-V3.2 through the port's ``Engine`` at full width
    with 2 layers (d=7168, 128 heads, latent 512+64, indexer 64x128,
    top-k 2048, hot tier 6144, 256 experts top-8; random bf16 weights
@@ -96,11 +102,30 @@ Phases, each printing one JSON line with its seconds; any failure raises
    the hot tier's entries exactly half the bytes, the indexer pool
    unchanged, every kernel on every layer; the first decode step's
    largest logit difference from phase 8 and the share of equal tokens
-   (reported); then its profile.  Every serve run of phases 5-9 checks
-   that every logit of every decode step is finite;
+   (reported); then its profile.  Every serve run (phases 5-9, 11, 13)
+   checks that every logit of every decode step is finite;
 10. ``python -m repro_torch.launch.serve --arch gemma3-12b`` at the
    CLI's defaults (4 slots, max_ctx 96, 8 requests of 48 tokens) through
-   its ``main``: every request served, every kernel on every layer.
+   its ``main``: every request served, every kernel on every layer;
+11. serving Zamba2-7B at full width and depth (81 Mamba2 layers: 13
+   super-blocks of 6 and a tail of 3, the one tied shared-attention
+   layer after each super-block's sixth, so 13 pool layers; d=3584, 32
+   heads over 32 KV heads of 112, d_ff 14336, vocab 32000, SSM state
+   64, indexer 4x64, top-k 2048, hot tier 6144): 8 slots, ``max_ctx``
+   8256, 16 requests of 8192 tokens and 8 output tokens, every kernel of
+   the path on every pool layer of every decode step, the pool's, the
+   hot tier's and the recurrent state's bytes, the peak device memory;
+   then its profile, whose ``layer_kinds`` split the traced steps into
+   the 81 Mamba2 layers and the 13 pool layers (host time, device time
+   and launches of each kind, a step and a call; every profile has
+   this split);
+12. ``python -m repro_torch.launch.serve --arch zamba2-7b`` at the CLI's
+   defaults, as phase 10;
+13. serving xLSTM-125M at full width and depth (12 layers, d 768, 4
+   heads, vocab 50304; no pool): 4 slots, ``max_ctx`` 2112, 8 requests
+   of 2048 tokens and 8 output tokens, every request served, no kernel
+   launched, every logit finite; then its profile, and the CLI at its
+   defaults for ``--arch xlstm-125m`` (no kernel launched).
 
 The line before the last is ``nvidia-smi``'s name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -159,6 +184,17 @@ SERVES = {
                        device_kernels=GQA_DEVICE_KERNELS),
 }
 SERVES["gemma3-12b-fp8"] = dict(SERVES["gemma3-12b"], kv_quant="fp8")
+# Zamba2-7B at full width and depth: 81 Mamba2 layers (13 super-blocks of
+# 6, then 3) and the one tied shared-attention layer after every sixth,
+# so 13 pool layers; xLSTM-125M (12 layers, d 768, 4 heads) has no pool
+# and runs no kernel of the port
+SERVES["zamba2-7b"] = dict(arch="zamba2-7b", slots=8, max_ctx=8256,
+                           requests=16, context=8192, output=8,
+                           attn="sparse_attn_gqa",
+                           device_kernels=GQA_DEVICE_KERNELS)
+SERVES["xlstm-125m"] = dict(arch="xlstm-125m", slots=4, max_ctx=2112,
+                            requests=8, context=2048, output=8, attn=None,
+                            device_kernels=())
 
 
 def fail(msg: str) -> None:
@@ -326,7 +362,8 @@ def check_gathers(torch, ref, mod):
     lane * S: 1.9 GB, the widest addressing the kernel is given; its
     batched run cycles through the 8 lanes' disjoint rows in place of
     copies of the pool); Gemma3-12B's width ([4, 8256, 3840], k=2048) in
-    bf16 and e4m3.  Returns the gather's record."""
+    bf16 and e4m3; Zamba2-7B's ([8, 8256, 7168], k=2048: rows of 14,336
+    B).  Returns the gather's record."""
     from repro_torch.core.pool import E4M3, to_kv_dtype
     from repro_torch.kernels import ops
     dev = torch.device("cuda")
@@ -368,16 +405,22 @@ def check_gathers(torch, ref, mod):
         shapes.append(gather_case(torch, ref, mod, "gemma3-12b",
                                   [(kv, idx)]))
     del x, kv
+    kv = randn(8, 8256, 7168)
+    shapes.append(gather_case(torch, ref, mod, "zamba2-7b",
+                              [(kv, randidx(8, 2048, 8256))]))
+    del kv
     torch.cuda.empty_cache()
     rec["shapes"] = shapes
     return rec
 
 
 # the decode write's two pools (L, B, S, entry width, indexer-key width)
-# at each served model's shape; Gemma3-12B's entries in bf16 and e4m3
+# at each served model's shape (Zamba2-7B: its 13 pool layers);
+# Gemma3-12B's entries in bf16 and e4m3
 WRITE_SHAPES = {"deepseek-v32": (2, 4, 4160, 576, 128),
                 "qwen2-1.5b": (28, 8, 8256, 512, 64),
-                "gemma3-12b": (48, 4, 8256, 3840, 64)}
+                "gemma3-12b": (48, 4, 8256, 3840, 64),
+                "zamba2-7b": (13, 8, 8256, 7168, 64)}
 
 
 def _rand_pool(torch, g, shape, dtype):
@@ -457,7 +500,7 @@ def check_pool_writes(torch, ref, mod):
             for p, e in zip(want, entries):
                 ref.write_rows_at_ref(p.view(torch.uint8),
                                       e.view(torch.uint8), pos)
-            got = [p.clone() for p in pools]
+            got = pools                # written in place: 12 GB at Zamba2's
             mod.write_rows_at(got, entries, pos)
             if not all(_equal_bits(torch, a, b) for a, b in zip(got, want)):
                 raise AssertionError(f"write_rows_at differs from its plain "
@@ -629,8 +672,9 @@ def check_indexer(torch, ref, mod):
 
 
 def gqa_shapes():
-    """(heads, KV heads, head dim) of every dense/MoE and local:global
-    config of the registry, Qwen2-1.5B's (the served one) first."""
+    """(heads, KV heads, head dim) of every dense/MoE, local:global and
+    Mamba2-hybrid config of the registry, Qwen2-1.5B's (the served one)
+    first."""
     from repro_torch.configs import ARCHS
     from repro_torch.models.transformer import build_segments
     shapes = []
@@ -640,7 +684,8 @@ def gqa_shapes():
             continue
         kinds = {s.kind for s in build_segments(cfg)}
         shape = (cfg.n_heads, cfg.n_kv_heads, cfg.hd)
-        if kinds <= {"dense", "moe", "lg_super"} and shape not in shapes:
+        if kinds <= {"dense", "moe", "lg_super", "zamba_super",
+                     "mamba_tail"} and shape not in shapes:
             shapes.append(shape)
     return shapes
 
@@ -658,7 +703,8 @@ ATTN_CASES = (("deepseek-v32", "mla", 4, 128, 512, 64, None),
               ("qwen2-1.5b", "gqa", 8, 12, 2, 128, None),
               ("gemma3-12b", "gqa", 8, 16, 8, 240, None),
               ("gemma3-12b served, global", "gqa", 4, 16, 8, 240, None),
-              ("gemma3-12b served, local", "gqa", 4, 16, 8, 240, 1023))
+              ("gemma3-12b served, local", "gqa", 4, 16, 8, 240, 1023),
+              ("zamba2-7b", "gqa", 8, 32, 32, 112, None))
 
 
 def attention_case(torch, ref, mod, g, case, dtype, k: int = 2049):
@@ -956,15 +1002,27 @@ def small_config(name: str, fp8: bool = False):
                                    kv_quant="fp8" if fp8 else None))
 
 
+# small_check's limit on the relative L2 error, card against CPU
+SMALL_TOL = 5e-2
+
+
 def small_check(torch, cfg, *, mode: str = "sac", prompt_len: int = 40,
                 pool_len: int = 64, prefetch: bool = False,
                 devices=("cpu", "cuda")):
     """``cfg`` on the card against the same weights on the CPU (QKV
     biases, where the config has them, set non-zero): per-request
-    relative L2 error of the logits and the pool within 5e-2 (bf16
-    activations round at other places in cuBLAS and on the CPU; about
-    1e-2 is typical), and in SAC mode the hot-tier integer state exact
-    under an injected top-k.  Lane 1 holds the prompt, lane 0 is empty.
+    relative L2 error of the logits, the pool (where the model has one)
+    and each leaf of the recurrent state ``rec_*`` (where it has one)
+    within SMALL_TOL (bf16 activations round at other places in cuBLAS and on
+    the CPU; about 1e-2 is typical), and in SAC mode the hot-tier
+    integer state exact under an injected top-k.  Lane 1 holds the
+    prompt, lane 0 is empty; the recurrent state starts from zeros, as
+    the engine's splice of a prefill leaves it.
+
+    A control: the card runs again with the weights rounded through
+    e4m3 (``e4m3_weights``), and that run's error against the CPU must
+    exceed SMALL_TOL, or the limit could not tell a lower-precision run
+    from a sound one.  Returns the worst error and the control's.
 
     ``prefetch``: the fetch pipeline on, its selections injected too (a
     score-independent speculation of the config's width, per-request
@@ -973,6 +1031,7 @@ def small_check(torch, cfg, *, mode: str = "sac", prompt_len: int = 40,
     the hot tier, its ``pf_*`` counters included, must match exactly."""
     from repro_torch.core.pool import pool_write_prefill
     from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import pool_layer_params
     from repro_torch.serving.engine import Engine
 
     K = 16
@@ -992,26 +1051,30 @@ def small_check(torch, cfg, *, mode: str = "sac", prompt_len: int = 40,
 
     opts = (dict(prefetch_width=W, prefetch_fn=spec,
                  score_margin=cfg.sac.score_margin) if prefetch else None)
+    plan = [(dev, False) for dev in devices] + [(devices[1], True)]
     runs = []
     params = None
-    for dev in devices:
+    for dev, degrade in plan:
         m = build_model(cfg, mode=mode, topk_fn=topk, opts=opts, device=dev)
         if params is None:
             gen = torch.Generator(device=dev).manual_seed(1)
             params = m.init(gen)
-            for layer in params["segments"][0]:
+            for layer in pool_layer_params(cfg, params):
                 for name in ("bq", "bk", "bv"):
                     if name in layer["attn"]:
                         b = layer["attn"][name]
                         b.copy_(0.5 * torch.randn(b.shape, generator=gen,
                                                   device=dev))
         p = _to(params, dev)
+        if degrade:
+            p = e4m3_weights(torch, p)
         prompt = torch.arange(3, 3 + prompt_len, dtype=torch.int32,
                               device=dev)[None] % cfg.vocab
         st, first = m.prefill(p, prompt)
         state = m.init_serve_state(2, pool_len, device_buffer=8)
         for key in ("kv_pool", "idx_pool"):
-            pool_write_prefill(state[key], st[key], lane=1)
+            if key in state:
+                pool_write_prefill(state[key], st[key], lane=1)
         state["cache_len"][1] = prompt_len
         if prefetch:
             L = m.n_kv
@@ -1030,22 +1093,24 @@ def small_check(torch, cfg, *, mode: str = "sac", prompt_len: int = 40,
         runs.append(dict(logits=[x.float().cpu() for x in logits],
                          hot=([t.cpu() for t in state["hot_buf"][1:]]
                               if "hot_buf" in state else []),
-                         pool=state["kv_pool"].float().cpu()))
-    ref_run, dev_run = runs
+                         pool=(state["kv_pool"].float().cpu()
+                               if "kv_pool" in state else None),
+                         rec=[t.float().cpu() for t in _rec_leaves(state)]))
+    ref_run, dev_run = runs[:2]
     worst = 0.0
-    pairs = [(a[i], b[i]) for a, b in zip(ref_run["logits"],
-                                          dev_run["logits"])
-             for i in range(a.shape[0])]
-    pairs += [(ref_run["pool"][:, i], dev_run["pool"][:, i])
-              for i in range(2)]
-    for want, got in pairs:
+    for want, got in _run_pairs(ref_run, dev_run):
         if not torch.isfinite(got).all():
             raise AssertionError("non-finite values on the card")
-        err = ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
-        worst = max(worst, err)
-    if worst > 5e-2:
+        worst = max(worst, _rel_l2(got, want))
+    if worst > SMALL_TOL:
         raise AssertionError(f"{cfg.name} ({mode}): card vs CPU relative "
-                             f"L2 error {worst:.4f}")
+                             f"L2 error {worst:.4f} > {SMALL_TOL}")
+    control_err = max(_rel_l2(got, want) for want, got in
+                      _run_pairs(ref_run, runs[2]))
+    if control_err <= SMALL_TOL:
+        raise AssertionError(f"{cfg.name} ({mode}): the e4m3 control's "
+                             f"error {control_err:.4f} is within "
+                             f"{SMALL_TOL}")
     if mode == "sac" and not ref_run["hot"]:
         raise AssertionError("no hot tier in the SAC small check")
     if prefetch and not int(dev_run["hot"][-2].sum()):
@@ -1054,7 +1119,50 @@ def small_check(torch, cfg, *, mode: str = "sac", prompt_len: int = 40,
         if not torch.equal(a, b):
             raise AssertionError(f"{cfg.name}: hot-tier state differs "
                                  "card vs CPU")
-    return worst
+    return worst, control_err
+
+
+def e4m3_weights(torch, params):
+    """A copy of ``params`` with every bf16 tensor rounded through e4m3
+    and back (3 mantissa bits in place of 7): small_check's
+    lower-precision control."""
+    from repro_torch.core.pool import E4M3
+    if isinstance(params, dict):
+        return {k: e4m3_weights(torch, v) for k, v in params.items()}
+    if isinstance(params, list):
+        return [e4m3_weights(torch, v) for v in params]
+    if params.dtype != torch.bfloat16:
+        return params
+    return params.to(E4M3).to(torch.bfloat16)
+
+
+def _rel_l2(got, want) -> float:
+    return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+def _run_pairs(want, got):
+    """(want, got) pairs of two small-check runs: each request's logits
+    at each step, each lane of the pool, each ``rec_*`` leaf."""
+    pairs = [(a[i], b[i]) for a, b in zip(want["logits"], got["logits"])
+             for i in range(a.shape[0])]
+    if want["pool"] is not None:
+        pairs += [(want["pool"][:, i], got["pool"][:, i]) for i in range(2)]
+    return pairs + list(zip(want["rec"], got["rec"]))
+
+
+def _rec_leaves(state):
+    """The leaves of every ``rec_*`` of a serve state, in order."""
+    out = []
+
+    def walk(x):
+        if isinstance(x, tuple):
+            for y in x:
+                walk(y)
+        else:
+            out.append(x)
+    for key in sorted(k for k in state if k.startswith("rec_")):
+        walk(state[key])
+    return out
 
 
 def _to(tree, dev):
@@ -1077,7 +1185,9 @@ def serve(torch, ops, cfg, *, slots: int, max_ctx: int, requests: int,
     dtypes of the pool, the hot tier's entries and the indexer pool),
     each request's decoded tokens and the first decode step's logits.
     Every logit of every decode step must be finite.  (``device`` lets
-    the same phase run reduced on the CPU as a rehearsal.)"""
+    the same phase run reduced on the CPU as a rehearsal.)  The summary
+    also gives the pool layers and the bytes of the recurrent state
+    ``rec_*`` (Mamba2, xLSTM)."""
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.request import sharegpt_trace
 
@@ -1128,9 +1238,11 @@ def serve(torch, ops, cfg, *, slots: int, max_ctx: int, requests: int,
     if n_nonfinite:
         raise AssertionError(f"{cfg.name}: {n_nonfinite} non-finite logits")
     eng._decode = plain_decode
-    tensors = dict(kv_pool=eng.state["kv_pool"],
-                   hot_tier_entries=eng.state["hot_buf"].entries,
-                   idx_pool=eng.state["idx_pool"])
+    tensors = {k: eng.state[key] for k, key in (
+        ("kv_pool", "kv_pool"), ("hot_tier_entries", "hot_buf"),
+        ("idx_pool", "idx_pool")) if key in eng.state}
+    if "hot_tier_entries" in tensors:
+        tensors["hot_tier_entries"] = tensors["hot_tier_entries"].entries
     # wall time of the decode steps alone (steps that also ran a prefill
     # are the slowest; the median is a pure decode step)
     step_sorted = sorted(step_s)
@@ -1147,11 +1259,27 @@ def serve(torch, ops, cfg, *, slots: int, max_ctx: int, requests: int,
         run_wall_s=run_s, engine_init_s=init_s,
         max_memory_allocated_bytes=(torch.cuda.max_memory_allocated()
                                     if device == "cuda" else None),
+        pool_layers=eng.model.n_kv,
         pool_bytes={k: t.nbytes for k, t in tensors.items()},
         pool_dtypes={k: str(t.dtype) for k, t in tensors.items()},
+        rec_bytes=sum(t.nbytes for t in _rec_leaves(eng.state)),
         logits_finite=True, launches=counts)
     return (eng, counts, summary, {r.request_id: r.out_tokens for r in done},
             first[0])
+
+
+def _span_totals(event):
+    """Device seconds of the kernels launched inside a profiler range
+    (by the operators below it; the range's own device-side annotation
+    left out) and the ``cudaLaunchKernel`` calls there."""
+    dev, n = 0.0, 0
+    stack = list(event.cpu_children)
+    while stack:
+        e = stack.pop()
+        dev += sum(k.duration for k in e.kernels) * 1e-6
+        n += e.name == "cudaLaunchKernel"
+        stack.extend(e.cpu_children)
+    return dev, n
 
 
 def profile_decode(torch, eng, *, requests: int, context: int,
@@ -1161,9 +1289,17 @@ def profile_decode(torch, eng, *, requests: int, context: int,
     ids, the serving phase's lengths) are admitted and prefilled outside
     the trace; their next ``n_steps`` decode steps run under
     torch.profiler (CUPTI), whose host overhead lowers the busy share a
-    little.  Every name in ``device_kernels`` must show on the device."""
+    little.  Every name in ``device_kernels`` must show on the device.
+
+    ``layer_kinds`` splits the steps by the decode's ranges
+    (``transformer.DECODE_SPANS``: pool layers, Mamba2 layers, xLSTM
+    super-blocks): host time inside the ranges (under the profiler),
+    device time of the kernels launched inside them and those launches,
+    a step and a call; each kind must open its ranges as often a step as
+    the model has such layers."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.transformer import DECODE_SPANS
     from repro_torch.serving.request import sharegpt_trace
 
     reqs = sharegpt_trace(requests, context_len=context,
@@ -1185,8 +1321,11 @@ def profile_decode(torch, eng, *, requests: int, context: int,
     if len(done) != len(reqs):
         raise AssertionError(f"profiled steps finished {len(done)} of "
                              f"{len(reqs)} requests")
+    # device activity: kernels and copies, not the ranges' annotations
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and e.name not in DECODE_SPANS
+                   and not getattr(e, "is_user_annotation", False))
     if not spans:
         raise AssertionError("the profiler recorded no device activity")
     busy_us, end_us, by_name = 0.0, -math.inf, {}
@@ -1208,6 +1347,37 @@ def profile_decode(torch, eng, *, requests: int, context: int,
     # earlier records give; cuBLAS's cudaLaunchKernelExC apart)
     launches = {k: sum(e.count for e in prof.key_averages() if e.key == k)
                 for k in ("cudaLaunchKernel", "cudaLaunchKernelExC")}
+    cfg = eng.cfg
+    want = dict(pool_layer=eng.model.n_kv,
+                mamba2_layer=cfg.n_layers if cfg.ssm_state else 0,
+                xlstm_super=sum(seg.n for seg in eng.model.segments
+                                if seg.kind == "xlstm_super"))
+    kinds = {k: dict(calls=0, host_s=0.0, device_s=0.0, launches=0)
+             for k in DECODE_SPANS}
+    for e in prof.events():
+        if e.name in kinds and e.device_type == DeviceType.CPU:
+            dev, n = _span_totals(e)
+            k = kinds[e.name]
+            k["calls"] += 1
+            k["host_s"] += e.cpu_time_total * 1e-6
+            k["device_s"] += dev
+            k["launches"] += n
+    layer_kinds = {}
+    for name, k in kinds.items():
+        if k["calls"] != want[name] * n_steps:
+            raise AssertionError(f"{k['calls']} {name} ranges in "
+                                 f"{n_steps} steps, want {want[name]} a "
+                                 f"step")
+        if k["calls"]:
+            calls = k["calls"]
+            layer_kinds[name] = dict(
+                per_step=want[name],
+                host_ms_per_step=k["host_s"] * 1e3 / n_steps,
+                device_ms_per_step=k["device_s"] * 1e3 / n_steps,
+                launches_per_step=k["launches"] / n_steps,
+                host_us_per_call=k["host_s"] * 1e6 / calls,
+                device_us_per_call=k["device_s"] * 1e6 / calls,
+                launches_per_call=k["launches"] / calls)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     # where the host's share goes: operators by their own (self) host time
     host = sorted((e for e in prof.key_averages()
@@ -1221,7 +1391,7 @@ def profile_decode(torch, eng, *, requests: int, context: int,
         launches_per_step=launches["cudaLaunchKernel"] / n_steps,
         launches_ex_per_step=launches["cudaLaunchKernelExC"] / n_steps,
         peak_memory_bytes=torch.cuda.max_memory_allocated(),
-        port_kernels=ours,
+        port_kernels=ours, layer_kinds=layer_kinds,
         top_kernels=[dict(name=name[:96], seconds=t, calls=n)
                      for name, (t, n) in ranked],
         top_host_ops=[dict(name=e.key[:96],
@@ -1229,16 +1399,22 @@ def profile_decode(torch, eng, *, requests: int, context: int,
                            calls=e.count) for e in host])
 
 
-def check_launches(counts, steps: int, layers: int, attn: str,
-                   prompts: int, warmups: int = 0) -> None:
+def check_launches(counts, steps: int, layers: int, attn, prompts: int,
+                   warmups: int = 0) -> None:
     """Every kernel of the path ran in the serving run: the per-layer
     ones (the gather, the indexer, the path's attention) at least once
-    per layer per decode step, the gather exactly once per layer per
-    step (the fetch pipeline's speculation tail rides on the demand
-    set's launch) plus at most ``warmups`` launches (the prefill
-    warm-up, one a prompt); the scatter kernel's decode write exactly
-    once per step (every layer of both pools in one launch) and its
-    splice exactly once per admitted prompt (``prompts``)."""
+    per pool layer (``layers``) per decode step, the gather exactly once
+    per pool layer per step (the fetch pipeline's speculation tail rides
+    on the demand set's launch) plus at most ``warmups`` launches (the
+    prefill warm-up, one a prompt); the scatter kernel's decode write
+    exactly once per step (every layer of both pools in one launch) and
+    its splice exactly once per admitted prompt (``prompts``).  A model
+    with no pool layer (``attn`` None: xLSTM) launches no kernel."""
+    if attn is None:
+        if layers or any(counts.values()):
+            raise AssertionError(f"a model without a pool launched "
+                                 f"{counts}")
+        return
     for name in ("gather_kv", "indexer_scores", attn):
         if counts[name] < steps * layers:
             raise AssertionError(f"{name}: {counts[name]} launches for "
@@ -1275,8 +1451,8 @@ def serve_and_profile(torch, ops, name: str):
     summary["seconds"] = time.perf_counter() - t0
     summary["run"] = name
     emit(summary)
-    check_launches(counts, summary["steps"], cfg.n_layers, spec["attn"],
-                   prompts=spec["requests"])
+    check_launches(counts, summary["steps"], summary["pool_layers"],
+                   spec["attn"], prompts=spec["requests"])
     t0 = time.perf_counter()
     prof = profile_decode(torch, eng, requests=spec["slots"],
                           context=spec["context"],
@@ -1421,19 +1597,20 @@ def fetch_pipeline(torch, ops, off_summary, off_tokens):
     return total
 
 
-def cli_defaults(torch, ops):
-    """Phase 10: ``python -m repro_torch.launch.serve --arch gemma3-12b`` at
-    the CLI's defaults (on the card; 4 slots, max_ctx 96, 8 requests of
-    48 tokens, 8 output tokens) through its ``main``: every request
-    served, every kernel of the path on every layer of every decode
-    step.  Returns the launch counts."""
-    argv = ["--arch", "gemma3-12b"]
+def cli_defaults(torch, ops, arch: str):
+    """``python -m repro_torch.launch.serve --arch <arch>`` at the CLI's
+    defaults (on the card; 4 slots, max_ctx 96, 8 requests of 48 tokens,
+    8 output tokens) through its ``main``: every request served, every
+    kernel of the path on every pool layer of every decode step (none
+    without a pool).  Returns the launch counts."""
+    argv = ["--arch", arch]
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     eng, reqs, cli_out, counts, step_s, _ = serve_cli(torch, ops, argv)
     st = eng.stats
     emit(dict(phase="cli", argv=argv, config=eng.cfg.name,
-              n_layers=eng.cfg.n_layers, slots=eng.slots,
+              n_layers=eng.cfg.n_layers, pool_layers=eng.model.n_kv,
+              slots=eng.slots,
               requests=len(reqs), tokens=st.tokens, steps=st.steps,
               wall_s_per_decode_step_median=sorted(step_s)[len(step_s) // 2],
               max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
@@ -1443,7 +1620,8 @@ def cli_defaults(torch, ops):
             len(r.out_tokens) != r.output_len for r in reqs):
         raise AssertionError(f"the CLI served {cli_out['n_done']} of "
                              f"{len(reqs)} requests")
-    check_launches(counts, st.steps, eng.cfg.n_layers, "sparse_attn_gqa",
+    check_launches(counts, st.steps, eng.model.n_kv,
+                   "sparse_attn_gqa" if eng.model.n_kv else None,
                    prompts=len(reqs))
     del eng, reqs
     gc.collect()
@@ -1542,20 +1720,30 @@ def main() -> None:
                 ("gemma3-12b", "sac", 40, 64, False, False),
                 ("gemma3-12b", "sac", 40, 64, False, True),
                 ("qwen2-1.5b", "sac", 40, 64, False, True),
-                ("deepseek-v32", "sac", 40, 64, False, True)):
+                ("deepseek-v32", "sac", 40, 64, False, True),
+                ("zamba2-7b", "sac", 40, 64, False, False),
+                ("xlstm-125m", "dense", 40, 64, False, False)):
             t0 = time.perf_counter()
             cfg = small_config(name, fp8)
             ops.reset_launch_counts()
-            err = small_check(torch, cfg, mode=mode, prompt_len=plen,
-                              pool_len=slen, prefetch=prefetch)
+            err, control_err = small_check(torch, cfg, mode=mode,
+                                           prompt_len=plen, pool_len=slen,
+                                           prefetch=prefetch)
             small_counts = ops.launch_counts()
             emit(dict(phase="small_check", config=name, mode=mode,
                       prefetch=prefetch, kv_quant=cfg.sac.kv_quant,
                       context=plen, window=cfg.sliding_window,
                       local_window=(cfg.local_window
                                     if cfg.local_global_ratio else None),
-                      max_rel_l2_err=err, launches=small_counts,
+                      max_rel_l2_err=err, tolerance=SMALL_TOL,
+                      control_e4m3_rel_l2_err=control_err,
+                      launches=small_counts,
                       seconds=time.perf_counter() - t0))
+            if not cfg.has_attention:      # xLSTM: no pool, no kernel
+                if any(small_counts.values()):
+                    raise AssertionError(f"small check {name} launched "
+                                         f"{small_counts}")
+                continue
             attn = "sparse_attn" if cfg.mla else "sparse_attn_gqa"
             missing = [k for k in path_kernels[mode] + (attn,)
                        if not small_counts[k]]
@@ -1575,9 +1763,15 @@ def main() -> None:
             runs[name] = serve_and_profile(torch, ops, name)
         compare_fp8(runs["gemma3-12b"], runs["gemma3-12b-fp8"])
         # 10. the CLI at its defaults
-        cli_counts = cli_defaults(torch, ops)
+        cli_counts = [cli_defaults(torch, ops, "gemma3-12b")]
+        # 11-12. Zamba2-7B at full width and depth, then its CLI run;
+        # 13. xLSTM-125M, then its CLI run
+        runs["zamba2-7b"] = serve_and_profile(torch, ops, "zamba2-7b")
+        cli_counts.append(cli_defaults(torch, ops, "zamba2-7b"))
+        runs["xlstm-125m"] = serve_and_profile(torch, ops, "xlstm-125m")
+        cli_counts.append(cli_defaults(torch, ops, "xlstm-125m"))
         for counts in ([r[0] for r in runs.values()]
-                       + [fetch_counts, cli_counts]):
+                       + [fetch_counts] + cli_counts):
             for k, n in counts.items():
                 launches[k] += n
 

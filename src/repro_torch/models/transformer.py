@@ -1,57 +1,85 @@
-"""Decoder-only LM assembly (``repro/models/transformer.py``): the MLA
-segments (``mla_dense``, ``mla_moe``: DeepSeek-V3.2), the GQA segments
-(``dense``, ``moe``: Qwen2, MiniCPM, Granite, Chameleon, Mixtral, DBRX;
-sliding window where the config has one) and Gemma3's ``lg_super``
-(super-blocks of ``local_global_ratio`` local layers with the window
-``local_window``, then one global layer).
+"""Decoder-only LM assembly (``repro/models/transformer.py``) for every
+segment kind of the reference:
+
+  - ``dense``, ``moe``        one (GQA attn + MLP or MoE) layer (Qwen2,
+                              MiniCPM, Granite, Chameleon, Mixtral, DBRX;
+                              sliding window where the config has one)
+  - ``mla_dense``, ``mla_moe`` one (MLA attn + MLP or MoE) layer
+                              (DeepSeek-V3.2)
+  - ``lg_super``     Gemma3's super-block: ``local_global_ratio`` layers
+                     with the window ``local_window``, then one global one
+  - ``zamba_super``  Zamba2's super-block: ``shared_attn_every`` Mamba2
+                     layers, then the ONE tied shared-attention layer
+                     (``params["shared"]``: the same tensors every time)
+  - ``mamba_tail``   Zamba2's trailing Mamba2 layers (81 = 13 * 6 + 3)
+  - ``xlstm_super``  xLSTM's super-block: 3 mLSTM layers + 1 sLSTM layer
 
 A model is a list of segments; where the reference scans stacked
-parameters with ``lax.scan``, the port loops over a list of per-layer
-parameter dicts in pool-layer order (an ``lg_super`` segment's list is
-super-block i's local layers 0..r-1 then its global layer, for each i:
-layer ``(r + 1) i + j``), and each layer takes its window from
+parameters with ``lax.scan``, the port loops over a list per segment:
+one dict per layer for the attention kinds (an ``lg_super`` segment's
+list is super-block i's local layers 0..r-1 then its global layer, for
+each i), one dict per iteration for the others
+(``{"mamba_layers": [a dicts]}``, ``{"ln", "mamba"}``,
+``{"mlstm": [3 dicts], "slstm": dict}``).  Only attention layers are
+pool layers: pool layer ``l`` takes its window from
 ``kv_layer_windows``.  Entry points:
 
-  ``prefill`` -- the prompt forward, emitting the SAC pool (latent
-                 entries + indexer keys) and, with the ``warmup_w`` opt,
-                 each layer's warm-up candidates (``warm_idx``);
-  ``decode``  -- one token per request over the pool: indexer -> top-k
-                 -> fetch (the gather kernel, or ``fetch_fn``) -> sparse
-                 attention -> MLP or MoE, then the write-back of the new
-                 entries (the scatter kernel); with the ``prefetch_width``
-                 opt and a hot tier, the speculated entrants are fetched
-                 and warm-inserted too.
+  ``prefill`` -- the prompt forward, emitting the SAC pool (entries +
+                 indexer keys of the attention layers) and, with the
+                 ``warmup_w`` opt, each pool layer's warm-up candidates
+                 (``warm_idx``); the recurrent state ``rec_{si}`` of a
+                 fresh serve state is zeros, as the reference's is (it
+                 never carries the prompt into it);
+  ``decode``  -- one token per request: each Mamba2 / xLSTM layer reads
+                 and updates its slice of ``rec_{si}``; each attention
+                 layer runs indexer -> top-k -> fetch (the gather kernel,
+                 or ``fetch_fn``) -> sparse attention -> MLP or MoE over
+                 the pool, then the write-back of the new entries (the
+                 scatter kernel); with the ``prefetch_width`` opt and a
+                 hot tier, the speculated entrants are fetched and
+                 warm-inserted too.
 
-``decode`` updates the serve state IN PLACE (pools, hot tier) and
-returns the same dict.  With ``kv_quant="fp8"`` the pool and the hot
-tier hold ``float8_e4m3fn`` entries (cast by ``core/pool.py::
+``decode`` updates the serve state IN PLACE (pools, hot tier, recurrent
+state) and returns the same dict.  Under ``torch.profiler`` it marks each
+layer's work as a range named by ``DECODE_SPANS`` (a pool layer, a Mamba2
+layer, an xLSTM super-block), so that a trace splits a step by layer
+kind; with no profiler on, a layer pays one flag check.  With ``kv_quant="fp8"`` the pool and
+the hot tier hold ``float8_e4m3fn`` entries (cast by ``core/pool.py::
 to_kv_dtype``) and the indexer pool stays bf16, as in the reference.
-Other segment kinds raise ``NotImplementedError`` naming their ROADMAP
-item.  f32 products assume ``torch.backends.cuda.matmul.allow_tf32 =
-False`` (PyTorch's default, set by the engine).
+f32 products assume ``torch.backends.cuda.matmul.allow_tf32 = False``
+(PyTorch's default, set by the engine).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import itertools
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import hisparse
 from repro_torch.core import sac as sac_core
 from repro_torch.core.pool import (E4M3, FetchFn, local_fetch,
                                    pool_write_step, to_kv_dtype)
-from repro_torch.models import dsa, moe
+from repro_torch.models import dsa, moe, ssm
 from repro_torch.models.layers import (DTYPE, ParamSpec, attn_param_specs,
                                        dense_attention_block, init_params,
                                        mlp_block, mlp_param_specs, rms_norm,
                                        top_k)
 
-_PORTED_KINDS = ("dense", "moe", "mla_dense", "mla_moe", "lg_super")
-_OTHER_FAMILIES = ("segment kind {!r} waits for its slice (ROADMAP: module "
-                   "item 'The other model families')")
+_ATTN_KINDS = ("dense", "moe", "mla_dense", "mla_moe", "lg_super")
+#: decode's profiler ranges: one per pool (attention) layer, Mamba2 layer
+#: and xLSTM super-block
+DECODE_SPANS = ("pool_layer", "mamba2_layer", "xlstm_super")
+
+
+def _span(name: str):
+    """A ``torch.profiler`` range while a profiler records, else nothing."""
+    if torch._C._autograd._profiler_enabled():
+        return record_function(name)
+    return contextlib.nullcontext()
 
 
 # ---------------------------------------------------------------------------
@@ -139,23 +167,60 @@ def _attn_layer_specs(cfg) -> Dict[str, Any]:
     return p
 
 
+def _mamba_layer_specs(cfg) -> Dict[str, Any]:
+    return {"ln": _norm(cfg), "mamba": ssm.mamba2_param_specs(cfg)}
+
+
 def segment_specs(seg: Segment, cfg: ModelConfig) -> List[Dict[str, Any]]:
-    """One spec dict per layer, in pool-layer order (the reference
-    stacks them on a leading [n] axis for its scan; an ``lg_super``
-    segment as ``{"local": [n, r, ...], "global": [n, ...]}``)."""
-    if seg.kind not in _PORTED_KINDS:
-        raise NotImplementedError(_OTHER_FAMILIES.format(seg.kind))
-    return [_attn_layer_specs(cfg) for _ in range(seg.n * seg.kv_per_iter)]
+    """The segment's spec list (the reference stacks the same leaves on
+    a leading [n] axis for its scan, and the inner lists on a second
+    one): one dict per layer, in pool-layer order, for the attention
+    kinds (an ``lg_super`` segment in the reference is ``{"local":
+    [n, r, ...], "global": [n, ...]}``); one dict per iteration for the
+    recurrent kinds."""
+    if seg.kind in _ATTN_KINDS:
+        return [_attn_layer_specs(cfg)
+                for _ in range(seg.n * seg.kv_per_iter)]
+    if seg.kind == "zamba_super":
+        return [{"mamba_layers": [_mamba_layer_specs(cfg)
+                                  for _ in range(cfg.shared_attn_every)]}
+                for _ in range(seg.n)]
+    if seg.kind == "mamba_tail":
+        return [_mamba_layer_specs(cfg) for _ in range(seg.n)]
+    if seg.kind == "xlstm_super":
+        return [{"mlstm": [{"ln": _norm(cfg), **ssm.mlstm_param_specs(cfg)}
+                           for _ in range(3)],
+                 "slstm": {"ln": _norm(cfg), **ssm.slstm_param_specs(cfg)}}
+                for _ in range(seg.n)]
+    raise ValueError(seg.kind)
 
 
 def model_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     d, v = cfg.d_model, cfg.vocab
-    return {
+    specs: Dict[str, Any] = {
         "embed": ParamSpec((v, d), ("V", "D"), scale=1.0),
         "segments": [segment_specs(s, cfg) for s in build_segments(cfg)],
         "final_norm": _norm(cfg),
         "lm_head": ParamSpec((d, v), ("D", "V")),
     }
+    if cfg.ssm_state and cfg.shared_attn_every:
+        # zamba2's tied shared-attention layer: one set of weights,
+        # applied after every ``shared_attn_every``-th Mamba2 layer
+        specs["shared"] = _attn_layer_specs(cfg)
+    return specs
+
+
+def pool_layer_params(cfg: ModelConfig, params) -> List[Dict[str, Any]]:
+    """The attention layer's parameters of each pool layer, in pool-layer
+    order: zamba2's pool layers all get the one ``params["shared"]``
+    dict (the same tensors, not copies)."""
+    out: List[Dict[str, Any]] = []
+    for seg, items in zip(build_segments(cfg), params["segments"]):
+        if seg.kind in _ATTN_KINDS:
+            out += items
+        elif seg.kind == "zamba_super":
+            out += [params["shared"]] * seg.n
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -258,6 +323,74 @@ def _layer_decode(p, x, cfg, ctx, kv_slice, idx_slice, window, hbuf=None):
     return x + out[:, 0], own, new_key, hbuf2, hits, misses
 
 
+def _mamba_fwd(p, x, cfg, chunk):
+    out, _ = ssm.mamba2_block(p["mamba"], rms_norm(x, p["ln"]), cfg,
+                              chunk=chunk)
+    return x + out
+
+
+def _xlstm_fwd(p, x, cfg):
+    for pl in p["mlstm"]:
+        x = x + ssm.mlstm_block(pl, rms_norm(x, pl["ln"]), cfg)
+    ps = p["slstm"]
+    return x + ssm.slstm_block(ps, rms_norm(x, ps["ln"]), cfg)
+
+
+def _store(dst, src):
+    """Write a recurrent state's new leaves into its serve-state views."""
+    for d, s in zip(dst, src):
+        d.copy_(s)
+
+
+def _mamba_decode(p, x, cfg, st):
+    """One Mamba2 layer's decode; ``st`` = (ssm [B,nh,N,hd], conv
+    [B,3,F]) views of the serve state, updated in place."""
+    out, new = ssm.mamba2_decode(p["mamba"], rms_norm(x, p["ln"]), cfg, st)
+    _store(st, new)
+    return x + out
+
+
+def _xlstm_decode(p, x, cfg, rec, i):
+    """Iteration ``i`` of an ``xlstm_super`` segment; ``rec`` = ((C, n, m)
+    [n, 3, ...], (h, c, n, m) [n, B, d]), updated in place."""
+    m_rec, s_rec = rec
+    for j, pl in enumerate(p["mlstm"]):
+        st = tuple(t[i, j] for t in m_rec)
+        out, new = ssm.mlstm_decode(pl, rms_norm(x, pl["ln"]), cfg, st)
+        _store(st, new)
+        x = x + out
+    ps = p["slstm"]
+    st = tuple(t[i] for t in s_rec)
+    out, new = ssm.slstm_decode(ps, rms_norm(x, ps["ln"]), cfg, st)
+    _store(st, new)
+    return x + out
+
+
+def segment_rec_shapes(seg: Segment, cfg: ModelConfig, batch: int):
+    """(shape, dtype) leaves of one iteration's recurrent state, in the
+    reference's layout (None for the attention kinds)."""
+    if seg.kind in ("zamba_super", "mamba_tail"):
+        ssm_s, conv_s = ssm.mamba2_state_shape(cfg, batch)
+        a = ((cfg.shared_attn_every,) if seg.kind == "zamba_super" else ())
+        return ((a + ssm_s, torch.float32), (a + conv_s, DTYPE))
+    if seg.kind == "xlstm_super":
+        d, nh = cfg.d_model, cfg.n_heads
+        hd = d // nh
+        f32 = torch.float32
+        return (((3, batch, nh, hd, hd), f32), ((3, batch, nh, hd), f32),
+                ((3, batch, nh), f32)), \
+            tuple(((batch, d), f32) for _ in range(4))
+    return None
+
+
+def _zero_rec(shapes, n, device):
+    """Zeros of a segment's recurrent state, stacked on its [n] axis."""
+    if isinstance(shapes[1], torch.dtype):
+        shape, dtype = shapes
+        return torch.zeros((n, *shape), dtype=dtype, device=device)
+    return tuple(_zero_rec(s, n, device) for s in shapes)
+
+
 # ---------------------------------------------------------------------------
 # the model facade
 # ---------------------------------------------------------------------------
@@ -295,12 +428,14 @@ class TransformerLM:
     def prefill(self, params, tokens, lengths=None):
         """tokens [B, S] -> (serve_state, last_logits [B, V]).
 
-        Emits every position's latent entry and indexer key as the pool
-        of a fresh serve state; with the ``warmup_w`` opt also
-        ``warm_idx`` [L, B, w], the warm-up candidates (popped by the
-        engine: not part of the serve state).  Logits are computed for the last
-        prompt position only (the reference computes all S and keeps the
-        last; the result is the same)."""
+        Emits every position's entry and indexer key of each attention
+        layer as the pool of a fresh serve state (no pool without an
+        attention layer); with the ``warmup_w`` opt also ``warm_idx``
+        [L, B, w], the warm-up candidates (popped by the engine: not part
+        of the serve state).  The recurrent state ``rec_{si}`` is zeros,
+        as the reference's prefill returns it.  Logits are computed for
+        the last prompt position only (the reference computes all S and
+        keeps the last; the result is the same)."""
         cfg = self.cfg
         B, S = tokens.shape
         dev = tokens.device
@@ -311,24 +446,45 @@ class TransformerLM:
                                  device=dev)[None, :].expand(B, S)
         groups = int(self.opts.get("moe_groups", 1))
         warm_w = int(self.opts.get("warmup_w", 0))
+        chunk = int(self.opts.get("ssm_chunk", 256))
         # each layer's entries land in the pool as they are made (no
-        # second copy of a long prompt's pool from a stack); every layer
-        # of a ported segment kind is an attention layer
-        state: Dict[str, Any] = {"kv_pool": torch.empty(
-            (self.n_kv, B, S, self.kv_dim), dtype=self.kv_dtype, device=dev)}
-        if cfg.sac.enabled:
-            state["idx_pool"] = torch.empty(
-                (self.n_kv, B, S, cfg.sac.d_idx), dtype=DTYPE, device=dev)
+        # second copy of a long prompt's pool from a stack)
+        state: Dict[str, Any] = {}
+        if self.n_kv:
+            state["kv_pool"] = torch.empty(
+                (self.n_kv, B, S, self.kv_dim), dtype=self.kv_dtype,
+                device=dev)
+            if cfg.sac.enabled:
+                state["idx_pool"] = torch.empty(
+                    (self.n_kv, B, S, cfg.sac.d_idx), dtype=DTYPE,
+                    device=dev)
         warms = []
-        for layer, p in enumerate(itertools.chain(*params["segments"])):
+
+        def attn(p, x):                  # pool layer len(warms)
+            layer = len(warms)
             x, entry, ik, wm = _layer_fwd(p, x, cfg, positions,
                                           self.windows[layer], groups, warm_w)
             state["kv_pool"][layer] = to_kv_dtype(entry, self.kv_dtype)
             if ik is not None:
                 state["idx_pool"][layer] = ik.to(DTYPE)
             warms.append(wm)
-        if warms[0] is not None:
+            return x
+
+        for seg, items in zip(self.segments, params["segments"]):
+            for it in items:
+                if seg.kind == "zamba_super":
+                    for pl in it["mamba_layers"]:
+                        x = _mamba_fwd(pl, x, cfg, chunk)
+                    x = attn(params["shared"], x)
+                elif seg.kind == "mamba_tail":
+                    x = _mamba_fwd(it, x, cfg, chunk)
+                elif seg.kind == "xlstm_super":
+                    x = _xlstm_fwd(it, x, cfg)
+                else:
+                    x = attn(it, x)
+        if warms and warms[0] is not None:
             state["warm_idx"] = torch.stack(warms)
+        state.update(self._zero_recs(B, dev))
         state["cache_len"] = lengths.to(torch.int32)
         last_idx = torch.clamp(lengths.long() - 1, 0, S - 1)
         x_last = x[torch.arange(B, device=dev), last_idx]
@@ -363,19 +519,43 @@ class TransformerLM:
         pf_use0 = hot.pf_used.sum(0) if hot is not None else None
         use_idx = idx_pool is not None and self.mode == "sac"
         new_entries, new_keys, hits_l, misses_l = [], [], [], []
-        for layer, p in enumerate(itertools.chain(*params["segments"])):
+
+        def attn(p, x):                  # pool layer len(new_entries)
+            layer = len(new_entries)
             hb = (None if hot is None
                   else hisparse.BufferState(*(t[layer] for t in hot)))
-            x, own, key, hb2, h, m = _layer_decode(
-                p, x, cfg, ctx, kv_pool[layer],
-                idx_pool[layer] if use_idx else None, self.windows[layer],
-                hb)
+            with _span("pool_layer"):
+                x, own, key, hb2, h, m = _layer_decode(
+                    p, x, cfg, ctx, kv_pool[layer],
+                    idx_pool[layer] if use_idx else None,
+                    self.windows[layer], hb)
             new_entries.append(own)
             new_keys.append(key)
             if hb2 is not None:
                 hisparse.store(hb, hb2)
                 hits_l.append(h)
                 misses_l.append(m)
+            return x
+
+        for si, (seg, items) in enumerate(zip(self.segments,
+                                              params["segments"])):
+            rec = state.get(f"rec_{si}")
+            for i, it in enumerate(items):
+                if seg.kind == "zamba_super":
+                    for j, pl in enumerate(it["mamba_layers"]):
+                        with _span("mamba2_layer"):
+                            x = _mamba_decode(pl, x, cfg,
+                                              (rec[0][i, j], rec[1][i, j]))
+                    x = attn(params["shared"], x)
+                elif seg.kind == "mamba_tail":
+                    with _span("mamba2_layer"):
+                        x = _mamba_decode(it, x, cfg,
+                                          (rec[0][i], rec[1][i]))
+                elif seg.kind == "xlstm_super":
+                    with _span("xlstm_super"):
+                        x = _xlstm_decode(it, x, cfg, rec, i)
+                else:
+                    x = attn(it, x)
         if new_entries and kv_pool is not None:
             # one launch writes every layer's entry and indexer key
             pools, rows = [kv_pool], [torch.stack(new_entries)]
@@ -401,7 +581,8 @@ class TransformerLM:
     # -- state builders ---------------------------------------------------------
     def init_serve_state(self, batch: int, seq_len: int,
                          device_buffer=0, buffer_width=None) -> Dict:
-        """Zero serve state: pools [L, B, S, d], cache lengths and, with
+        """Zero serve state: pools [L, B, S, d] (with a pool layer),
+        cache lengths, each recurrent segment's ``rec_{si}`` and, with
         ``device_buffer`` (one size or per-layer sizes), the HiSparse hot
         tier and its measured counters."""
         cfg = self.cfg
@@ -430,7 +611,21 @@ class TransformerLM:
                                                     **i32)
                 state["pf_inserted"] = torch.zeros((batch,), **i32)
                 state["pf_useful"] = torch.zeros((batch,), **i32)
+        state.update(self._zero_recs(batch, dev))
         return state
+
+    def _zero_recs(self, batch: int, device) -> Dict[str, Any]:
+        """``rec_{si}`` zeros of each recurrent segment, in the
+        reference's layout: ``zamba_super`` (ssm f32 [n, a, B, nh, N,
+        hd], conv bf16 [n, a, B, 3, d_inner]), ``mamba_tail`` the same
+        without the [a] axis, ``xlstm_super`` ((C, n, m) [n, 3, B, ...],
+        (h, c, n, m) [n, B, d])."""
+        out = {}
+        for si, seg in enumerate(self.segments):
+            shapes = segment_rec_shapes(seg, self.cfg, batch)
+            if shapes is not None:
+                out[f"rec_{si}"] = _zero_rec(shapes, seg.n, device)
+        return out
 
     # -- shared pieces -----------------------------------------------------------
     def _logits(self, params, x):

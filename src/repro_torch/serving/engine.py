@@ -1011,6 +1011,7 @@ class Engine:
         state, IN PLACE.  One launch copies the prompt's rows of every
         pool (``pool_splice_lane``) and zeroes the rows past the prompt,
         as the reference's zero padding does, with no padded copy.  The
+        recurrent states ``rec_*`` are copied by ``_splice_rec``.  The
         hot buffer has no prefill counterpart: the slot's lane is reset
         (a fresh request starts cold) and then optionally re-seeded by
         the warm-up plan."""
@@ -1028,10 +1029,26 @@ class Engine:
                 prompts.append(st_one[key])
             elif key == "cache_len":
                 dst[slot] = st_one[key][0]
+            elif key.startswith("rec_"):
+                self._splice_rec(dst, st_one[key], slot)
             else:
                 raise KeyError(f"serve-state key {key!r} has no splice rule")
         if pools:
             pool_splice_lane(pools, prompts, slot)
+
+    def _splice_rec(self, dst, src, slot: int):
+        """A recurrent state's leaves (nested tuples), in place: on the
+        first axis where ``dst`` has ``slots`` and ``src`` has 1, copy
+        src's entry 0 into dst's entry ``slot`` (the reference's
+        ``splice_rec``; a leaf with no such axis is left as it is)."""
+        if isinstance(dst, tuple):
+            for d, s in zip(dst, src):
+                self._splice_rec(d, s, slot)
+            return
+        for ax in range(dst.dim()):
+            if dst.shape[ax] == self.slots and src.shape[ax] == 1:
+                dst.select(ax, slot).copy_(src.select(ax, 0))
+                return
 
     # -- stepping -----------------------------------------------------------------
     def step(self, now: Optional[float] = None) -> List[Request]:

@@ -19,7 +19,9 @@ their plans, twice for equal bits, and GQA at Gemma3-12B's (16, 8, 240)
 in both dtypes, also at its 4 served slots with a local layer's lanes;
 the pool write at Gemma3-12B's row width in both dtypes, byte for byte;
 the e4m3 shapes outside the 16-byte rule are refused;
-and reduced Gemma3 (bf16 and fp8 pools) on the card against the CPU.
+and reduced Gemma3 (bf16 and fp8 pools) and reduced Zamba2 on the card
+against the CPU.  GQA also at Zamba2-7B's (32, 32, 112): head dim 112
+with n_rep 1, in both dtypes.
 
 This file imports no JAX, so it runs on the machine with the card:
 
@@ -191,7 +193,7 @@ def test_gpu_sparse_mla_close(cuda, B, k, pattern):
 
 
 GQA_SHAPES = [(12, 2, 128), (36, 36, 64), (48, 1, 128), (48, 8, 128),
-              (64, 8, 128), (16, 8, 240)]
+              (64, 8, 128), (16, 8, 240), (32, 32, 112)]
 
 
 @pytest.mark.gpu
@@ -369,7 +371,8 @@ def test_gpu_gather_pages_exact(cuda, d, page):
     ("qwen2-1.5b", "sparse_attn_gqa", None),
     ("gemma3-12b", "sparse_attn_gqa", None),
     ("gemma3-12b", "sparse_attn_gqa", "fp8"),
-    ("deepseek-v32", "sparse_attn", "fp8")])
+    ("deepseek-v32", "sparse_attn", "fp8"),
+    ("zamba2-7b", "sparse_attn_gqa", None)])
 def test_gpu_engine_matches_cpu_path(cuda, arch, attn, kv_quant):
     """The port's Engine on the card against the same engine on the CPU
     (a reduced config with a 32-dim indexer, dense MLP; Gemma3's local

@@ -376,6 +376,5 @@ def test_sparse_equals_dense_when_topk_covers_context(arch, S):
 
 
 def test_unported_families_raise():
-    for arch in ("zamba2-7b", "xlstm-125m", "whisper-small"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tbuild(tget(arch).reduced(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tbuild(tget("whisper-small").reduced(), device="cpu")

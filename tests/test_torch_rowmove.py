@@ -22,7 +22,8 @@ decode step with the fused gather against the unfused one (an injected
 equal; and the engine's launches of each form per step and per prompt.
 
 The card-only tests (marker ``gpu``) hold each form's CUDA kernel
-against the plain version at the main paths' shapes.
+against the plain version at the main paths' shapes (Zamba2-7B's rows of
+14,336 B included).
 This file imports JAX only inside its CPU tests' fixture, so the card
 runs it without JAX:
 
@@ -338,6 +339,7 @@ def _same(a, b):
     [(4, 4160, 576, 2048)],                            # DeepSeek-V3.2
     [(8, 8256, 512, 2048), (8, 8256, 512, 512)],       # Qwen2 fetch, fused
     [(4, 8256, 3840, 2048)],                           # Gemma3-12B
+    [(8, 8256, 7168, 2048)],                           # Zamba2-7B
     [(2, 300, 7168, 33)],                              # past a chunk
     [(2, 300, 7168, 33), (3, 50, 36, 7), (1, 9, 3, 5)],  # unaligned rows
 ])
@@ -362,6 +364,7 @@ def test_gpu_gather_many_exact(cuda, segs, dtype):
 @pytest.mark.parametrize("dtype", ["bf16", "e4m3"])
 @pytest.mark.parametrize("shape", [(2, 4, 4160, 576, 128),   # DeepSeek
                                    (3, 4, 257, 3840, 64),    # Gemma3 width
+                                   (13, 8, 300, 7168, 64),   # Zamba2 rows
                                    (2, 3, 40, 7168, 64),     # past a chunk
                                    (2, 3, 40, 100, 36)])     # unaligned
 def test_gpu_write_rows_at_exact(cuda, shape, dtype):
