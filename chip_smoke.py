@@ -22,15 +22,18 @@ Phases, each printing one JSON line with its seconds; any failure raises
    fused demand set and speculation tail (k=2048 plus w=512), the tail
    alone, the prefill warm-up (1536 rows of each of 28 layers in the
    [28, 8 * 8256, 512] view of the pool), Gemma3-12B's width in bf16
-   and e4m3 and Zamba2-7B's (rows of 14,336 B); the scatter
+   and e4m3, Zamba2-7B's (rows of 14,336 B) and Whisper-small's (8 x
+   2048 rows of 3,072 B from its [8, 32768, 1536] encoder pool); the scatter
    kernel in its index form (DeepSeek-V3.2's width: 1 row, 8 rows, a
    layer's splice rows), its decode form (both pools, every layer, one
    launch, at DeepSeek-V3.2's, Qwen2-1.5B's, Gemma3-12B's and Zamba2-7B's
-   shapes, Gemma3's in bf16 and e4m3) and its splice form (a Gemma3-12B prompt,
+   shapes, Gemma3's in bf16 and e4m3, and Whisper-small's decoder
+   self_kv alone) and its splice form (a Gemma3-12B prompt,
    48 x 8192 rows, into the 4-slot pools with the tail zeroed, bf16 and
    e4m3), each beside the port's earlier code for the same write
    (``ms_was``); the indexer at DeepSeek-V3.2's and Qwen2-1.5B's serving
-   pools and at a long context past the L2 (B=4, S=65536); both
+   pools, at a long context past the L2 (B=4, S=65536) and at
+   Whisper-small's encoder pool (B=8, S=32768, 4 x 64); both
    attention forms, in bf16 and with the fp8 pool's e4m3 entries, at
    DeepSeek-V3.2's and Qwen2-1.5B's serving shapes (2049 lanes, about
    10% invalid) and at Gemma3-12B's 16 heads over 8 of 240, at B=8 and
@@ -38,7 +41,9 @@ Phases, each printing one JSON line with its seconds; any failure raises
    whose window leaves 1024 of the 2049 valid), and at Zamba2-7B's 32
    heads over 32 KV heads of 112 (B=8), and the GQA form in bf16 at the
    (heads, KV heads, head dim) of every other dense/MoE, local:global
-   and Mamba2-hybrid config of the registry (B=8); the page gather (on no
+   and Mamba2-hybrid config of the registry (B=8), and at Whisper-small's
+   12 heads over 12 of 64 over 2048 lanes (its cross-attention, no own
+   lane) and 449 (its self-attention); the page gather (on no
    path) at Qwen2-1.5B's pool; then both attention forms (each a split-k
    pass and a combine pass), with bf16 and with e4m3 entries, at the
    edges of their split plan, each case launched twice for equal bits:
@@ -61,6 +66,9 @@ Phases, each printing one JSON line with its seconds; any failure raises
    Gemma3, Qwen2 and DeepSeek-V3.2 with the fp8 pool; reduced Zamba2 in
    SAC mode (its recurrent state ``rec_*`` too), and reduced xLSTM in
    dense mode with no pool (logits and ``rec_*``; no kernel may launch);
+   reduced Whisper in SAC and dense mode (logits, self_kv, dec_len; the
+   indexer, gather, GQA and decode-write launches); one training step
+   (loss and every gradient leaf) of reduced DeepSeek-V3.2 and Whisper;
    every check held to one fixed limit (``SMALL_TOL``), and each also
    runs a control, the card with its weights rounded through e4m3, that
    must exceed that limit;
@@ -125,7 +133,19 @@ Phases, each printing one JSON line with its seconds; any failure raises
    heads, vocab 50304; no pool): 4 slots, ``max_ctx`` 2112, 8 requests
    of 2048 tokens and 8 output tokens, every request served, no kernel
    launched, every logit finite; then its profile, and the CLI at its
-   defaults for ``--arch xlstm-125m`` (no kernel launched).
+   defaults for ``--arch xlstm-125m`` (no kernel launched);
+14. Whisper-small at full width and depth (12 encoder + 12 decoder
+   layers, d 768, vocab 51,865, indexer 4x64, top-k 2048) through the
+   model facade: 8 requests of 32,768 random frames, each prefilled
+   alone and spliced into its lane, then 64 greedy decode steps, each
+   launching the indexer 12 times, the gather 12, the GQA attention 24
+   and the decode write once; then its profile;
+15. ``python -m repro_torch.launch.train --arch qwen2-1.5b --batch 8
+   --seq 512 --steps 20 --ckpt-every 10`` through its ``main`` into a
+   temporary directory (the loss finite and falling, no kernel
+   launched), then ``--resume`` from the step-10 snapshot alone (the
+   restored tree equal to the saved one bit for bit, the step-20 loss
+   within 1e-2 of the straight run's).
 
 The line before the last is ``nvidia-smi``'s name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -296,7 +316,8 @@ def cold_copies(pairs, read_bytes: int, budget: int = 2 << 30):
 
 def _equal_bits(torch, a, b) -> bool:
     """Equal bytes (the row movers copy bits, also of fp8 entries)."""
-    return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    return torch.equal(a.reshape(-1).view(torch.uint8),
+                       b.reshape(-1).view(torch.uint8))
 
 
 def gather_case(torch, ref, mod, shape: str, pairs, copies=None,
@@ -363,7 +384,8 @@ def check_gathers(torch, ref, mod):
     batched run cycles through the 8 lanes' disjoint rows in place of
     copies of the pool); Gemma3-12B's width ([4, 8256, 3840], k=2048) in
     bf16 and e4m3; Zamba2-7B's ([8, 8256, 7168], k=2048: rows of 14,336
-    B).  Returns the gather's record."""
+    B); Whisper-small's cross-KV pool ([8, 32768, 1536], k=2048: rows of
+    3,072 B).  Returns the gather's record."""
     from repro_torch.core.pool import E4M3, to_kv_dtype
     from repro_torch.kernels import ops
     dev = torch.device("cuda")
@@ -409,18 +431,24 @@ def check_gathers(torch, ref, mod):
     shapes.append(gather_case(torch, ref, mod, "zamba2-7b",
                               [(kv, randidx(8, 2048, 8256))]))
     del kv
+    kv = randn(8, 32768, 1536)
+    shapes.append(gather_case(torch, ref, mod, "whisper-small",
+                              [(kv, randidx(8, 2048, 32768))]))
+    del kv
     torch.cuda.empty_cache()
     rec["shapes"] = shapes
     return rec
 
 
-# the decode write's two pools (L, B, S, entry width, indexer-key width)
-# at each served model's shape (Zamba2-7B: its 13 pool layers);
+# the decode write's pools (L, B, S, entry width, indexer-key width) at
+# each served model's shape (Zamba2-7B: its 13 pool layers; Whisper-small:
+# its decoder's self_kv [12, 8, 448, 1536] alone, no indexer pool);
 # Gemma3-12B's entries in bf16 and e4m3
 WRITE_SHAPES = {"deepseek-v32": (2, 4, 4160, 576, 128),
                 "qwen2-1.5b": (28, 8, 8256, 512, 64),
                 "gemma3-12b": (48, 4, 8256, 3840, 64),
-                "zamba2-7b": (13, 8, 8256, 7168, 64)}
+                "zamba2-7b": (13, 8, 8256, 7168, 64),
+                "whisper-small": (12, 8, 448, 1536, None)}
 
 
 def _rand_pool(torch, g, shape, dtype):
@@ -438,8 +466,9 @@ def check_pool_writes(torch, ref, mod):
       the TPU kernel's counterpart) at DeepSeek-V3.2's width: one
       row (the floor of a launch), a decode step's 8 rows and a layer's
       splice rows, into the flattened [1, 2*4*4160, 576] pool;
-    - the decode write (WRITE_SHAPES: both pools, every layer, one
-      launch; positions include out-of-range ones, which clamp), beside
+    - the decode write (WRITE_SHAPES: both pools, or Whisper-small's
+      one, every layer, one launch; positions include out-of-range ones,
+      which clamp), beside
       the port's earlier write (the row arithmetic in PyTorch and one
       index-form launch a pool: ``ms_was``) and ``index_copy_`` of both
       pools (the library call);
@@ -490,10 +519,12 @@ def check_pool_writes(torch, ref, mod):
     for name, (L, B, S, d, di) in WRITE_SHAPES.items():
         for dtype in ((torch.bfloat16, E4M3) if name == "gemma3-12b"
                       else (torch.bfloat16,)):
-            pools = [_rand_pool(torch, g, (L, B, S, d), dtype),
-                     _rand_pool(torch, g, (L, B, S, di), torch.bfloat16)]
-            entries = [_rand_pool(torch, g, (L, B, w), p.dtype)
-                       for w, p in ((d, pools[0]), (di, pools[1]))]
+            pools = [_rand_pool(torch, g, (L, B, S, d), dtype)]
+            if di:
+                pools.append(_rand_pool(torch, g, (L, B, S, di),
+                                        torch.bfloat16))
+            entries = [_rand_pool(torch, g, (L, B, p.shape[-1]), p.dtype)
+                       for p in pools]
             pos = torch.randint(-2, S + 2, (B,), generator=g, device=dev,
                                 dtype=torch.int32)
             want = [p.clone() for p in pools]
@@ -512,7 +543,7 @@ def check_pool_writes(torch, ref, mod):
                       + pos.long().clamp(0, S - 1)).reshape(-1)
             e_flat = [e.reshape(L * B, -1) for e in entries]
 
-            def was():            # the port's earlier pool_write, twice
+            def was():            # the port's earlier pool_write, a pool
                 for f, e in zip(flat, e_flat):
                     pos_c = torch.clamp(pos.long(), 0, S - 1)
                     lanes = torch.arange(L * B, device=dev).reshape(L, B)
@@ -528,7 +559,8 @@ def check_pool_writes(torch, ref, mod):
             bound, by = bound_ms(nb, 0.0)
             case = dict(
                 shape=name, form="decode", dtype=str(dtype),
-                pools=[list(p.shape) for p in pools], rows=2 * L * B,
+                pools=[list(p.shape) for p in pools],
+                rows=len(pools) * L * B,
                 max_abs_err=0.0, l2="warm", bound_ms=bound, bound_by=by,
                 plain_ms=cuda_time_ms(lambda: [ref.write_rows_at_ref(
                     p.view(torch.uint8), e.view(torch.uint8), pos)
@@ -616,11 +648,13 @@ def check_pool_writes(torch, ref, mod):
 
 
 # the indexer's timed shapes (B, S, H, di): DeepSeek-V3.2's and
-# Qwen2-1.5B's serving pools, and a long context whose 67 MB of keys do
-# not fit the 50 MB L2 (so its keys come from HBM on every call)
+# Qwen2-1.5B's serving pools, a long context whose 67 MB of keys do
+# not fit the 50 MB L2 (so its keys come from HBM on every call), and
+# Whisper-small's encoder pool (8 requests of 32,768 frames)
 INDEXER_SHAPES = {"deepseek-v32": (4, 4160, 64, 128),
                   "qwen2-1.5b": (8, 8256, 4, 64),
-                  "long-context": (4, 65536, 64, 128)}
+                  "long-context": (4, 65536, 64, 128),
+                  "whisper-small": (8, 32768, 4, 64)}
 
 
 def check_indexer(torch, ref, mod):
@@ -705,6 +739,13 @@ ATTN_CASES = (("deepseek-v32", "mla", 4, 128, 512, 64, None),
               ("gemma3-12b served, global", "gqa", 4, 16, 8, 240, None),
               ("gemma3-12b served, local", "gqa", 4, 16, 8, 240, 1023),
               ("zamba2-7b", "gqa", 8, 32, 32, 112, None))
+# Whisper-small's two GQA calls a decoder layer (12 heads over 12 KV
+# heads of 64, B = 8; its pools are bf16): the cross-attention over
+# exactly the top-k 2048 fetched lanes (no own lane) and the
+# self-attention over the 448 decoder positions and the own entry;
+# (case as ATTN_CASES, lanes)
+WHISPER_ATTN = ((("whisper-small cross", "gqa", 8, 12, 12, 64, None), 2048),
+                (("whisper-small self", "gqa", 8, 12, 12, 64, None), 449))
 
 
 def attention_case(torch, ref, mod, g, case, dtype, k: int = 2049):
@@ -791,8 +832,9 @@ def attention_case(torch, ref, mod, g, case, dtype, k: int = 2049):
 
 def check_attention(torch, ref, mod):
     """Both attention forms at the cases of ATTN_CASES in both dtypes,
-    and the GQA form in bf16 at the (heads, KV heads, head dim) of every
-    dense/MoE and local:global config of the registry (B = 8).  Returns
+    the GQA form in bf16 at the (heads, KV heads, head dim) of every
+    dense/MoE and local:global config of the registry (B = 8) and at
+    Whisper-small's two calls (WHISPER_ATTN).  Returns
     {kernel name: record}: the row's times and bound are the first bf16
     case's (DeepSeek-V3.2's MLA, Qwen2-1.5B's GQA), ``max_abs_err`` the
     worst of the form's cases, ``e4m3`` its e4m3 cases; and every case's
@@ -805,6 +847,8 @@ def check_attention(torch, ref, mod):
               if ("gqa", 8, *shape, None) not in [c[1:] for c in ATTN_CASES]]
     out = [attention_case(torch, ref, mod, g, case, dt)
            for case, dt in cases]
+    out += [attention_case(torch, ref, mod, g, case, torch.bfloat16, k=k)
+            for case, k in WHISPER_ATTN]
     torch.cuda.empty_cache()
     recs = {}
     for name, form in (("sparse_attn", "mla"), ("sparse_attn_gqa", "gqa")):
@@ -1282,54 +1326,41 @@ def _span_totals(event):
     return dev, n
 
 
-def profile_decode(torch, eng, *, requests: int, context: int,
-                   device_kernels, n_steps: int = 3, top: int = 8):
+def profile_steps(torch, step, *, n_steps: int, device_kernels, spans,
+                  top: int = 8):
     """Device busy share and the kernels that take the device time of
-    pure decode steps at full width.  ``requests`` more requests (new
-    ids, the serving phase's lengths) are admitted and prefilled outside
-    the trace; their next ``n_steps`` decode steps run under
-    torch.profiler (CUPTI), whose host overhead lowers the busy share a
-    little.  Every name in ``device_kernels`` must show on the device.
+    ``n_steps`` calls of ``step()`` under torch.profiler (CUPTI), whose
+    host overhead lowers the busy share a little.  Every name in
+    ``device_kernels`` must show on the device.
 
     ``layer_kinds`` splits the steps by the decode's ranges
     (``transformer.DECODE_SPANS``: pool layers, Mamba2 layers, xLSTM
     super-blocks): host time inside the ranges (under the profiler),
     device time of the kernels launched inside them and those launches,
-    a step and a call; each kind must open its ranges as often a step as
-    the model has such layers."""
+    a step and a call; each kind must open its ranges ``spans[kind]``
+    times a step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models.transformer import DECODE_SPANS
-    from repro_torch.serving.request import sharegpt_trace
 
-    reqs = sharegpt_trace(requests, context_len=context,
-                          output_len=n_steps + 1, ctx_jitter=0.0, seed=1,
-                          vocab=eng.cfg.vocab)
-    for i, r in enumerate(reqs):
-        r.request_id = 1000 + i
-        eng.submit(r)
-    eng.step()                                   # admission, prefill, token 1
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        done = []
         for _ in range(n_steps):
-            done += eng.step()
+            step()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    if len(done) != len(reqs):
-        raise AssertionError(f"profiled steps finished {len(done)} of "
-                             f"{len(reqs)} requests")
     # device activity: kernels and copies, not the ranges' annotations
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA
-                   and e.name not in DECODE_SPANS
-                   and not getattr(e, "is_user_annotation", False))
-    if not spans:
+    events = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in prof.events()
+                    if e.device_type == DeviceType.CUDA
+                    and e.name not in DECODE_SPANS
+                    and not getattr(e, "is_user_annotation", False))
+    if not events:
         raise AssertionError("the profiler recorded no device activity")
     busy_us, end_us, by_name = 0.0, -math.inf, {}
-    for a, b, name in spans:                     # union of the intervals
+    for a, b, name in events:                    # union of the intervals
         busy_us += max(0.0, b - max(a, end_us))
         end_us = max(end_us, b)
         t, n = by_name.get(name, (0.0, 0))
@@ -1347,11 +1378,6 @@ def profile_decode(torch, eng, *, requests: int, context: int,
     # earlier records give; cuBLAS's cudaLaunchKernelExC apart)
     launches = {k: sum(e.count for e in prof.key_averages() if e.key == k)
                 for k in ("cudaLaunchKernel", "cudaLaunchKernelExC")}
-    cfg = eng.cfg
-    want = dict(pool_layer=eng.model.n_kv,
-                mamba2_layer=cfg.n_layers if cfg.ssm_state else 0,
-                xlstm_super=sum(seg.n for seg in eng.model.segments
-                                if seg.kind == "xlstm_super"))
     kinds = {k: dict(calls=0, host_s=0.0, device_s=0.0, launches=0)
              for k in DECODE_SPANS}
     for e in prof.events():
@@ -1364,14 +1390,14 @@ def profile_decode(torch, eng, *, requests: int, context: int,
             k["launches"] += n
     layer_kinds = {}
     for name, k in kinds.items():
-        if k["calls"] != want[name] * n_steps:
+        want = spans.get(name, 0)
+        if k["calls"] != want * n_steps:
             raise AssertionError(f"{k['calls']} {name} ranges in "
-                                 f"{n_steps} steps, want {want[name]} a "
-                                 f"step")
+                                 f"{n_steps} steps, want {want} a step")
         if k["calls"]:
             calls = k["calls"]
             layer_kinds[name] = dict(
-                per_step=want[name],
+                per_step=want,
                 host_ms_per_step=k["host_s"] * 1e3 / n_steps,
                 device_ms_per_step=k["device_s"] * 1e3 / n_steps,
                 launches_per_step=k["launches"] / n_steps,
@@ -1384,8 +1410,7 @@ def profile_decode(torch, eng, *, requests: int, context: int,
                    if e.self_cpu_time_total > 0),
                   key=lambda e: -e.self_cpu_time_total)[:top]
     return dict(
-        phase="profile", config=eng.cfg.name, decode_steps=n_steps,
-        slots=requests, wall_s=wall_s, device_busy_s=busy_us * 1e-6,
+        decode_steps=n_steps, wall_s=wall_s, device_busy_s=busy_us * 1e-6,
         device_busy_share=busy_us * 1e-6 / wall_s,
         device_s_total=sum(t for t, _ in by_name.values()),
         launches_per_step=launches["cudaLaunchKernel"] / n_steps,
@@ -1397,6 +1422,38 @@ def profile_decode(torch, eng, *, requests: int, context: int,
         top_host_ops=[dict(name=e.key[:96],
                            self_seconds=e.self_cpu_time_total * 1e-6,
                            calls=e.count) for e in host])
+
+
+def profile_decode(torch, eng, *, requests: int, context: int,
+                   device_kernels, n_steps: int = 3, top: int = 8):
+    """``profile_steps`` over pure decode steps of the engine at full
+    width: ``requests`` more requests (new ids, the serving phase's
+    lengths) are admitted and prefilled outside the trace, then their
+    next ``n_steps`` decode steps are traced; each model layer kind
+    (pool layers, Mamba2 layers, xLSTM super-blocks) must open its range
+    once per such layer a step."""
+    from repro_torch.serving.request import sharegpt_trace
+
+    reqs = sharegpt_trace(requests, context_len=context,
+                          output_len=n_steps + 1, ctx_jitter=0.0, seed=1,
+                          vocab=eng.cfg.vocab)
+    for i, r in enumerate(reqs):
+        r.request_id = 1000 + i
+        eng.submit(r)
+    eng.step()                                   # admission, prefill, token 1
+    done = []
+    cfg = eng.cfg
+    spans = dict(pool_layer=eng.model.n_kv,
+                 mamba2_layer=cfg.n_layers if cfg.ssm_state else 0,
+                 xlstm_super=sum(seg.n for seg in eng.model.segments
+                                 if seg.kind == "xlstm_super"))
+    rec = profile_steps(torch, lambda: done.extend(eng.step()),
+                        n_steps=n_steps, device_kernels=device_kernels,
+                        spans=spans, top=top)
+    if len(done) != len(reqs):
+        raise AssertionError(f"profiled steps finished {len(done)} of "
+                             f"{len(reqs)} requests")
+    return dict(phase="profile", config=eng.cfg.name, slots=requests, **rec)
 
 
 def check_launches(counts, steps: int, layers: int, attn, prompts: int,
@@ -1652,6 +1709,360 @@ def compare_fp8(bf16, fp8) -> None:
                              f"({s8['pool_dtypes']}), want {want}")
 
 
+# ---------------------------------------------------------------------------
+# phase 4 (continued): the encoder-decoder and one training step, small
+# ---------------------------------------------------------------------------
+
+
+def small_check_encdec(torch, cfg, *, mode: str, frames: int = 64,
+                       steps: int = 4, devices=("cpu", "cuda")):
+    """Reduced Whisper (``cfg``: small_config's widened indexer) on the
+    card against the same weights on the CPU: 2 requests of ``frames``
+    encoder frames (lengths ``frames`` and ``frames - 24``), ``steps``
+    teacher-forced decode steps under an injected score-independent top-k
+    (``sac``) or over the whole pool (``dense``).  Per-request logits of
+    every step and each lane of ``self_kv`` within SMALL_TOL, ``dec_len``
+    exact; the e4m3-weights control must exceed SMALL_TOL.  Returns the
+    worst error and the control's."""
+    from repro_torch.models.model import build_model
+    K = 16
+
+    def topk(scores, cache_len):
+        j = torch.arange(K, dtype=torch.int32, device=scores.device)[None]
+        t = cache_len[:, None]
+        pos = (j * 7 + 3) % torch.clamp(t, min=1)
+        return pos.to(torch.int32), (j < t) & (j % 5 != 3)
+
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn((2, frames, cfg.d_model), generator=gen).bfloat16()
+    toks = torch.randint(0, cfg.vocab, (steps, 2), generator=gen,
+                         dtype=torch.int32)
+    runs, params = [], None
+    for dev, degrade in [(d, False) for d in devices] + [(devices[1], True)]:
+        m = build_model(cfg, mode=mode, topk_fn=topk, device=dev)
+        if params is None:
+            params = m.init(torch.Generator(device=dev).manual_seed(1))
+        p = _to(params, dev)
+        if degrade:
+            p = e4m3_weights(torch, p)
+        st, _ = m.prefill(p, x.to(dev), lengths=torch.tensor(
+            [frames, frames - 24], dtype=torch.int32, device=dev))
+        logits = []
+        for step in range(steps):
+            st, lg = m.decode(p, st, toks[step].to(dev))
+            logits.append(lg.float().cpu())
+        if st["dec_len"].tolist() != [steps, steps]:
+            raise AssertionError(f"dec_len {st['dec_len'].tolist()}")
+        runs.append(dict(logits=logits, pool=st["self_kv"].float().cpu(),
+                         rec=[]))
+    worst = max(_rel_l2(got, want) for want, got in
+                _run_pairs(runs[0], runs[1]))
+    if not all(torch.isfinite(t).all() for t in runs[1]["logits"]):
+        raise AssertionError("non-finite logits on the card")
+    if worst > SMALL_TOL:
+        raise AssertionError(f"{cfg.name} ({mode}): card vs CPU relative "
+                             f"L2 error {worst:.4f} > {SMALL_TOL}")
+    control = max(_rel_l2(got, want) for want, got in
+                  _run_pairs(runs[0], runs[2]))
+    if control <= SMALL_TOL:
+        raise AssertionError(f"{cfg.name} ({mode}): the e4m3 control's "
+                             f"error {control:.4f} is within {SMALL_TOL}")
+    return worst, control
+
+
+def train_small_check(torch, cfg, *, batch: int = 2, seq: int = 32,
+                      devices=("cpu", "cuda")):
+    """One training step's loss and gradients (``make_grad_fn``: the
+    forward under autograd with activation checkpointing, no kernel of
+    the port) of reduced ``cfg`` on the card against the CPU, on the same
+    weights and synthetic batch (Whisper: ``seq`` frames and 448 decoder
+    tokens): the loss and every gradient leaf within SMALL_TOL relative
+    L2 (a leaf the loss does not use, the indexer's, must be zero on
+    both); the e4m3-weights control must exceed SMALL_TOL.  Returns the
+    worst error, the control's, the loss and the leaves compared."""
+    from repro_torch.models.model import build_model
+    from repro_torch.training.data import synthetic_batch
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.train_loop import make_grad_fn
+
+    data = synthetic_batch(cfg, batch, seq, seed=3)
+    runs, params = [], None
+    for dev, degrade in [(d, False) for d in devices] + [(devices[1], True)]:
+        m = build_model(cfg, device=dev)
+        if params is None:
+            params = m.init(torch.Generator(device=dev).manual_seed(1))
+        p = _to(params, dev)
+        if degrade:
+            p = e4m3_weights(torch, p)
+        metrics, grads = make_grad_fn(m)(
+            p, {k: torch.from_numpy(v).to(dev) for k, v in data.items()})
+        runs.append([metrics["loss"].float().cpu().reshape(1)]
+                    + [g.float().cpu() for g in tree_leaves(grads)])
+    want, got, control = runs
+    worst, ctrl, used = 0.0, 0.0, 0
+    for w, g, c in zip(want, got, control):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{cfg.name}: non-finite gradients")
+        if not w.any():
+            if g.any():
+                raise AssertionError(f"{cfg.name}: a gradient zero on the "
+                                     "CPU is not zero on the card")
+            continue
+        used += 1
+        worst = max(worst, _rel_l2(g, w))
+        ctrl = max(ctrl, _rel_l2(c, w))
+    if worst > SMALL_TOL:
+        raise AssertionError(f"{cfg.name} training step: card vs CPU "
+                             f"relative L2 error {worst:.4f} > {SMALL_TOL}")
+    if ctrl <= SMALL_TOL:
+        raise AssertionError(f"{cfg.name} training step: the e4m3 "
+                             f"control's error {ctrl:.4f} is within "
+                             f"{SMALL_TOL}")
+    return worst, ctrl, float(want[0][0]), used
+
+
+# ---------------------------------------------------------------------------
+# phase 14: Whisper-small served at full width and depth
+# ---------------------------------------------------------------------------
+
+# 8 requests of 32,768 frames (decode_32k's context, longer than the
+# top-k of 2048, so the selection is sparse), 64 decode steps
+WHISPER = dict(arch="whisper-small", requests=8, frames=32768, steps=64)
+
+
+def serve_whisper(torch, ops, cfg=None, *, device="cuda", **sizes):
+    """Whisper-small at full width and depth (12 encoder + 12 decoder
+    layers, d 768, 12 heads of 64, vocab 51,865, indexer 4 x 64, top-k
+    2048; random bf16 weights from seed 0) through the model facade, as
+    the reference serves it (its engine and CLI take no encoder-decoder):
+    each request's random frames (``torch.Generator`` seed 0) prefilled
+    alone (``prefill``) and spliced into lane b of an 8-lane serve state
+    (one splice launch a request), then ``steps`` greedy decode steps of
+    all 8.  Every step must launch the indexer 12 times, the gather 12,
+    the GQA attention 24 (cross over the 2048 fetched lanes and self over
+    449) and the decode write once; every logit finite; ``dec_len`` =
+    steps and ``self_kv`` written in rows [0, steps) only.  Then a
+    profile of three more decode steps.  Returns the decode steps'
+    launch counts.  (``cfg``, ``device`` and ``sizes`` -- requests,
+    frames, steps -- let the same phase run reduced on the CPU as a
+    rehearsal, with no profile.)"""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pool import pool_splice_lane
+    from repro_torch.models.model import build_model
+    cfg = cfg or get_config(WHISPER["arch"])
+    sizes = dict(WHISPER, **sizes)
+    B, S, steps = sizes["requests"], sizes["frames"], sizes["steps"]
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    t0 = time.perf_counter()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    state = model.init_serve_state(B, S)
+    pools = ["kv_pool", "idx_pool"]
+    g = torch.Generator(device=device).manual_seed(0)
+    prefill_s = []
+    for b in range(B):
+        frames = torch.randn((1, S, cfg.d_model), generator=g,
+                             device=device).bfloat16()
+        sync()
+        t1 = time.perf_counter()
+        st, _ = model.prefill(params, frames)
+        pool_splice_lane([state[k] for k in pools], [st[k] for k in pools],
+                         lane=b)
+        state["cache_len"][b] = st["cache_len"][0]
+        sync()
+        prefill_s.append(time.perf_counter() - t1)
+        del st, frames
+    tok = torch.arange(B, dtype=torch.int32, device=device)
+    ops.reset_launch_counts()
+    step_s, nonfinite = [], []
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        state, logits = model.decode(params, state, tok)
+        tok = logits.argmax(-1).to(torch.int32)
+        sync()
+        step_s.append(time.perf_counter() - t1)
+        nonfinite.append((~torch.isfinite(logits)).sum())
+    counts = ops.launch_counts()
+    n_nonfinite = int(sum(n.item() for n in nonfinite))
+    if n_nonfinite or tuple(logits.shape) != (B, cfg.vocab):
+        raise AssertionError(f"whisper: {n_nonfinite} non-finite logits of "
+                             f"shape {tuple(logits.shape)}")
+    L = cfg.n_layers
+    want = {"indexer_scores": L * steps, "gather_kv": L * steps,
+            "sparse_attn_gqa": 2 * L * steps, "scatter_kv.rows_at": steps}
+    if cuda and (any(counts[k] != n for k, n in want.items())
+                 or counts["sparse_attn"]):
+        raise AssertionError(f"whisper launches {counts}, want {want} for "
+                             f"{steps} steps")
+    if state["dec_len"].tolist() != [steps] * B:
+        raise AssertionError(f"dec_len {state['dec_len'].tolist()}")
+    written = state["self_kv"].flatten(3).abs().amax(-1) > 0  # [L, B, 448]
+    if not written[:, :, :steps].all() or written[:, :, steps:].any():
+        raise AssertionError("self_kv rows written outside [0, steps)")
+    step_sorted = sorted(step_s)
+    emit(dict(phase="serve", run="whisper-small", config=(
+        f"{cfg.name} (n_enc_layers={cfg.n_enc_layers}, n_layers="
+        f"{cfg.n_layers}, d_model={cfg.d_model})"), requests=B, frames=S,
+        decode_steps=steps, topk=cfg.sac.topk,
+        prefill_s_per_request=prefill_s,
+        wall_s_per_decode_step_median=step_sorted[len(step_sorted) // 2],
+        wall_s_per_step_max=step_sorted[-1],
+        max_memory_allocated_bytes=(torch.cuda.max_memory_allocated()
+                                    if cuda else None),
+        pool_bytes={k: state[k].nbytes
+                    for k in ("kv_pool", "idx_pool", "self_kv")},
+        logits_finite=True, launches=counts,
+        launches_per_step={k: counts[k] / steps for k in want},
+        seconds=time.perf_counter() - t0))
+    if not cuda:
+        return counts
+    t0 = time.perf_counter()
+
+    def step():
+        nonlocal state, tok
+        state, logits = model.decode(params, state, tok)
+        tok = logits.argmax(-1).to(torch.int32)
+    prof = profile_steps(torch, step, n_steps=3,
+                         device_kernels=GQA_DEVICE_KERNELS,
+                         spans=dict(pool_layer=cfg.n_layers))
+    emit(dict(phase="profile", run="whisper-small", config=cfg.name,
+              slots=B, seconds=time.perf_counter() - t0, **prof))
+    del model, params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 15: training Qwen2-1.5B at full width and depth, and its resume
+# ---------------------------------------------------------------------------
+
+TRAIN_ARGV = ["--arch", "qwen2-1.5b", "--batch", "8", "--seq", "512",
+              "--steps", "20", "--ckpt-every", "10"]
+# the resumed run's step-20 loss against the straight run's: not bit-exact
+# on the card (the embedding's backward adds with atomics)
+RESUME_REL_TOL = 1e-2
+
+
+def train_phase(torch, ops, argv=TRAIN_ARGV, device="cuda"):
+    """``python -m repro_torch.launch.train`` (TRAIN_ARGV: Qwen2-1.5B at
+    full width and depth, 8 x 512 tokens a step, 20 steps, a checkpoint
+    every 10) through its ``main`` into a temporary directory: every loss
+    finite, the last 5 steps' mean below the first 5's, no kernel of the
+    port launched (training runs the plain layers).  Then ``--resume``
+    from the step-10 snapshot alone: the restored tree equal to the saved
+    one bit for bit, steps 10-19 run again, the step-20 loss within
+    RESUME_REL_TOL of the straight run's.  Reports s/step, tokens/s, peak
+    memory and each checkpoint's bytes and seconds.  (``argv`` with
+    ``--reduced`` and ``device`` "cpu" rehearse the phase on the CPU.)"""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.launch import train as launch_train
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.optimizer import tree_leaves
+
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    argv = argv + ["--device", device]
+    tokens = (int(argv[argv.index("--batch") + 1])
+              * int(argv[argv.index("--seq") + 1]))
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    straight = os.path.join(root, "straight")
+    resumed = os.path.join(root, "resumed")
+    snap, saves, restores = {}, [], []
+    save, restore = ckpt.save, ckpt.restore
+
+    def timed_save(directory, step, tree, extras=None):
+        sync()
+        t = time.perf_counter()
+        path = save(directory, step, tree, extras)
+        leaves = tree_leaves(tree)
+        saves.append(dict(step=step, seconds=time.perf_counter() - t,
+                          bytes=sum(x.nbytes for x in leaves)))
+        if directory == straight and step == 10:
+            snap["leaves"] = [x.clone() for x in leaves]
+        return path
+
+    def checked_restore(directory, like, **kw):
+        t = time.perf_counter()
+        tree, step, extras = restore(directory, like, **kw)
+        sync()
+        got = tree_leaves(tree)
+        equal = len(got) == len(snap["leaves"]) and all(
+            a.dtype == b.dtype and _equal_bits(torch, a, b)
+            for a, b in zip(got, snap.pop("leaves")))
+        restores.append(dict(step=step, seconds=time.perf_counter() - t,
+                             equal_to_saved=equal))
+        return tree, step, extras
+
+    def run(argv):
+        out = io.StringIO()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            _, _, hist = launch_train.main(argv)
+        sync()
+        wall = time.perf_counter() - t
+        if any(ops.launch_counts().values()):
+            raise AssertionError(f"training launched {ops.launch_counts()}")
+        secs = sorted(h["seconds"] for h in hist[1:])
+        return dict(argv=argv, steps=len(hist), wall_s=wall,
+                    s_per_step_median=secs[len(secs) // 2],
+                    first_step_s=hist[0]["seconds"],
+                    tokens_per_s=tokens / secs[len(secs) // 2],
+                    peak_memory_bytes=(torch.cuda.max_memory_allocated()
+                                       if cuda else None),
+                    losses=[h["loss"] for h in hist],
+                    grad_norms=[h["grad_norm"] for h in hist],
+                    log=out.getvalue().splitlines()), hist
+
+    ckpt.save, ckpt.restore = timed_save, checked_restore
+    try:
+        free = shutil.disk_usage(root).free
+        first, hist = run(argv + ["--ckpt-dir", straight])
+        losses = first["losses"]
+        if not all(math.isfinite(x) for x in losses) or len(losses) != 20:
+            raise AssertionError(f"training losses {losses}")
+        if not sum(losses[-5:]) < sum(losses[:5]):
+            raise AssertionError(f"the loss did not fall: {losses}")
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        os.makedirs(resumed)
+        os.rename(os.path.join(straight, "step_000000010"),
+                  os.path.join(resumed, "step_000000010"))
+        shutil.rmtree(straight)
+        second, hist2 = run(argv + ["--ckpt-dir", resumed, "--resume"])
+        if "[train] resumed from step 10" not in second["log"]:
+            raise AssertionError(f"no resume: {second['log'][:3]}")
+        if len(restores) != 1 or not restores[0]["equal_to_saved"]:
+            raise AssertionError(f"the restored tree differs: {restores}")
+        if [h["step"] for h in hist2] != list(range(10, 20)):
+            raise AssertionError(f"resumed steps {[h['step'] for h in hist2]}")
+        rel = abs(hist2[-1]["loss"] - hist[-1]["loss"]) / abs(hist[-1]["loss"])
+        if rel > RESUME_REL_TOL:
+            raise AssertionError(f"resumed step-20 loss {hist2[-1]['loss']} "
+                                 f"vs {hist[-1]['loss']}")
+    finally:
+        ckpt.save, ckpt.restore = save, restore
+        shutil.rmtree(root, ignore_errors=True)
+    emit(dict(phase="train", arch=argv[argv.index("--arch") + 1],
+              straight=first, resumed=second, checkpoints=saves,
+              restores=restores, disk_free_bytes=free,
+              resumed_step20_loss_rel_diff=rel,
+              resumed_step10_loss_equal=hist2[0]["loss"] == hist[10]["loss"],
+              tolerance=RESUME_REL_TOL))
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels", action="store_true",
@@ -1750,6 +2161,38 @@ def main() -> None:
             if missing:
                 raise AssertionError(f"small check {name} ({mode}) did not "
                                      f"run {missing}")
+        # 4 (continued). reduced Whisper, then one training step
+        enc_kernels = {"sac": ("indexer_scores", "gather_kv",
+                               "sparse_attn_gqa", "scatter_kv.rows_at"),
+                       "dense": ("sparse_attn_gqa", "scatter_kv.rows_at")}
+        for mode in ("sac", "dense"):
+            t0 = time.perf_counter()
+            cfg = small_config("whisper-small")
+            ops.reset_launch_counts()
+            err, control_err = small_check_encdec(torch, cfg, mode=mode)
+            small_counts = ops.launch_counts()
+            emit(dict(phase="small_check", config="whisper-small", mode=mode,
+                      max_rel_l2_err=err, tolerance=SMALL_TOL,
+                      control_e4m3_rel_l2_err=control_err,
+                      launches=small_counts,
+                      seconds=time.perf_counter() - t0))
+            missing = [k for k in enc_kernels[mode] if not small_counts[k]]
+            if missing or small_counts["sparse_attn"] or (
+                    mode == "dense" and small_counts["indexer_scores"]):
+                raise AssertionError(f"small check whisper-small ({mode}) "
+                                     f"launched {small_counts}")
+        for name in ("deepseek-v32", "whisper-small"):
+            t0 = time.perf_counter()
+            cfg = small_config(name)
+            ops.reset_launch_counts()
+            err, control_err, loss, leaves = train_small_check(
+                torch, cfg, seq=64 if cfg.enc_dec else 32)
+            emit(dict(phase="small_check", config=name, mode="train_step",
+                      loss=loss, gradient_leaves=leaves,
+                      max_rel_l2_err=err, tolerance=SMALL_TOL,
+                      control_e4m3_rel_l2_err=control_err,
+                      launches=ops.launch_counts(),
+                      seconds=time.perf_counter() - t0))
         # 5-6. serving at full width, then a profile of its decode steps
         launches = {k: 0 for k in ops.launch_counts()}
         runs = {}
@@ -1770,8 +2213,11 @@ def main() -> None:
         cli_counts.append(cli_defaults(torch, ops, "zamba2-7b"))
         runs["xlstm-125m"] = serve_and_profile(torch, ops, "xlstm-125m")
         cli_counts.append(cli_defaults(torch, ops, "xlstm-125m"))
+        # 14. Whisper-small through the model facade; 15. training
+        whisper_counts = serve_whisper(torch, ops)
+        train_phase(torch, ops)
         for counts in ([r[0] for r in runs.values()]
-                       + [fetch_counts] + cli_counts):
+                       + [fetch_counts, whisper_counts] + cli_counts):
             for k, n in counts.items():
                 launches[k] += n
 

@@ -11,11 +11,15 @@ inner list.  An ``lg_super`` segment (Gemma3) is nested one level deeper
 in the reference, ``{"local": [n, r, ...], "global": [n, ...]}``; it
 becomes the port's flat list in pool-layer order, super-block i's local
 layers 0..r-1 then its global layer.  Zamba2's top-level ``"shared"``
-attention layer crosses as one dict.  bf16 crosses as its raw 16 bits
+attention layer crosses as one dict.  An encoder-decoder (Whisper)
+has ``embed``, the ``enc`` and ``dec`` stacks (lists in the port),
+``final_norm`` and ``lm_head``.  bf16 crosses as its raw 16 bits
 (``arr.view(np.uint16)`` then ``.view(torch.bfloat16)``), so nothing
 here imports JAX or ``ml_dtypes``.  ``params_to_numpy`` is the inverse
 (bf16 leaves come back as uint16 bit patterns), for round-trip checks;
-``state_from_jax`` and ``state_to_numpy`` do the same for serve states.
+``state_from_jax`` and ``state_to_numpy`` do the same for serve states
+(any keys: the decoder-only models' pools, hot tier and ``rec_*``, an
+encoder-decoder's ``self_kv`` and ``dec_len``).
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import hisparse
+from repro_torch.models.encdec import encdec_param_specs
 from repro_torch.models.layers import ParamSpec
 from repro_torch.models.transformer import build_segments, model_param_specs
 
@@ -60,6 +65,9 @@ def tree_from_numpy(tree, spec, device):
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                     device="cuda") -> Dict[str, Any]:
     """Reference pytree (numpy leaves) -> the port's parameter dict."""
+    if cfg.enc_dec:
+        return {k: tree_from_numpy(tree[k], s, device)
+                for k, s in encdec_param_specs(cfg).items()}
     specs = model_param_specs(cfg)
     out: Dict[str, Any] = {
         k: tree_from_numpy(tree[k], specs[k], device)
@@ -129,7 +137,10 @@ def params_to_numpy(params: Dict[str, Any],
     """The port's parameters -> the reference's layout as numpy arrays
     (each segment's list stacked on a leading [n] axis and its inner
     lists on a second one; an ``lg_super`` segment split into its
-    ``local`` [n, r] and ``global`` [n] stacks; bf16 as uint16 bits)."""
+    ``local`` [n, r] and ``global`` [n] stacks; an encoder-decoder's
+    ``enc`` and ``dec`` lists stacked; bf16 as uint16 bits)."""
+    if cfg.enc_dec:
+        return {k: _numpy_tree(v) for k, v in params.items()}
     out = {k: _numpy_tree(params[k])
            for k in ("embed", "final_norm", "lm_head", "shared")
            if k in params}
@@ -150,7 +161,7 @@ def params_to_numpy(params: Dict[str, Any],
 # ---------------------------------------------------------------------------
 
 
-def state_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+def state_from_jax(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
     """A reference serve state with numpy leaves (``jax.tree.map(
     np.asarray, state)``; bf16 and e4m3 leaves in ``ml_dtypes``' types,
     read by their bits) -> the port's: the same keys and layouts, tuples

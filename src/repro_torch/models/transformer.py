@@ -24,6 +24,10 @@ each i), one dict per iteration for the others
 pool layers: pool layer ``l`` takes its window from
 ``kv_layer_windows``.  Entry points:
 
+  ``forward`` -- the training forward (reference ``forward``): full
+                 logits and the MoE load-balance loss summed over layers,
+                 under autograd, each layer under activation
+                 checkpointing with ``remat``; no pool, no kernel;
   ``prefill`` -- the prompt forward, emitting the SAC pool (entries +
                  indexer keys of the attention layers) and, with the
                  ``warmup_w`` opt, each pool layer's warm-up candidates
@@ -53,10 +57,12 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import hisparse
@@ -235,9 +241,14 @@ def _mlp_apply(p_mlp, x, cfg, *, groups: int = 1):
     return mlp_block(p_mlp, x), torch.zeros((), device=x.device)
 
 
-def _layer_fwd(p, x, cfg, positions, window, groups, warm_w=0):
-    """Full (attn + mlp) prefill layer.  Returns (x', entry, idx_keys,
-    warm_idx).
+def _layer_fwd(p, x, cfg, positions, window, groups, warm_w=0,
+               collect=True):
+    """Full (attn + mlp) layer over a sequence, the one body of prefill
+    and of the training forward.  Returns (x', entry, idx_keys, warm_idx,
+    aux): the MLP's MoE load-balance loss ``aux`` (0 without MoE) and,
+    with ``collect``, the layer's pool entries and indexer keys (None
+    without: the training forward, the reference's
+    ``collect_entries=False``).
 
     ``warm_idx`` ([B, w] int32, or None when ``warm_w`` is 0) is the
     layer's warm-up candidate set: the top-``w`` prompt positions by
@@ -246,27 +257,29 @@ def _layer_fwd(p, x, cfg, positions, window, groups, warm_w=0):
     windowed layer's trailing window).
     """
     xn = rms_norm(x, p["ln1"])
+    entry = idx_keys = warm = None
     if cfg.mla:
         out, entry = dsa.mla_prefill_attention(p["attn"], xn, cfg, positions)
     else:
         out, (k, v) = dense_attention_block(p["attn"], xn, cfg, positions,
                                             window=window)
-        entry = dsa.pack_kv_entry(k, v)
-    idx_keys = dsa.indexer_keys(p["idx"], xn) if cfg.sac.enabled else None
-    warm = None
-    if warm_w and cfg.sac.enabled:
-        scores = dsa.indexer_scores(p["idx"], xn[:, -1], idx_keys, cfg)
-        S = scores.shape[-1]
-        if window:
-            # windowed layers only select from the trailing window
-            pos = torch.arange(S, dtype=torch.int32, device=x.device)
-            scores = torch.where(pos[None, :] > S - window, scores,
-                                 dsa.NEG_INF)
-        ws, warm = top_k(scores, min(warm_w, S))
-        warm = torch.where(ws > dsa.NEG_INF / 2, warm, -1).to(torch.int32)
+        entry = dsa.pack_kv_entry(k, v) if collect else None
+    if collect and cfg.sac.enabled:
+        idx_keys = dsa.indexer_keys(p["idx"], xn)
+        if warm_w:
+            scores = dsa.indexer_scores(p["idx"], xn[:, -1], idx_keys, cfg)
+            S = scores.shape[-1]
+            if window:
+                # windowed layers only select from the trailing window
+                pos = torch.arange(S, dtype=torch.int32, device=x.device)
+                scores = torch.where(pos[None, :] > S - window, scores,
+                                     dsa.NEG_INF)
+            ws, warm = top_k(scores, min(warm_w, S))
+            warm = torch.where(ws > dsa.NEG_INF / 2, warm,
+                               -1).to(torch.int32)
     x = x + out
-    out, _ = _mlp_apply(p["mlp"], rms_norm(x, p["ln2"]), cfg, groups=groups)
-    return x + out, entry, idx_keys, warm
+    out, aux = _mlp_apply(p["mlp"], rms_norm(x, p["ln2"]), cfg, groups=groups)
+    return x + out, (entry if collect else None), idx_keys, warm, aux
 
 
 def _attn_decode(p, x, cfg, ctx, kv_slice, idx_slice, window, hbuf=None):
@@ -329,11 +342,20 @@ def _mamba_fwd(p, x, cfg, chunk):
     return x + out
 
 
-def _xlstm_fwd(p, x, cfg):
-    for pl in p["mlstm"]:
-        x = x + ssm.mlstm_block(pl, rms_norm(x, pl["ln"]), cfg)
-    ps = p["slstm"]
-    return x + ssm.slstm_block(ps, rms_norm(x, ps["ln"]), cfg)
+def _mlstm_fwd(p, x, cfg):
+    return x + ssm.mlstm_block(p, rms_norm(x, p["ln"]), cfg)
+
+
+def _slstm_fwd(p, x, cfg):
+    return x + ssm.slstm_block(p, rms_norm(x, p["ln"]), cfg)
+
+
+def run_layer(remat: bool, fn, *args):
+    """``fn(*args)``: under activation checkpointing when ``remat`` is on
+    and autograd records (the training forward), else directly."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def _store(dst, src):
@@ -401,9 +423,11 @@ class TransformerLM:
 
     def __init__(self, cfg: ModelConfig, fetch_fn: FetchFn = local_fetch,
                  mode: str = "sac", topk_fn: Optional[Callable] = None,
-                 opts: Optional[Dict] = None, device="cuda"):
+                 remat: bool = True, opts: Optional[Dict] = None,
+                 device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
+        self.remat = remat
         self.fetch_fn = fetch_fn
         self.mode = mode if cfg.sac.enabled else "dense"
         self.topk_fn = topk_fn
@@ -423,6 +447,59 @@ class TransformerLM:
         device), one tensor at a time in its own dtype."""
         return init_params(self.specs, generator, self.device)
 
+    # -- the layer walk, shared by the training forward and prefill -----------
+    def _embed_seq(self, params, tokens):
+        B, S = tokens.shape
+        x = params["embed"][tokens.long()].to(DTYPE)
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=tokens.device)[None, :].expand(B, S)
+        return x, positions
+
+    def _walk(self, params, x, attn, remat=False):
+        """``x`` through every layer in order: ``attn(p, x) -> x`` runs
+        each attention layer (in pool-layer order), ``run_layer`` each
+        Mamba2 layer and each mLSTM / sLSTM layer."""
+        cfg = self.cfg
+        layer = functools.partial(run_layer, remat)
+        chunk = int(self.opts.get("ssm_chunk", 256))
+        for seg, items in zip(self.segments, params["segments"]):
+            for it in items:
+                if seg.kind == "zamba_super":
+                    for pl in it["mamba_layers"]:
+                        x = layer(_mamba_fwd, pl, x, cfg, chunk)
+                    x = attn(params["shared"], x)
+                elif seg.kind == "mamba_tail":
+                    x = layer(_mamba_fwd, it, x, cfg, chunk)
+                elif seg.kind == "xlstm_super":
+                    for pl in it["mlstm"]:
+                        x = layer(_mlstm_fwd, pl, x, cfg)
+                    x = layer(_slstm_fwd, it["slstm"], x, cfg)
+                else:
+                    x = attn(it, x)
+        return x
+
+    # -- training forward ----------------------------------------------------
+    def forward(self, params, tokens):
+        """tokens [B, S] -> (logits [B, S, V] f32, aux f32: the MoE
+        load-balance loss summed over layers).  Under autograd; no pool
+        entries, indexer keys or warm-up candidates are made, so no
+        kernel of the port runs."""
+        cfg = self.cfg
+        x, positions = self._embed_seq(params, tokens)
+        groups = int(self.opts.get("moe_groups", 1))
+        windows = iter(self.windows)
+        aux = [torch.zeros((), device=x.device)]
+
+        def attn(p, x):
+            x, _, _, _, a = run_layer(self.remat, _layer_fwd, p, x, cfg,
+                                      positions, next(windows), groups, 0,
+                                      False)
+            aux[0] = aux[0] + a
+            return x
+
+        x = self._walk(params, x, attn, self.remat)
+        return self._logits(params, x), aux[0]
+
     # -- prefill -------------------------------------------------------------
     @torch.no_grad()
     def prefill(self, params, tokens, lengths=None):
@@ -441,12 +518,9 @@ class TransformerLM:
         dev = tokens.device
         if lengths is None:
             lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
-        x = params["embed"][tokens.long()].to(DTYPE)
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=dev)[None, :].expand(B, S)
+        x, positions = self._embed_seq(params, tokens)
         groups = int(self.opts.get("moe_groups", 1))
         warm_w = int(self.opts.get("warmup_w", 0))
-        chunk = int(self.opts.get("ssm_chunk", 256))
         # each layer's entries land in the pool as they are made (no
         # second copy of a long prompt's pool from a stack)
         state: Dict[str, Any] = {}
@@ -462,26 +536,16 @@ class TransformerLM:
 
         def attn(p, x):                  # pool layer len(warms)
             layer = len(warms)
-            x, entry, ik, wm = _layer_fwd(p, x, cfg, positions,
-                                          self.windows[layer], groups, warm_w)
+            x, entry, ik, wm, _ = _layer_fwd(p, x, cfg, positions,
+                                             self.windows[layer], groups,
+                                             warm_w)
             state["kv_pool"][layer] = to_kv_dtype(entry, self.kv_dtype)
             if ik is not None:
                 state["idx_pool"][layer] = ik.to(DTYPE)
             warms.append(wm)
             return x
 
-        for seg, items in zip(self.segments, params["segments"]):
-            for it in items:
-                if seg.kind == "zamba_super":
-                    for pl in it["mamba_layers"]:
-                        x = _mamba_fwd(pl, x, cfg, chunk)
-                    x = attn(params["shared"], x)
-                elif seg.kind == "mamba_tail":
-                    x = _mamba_fwd(it, x, cfg, chunk)
-                elif seg.kind == "xlstm_super":
-                    x = _xlstm_fwd(it, x, cfg)
-                else:
-                    x = attn(it, x)
+        x = self._walk(params, x, attn)
         if warms and warms[0] is not None:
             state["warm_idx"] = torch.stack(warms)
         state.update(self._zero_recs(B, dev))

@@ -34,14 +34,16 @@ COPIED = sorted(
                                 "placement")]
     + [f"serving/{m}.py" for m in ("request", "radix", "arbiter")]
     + [p.relative_to(REF).as_posix()
-       for p in (REF / "serving" / "policy").glob("*.py")])
+       for p in (REF / "serving" / "policy").glob("*.py")]
+    + ["training/data.py"])
 # classes/functions copied whole into a port module that is not a copy
 COPIED_DEFS = [("serving/prefetch.py", "analytic_prefetch"),
                ("serving/prefetch.py", "analytic_warmup"),
                ("serving/simulator.py", "ModelProfile"),
                ("serving/simulator.py", "profile_from_config"),
                ("core/sac.py", "RequestPages"),
-               ("core/sac.py", "SACSystem")]
+               ("core/sac.py", "SACSystem"),
+               ("training/optimizer.py", "OptConfig")]
 
 _SACHECK = re.compile(r"\s*# sacheck: disable=.*$")
 
@@ -57,6 +59,10 @@ def _port_modules():
 
 def test_port_imports_with_jax_blocked():
     mods = list(_port_modules())
+    assert {"repro_torch.models.encdec", "repro_torch.launch.train"} | {
+        f"repro_torch.training.{m}" for m in ("data", "optimizer",
+                                              "train_loop", "checkpoint")
+    } <= set(mods)
     code = ("import sys\nsys.modules['jax'] = None\n"
             f"import importlib\nfor m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -77,6 +83,9 @@ SCANNED = sorted([p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")]
 
 def test_scan_covers_the_entry_points():
     for path in ("src/repro_torch/launch/serve.py",
+                 "src/repro_torch/launch/train.py",
+                 "src/repro_torch/models/encdec.py",
+                 "src/repro_torch/training/train_loop.py",
                  "src/repro_torch/serving/engine.py",
                  "src/repro_torch/serving/prefetch.py", "chip_smoke.py"):
         assert path in SCANNED
@@ -162,6 +171,13 @@ def test_serve_cli_flags_match_reference():
     assert got == want
 
 
+def test_train_cli_flags_match_reference():
+    want = _cli_flags(REF / "launch" / "train.py")
+    got = _cli_flags(PORT / "launch" / "train.py")
+    assert got.pop("--device") == {"default": "'cuda'"}
+    assert got == want
+
+
 def test_serve_cli_on_cpu_prints_the_reference_keys(monkeypatch):
     """The same trace through both CLIs with the fetch pipeline, the
     arbiter and online re-sizing on: the same JSON keys, requests served
@@ -183,3 +199,53 @@ def test_serve_cli_on_cpu_prints_the_reference_keys(monkeypatch):
     assert list(got) == list(want)
     assert (got["n_done"], got["engine_tokens"]) == \
         (want["n_done"], want["engine_tokens"]) == (3, 9)
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for small tensors: faster alone, and no
+    oversubscription when several test processes share the cores."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_chip_smoke_whisper_and_training_phases_rehearse_on_cpu(
+        monkeypatch, capsys, one_torch_thread):
+    """chip_smoke.py's new phases, reduced on the CPU (their rehearsal:
+    the card runs them at full size): the reduced-Whisper and training
+    small checks (the CPU against itself: no error, the e4m3 controls
+    above the limit), the Whisper serve phase (no kernel launches on the
+    CPU) and the training phase (straight run, resume from step 10, the
+    restored tree equal to the saved one)."""
+    import torch
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    cpu = ("cpu", "cpu")
+    for mode in ("sac", "dense"):
+        err, control = cs.small_check_encdec(
+            torch, cs.small_config("whisper-small"), mode=mode, devices=cpu)
+        assert err == 0.0 and control > cs.SMALL_TOL
+    err, control, loss, leaves = cs.train_small_check(
+        torch, cs.small_config("deepseek-v32"), devices=cpu)
+    assert err == 0.0 and control > cs.SMALL_TOL and leaves > 10
+    counts = cs.serve_whisper(torch, ops, get_config("whisper-small")
+                              .reduced(), device="cpu", requests=2,
+                              frames=64, steps=3)
+    assert not any(counts.values())
+    cs.train_phase(torch, ops, argv=[
+        "--arch", "qwen2-1.5b", "--reduced", "--batch", "2", "--seq", "16",
+        "--steps", "20", "--ckpt-every", "10"], device="cpu")
+    records = [json.loads(line) for line in capsys.readouterr().out
+               .splitlines() if line.startswith("{")]
+    assert [r["phase"] for r in records] == ["serve", "train"]
+    serve, train = records
+    assert serve["decode_steps"] == 3 and serve["logits_finite"]
+    assert train["restores"] == [dict(train["restores"][0], step=10,
+                                      equal_to_saved=True)]
+    assert train["straight"]["steps"] == 20
+    assert train["resumed"]["steps"] == 10

@@ -135,7 +135,7 @@ def test_serve_state_bridge_round_trip(bridged):
     jst = jm.init_serve_state(2, 16)
     jst, _ = jax.jit(jm.decode)(params, jst, jnp.asarray([1, 2], jnp.int32))
     np_st = jax.tree.map(np.asarray, jst)
-    tst = state_from_jax(np_st)
+    tst = state_from_jax(np_st, device="cpu")
     assert set(tst) == {"cache_len", "rec_0"}
     (C, n, m), s = tst["rec_0"]
     assert C.shape == (2, 3, 2, 4, 16, 16) and len(s) == 4

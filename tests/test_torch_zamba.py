@@ -148,7 +148,7 @@ def test_serve_state_bridge_round_trip(bridged):
     for tok in ([1, 2], [3, 4]):
         jst, _ = jax.jit(jm.decode)(params, jst, jnp.asarray(tok, jnp.int32))
     np_st = jax.tree.map(np.asarray, jst)
-    tst = state_from_jax(np_st)
+    tst = state_from_jax(np_st, device="cpu")
     assert type(tst["rec_0"]) is tuple and len(tst["rec_0"]) == 2
     assert tst["rec_0"][0].dtype == torch.float32
     assert tst["rec_0"][1].dtype == torch.bfloat16
@@ -223,8 +223,8 @@ def test_prefill_pools_warm_idx_logits(bridged):
                     x = ttr._mamba_fwd(tpl, x, tcfg, 8)
                 else:
                     want, jentry, jkey = jattn(jp, _jax_tree(x))
-                    x, entry, key, _ = ttr._layer_fwd(tpl, x, tcfg, tpos, 0,
-                                                      1)
+                    x, entry, key, _, _ = ttr._layer_fwd(tpl, x, tcfg, tpos,
+                                                         0, 1)
                     _assert_rel_close(entry, jentry, 0, f"entry {n}")
                     _assert_rel_close(key, jkey, 0, f"key {n}")
                     entries.append(entry)
@@ -289,7 +289,7 @@ def test_decode_teacher_forced(bridged, mode):
     tm = tbuild(tcfg, mode=mode, topk_fn=torch_topk if sac else None,
                 device="cpu")
     jst, rng = _prefilled(cfg, params, jm, sac)
-    tst = state_from_jax(jax.tree.map(np.asarray, jst))
+    tst = state_from_jax(jax.tree.map(np.asarray, jst), device="cpu")
     jdecode = jax.jit(jm.decode)
     for step in range(2):
         toks = rng.integers(0, cfg.vocab, size=2).astype(np.int32)
@@ -473,8 +473,9 @@ def whole(bridged, request):
     out = {k: dict(prefill=[_rel(x[i], want[i]) for i in range(2)],
                    decode=[], rec=[])
            for k, x in (("ref", ref), ("port", port), ("control", control))}
-    states = dict(ref=jst, port=state_from_jax(jax.tree.map(np.asarray, jst)),
-                  control=state_from_jax(jax.tree.map(np.asarray, jst)))
+    np_st = jax.tree.map(np.asarray, jst)
+    states = dict(ref=jst, port=state_from_jax(np_st, device="cpu"),
+                  control=state_from_jax(np_st, device="cpu"))
     jdecode = jax.jit(jm.decode)
     for _ in range(3):
         toks = rng.integers(0, cfg.vocab, size=2).astype(np.int32)
