@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --kernels  # phases 1-3 only (build and check)
+    python3 chip_smoke.py --sharded  # phases 1-3 and 16 (the sharded pool)
 
 Phases, each printing one JSON line with its seconds; any failure raises
 (exit code != 0):
@@ -51,7 +52,15 @@ Phases, each printing one JSON line with its seconds; any failure raises
    invalid lanes, no valid lane, B = 1, and the GQA form at head dims 72
    and 512 (refused in e4m3); and the indexer at the edges of its plan
    (S = 1, a chunk - 1 and + 1 tile, a ragged tile, B = 1, a bf16-exact
-   q), each case launched twice for equal bits;
+   q), each case launched twice for equal bits; then the row movers'
+   shard forms (a rank's slice of a pool split over ranks: the gather,
+   zeros for rows outside the slice; the decode write, only where the
+   rank owns the position; the splice of a serve state's whole pools
+   into the slice) at the shapes phase 16 gives them (Qwen2-1.5B's pool
+   over 2 ranks and on 1, the small configs' over 2, each rank) and at
+   a 4-card host's (Qwen2-1.5B's pool over 4, DeepSeek-V3.2's over 2),
+   bf16 and e4m3, bit-exact, timed beside the plain version, a library
+   call and the bound;
 4. small-input checks: the port on the card against the port's plain
    path on the CPU with the same weights (reduced DeepSeek-V3.2, reduced
    Qwen2 with non-zero QKV biases, reduced Mixtral past its sliding
@@ -145,7 +154,22 @@ Phases, each printing one JSON line with its seconds; any failure raises
    temporary directory (the loss finite and falling, no kernel
    launched), then ``--resume`` from the step-10 snapshot alone (the
    restored tree equal to the saved one bit for bit, the step-20 loss
-   within 1e-2 of the straight run's).
+   within 1e-2 of the straight run's);
+16. the KV pool sharded over a ``torch.distributed`` mesh
+   (``make_pooled_fetch``, ``shard_serve_state``), Qwen2-1.5B at full
+   width and depth, 8 requests of 8192 tokens, pool 8256, hot tier
+   6144: (a) a world of one NCCL rank, mesh (1, 1), through the real
+   collectives, 16 decode steps beside the unsharded model on the same
+   weights and state (tokens, logits, hot tier, counters and pools
+   equal; every layer of every step through the gather's and the decode
+   write's shard forms), the median step, device ms and launches a step
+   of each; (b) four processes sharing the card over gloo, mesh (data 2,
+   model 2), each prefilling its 4 requests and keeping half the pool
+   axis, 4 decode steps, tokens, logits and hot tier equal to the
+   unsharded run of the same 4 lanes; (c) small DeepSeek-V3.2 (MLA) and
+   Gemma3-12B (windowed) at mesh (1, 2) over gloo, bit-equal to their
+   unsharded card runs, which hold SMALL_TOL against the CPU beside the
+   e4m3 control.  The kernels are built before any rank starts.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -294,6 +318,7 @@ def both_times(fn, rotation=None) -> dict:
 
 
 L2_BYTES = 50 * 2 ** 20                    # the H100's L2
+MAX_COLD_COPIES = 64
 
 
 def cold_copies(pairs, read_bytes: int, budget: int = 2 << 30):
@@ -302,10 +327,12 @@ def cold_copies(pairs, read_bytes: int, budget: int = 2 << 30):
     path, where a layer's other kernels run between two gathers: enough
     copies of each kv that the rows read across them exceed twice the L2
     (one when a call alone reads that much).  None when the copies would
-    take more than ``budget`` bytes."""
+    take more than ``budget`` bytes or number more than MAX_COLD_COPIES (a
+    gather of a few KB, which the batched run then times L2-warm)."""
     n = -(-2 * L2_BYTES // read_bytes)
     kvs = {id(kv): kv for kv, _ in pairs}
-    if (n - 1) * sum(kv.nbytes for kv in kvs.values()) > budget:
+    if n > MAX_COLD_COPIES or (n - 1) * sum(kv.nbytes
+                                       for kv in kvs.values()) > budget:
         return None
     copies = [pairs]
     for _ in range(n - 1):
@@ -1050,9 +1077,115 @@ def small_config(name: str, fp8: bool = False):
 SMALL_TOL = 5e-2
 
 
+def _small_topk(scores, cache_len, K: int = 16):
+    """small_check's injected top-k: score-independent, with invalid
+    lanes."""
+    import torch
+    j = torch.arange(K, dtype=torch.int32, device=scores.device)[None]
+    t = cache_len[:, None]
+    pos = (j * 7 + 3 * t) % torch.clamp(t, min=1)
+    return pos.to(torch.int32), (j < t) & (j % 5 != 3)
+
+
+def _small_spec(scores, cache_len, W: int):
+    """small_check's injected speculation of width W."""
+    import torch
+    j = torch.arange(W, dtype=torch.int32, device=scores.device)[None]
+    t = cache_len[:, None]
+    pos = (t - 1 - (j * j) % 11) % torch.clamp(t, min=1)
+    return pos.to(torch.int32), (j % 4 != 1).expand(t.shape[0], W)
+
+
+def _small_params(torch, cfg, mode: str):
+    """small_check's weights: seed 1 on the CPU, QKV biases (where the
+    config has them) set non-zero."""
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import pool_layer_params
+    m = build_model(cfg, mode=mode, device="cpu")
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    params = m.init(gen)
+    for layer in pool_layer_params(cfg, params):
+        for name in ("bq", "bk", "bv"):
+            if name in layer["attn"]:
+                b = layer["attn"][name]
+                b.copy_(0.5 * torch.randn(b.shape, generator=gen))
+    return params
+
+
+def _small_run(torch, cfg, params, dev, *, mode: str, prompt_len: int,
+               pool_len: int, prefetch: bool, degrade: bool = False,
+               mesh=None):
+    """One small_check run on ``dev``: lane 1 holds the prompt, lane 0 is
+    empty, four decode steps under the injected top-k (and speculation,
+    with ``prefetch``).  ``mesh``: the pool sharded over its ``model``
+    axis (``make_pooled_fetch``, ``shard_serve_state``; the pool returned
+    is this rank's slice).  Returns the logits, the hot tier's integer
+    state, the pool and ``rec_*``."""
+    import functools
+    from repro_torch.core.pool import make_pooled_fetch, pool_write_prefill
+    from repro_torch.distributed.sharding import shard_serve_state
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Engine
+
+    W = cfg.sac.prefetch_width
+    opts = (dict(prefetch_width=W, prefetch_fn=functools.partial(
+        _small_spec, W=W), score_margin=cfg.sac.score_margin)
+        if prefetch else None)
+    fetch = {} if mesh is None else dict(fetch_fn=make_pooled_fetch(mesh))
+    m = build_model(cfg, mode=mode, topk_fn=_small_topk, opts=opts,
+                    device=dev, **fetch)
+    p = _to(params, dev)
+    if degrade:
+        p = e4m3_weights(torch, p)
+    prompt = torch.arange(3, 3 + prompt_len, dtype=torch.int32,
+                          device=dev)[None] % cfg.vocab
+    st, first = m.prefill(p, prompt)
+    state = m.init_serve_state(2, pool_len, device_buffer=8)
+    for key in ("kv_pool", "idx_pool"):
+        if key in state:
+            pool_write_prefill(state[key], st[key], lane=1)
+    state["cache_len"][1] = prompt_len
+    if prefetch:
+        L = m.n_kv
+        j = torch.arange(12, dtype=torch.int32, device=dev)
+        idx = ((prompt_len - 1 - 5 * j)[None] + torch.arange(
+            L, dtype=torch.int32, device=dev)[:, None]) % prompt_len
+        Engine._warm_apply(state["hot_buf"], state["kv_pool"], 1, idx,
+                           (j % 6 != 2)[None].expand(L, 12))
+    if mesh is not None:
+        state = shard_serve_state(state, mesh)
+    logits = [first]
+    tok = torch.tensor([5, 7], dtype=torch.int32, device=dev)
+    for step in range(4):
+        budget = (torch.tensor([step % 3, W - 2 * step], dtype=torch.int32,
+                               device=dev) if prefetch else None)
+        state, lg = m.decode(p, state, tok, pf_budget=budget)
+        logits.append(lg)
+    return dict(logits=[x.float().cpu() for x in logits],
+                hot=([t.cpu() for t in state["hot_buf"][1:]]
+                     if "hot_buf" in state else []),
+                pool=(state["kv_pool"].float().cpu()
+                      if "kv_pool" in state else None),
+                rec=[t.float().cpu() for t in _rec_leaves(state)])
+
+
+def small_runs(torch, cfg, *, mode: str = "sac", prompt_len: int = 40,
+               pool_len: int = 64, prefetch: bool = False,
+               devices=("cpu", "cuda")):
+    """small_check's three runs on the same weights: ``devices[0]`` (the
+    CPU's plain path), ``devices[1]`` (the card) and the card with the
+    weights rounded through e4m3 (the control)."""
+    params = _small_params(torch, cfg, mode)
+    kw = dict(mode=mode, prompt_len=prompt_len, pool_len=pool_len,
+              prefetch=prefetch)
+    return [_small_run(torch, cfg, params, dev, degrade=degrade, **kw)
+            for dev, degrade in [(d, False) for d in devices]
+            + [(devices[1], True)]]
+
+
 def small_check(torch, cfg, *, mode: str = "sac", prompt_len: int = 40,
                 pool_len: int = 64, prefetch: bool = False,
-                devices=("cpu", "cuda")):
+                devices=("cpu", "cuda"), runs=None):
     """``cfg`` on the card against the same weights on the CPU (QKV
     biases, where the config has them, set non-zero): per-request
     relative L2 error of the logits, the pool (where the model has one)
@@ -1072,74 +1205,12 @@ def small_check(torch, cfg, *, mode: str = "sac", prompt_len: int = 40,
     score-independent speculation of the config's width, per-request
     budgets that change every step as the arbiter's grants do, and a
     warm-up plan for lane 1 applied by ``Engine._warm_apply``), so that
-    the hot tier, its ``pf_*`` counters included, must match exactly."""
-    from repro_torch.core.pool import pool_write_prefill
-    from repro_torch.models.model import build_model
-    from repro_torch.models.transformer import pool_layer_params
-    from repro_torch.serving.engine import Engine
-
-    K = 16
-    W = cfg.sac.prefetch_width
-
-    def topk(scores, cache_len):      # score-independent, with invalid lanes
-        j = torch.arange(K, dtype=torch.int32, device=scores.device)[None]
-        t = cache_len[:, None]
-        pos = (j * 7 + 3 * t) % torch.clamp(t, min=1)
-        return pos.to(torch.int32), (j < t) & (j % 5 != 3)
-
-    def spec(scores, cache_len):      # the speculation, also injected
-        j = torch.arange(W, dtype=torch.int32, device=scores.device)[None]
-        t = cache_len[:, None]
-        pos = (t - 1 - (j * j) % 11) % torch.clamp(t, min=1)
-        return pos.to(torch.int32), (j % 4 != 1).expand(t.shape[0], W)
-
-    opts = (dict(prefetch_width=W, prefetch_fn=spec,
-                 score_margin=cfg.sac.score_margin) if prefetch else None)
-    plan = [(dev, False) for dev in devices] + [(devices[1], True)]
-    runs = []
-    params = None
-    for dev, degrade in plan:
-        m = build_model(cfg, mode=mode, topk_fn=topk, opts=opts, device=dev)
-        if params is None:
-            gen = torch.Generator(device=dev).manual_seed(1)
-            params = m.init(gen)
-            for layer in pool_layer_params(cfg, params):
-                for name in ("bq", "bk", "bv"):
-                    if name in layer["attn"]:
-                        b = layer["attn"][name]
-                        b.copy_(0.5 * torch.randn(b.shape, generator=gen,
-                                                  device=dev))
-        p = _to(params, dev)
-        if degrade:
-            p = e4m3_weights(torch, p)
-        prompt = torch.arange(3, 3 + prompt_len, dtype=torch.int32,
-                              device=dev)[None] % cfg.vocab
-        st, first = m.prefill(p, prompt)
-        state = m.init_serve_state(2, pool_len, device_buffer=8)
-        for key in ("kv_pool", "idx_pool"):
-            if key in state:
-                pool_write_prefill(state[key], st[key], lane=1)
-        state["cache_len"][1] = prompt_len
-        if prefetch:
-            L = m.n_kv
-            j = torch.arange(12, dtype=torch.int32, device=dev)
-            idx = ((prompt_len - 1 - 5 * j)[None] + torch.arange(
-                L, dtype=torch.int32, device=dev)[:, None]) % prompt_len
-            Engine._warm_apply(state["hot_buf"], state["kv_pool"], 1, idx,
-                               (j % 6 != 2)[None].expand(L, 12))
-        logits = [first]
-        tok = torch.tensor([5, 7], dtype=torch.int32, device=dev)
-        for step in range(4):
-            budget = (torch.tensor([step % 3, W - 2 * step], dtype=torch.int32,
-                                   device=dev) if prefetch else None)
-            state, lg = m.decode(p, state, tok, pf_budget=budget)
-            logits.append(lg)
-        runs.append(dict(logits=[x.float().cpu() for x in logits],
-                         hot=([t.cpu() for t in state["hot_buf"][1:]]
-                              if "hot_buf" in state else []),
-                         pool=(state["kv_pool"].float().cpu()
-                               if "kv_pool" in state else None),
-                         rec=[t.float().cpu() for t in _rec_leaves(state)]))
+    the hot tier, its ``pf_*`` counters included, must match exactly.
+    ``runs``: ``small_runs``' result, made by the caller."""
+    if runs is None:
+        runs = small_runs(torch, cfg, mode=mode, prompt_len=prompt_len,
+                          pool_len=pool_len, prefetch=prefetch,
+                          devices=devices)
     ref_run, dev_run = runs[:2]
     worst = 0.0
     for want, got in _run_pairs(ref_run, dev_run):
@@ -1326,8 +1397,13 @@ def _span_totals(event):
     return dev, n
 
 
+# the host operators of the collectives (phase 16 (a) reads them): c10d's
+# dispatcher ops and the process group's own records
+COLLECTIVE_OPS = ("c10d::", "nccl:")
+
+
 def profile_steps(torch, step, *, n_steps: int, device_kernels, spans,
-                  top: int = 8):
+                  top: int = 8, report=()):
     """Device busy share and the kernels that take the device time of
     ``n_steps`` calls of ``step()`` under torch.profiler (CUPTI), whose
     host overhead lowers the busy share a little.  Every name in
@@ -1338,7 +1414,10 @@ def profile_steps(torch, step, *, n_steps: int, device_kernels, spans,
     super-blocks): host time inside the ranges (under the profiler),
     device time of the kernels launched inside them and those launches,
     a step and a call; each kind must open its ranges ``spans[kind]``
-    times a step."""
+    times a step.  ``report``: names whose device kernels are totalled
+    too, where any ran (``reported``; none is required).  ``host_ops``:
+    the collectives' host operators (COLLECTIVE_OPS), where any ran, by
+    name: calls and host time under the profiler, inclusive and own."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models.transformer import DECODE_SPANS
@@ -1404,6 +1483,16 @@ def profile_steps(torch, step, *, n_steps: int, device_kernels, spans,
                 host_us_per_call=k["host_s"] * 1e6 / calls,
                 device_us_per_call=k["device_s"] * 1e6 / calls,
                 launches_per_call=k["launches"] / calls)
+    reported = {}
+    for key in report:
+        hits = [v for name, v in by_name.items() if key in name.lower()]
+        reported[key] = dict(seconds=sum(t for t, _ in hits),
+                             calls=sum(n for _, n in hits))
+    host_ops = {e.key: dict(calls=e.count,
+                            host_s=e.cpu_time_total * 1e-6,
+                            self_host_s=e.self_cpu_time_total * 1e-6)
+                for e in prof.key_averages()
+                if e.key.startswith(COLLECTIVE_OPS)}
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     # where the host's share goes: operators by their own (self) host time
     host = sorted((e for e in prof.key_averages()
@@ -1416,7 +1505,8 @@ def profile_steps(torch, step, *, n_steps: int, device_kernels, spans,
         launches_per_step=launches["cudaLaunchKernel"] / n_steps,
         launches_ex_per_step=launches["cudaLaunchKernelExC"] / n_steps,
         peak_memory_bytes=torch.cuda.max_memory_allocated(),
-        port_kernels=ours, layer_kinds=layer_kinds,
+        port_kernels=ours, layer_kinds=layer_kinds, reported=reported,
+        host_ops=host_ops,
         top_kernels=[dict(name=name[:96], seconds=t, calls=n)
                      for name, (t, n) in ranked],
         top_host_ops=[dict(name=e.key[:96],
@@ -2063,12 +2153,657 @@ def train_phase(torch, ops, argv=TRAIN_ARGV, device="cuda"):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 3 (continued): the row movers' shard forms
+# ---------------------------------------------------------------------------
+
+# the sharded pools (name, L, B, S, d, d_idx, model ranks, rank, top-k),
+# each case one rank's slice.  First the shapes phase 16 hands the
+# kernels, at Qwen2-1.5B's full width: (b) a data slice's 4 lanes over 2
+# model ranks, each rank; (a) 8 lanes on one rank, base 0.  Phase (c)'s
+# small configs follow (``small_shard_shapes``).  Last, two shapes no
+# path on one card runs, those of a 4-card host: Qwen2-1.5B's pool over
+# 4 model ranks and DeepSeek-V3.2's (entries of 576) over 2.
+SHARD_SHAPES = (("qwen2-1.5b/2 (16b)", 28, 4, 8256, 512, 64, 2, 1, 2048),
+                ("qwen2-1.5b/2 (16b)", 28, 4, 8256, 512, 64, 2, 0, 2048),
+                ("qwen2-1.5b/1 (16a)", 28, 8, 8256, 512, 64, 1, 0, 2048),
+                ("qwen2-1.5b/4", 28, 8, 8256, 512, 64, 4, 1, 2048),
+                ("deepseek-v32/2", 2, 4, 4160, 576, 128, 2, 1, 2048))
+
+
+def small_shard_shapes(torch):
+    """SHARD_SHAPES' entries of phase 16 (c): each small config's serve
+    state of ``_small_run`` (2 lanes, pool 64) over 2 model ranks, each
+    rank, top-k 16 (``_small_topk``)."""
+    from repro_torch.models.model import build_model
+    out = []
+    for name in SHARDED_SMALL:
+        st = build_model(small_config(name), mode="sac",
+                         device="meta").init_serve_state(2, 64,
+                                                         device_buffer=8)
+        L, B, S, d = st["kv_pool"].shape
+        for rank in (0, 1):
+            out.append((f"{name} small/2 (16c)", L, B, S, d,
+                        st["idx_pool"].shape[-1], 2, rank, 16))
+    return tuple(out)
+
+
+def check_shard_forms(torch, ref, gather_mod, scatter_mod):
+    """The three shard forms at SHARD_SHAPES and ``small_shard_shapes``
+    in bf16 and with e4m3 entries, bit-exact against their plain versions
+    (``ref``), each timed per call and batched, beside its plain version,
+    one library call for the same result and its bound (the bytes this
+    case's data moves: only the rows the slice holds are read or
+    written):
+
+    - the gather's shard form (top-k rows a request, global indices over
+      the whole pool, about 1/ranks of them in the slice; the batched run
+      cycles through copies of the slice so each call reads from HBM),
+      beside the row form on the same slice at equal rows (``ms_rows``:
+      every row read) and ``torch.where`` over ``torch.gather``;
+    - the decode write's shard form (both pools, every layer, one launch;
+      positions at the slice's edges and past the pool), beside
+      ``index_copy_`` of the rows the slice owns;
+    - the splice's shard form (a serve state's whole pools [L, B, S, d]
+      into the slice, both pools), beside ``copy_``; also checked (not
+      timed) with a prompt that ends inside the last slice (zeros past
+      it).
+
+    Returns the three records (the first shape, bf16, in each record's
+    own fields; every case in ``shapes``)."""
+    from repro_torch.core.pool import E4M3
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(20)
+    recs = {}
+    gathers, writes, splices = [], [], []
+    for name, L, B, S, d, di, n, rank, k in (SHARD_SHAPES
+                                             + small_shard_shapes(torch)):
+        S_l = S // n
+        base = rank * S_l
+        for dtype in (torch.bfloat16, E4M3):
+            kv = _rand_pool(torch, g, (B, S_l, d), dtype)
+            idx = torch.randint(0, S, (B, k), generator=g, device=dev,
+                                dtype=torch.int32)
+            idx[:, :4] = torch.tensor([base - 1, base, base + S_l - 1,
+                                       base + S_l], device=dev)
+            gathers.append(_gather_shard_case(torch, ref, gather_mod, name,
+                                              kv, idx, base))
+            del kv
+        pools = [_rand_pool(torch, g, (L, B, S_l, d), torch.bfloat16),
+                 _rand_pool(torch, g, (L, B, S_l, di), torch.bfloat16)]
+        writes.append(_write_shard_case(torch, ref, scatter_mod, name,
+                                        pools, base, S))
+        pools[0] = _rand_pool(torch, g, (L, B, S_l, d), E4M3)
+        writes.append(_write_shard_case(torch, ref, scatter_mod, name,
+                                        pools, base, S))
+        del pools
+        for dtype in (torch.bfloat16, E4M3):
+            srcs = [_rand_pool(torch, g, (L, B, S, d), dtype),
+                    _rand_pool(torch, g, (L, B, S, di), torch.bfloat16)]
+            splices.append(_splice_shard_case(torch, ref, scatter_mod, name,
+                                              srcs, base, S_l))
+            # a prompt that ends inside the last slice: the serve
+            # trace's 8192 tokens in a pool of 8256; small, 40 of 64
+            T = S - 64 if S > 128 else S * 5 // 8
+            tail = [x[:, :, :T].contiguous() for x in srcs]
+            _splice_shard_case(torch, ref, scatter_mod, name, tail,
+                               (n - 1) * S_l, S_l, timed=False)
+            del srcs, tail
+        torch.cuda.empty_cache()
+    for key, cases in (("gather_kv_shard", gathers),
+                       ("scatter_kv_rows_at_shard", writes),
+                       ("scatter_kv_splice_shard", splices)):
+        head = dict(cases[0])
+        head["bound"] = (head.pop("bound_ms"), head.pop("bound_by"))
+        head["shapes"] = cases
+        recs[key] = head
+    return recs
+
+
+def _gather_shard_case(torch, ref, mod, name, kv, idx, base):
+    want = torch.stack([ref.gather_kv_shard_ref(kv[b].view(torch.uint8),
+                                                idx[b], base)
+                        for b in range(kv.shape[0])])
+    got = mod.gather_kv_shard([(kv, idx)], base)[0]
+    if not _equal_bits(torch, got, want):
+        raise AssertionError(f"gather_kv_shard differs from its plain "
+                             f"version at the {name} shape ({kv.dtype})")
+    del got, want
+    B, S_l, d = kv.shape
+    w, n = d * kv.element_size(), idx.numel()
+    inside = (idx >= base) & (idx < base + S_l)
+    n_in = int(inside.sum())
+    bound, by = bound_ms(n * 4 + n_in * w + n * w, 0.0)
+    copies = cold_copies([(kv, idx)], n_in * w)
+    local = torch.clamp(idx - base, 0, S_l - 1)
+    u8 = kv.view(torch.uint8)
+    gidx = local.long()[..., None].expand(-1, -1, w)
+    keep = inside[..., None]
+
+    def library(kv_u8):
+        return torch.where(keep, torch.gather(kv_u8, 1, gidx), 0)
+    rec = dict(shape=name, form="gather_shard", dtype=str(kv.dtype),
+               kv=list(kv.shape), idx=list(idx.shape), base=base,
+               rows_in_slice=n_in, max_abs_err=0.0,
+               l2="cold" if copies else "warm", bound_ms=bound, bound_by=by,
+               plain_ms=cuda_time_ms(lambda: [ref.gather_kv_shard_ref(
+                   u8[b], idx[b], base) for b in range(B)]))
+    rec.update(both_times(
+        lambda: mod.gather_kv_shard([(kv, idx)], base),
+        copies and [lambda c=c: mod.gather_kv_shard(c, base)
+                    for c in copies]))
+    rows = both_times(
+        lambda: mod.gather_kv_many([(kv, local)]),
+        copies and [lambda c=c: mod.gather_kv_many([(c[0][0], local)])
+                    for c in copies])
+    rec["ms_rows"], rec["ms_batched_rows"] = rows["ms"], rows["ms_batched"]
+    lib = both_times(lambda: library(u8), copies and [
+        lambda c=c: library(c[0][0].view(torch.uint8)) for c in copies])
+    rec["library_ms"], rec["library_ms_batched"] = lib["ms"], \
+        lib["ms_batched"]
+    return rec
+
+
+def _write_shard_case(torch, ref, mod, name, pools, base, S):
+    dev = pools[0].device
+    L, B, S_l = pools[0].shape[:3]
+    g = torch.Generator(device=dev).manual_seed(S_l)
+    entries = [_rand_pool(torch, g, (L, B, p.shape[-1]), p.dtype)
+               for p in pools]
+    edges = [base - 1, base, base + S_l - 1, base + S_l, S + 3, -1]
+    pos = torch.randint(0, S, (B,), generator=g, device=dev,
+                        dtype=torch.int32)
+    pos[:min(B, len(edges))] = torch.tensor(edges[:B], device=dev)
+    want = [p.clone() for p in pools]
+    for p, e in zip(want, entries):
+        ref.write_rows_at_ref(p.view(torch.uint8), e.view(torch.uint8), pos,
+                              base, S)
+    mod.write_rows_at_shard(pools, entries, pos, base, S)
+    if not all(_equal_bits(torch, a, b) for a, b in zip(pools, want)):
+        raise AssertionError(f"write_rows_at_shard differs from its plain "
+                             f"version at the {name} shape "
+                             f"({pools[0].dtype})")
+    del want
+    local = pos.long().clamp(0, S - 1) - base
+    owned = (local >= 0) & (local < S_l)
+    lanes = torch.arange(L * B, device=dev).reshape(L, B)
+    rows = (lanes * S_l + local.clamp(0, S_l - 1))[:, owned].reshape(-1)
+    flat = [p.view(-1, p.shape[-1]).view(torch.uint8) for p in pools]
+    e_own = [e[:, owned].reshape(rows.shape[0], -1).view(torch.uint8)
+             for e in entries]
+    n_own = rows.shape[0]
+    nb = B * 4 + sum(2 * n_own * e.shape[-1] * e.element_size()
+                     for e in entries)
+    bound, by = bound_ms(nb, 0.0)
+    rec = dict(shape=name, form="decode_write_shard",
+               dtype=str(pools[0].dtype), pools=[list(p.shape) for p in pools],
+               base=base, seq_len=S, rows=len(pools) * n_own,
+               max_abs_err=0.0, l2="warm", bound_ms=bound, bound_by=by,
+               plain_ms=cuda_time_ms(lambda: [ref.write_rows_at_ref(
+                   p.view(torch.uint8), e.view(torch.uint8), pos, base, S)
+                   for p, e in zip(pools, entries)]),
+               **both_times(lambda: mod.write_rows_at_shard(
+                   pools, entries, pos, base, S)))
+    lib = both_times(lambda: [f.index_copy_(0, rows, e)
+                              for f, e in zip(flat, e_own)])
+    rec["library_ms"], rec["library_ms_batched"] = lib["ms"], \
+        lib["ms_batched"]
+    return rec
+
+
+def _splice_shard_case(torch, ref, mod, name, srcs, base, S_l, timed=True):
+    L, B, T = srcs[0].shape[:3]
+    pools = [torch.full((L, B, S_l, s.shape[-1] * s.element_size()), 7,
+                        dtype=torch.uint8, device=s.device).view(s.dtype)
+             for s in srcs]
+    want = [p.clone() for p in pools]
+    for p, s in zip(want, srcs):
+        ref.splice_ref(p.view(torch.uint8), s.view(torch.uint8),
+                       zero_tail=True, src_row0=base)
+    mod.splice_shard(pools, srcs, base)
+    if not all(_equal_bits(torch, a, b) for a, b in zip(pools, want)):
+        raise AssertionError(f"splice_shard differs from its plain version "
+                             f"at the {name} shape, base {base}, {T} rows "
+                             f"({srcs[0].dtype})")
+    del want
+    if not timed:
+        return None
+    n = min(max(T - base, 0), S_l)
+    nb = sum(L * B * (n + S_l) * s.shape[-1] * s.element_size()
+             for s in srcs)
+    bound, by = bound_ms(nb, 0.0)
+
+    def library():
+        for p, s in zip(pools, srcs):
+            p.view(torch.uint8)[:, :, :n].copy_(
+                s.view(torch.uint8)[:, :, base:base + n])
+            p.view(torch.uint8)[:, :, n:].zero_()
+    rec = dict(shape=name, form="splice_shard", dtype=str(srcs[0].dtype),
+               srcs=[list(s.shape) for s in srcs], base=base, rows=n,
+               max_abs_err=0.0, l2="cold", bound_ms=bound, bound_by=by,
+               plain_ms=cuda_time_ms(lambda: [ref.splice_ref(
+                   p.view(torch.uint8), s.view(torch.uint8), zero_tail=True,
+                   src_row0=base) for p, s in zip(pools, srcs)],
+                   iters=3, warmup=1),
+               **both_times(lambda: mod.splice_shard(pools, srcs, base)))
+    lib = both_times(library)
+    rec["library_ms"], rec["library_ms_batched"] = lib["ms"], \
+        lib["ms_batched"]
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the KV pool sharded over a torch.distributed mesh
+# ---------------------------------------------------------------------------
+
+# Qwen2-1.5B at full width and depth: 8 requests of 8192 tokens (the
+# serve phases' trace), pool S = 8256, hot tier 6144, top-k 2048; phase
+# (a) decodes 16 steps, phase (b) 4 steps at mesh (data 2, model 2)
+SHARDED = dict(arch="qwen2-1.5b", requests=8, context=8192, max_ctx=8256,
+               steps_nccl=16, steps_gloo=4, mesh_gloo=(2, 2))
+# the small sharded checks at mesh (data 1, model 2): MLA and windowed
+SHARDED_SMALL = ("deepseek-v32", "gemma3-12b")
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _sharded_prompts(cfg):
+    from repro_torch.serving.request import sharegpt_trace
+    reqs = sharegpt_trace(SHARDED["requests"],
+                          context_len=SHARDED["context"], output_len=16,
+                          ctx_jitter=0.0, seed=0, vocab=cfg.vocab)
+    return [r.prompt_tokens for r in reqs]
+
+
+def _sharded_state(torch, m, params, prompts, lanes):
+    """A serve state of ``lanes`` (pool S = max_ctx, the config's hot
+    tier): each prompt prefilled alone and spliced into its lane, as the
+    engine admits it; returns it and each lane's first token (the
+    prefill's greedy pick)."""
+    from repro_torch.core.pool import pool_splice_lane
+    state = m.init_serve_state(len(lanes), SHARDED["max_ctx"],
+                               device_buffer=m.cfg.sac.device_buffer_size)
+    first = []
+    for i, lane in enumerate(lanes):
+        toks = torch.as_tensor(prompts[lane], dtype=torch.int32,
+                               device=m.device)[None]
+        st, logits = m.prefill(params, toks)
+        pool_splice_lane([state["kv_pool"], state["idx_pool"]],
+                         [st["kv_pool"], st["idx_pool"]], i)
+        state["cache_len"][i] = toks.shape[1]
+        first.append(logits.argmax(-1))
+        del st
+    return state, torch.cat(first).to(torch.int32)
+
+
+def _decode_steps(torch, m, params, state, tok, n: int):
+    """``n`` greedy decode steps; the logits and tokens of each (on the
+    host) and each step's wall time (ending in a synchronize)."""
+    logits, toks, step_s = [], [], []
+    sync = (torch.cuda.synchronize if m.device.type == "cuda"
+            else (lambda: None))
+    for _ in range(n):
+        t1 = time.perf_counter()
+        state, lg = m.decode(params, state, tok)
+        sync()
+        step_s.append(time.perf_counter() - t1)
+        tok = lg.argmax(-1).to(torch.int32)
+        logits.append(lg.cpu())
+        toks.append(tok.cpu())
+    return state, tok, logits, toks, step_s
+
+
+def _state_lanes(torch, state, lanes):
+    """A copy of a serve state's ``lanes`` (the hot tier's and the
+    per-layer counters' lane axis is 1)."""
+    from repro_torch.core.hisparse import BufferState
+    idx = torch.as_tensor(lanes, device=state["cache_len"].device)
+    out = {}
+    for k, v in state.items():
+        if k == "hot_buf":
+            out[k] = BufferState(*(t.index_select(1, idx) for t in v))
+        else:
+            out[k] = v.index_select(1 if v.dim() > 1 else 0, idx)
+    return out
+
+
+def _hot_equal(torch, a, b) -> bool:
+    return all(_equal_bits(torch, x, y) for x, y in zip(a, b))
+
+
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def _collective_facts(torch, dist, group):
+    """What a backend's collectives do with the pool's dtypes, on CUDA
+    tensors (reported, not gated: the port's fetch needs neither, as it
+    all-reduces bytes with MAX): whether a float8 sum runs, and whether a
+    bf16 sum keeps a -0 (rank 0 gives -0, the others +0).  Every rank of
+    ``group`` calls it."""
+    facts = {}
+    f8 = torch.ones(4, device="cuda").to(torch.float8_e4m3fn)
+    try:
+        dist.all_reduce(f8, group=group)
+        facts["float8_sum"] = "ran"
+    except RuntimeError as e:              # the backend refuses the dtype
+        facts["float8_sum"] = f"refused: {str(e)[:80]}"
+    zero = -0.0 if dist.get_rank(group) == 0 else 0.0
+    b = torch.tensor([zero], dtype=torch.bfloat16, device="cuda")
+    dist.all_reduce(b, group=group)
+    facts["bf16_sum_keeps_minus_zero"] = bool(torch.signbit(b).item())
+    return facts
+
+
+def sharded_nccl(torch, ops):
+    """Phase 16 (a): Qwen2-1.5B at full width and depth over a world of
+    one NCCL rank, mesh (1, 1), through the real collectives (the scores'
+    all-gather and the fetch's byte all-reduce): 16 decode steps beside
+    the unsharded model on the same weights and serve state; tokens and
+    logits bit-equal, the hot tier (page table, slots, LRU clocks,
+    ``pf_*``) and the hit counts equal; every layer of every step through
+    the gather's and the decode write's shard forms; a profile of two
+    more steps of each (NCCL's kernels, where any ran, reported).  Then, for phase (b), each data slice's 4 lanes
+    alone, unsharded, 4 steps (the batch of a GEMM changes its bits on
+    the card).  Returns the record, phase (b)'s references and the shard
+    forms' launches."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.pool import make_pooled_fetch
+    from repro_torch.distributed.sharding import shard_serve_state
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import build_model
+    cfg = get_config(SHARDED["arch"])
+    L, n = cfg.n_layers, SHARDED["steps_nccl"]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        facts = _collective_facts(torch, dist, mesh.get_group("model"))
+        m = build_model(cfg)
+        params = m.init(torch.Generator(device="cuda").manual_seed(0))
+        ms = build_model(cfg, fetch_fn=make_pooled_fetch(mesh))
+        prompts = _sharded_prompts(cfg)
+        t0 = time.perf_counter()
+        s0, tok0 = _sharded_state(torch, m, params, prompts,
+                                  range(SHARDED["requests"]))
+        prefill_s = time.perf_counter() - t0
+        lanes = list(range(SHARDED["requests"]))
+        ops.reset_launch_counts()
+        st_u, tok_u, lg_u, tk_u, wall_u = _decode_steps(
+            torch, m, params, _state_lanes(torch, s0, lanes), tok0, n)
+        counts_u = ops.launch_counts()
+        ops.reset_launch_counts()
+        st_s, tok_s, lg_s, tk_s, wall_s = _decode_steps(
+            torch, ms, params,
+            shard_serve_state(_state_lanes(torch, s0, lanes), mesh), tok0, n)
+        counts_s = ops.launch_counts()
+        equal = dict(
+            tokens=all(torch.equal(a, b) for a, b in zip(tk_u, tk_s)),
+            logits=all(_equal_bits(torch, a, b) for a, b in zip(lg_u, lg_s)),
+            hot_tier=_hot_equal(torch, st_u["hot_buf"], st_s["hot_buf"]),
+            counters=all(torch.equal(st_u[k], st_s[k]) for k in (
+                "buf_hits", "buf_misses", "buf_hits_l", "buf_misses_l",
+                "pf_inserted", "pf_useful")),
+            pools=all(_equal_bits(torch, st_u[k], st_s[k])
+                      for k in ("kv_pool", "idx_pool")))
+        want = {"gather_kv.shard": n * L, "gather_kv.rows": 0,
+                "indexer_scores": n * L, "sparse_attn_gqa": n * L,
+                "scatter_kv.rows_at_shard": n, "scatter_kv.rows_at": 0,
+                "scatter_kv.splice_shard": 1}
+        bad = {k: counts_s[k] for k, v in want.items() if counts_s[k] != v}
+        kernels = GQA_DEVICE_KERNELS
+        t0 = time.perf_counter()
+        state = {"u": st_u, "s": st_s}
+        tok = {"u": tok_u, "s": tok_s}
+
+        def step(key, model):
+            state[key], lg = model.decode(params, state[key], tok[key])
+            tok[key] = lg.argmax(-1).to(torch.int32)
+        n_prof = 2
+        prof_u = profile_steps(torch, lambda: step("u", m), n_steps=n_prof,
+                               device_kernels=kernels,
+                               spans={"pool_layer": L})
+        prof_s = profile_steps(torch, lambda: step("s", ms), n_steps=n_prof,
+                               device_kernels=kernels,
+                               spans={"pool_layer": L}, report=("nccl",))
+        profile_s = time.perf_counter() - t0
+        del st_u, st_s, state
+        refs = []
+        nd = SHARDED["mesh_gloo"][0]
+        per = SHARDED["requests"] // nd
+        for d in range(nd):
+            group = list(range(d * per, (d + 1) * per))
+            st, _, lg, tk, _ = _decode_steps(
+                torch, m, params, _state_lanes(torch, s0, group),
+                tok0[d * per:(d + 1) * per].contiguous(),
+                SHARDED["steps_gloo"])
+            refs.append(dict(lanes=group, logits=lg, tokens=tk,
+                             hot=[t.cpu() for t in st["hot_buf"][1:]],
+                             same_as_8_lanes=all(
+                                 _equal_bits(torch, a, b[d * per:
+                                                         (d + 1) * per])
+                                 for a, b in zip(lg, lg_u))))
+            del st
+        rec = dict(
+            phase="sharded", run="nccl_world_1", mesh=[1, 1],
+            backend=dist.get_backend(), config=f"{cfg.name} (n_layers={L}, "
+            f"d_model={cfg.d_model})", requests=SHARDED["requests"],
+            context=SHARDED["context"], pool_len=SHARDED["max_ctx"],
+            decode_steps=n, prefill_s=prefill_s, equal=equal,
+            wall_s_per_decode_step_median=_median(wall_s),
+            wall_s_per_decode_step_median_unsharded=_median(wall_u),
+            launches=counts_s, launches_unsharded=counts_u,
+            profiled_steps=n_prof,
+            device_ms_per_step=prof_s["device_busy_s"] * 1e3 / n_prof,
+            device_ms_per_step_unsharded=(prof_u["device_busy_s"] * 1e3
+                                          / n_prof),
+            nccl_kernels=prof_s["reported"]["nccl"],
+            collective_host_ops=prof_s["host_ops"],
+            launches_per_step=prof_s["launches_per_step"],
+            launches_per_step_unsharded=prof_u["launches_per_step"],
+            launches_ex_per_step=prof_s["launches_ex_per_step"],
+            launches_ex_per_step_unsharded=prof_u["launches_ex_per_step"],
+            device_busy_share=prof_s["device_busy_share"],
+            device_busy_share_unsharded=prof_u["device_busy_share"],
+            port_kernels=prof_s["port_kernels"],
+            port_kernels_unsharded=prof_u["port_kernels"],
+            top_kernels=prof_s["top_kernels"],
+            lane_groups_same_as_8_lanes=[r["same_as_8_lanes"] for r in refs],
+            collectives=facts,
+            profile_s=profile_s)
+        emit(rec)
+        if not all(equal.values()):
+            raise AssertionError(f"sharded (NCCL, world 1) differs from the "
+                                 f"unsharded decode: {equal}")
+        if bad:
+            raise AssertionError(f"sharded (NCCL) launches {bad}, want "
+                                 f"{want}")
+        del s0, m, ms, params
+        return rec, dict(refs=refs, tok0=tok0.cpu()), counts_s
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _sharded_rank(rank, world, port, out_dir):
+    """Phase 16 (b), one of four ranks sharing card 0 over gloo, mesh
+    (data 2, model 2): its data slice's 4 requests prefilled whole, the
+    serve state cut to its half of the pool axis (4128 rows), 4 decode
+    steps; saves its tokens, logits, hot tier, launches and times."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.pool import make_pooled_fetch
+    from repro_torch.distributed.sharding import shard_serve_state
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_mesh(SHARDED["mesh_gloo"], ("data", "model"))
+        facts = _collective_facts(torch, dist, mesh.get_group("model"))
+        cfg = get_config(SHARDED["arch"])
+        m = build_model(cfg, fetch_fn=make_pooled_fetch(mesh))
+        params = m.init(torch.Generator(device="cuda").manual_seed(0))
+        d = mesh.get_local_rank("data")
+        per = SHARDED["requests"] // mesh.size(0)
+        lanes = list(range(d * per, (d + 1) * per))
+        state, tok0 = _sharded_state(torch, m, params,
+                                     _sharded_prompts(cfg), lanes)
+        ops.reset_launch_counts()
+        state = shard_serve_state(state, mesh)
+        gc.collect()
+        state, _, logits, toks, step_s = _decode_steps(
+            torch, m, params, state, tok0, SHARDED["steps_gloo"])
+        torch.save(dict(
+            lanes=lanes, model_rank=mesh.get_local_rank("model"),
+            tok0=tok0.cpu(), logits=logits, tokens=toks, step_s=step_s,
+            hot=[t.cpu() for t in state["hot_buf"][1:]],
+            pool_rows=state["kv_pool"].shape[2],
+            launches=ops.launch_counts(), collectives=facts,
+            peak_bytes=torch.cuda.max_memory_allocated()),
+            Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _small_sharded_rank(rank, world, port, out_dir):
+    """Phase 16 (c), one of two ranks sharing card 0 over gloo, mesh
+    (data 1, model 2): small_check's SAC run of SHARDED_SMALL's small
+    configs with the pool split over the model axis."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_mesh((1, 2), ("data", "model"))
+        out = {}
+        for name in SHARDED_SMALL:
+            cfg = small_config(name)
+            params = _small_params(torch, cfg, "sac")
+            out[name] = _small_run(torch, cfg, params, "cuda", mode="sac",
+                                   prompt_len=40, pool_len=64,
+                                   prefetch=False, mesh=mesh)
+        torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn(fn, world: int, out_dir):
+    """Run ``fn(rank, world, port, out_dir)`` in ``world`` processes (the
+    kernels are built already: the ranks load the library), joined;
+    returns each rank's saved result."""
+    import torch
+    import torch.multiprocessing as mp
+    mp.start_processes(fn, args=(world, _free_port(), str(out_dir)),
+                       nprocs=world, start_method="spawn")
+    return [torch.load(Path(out_dir) / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def sharded_gloo(torch, refs):
+    """Phase 16 (b): four ranks on card 0 over gloo, mesh (2, 2), against
+    phase (a)'s unsharded runs of the same 4 lanes: tokens, logits and the
+    hot tier bit for bit.  Returns the record and the shard forms'
+    launches summed over the ranks."""
+    import tempfile
+    from repro_torch.configs import get_config
+    L = get_config(SHARDED["arch"]).n_layers
+    steps = SHARDED["steps_gloo"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = _spawn(_sharded_rank, 4, tmp)
+    seconds = time.perf_counter() - t0
+    per = SHARDED["requests"] // SHARDED["mesh_gloo"][0]
+    checks = []
+    for r, res in enumerate(ranks):
+        ref = refs["refs"][res["lanes"][0] // per]
+        checks.append(dict(
+            rank=r, lanes=res["lanes"], model_rank=res["model_rank"],
+            pool_rows=res["pool_rows"],
+            first_tokens=torch.equal(res["tok0"], refs["tok0"][
+                res["lanes"][0]:res["lanes"][-1] + 1]),
+            tokens=all(torch.equal(a, b) for a, b in zip(res["tokens"],
+                                                         ref["tokens"])),
+            logits=all(_equal_bits(torch, a, b) for a, b in zip(
+                res["logits"], ref["logits"])),
+            hot_tier=_hot_equal(torch, res["hot"], ref["hot"]),
+            wall_s_per_decode_step_median=_median(res["step_s"]),
+            peak_bytes=res["peak_bytes"]))
+    launches = {k: sum(res["launches"][k] for res in ranks)
+                for k in ranks[0]["launches"]}
+    want = {"gather_kv.shard": 4 * steps * L, "gather_kv.rows": 0,
+            "scatter_kv.rows_at_shard": 4 * steps,
+            "scatter_kv.splice_shard": 4}
+    bad = {k: launches[k] for k, v in want.items() if launches[k] != v}
+    rec = dict(phase="sharded", run="gloo_4_ranks_one_card", mesh=[2, 2],
+               backend="gloo", config=SHARDED["arch"], decode_steps=steps,
+               ranks=checks, launches=launches,
+               collectives=ranks[0]["collectives"], seconds=seconds)
+    emit(rec)
+    failed = [c for c in checks
+              if not all(c[k] for k in ("first_tokens", "tokens", "logits",
+                                        "hot_tier"))]
+    if failed or bad:
+        raise AssertionError(f"sharded (gloo, 4 ranks): {failed} {bad}")
+    return rec, launches
+
+
+def sharded_small(torch):
+    """Phase 16 (c): small DeepSeek-V3.2 (MLA) and Gemma3-12B (windowed)
+    at mesh (1, 2) over gloo: logits, hot tier and pool (the two slices
+    side by side) bit-equal to the unsharded card run, which is held to
+    SMALL_TOL against the CPU beside its e4m3 control."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = _spawn(_small_sharded_rank, 2, tmp)
+    for name in SHARDED_SMALL:
+        t0 = time.perf_counter()
+        cfg = small_config(name)
+        runs = small_runs(torch, cfg)
+        err, control_err = small_check(torch, cfg, runs=runs)
+        card = runs[1]
+        got = [r[name] for r in ranks]
+        equal = dict(
+            logits=all(all(torch.equal(a, b) for a, b in zip(
+                g["logits"], card["logits"])) for g in got),
+            hot_tier=all(_hot_equal(torch, g["hot"], card["hot"])
+                         for g in got),
+            pool=torch.equal(torch.cat([g["pool"] for g in got], 2),
+                             card["pool"]))
+        emit(dict(phase="sharded", run="small", config=name, mesh=[1, 2],
+                  backend="gloo", equal_unsharded_card=equal,
+                  max_rel_l2_err=err, tolerance=SMALL_TOL,
+                  control_e4m3_rel_l2_err=control_err,
+                  seconds=time.perf_counter() - t0))
+        if not all(equal.values()):
+            raise AssertionError(f"small {name} sharded differs: {equal}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels", action="store_true",
                     help="stop after the kernel checks (phases 1-3)")
     ap.add_argument("--ptxas", action="store_true",
                     help="print nvcc/ptxas resource usage of each kernel")
+    ap.add_argument("--sharded", action="store_true",
+                    help="phases 1-3, then only the sharded phase (16)")
     args = ap.parse_args()
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -2107,6 +2842,7 @@ def main() -> None:
     attn, attn_cases = check_attention(torch, ref, sparse_attn)
     recs.update(attn)
     recs["gather_kv_pages"] = check_gather_pages(torch, ref, gather_kv)
+    recs.update(check_shard_forms(torch, ref, gather_kv, scatter_kv))
     edges = check_attention_edges(torch, ops, ref, sparse_attn)
     emit(dict(phase="kernels_vs_plain", tolerance_f32=TOL_F32,
               max_abs_err={k: v["max_abs_err"] for k, v in recs.items()},
@@ -2114,8 +2850,8 @@ def main() -> None:
               indexer_edges=indexer_edges,
               seconds=time.perf_counter() - t0))
 
-    launches = None
-    if not args.kernels:
+    launches = shard_launches = None
+    if not (args.kernels or args.sharded):
         # 4. small inputs: card vs CPU plain path
         path_kernels = {
             "sac": ("gather_kv", "indexer_scores", "scatter_kv"),
@@ -2220,6 +2956,15 @@ def main() -> None:
                        + [fetch_counts, whisper_counts] + cli_counts):
             for k, n in counts.items():
                 launches[k] += n
+    if not args.kernels:
+        # 16. the pool sharded over a torch.distributed mesh
+        t0 = time.perf_counter()
+        _, refs, counts_a = sharded_nccl(torch, ops)
+        _, counts_b = sharded_gloo(torch, refs)
+        sharded_small(torch)
+        shard_launches = {k: counts_a[k] + counts_b[k] for k in counts_a}
+        emit(dict(phase="sharded_total", launches=shard_launches,
+                  seconds=time.perf_counter() - t0))
 
     info = {
         "gather_kv": ("src/repro_torch/csrc/gather_kv.cu",
@@ -2234,22 +2979,39 @@ def main() -> None:
                             "src/repro/kernels/sparse_attn.py:63"),
         "scatter_kv": ("src/repro_torch/csrc/scatter_kv.cu",
                        "src/repro/kernels/scatter_kv.py:25"),
+        "gather_kv_shard": ("src/repro_torch/csrc/gather_kv.cu",
+                            "src/repro/kernels/gather_kv.py:29"),
+        "scatter_kv_rows_at_shard": ("src/repro_torch/csrc/scatter_kv.cu",
+                                     "src/repro/kernels/scatter_kv.py:25"),
+        "scatter_kv_splice_shard": ("src/repro_torch/csrc/scatter_kv.cu",
+                                    "src/repro/kernels/scatter_kv.py:25"),
     }
+    # the shard forms' launches: phase 16's sharded runs (its main path)
+    shard_counter = {"gather_kv_shard": "gather_kv.shard",
+                     "scatter_kv_rows_at_shard": "scatter_kv.rows_at_shard",
+                     "scatter_kv_splice_shard": "scatter_kv.splice_shard"}
     kernels = []
     for name, (source, replaces) in info.items():
         r = recs[name]
-        on_path = launches is not None and name != "gather_kv_pages"
+        if name in shard_counter:
+            n = (shard_launches[shard_counter[name]]
+                 if shard_launches is not None else None)
+        elif launches is not None and name != "gather_kv_pages":
+            n = launches[name]
+        else:
+            n = None
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name] if on_path else None,
+            launches=n,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound"][0], bound_by=r["bound"][1],
             library_ms=r["library_ms"],
             **{k: r[k] for k in ("ms_batched", "library_ms_batched", "l2",
                                  "copies", "ms_was", "ms_batched_was",
-                                 "shapes", "e4m3")
+                                 "ms_rows", "ms_batched_rows", "shapes",
+                                 "e4m3")
                if k in r}))
-        if name == "scatter_kv" and on_path:
+        if name == "scatter_kv" and launches is not None:
             kernels[-1]["launches_by_form"] = {
                 k.split(".")[1]: n for k, n in launches.items()
                 if k.startswith("scatter_kv.")}

@@ -1,4 +1,5 @@
-"""KV-cache pool, single-device path (``repro/core/pool.py``).
+"""KV-cache pool (``repro/core/pool.py``): the single-device path and the
+pool sharded over a ``torch.distributed`` device mesh.
 
 The pool is one tensor ``[L, B, S, d]`` per kind (latent entries,
 indexer keys).  The read path is a row gather of each request's top-k
@@ -14,14 +15,26 @@ With ``kv_quant="fp8"`` the pool holds ``float8_e4m3fn`` entries:
 uses (prefill pool, write-back, the own entry appended at decode), and
 it rounds as the reference's ``astype`` does.
 
-``make_pooled_fetch`` (the pool sharded over devices, gathered with a
-collective) waits for the distributed slice (ROADMAP).
+**The sharded pool** (``make_pooled_fetch``, the paper's CXL pool as
+the aggregate memory of the ``model`` mesh axis): each rank holds the
+slice ``[base, base + S_local)`` of every pool's sequence axis
+(``base = model rank * S_local``) for its own request lanes.  A fetch
+gathers the top-k rows with the gather kernel's shard form (rows of
+other ranks come out as zeros), then ONE all-reduce over the ``model``
+group assembles ``[B, k, d]`` on every rank.  The all-reduce takes the
+MAX of the rows' bytes (a ``uint8`` view): exactly one rank holds
+non-zero bytes for any row, so every row arrives bit for bit, in bf16
+and in e4m3 (NaN and -0 included); a bf16 sum would turn -0 into +0,
+and gloo sums no float8.  The returned callable carries
+its shard (``.shard``), which the decode reads to score, select and
+write shard-aware (``core/sac.py``, ``models/transformer.py``).
 """
 from __future__ import annotations
 
 from typing import Callable, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import ops
 
@@ -59,6 +72,103 @@ def local_fetch(pool_layer: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return ops.batched_gather(pool_layer, idx)
 
 
+class PoolShard:
+    """One rank's place on the pool axis of a mesh: its ``rank`` of
+    ``size`` in the axis's process ``group``.  A pool slice of
+    ``S_local`` rows starts at ``base(S_local)`` of ``seq_len(S_local)``
+    positions.  Both collectives take CUDA tensors in NCCL and in gloo
+    (gloo stages them through the host itself)."""
+
+    def __init__(self, group, rank: int, size: int):
+        self.group, self.rank, self.size = group, rank, size
+
+    @classmethod
+    def of(cls, mesh, pool_axis: str = "model",
+           batch_axes=("pod", "data")) -> "PoolShard":
+        """``mesh``'s pool axis.  Each rank hands in its own request
+        lanes, so the lanes are split over every other axis of the mesh:
+        ``batch_axes`` (filtered to the mesh's axes, as the reference
+        filters them) must name exactly those, or this raises."""
+        names = tuple(mesh.mesh_dim_names or ())
+        if pool_axis not in names:
+            raise ValueError(f"the mesh {names} has no pool axis "
+                             f"{pool_axis!r}")
+        batch = {a for a in batch_axes if a in names}
+        if pool_axis in batch_axes or batch != set(names) - {pool_axis}:
+            raise ValueError(
+                f"batch_axes {tuple(batch_axes)} on the mesh {names}: each "
+                f"rank passes its own lanes, so they must name every axis "
+                f"but the pool axis {pool_axis!r}")
+        return cls(mesh.get_group(pool_axis), mesh.get_local_rank(pool_axis),
+                   mesh.size(names.index(pool_axis)))
+
+    def base(self, S_local: int) -> int:
+        return self.rank * S_local
+
+    def seq_len(self, S_local: int) -> int:
+        return self.size * S_local
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, n] on each rank -> [B, size * n], the ranks' blocks in rank
+        order (so positions stay in order along the pool axis)."""
+        B, n = x.shape
+        out = x.new_empty((self.size * B, n))
+        dist.all_gather_into_tensor(out, x.contiguous(), group=self.group)
+        return out.view(self.size, B, n).permute(1, 0, 2).reshape(
+            B, self.size * n)
+
+    def combine_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """The ranks' masked gathers (zeros where a rank does not hold the
+        row) -> the whole gather on every rank, bit for bit: an all-reduce
+        of the bytes with MAX, IN PLACE; returns ``rows``."""
+        dist.all_reduce(rows.view(torch.uint8), op=dist.ReduceOp.MAX,
+                        group=self.group)
+        return rows
+
+
+class PooledFetch:
+    """``fetch(pool_layer, idx)`` over a sharded pool: pool_layer [B,
+    S_local, d] is this rank's slice, idx [B, k] global rows -> [B, k, d]
+    on every rank of the pool axis (the gather's shard form, then one
+    byte all-reduce)."""
+
+    def __init__(self, shard: PoolShard):
+        self.shard = shard
+
+    def __call__(self, pool_layer: torch.Tensor,
+                 idx: torch.Tensor) -> torch.Tensor:
+        rows = ops.batched_gather_shard(
+            pool_layer, idx, self.shard.base(pool_layer.shape[1]))
+        return self.shard.combine_rows(rows)
+
+
+def make_pooled_fetch(mesh, *, batch_axes=("pod", "data"),
+                      pool_axis: str = "model") -> PooledFetch:
+    """The pooled-HBM fetch over ``mesh`` (a ``DeviceMesh``): each rank
+    calls it with its own lanes (its slice over ``batch_axes``, which
+    ``PoolShard.of`` checks) and its slice of the pool axis; the result
+    is replicated over ``pool_axis`` (ready for the attention), as the
+    reference's ``shard_map`` gives it.
+    ``build_model(cfg, fetch_fn=make_pooled_fetch(mesh))`` serves from
+    the sharded pool."""
+    return PooledFetch(PoolShard.of(mesh, pool_axis, batch_axes))
+
+
+def make_fetch_fn(mesh, backend: str = "local", **kw) -> FetchFn:
+    """Resolve the fetch callback for a backend name.
+
+    ``local``      -- single-device gather (tests, host_dram engine).
+    ``pooled_hbm`` -- the pool sharded over ``mesh``'s pool axis.
+    """
+    if backend == "pooled_hbm":
+        if mesh is None:
+            raise ValueError("pooled_hbm backend requires a mesh")
+        return make_pooled_fetch(mesh, **kw)
+    if backend in ("local", "host_dram"):
+        return local_fetch
+    raise ValueError(f"unknown pool backend {backend!r}")
+
+
 # ---------------------------------------------------------------------------
 # write path
 # ---------------------------------------------------------------------------
@@ -77,15 +187,23 @@ def pool_write(pool: torch.Tensor, new_entries: torch.Tensor,
 
 
 def pool_write_step(pools: Sequence[torch.Tensor],
-                    new_entries: Sequence[torch.Tensor], pos: torch.Tensor
+                    new_entries: Sequence[torch.Tensor], pos: torch.Tensor,
+                    shard: Optional[PoolShard] = None
                     ) -> Sequence[torch.Tensor]:
     """``pool_write`` of several pools (a decode step's latent or (k, v)
     entries and its indexer keys) at the same positions, IN PLACE, in one
-    launch on the card; returns ``pools``."""
+    launch on the card; returns ``pools``.  With ``shard`` the pools are
+    this rank's slices, and a row is written only where its position
+    (clamped into the whole pool) falls in the slice."""
     for pool in pools:
         _check_contiguous(pool)
-    ops.pool_rows_at(pools, [to_kv_dtype(e, p.dtype)
-                             for e, p in zip(new_entries, pools)], pos)
+    entries = [to_kv_dtype(e, p.dtype) for e, p in zip(new_entries, pools)]
+    if shard is None:
+        ops.pool_rows_at(pools, entries, pos)
+    else:
+        S_local = pools[0].shape[2]
+        ops.pool_rows_at(pools, entries, pos, shard.base(S_local),
+                         shard.seq_len(S_local))
     return pools
 
 

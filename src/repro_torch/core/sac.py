@@ -9,7 +9,8 @@ Two halves:
    absorbed-MLA or GQA; with the hot tier and ``prefetch_width > 0``
    the step's speculated entrants are fetched too (with the default
    fetch, by the same gather launch as the demand set) and
-   warm-inserted for the next step.
+   warm-inserted for the next step.  ``sparse_attend`` also runs over a
+   pool sharded over ranks (``core/pool.py::make_pooled_fetch``).
 
 2. **On the host** (``SACSystem``): pool page placement, metadata
    publishing and fabric-cost accounting for the serving engine, copied
@@ -82,14 +83,35 @@ def sparse_attend(p_attn: Dict, p_idx: Dict, x: torch.Tensor,
     ([B] int32, the arbiter's grants) caps the lanes each request may
     issue.  Prefetch touches only the hot tier, so the output does not
     depend on any of these; the buffer's ``pf_*`` counters measure it.
+
+    A pool sharded over ranks (``fetch_fn`` from ``make_pooled_fetch``,
+    which carries its ``shard``): the pools are this rank's slices, the
+    indexer scores the slice, and the scores are all-gathered over the
+    pool axis before the selection, so that the window mask, the top-k,
+    the speculation tail, ``topk_fn`` and ``prefetch_fn`` see ``[B, S]``
+    scores as on one device.  A ``topk_fn`` with ``local_scores``
+    (``core/topk.py``'s hierarchical top-k) takes the slice's scores
+    instead (masked at their global positions), and so cannot feed the
+    speculation, which needs the global ranks [k, k+w).
     """
+    shard = getattr(fetch_fn, "shard", None)
+    local_sel = getattr(topk_fn, "local_scores", False)
+    speculate = buf_state is not None and prefetch_width > 0
+    if local_sel and (shard is None or speculate):
+        raise ValueError("a top-k over local scores needs the pooled fetch "
+                         "and takes no speculation (it needs global ranks)")
     scores = dsa.indexer_scores(p_idx, x, idx_pool_l, cfg)
+    base, seq_len = 0, scores.shape[-1]
+    if shard is not None:
+        base = shard.base(seq_len) if local_sel else 0
+        seq_len = shard.seq_len(seq_len)
+        if not local_sel:
+            scores = shard.all_gather(scores)
     if window:
-        pos = torch.arange(scores.shape[-1], dtype=torch.int32,
-                           device=scores.device)
+        pos = base + torch.arange(scores.shape[-1], dtype=torch.int32,
+                                  device=scores.device)
         in_win = pos[None, :] > (cache_len[:, None] - window)
         scores = torch.where(in_win, scores, dsa.NEG_INF)
-    speculate = buf_state is not None and prefetch_width > 0
     spec_idx = spec_valid = None
     if topk_fn is not None:
         idx, valid = topk_fn(scores, cache_len)
@@ -121,7 +143,7 @@ def sparse_attend(p_attn: Dict, p_idx: Dict, x: torch.Tensor,
                 spec_valid = dsa.budget_mask(spec_valid, pf_budget)
             if spec_vals is None:
                 spec_vals = fetch_fn(kv_pool_l, torch.clamp(
-                    spec_idx, 0, kv_pool_l.shape[1] - 1))
+                    spec_idx, 0, seq_len - 1))
             buf_state, _ = hisparse.warm_insert(buf_state, spec_idx,
                                                 spec_vals, spec_valid)
     fetched = torch.cat([fetched, to_kv_dtype(own_entry[:, None, :],

@@ -10,7 +10,12 @@
 //
 // Design: the row movers' engine (rowmove.cuh).  Hopper has no scalar
 // prefetch, so the kernel reads its own row indices, clamped into [0, S)
-// so a stray index cannot fault.  A launch takes several segments (the
+// so a stray index cannot fault.  The shard form (a segment with shard
+// != 0: one rank's slice [base, base + S) of a pool whose sequence axis
+// is split over ranks) reads global row r at local row r - base when r
+// lies in the slice and writes a row of zeros otherwise (a piece with no
+// source), so that the ranks' results, combined byte by byte, are the
+// whole gather.  A launch takes several segments (the
 // decode step's demand set and its speculation tail: one launch a layer
 // in place of two), the grid spread over all their rows, a warp a row
 // (a piece of at most 8 KB) with all of a lane's loads before its
@@ -34,8 +39,9 @@ struct GatherSeg {
   const char* kv;
   const int32_t* idx;
   char* out;
-  long long S, row_bytes, first_piece;
+  long long S, row_bytes, first_piece, base;
   unsigned k, chunks;              // lanes a request, pieces a row
+  int shard;                       // rows outside [base, base + S): zeros
 };
 
 struct gather_rows {
@@ -51,12 +57,14 @@ struct gather_rows {
     const unsigned row = g.chunks == 1 ? q : q / g.chunks;
     const long long off = (long long)(q - row * g.chunks) * rowmove::kChunk;
     const long long b = row / g.k;
-    const long long r = rowmove::clamp_row(g.idx[row], g.S);
+    const long long i = (long long)g.idx[row] - g.base;
+    const long long r = rowmove::clamp_row(i, g.S);
     const long long left = g.row_bytes - off;
-    return rowmove::Piece{g.kv + (b * g.S + r) * g.row_bytes + off,
-                          g.out + (long long)row * g.row_bytes + off,
-                          (int)(left < rowmove::kChunk ? left
-                                                       : rowmove::kChunk)};
+    const bool away = g.shard && (i < 0 || i >= g.S);
+    return rowmove::Piece{
+        away ? nullptr : g.kv + (b * g.S + r) * g.row_bytes + off,
+        g.out + (long long)row * g.row_bytes + off,
+        (int)(left < rowmove::kChunk ? left : rowmove::kChunk)};
   }
 };
 
@@ -86,12 +94,14 @@ void launch_pages(const void* kv, const void* page_idx, void* out,
 }  // namespace
 
 // One segment of a gather: kv [B, S, row_bytes] bytes, idx [B, k] int32,
-// out [B, k, row_bytes].
+// out [B, k, row_bytes].  shard == 0: indices clamped into [0, S);
+// shard != 0: kv is the slice [base, base + S) of the pool, and an index
+// outside it gives a row of zeros.
 struct sac_gather_seg {
   const void* kv;
   const void* idx;
   void* out;
-  long long B, S, k, row_bytes;
+  long long B, S, k, row_bytes, base, shard;
 };
 
 // Gathers n_segs (1..4) segments in one launch.
@@ -108,7 +118,8 @@ SAC_API int sac_gather_kv(const sac_gather_seg* segs, int n_segs,
     const int chunks = (int)rowmove::ceil_div(s.row_bytes, rowmove::kChunk);
     m.seg[i] = GatherSeg{(const char*)s.kv, (const int32_t*)s.idx,
                          (char*)s.out, s.S, s.row_bytes, n_pieces,
-                         (unsigned)s.k, (unsigned)chunks};
+                         s.shard ? s.base : 0, (unsigned)s.k,
+                         (unsigned)chunks, (int)(s.shard != 0)};
     n_pieces += s.B * s.k * chunks;
     align |= (unsigned long long)(uintptr_t)s.kv |
              (unsigned long long)(uintptr_t)s.out |

@@ -5,11 +5,17 @@
 // * sac_write_rows_at, the decode write: row (l, b) of each segment's
 //   [L, B, S] pool at position clamp(pos[b], 0, S-1) takes entry [l, b];
 //   one launch writes every layer of both pools (the latent or (k, v)
-//   entries and the indexer keys, two segments of different widths);
+//   entries and the indexer keys, two segments of different widths).
+//   Its shard form writes into one rank's slice [base, base + S) of a
+//   pool of S_glob positions split over ranks: the position clamps into
+//   [0, S_glob), and only the rank whose slice holds it writes the row,
+//   at the position less base (the others move nothing);
 // * sac_splice_kv, the prefill splice: each (layer, lane)'s rows
-//   [offset, offset + T) take the prompt's T contiguous rows, and with
-//   zero_tail the rows [offset + T, S) are zeroed; both pools in one
-//   launch.
+//   [offset, offset + T) take T contiguous rows of the prompt, from its
+//   row src_row0 of src_rows, and with zero_tail the rows [offset + T, S)
+//   are zeroed; both pools in one launch.  Its shard form copies a
+//   rank's slice of the prompt's rows (src_row0 = base) into the rank's
+//   pool.
 //
 // Replaces: src/repro/kernels/scatter_kv.py::scatter_kv (Pallas: the
 // destination indices drive the output BlockSpec of an input/output
@@ -62,7 +68,7 @@ struct scatter_rows {              // sac_scatter_kv (one segment)
 struct WriteSeg {
   char* pool;
   const char* src;
-  long long S, row_bytes, first_piece;
+  long long S, row_bytes, first_piece, base, S_glob;
   unsigned B, chunks;
 };
 
@@ -78,7 +84,9 @@ struct write_rows_at {             // sac_write_rows_at
     const unsigned q = (unsigned)(p - w.first_piece);
     const unsigned row = w.chunks == 1 ? q : q / w.chunks;   // l * B + b
     const long long off = (long long)(q - row * w.chunks) * kChunk;
-    const long long r = rowmove::clamp_row(pos[row % w.B], w.S);
+    const long long r =
+        rowmove::clamp_row(pos[row % w.B], w.S_glob) - w.base;
+    if (r < 0 || r >= w.S) return Piece{nullptr, nullptr, 0};
     return Piece{w.src + (long long)row * w.row_bytes + off,
                  w.pool + ((long long)row * w.S + r) * w.row_bytes + off,
                  piece_bytes(w.row_bytes - off)};
@@ -88,7 +96,8 @@ struct write_rows_at {             // sac_write_rows_at
 struct SpliceSeg {
   char* pool;
   const char* src;
-  long long B, S, lane0, T, offset, row_bytes, first_piece;
+  long long B, S, lane0, T, offset, row_bytes, first_piece, src_rows,
+      src_row0;
   unsigned n_lanes, copy_pieces, run_pieces;  // a run's copied, all pieces
 };
 
@@ -109,7 +118,9 @@ struct splice_runs {               // sac_splice_kv
     const long long run_bytes = g.T * g.row_bytes;
     if (c < g.copy_pieces) {
       const long long off = (long long)c * kChunk;
-      return Piece{g.src + run * run_bytes + off, rows + off,
+      return Piece{g.src + (run * g.src_rows + g.src_row0) * g.row_bytes +
+                       off,
+                   rows + off,
                    piece_bytes(run_bytes - off)};
     }
     const long long off = (long long)(c - g.copy_pieces) * kChunk;
@@ -138,11 +149,12 @@ SAC_API int sac_scatter_kv(void* pool, const void* entries, const void* idx,
 }
 
 // One segment of the decode write: pool [L, B, S, row_bytes], src
-// [L, B, row_bytes].
+// [L, B, row_bytes]; the pool is the slice [base, base + S) of S_glob
+// positions (base 0 and S_glob = S: the whole pool).
 struct sac_write_seg {
   void* pool;
   const void* src;
-  long long L, B, S, row_bytes;
+  long long L, B, S, row_bytes, base, S_glob;
 };
 
 // Writes n_segs (1..4) segments at the positions pos [B] int32 (shared
@@ -160,7 +172,8 @@ SAC_API int sac_write_rows_at(const sac_write_seg* segs, int n_segs,
     const sac_write_seg& s = segs[i];
     const int chunks = (int)rowmove::ceil_div(s.row_bytes, kChunk);
     m.seg[i] = WriteSeg{(char*)s.pool, (const char*)s.src, s.S, s.row_bytes,
-                        n_pieces, (unsigned)s.B, (unsigned)chunks};
+                        n_pieces, s.base, s.S_glob, (unsigned)s.B,
+                        (unsigned)chunks};
     n_pieces += s.L * s.B * chunks;
     align |= bits(s.pool, s.src, s.row_bytes);
   }
@@ -168,12 +181,14 @@ SAC_API int sac_write_rows_at(const sac_write_seg* segs, int n_segs,
 }
 
 // One segment of the splice: pool [L, B, S, row_bytes]; src [L, n_lanes,
-// T, row_bytes] going to lanes [lane0, lane0 + n_lanes), rows [offset,
-// offset + T); zero_tail != 0 also zeroes rows [offset + T, S).
+// src_rows, row_bytes], whose rows [src_row0, src_row0 + T) go to lanes
+// [lane0, lane0 + n_lanes), rows [offset, offset + T); zero_tail != 0
+// also zeroes rows [offset + T, S).
 struct sac_splice_seg {
   void* pool;
   const void* src;
-  long long L, B, S, lane0, n_lanes, T, offset, zero_tail, row_bytes;
+  long long L, B, S, lane0, n_lanes, T, offset, zero_tail, row_bytes,
+      src_rows, src_row0;
 };
 
 SAC_API int sac_splice_kv(const sac_splice_seg* segs, int n_segs,
@@ -193,11 +208,12 @@ SAC_API int sac_splice_kv(const sac_splice_seg* segs, int n_segs,
     const long long total = copy + rowmove::ceil_div(tail, kChunk);
     m.seg[i] = SpliceSeg{(char*)s.pool, (const char*)s.src, s.B, s.S,
                          s.lane0, s.T, s.offset, s.row_bytes, n_pieces,
-                         (unsigned)s.n_lanes, (unsigned)copy,
-                         (unsigned)total};
+                         s.src_rows, s.src_row0, (unsigned)s.n_lanes,
+                         (unsigned)copy, (unsigned)total};
     n_pieces += s.L * s.n_lanes * total;
     align |= bits(s.pool, s.src, s.row_bytes) |
-             (unsigned long long)(s.offset * s.row_bytes);
+             (unsigned long long)(s.offset * s.row_bytes) |
+             (unsigned long long)(s.src_row0 * s.row_bytes);
   }
   return rowmove::move(m, n_pieces, align, (cudaStream_t)stream);
 }

@@ -1,0 +1,241 @@
+"""Logical-axis -> DTensor placement rules (``repro/distributed/sharding.py``).
+
+Every parameter / activation in the model zoo declares *logical dims*
+(e.g. ``("D", "F")`` for an MLP weight, ``("L", "E", "D", "F")`` for stacked
+MoE experts).  This module maps those names onto the axes of a
+``torch.distributed`` ``DeviceMesh`` (``pod``/``data``/``model``) with
+divisibility checks, greedy conflict resolution (one mesh axis may
+appear at most once per tensor) and a context-managed rule table so
+serving and training can use different layouts without touching model
+code.  The rule tables are the reference's, copied as they are.
+
+``spec_for`` returns, for each tensor dim, the tuple of mesh axes (or
+None) that the reference's ``PartitionSpec`` holds; ``placements_for``
+turns it into DTensor placements, one per mesh dim (``Shard(tensor
+dim)`` or ``Replicate()``).  A dim sharded over two mesh axes (batch
+over ``("pod", "data")``) is ``Shard`` on both mesh dims, which DTensor
+nests in mesh-dim order: so the rule's axis order must be the mesh's
+(``placements_for`` raises where it is not, e.g. experts over
+``("model", "data")`` on a ``(data, model)`` mesh when both divide).
+
+``shard_serve_state`` cuts a serve state's pools to one rank's slice of
+the pool axis (``core/pool.py``'s sharded pool).
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch.core.pool import PoolShard
+from repro_torch.kernels import ops
+from repro_torch.models.layers import ParamSpec
+
+Spec = Tuple[Optional[Tuple[str, ...]], ...]
+
+
+# ---------------------------------------------------------------------------
+# rule table: logical dim -> ordered mesh-axis preference
+# ---------------------------------------------------------------------------
+
+# Axis name conventions used across the model zoo:
+#   B   batch                      S   sequence (activations)
+#   SP  pool sequence (KV pool)    D   d_model (rows)
+#   H   attention heads (fused)    KV  kv heads (fused)
+#   F   ffn hidden                 E   experts
+#   V   vocab                      L   stacked layer axis (never sharded)
+#   C   latent / small dims        Hm  ssm heads
+#   K   top-k axis (never sharded)
+
+TRAIN_RULES: Dict[str, Tuple[str, ...]] = {
+    "B": ("pod", "data"),
+    "S": ("model",),          # sequence-parallel residual stream
+    "Sq": (),                 # sequence axis inside attention (heads take TP)
+    "SP": ("model",),
+    "D": ("data",),           # FSDP rows (ZeRO param+opt sharding)
+    "DE": ("data",),          # expert-weight rows (always capacity-sharded)
+    "H": ("model",),
+    "Hq": ("model",),         # head axis of attention activations
+    "KV": ("model",),
+    "F": ("model",),
+    "E": ("model", "data"),
+    "V": ("model",),
+    "Hm": ("model",),
+    "G": (),                  # small/replicated dims (norm gammas, head_dim)
+    "L": (),                  # stacked-layer axes are never sharded
+    "C": (),                  # latent / low-rank dims
+    "K": (),                  # top-k axis
+}
+
+SERVE_RULES: Dict[str, Tuple[str, ...]] = {
+    "B": ("pod", "data"),     # DP attention: each request on one data shard
+    "S": ("model",),
+    "Sq": (),
+    "SP": ("model",),         # pool pages spread over the pooled-HBM axis
+    "D": (),                  # NO row-sharding at serve: FSDP rows force a
+                              # per-layer weight all-gather in decode
+                              # (§Perf iteration A1); TP over model suffices
+    "DE": ("data",),          # expert rows stay sharded (capacity: MoE
+                              # weights are the TB-scale tensors)
+    "H": ("model",),
+    "Hq": ("model",),
+    "KV": ("model",),
+    "F": ("model",),
+    "E": ("model", "data"),
+    "V": ("model",),
+    "Hm": ("model",),
+    "G": (),
+    "L": (),
+    "C": (),
+    "K": (),
+}
+
+_state = threading.local()
+
+
+def _rules() -> Dict[str, Tuple[str, ...]]:
+    return getattr(_state, "rules", TRAIN_RULES)
+
+
+def _mesh():
+    """The mesh ``use_rules`` set (PyTorch has no ambient mesh)."""
+    return getattr(_state, "mesh", None)
+
+
+@contextlib.contextmanager
+def use_rules(rules: Dict[str, Tuple[str, ...]], mesh=None):
+    old_r = getattr(_state, "rules", None)
+    old_m = getattr(_state, "mesh", None)
+    _state.rules = rules
+    _state.mesh = mesh
+    try:
+        yield
+    finally:
+        if old_r is None:
+            del _state.rules
+        else:
+            _state.rules = old_r
+        _state.mesh = old_m
+
+
+# ---------------------------------------------------------------------------
+# spec derivation
+# ---------------------------------------------------------------------------
+
+
+def spec_for(dims: Sequence[str], shape: Sequence[int], mesh=None,
+             rules: Optional[Dict[str, Tuple[str, ...]]] = None) -> Spec:
+    """The mesh axes of each of ``dims`` (of ``shape``) on ``mesh`` (a
+    ``DeviceMesh``, or anything with ``mesh_dim_names`` and ``shape``).
+
+    Greedy: walk dims left to right; give each dim the first mesh axis from
+    its preference list that (a) is present in the mesh, (b) is still unused
+    in this tensor, and (c) divides the dim size.  Multi-axis entries (e.g.
+    batch over ("pod", "data")) are taken as a group when every member
+    divides cumulatively.
+    """
+    if mesh is None:
+        mesh = _mesh()
+    rules = rules or _rules()
+    if mesh is None:
+        return (None,) * len(dims)
+    axis_sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    used: set = set()
+    out: List[Optional[Tuple[str, ...]]] = []
+    for dim, size in zip(dims, shape):
+        prefs = rules.get(dim, ())
+        picked: List[str] = []
+        rem = size
+        for ax in prefs:
+            if ax not in axis_sizes or ax in used:
+                continue
+            n = axis_sizes[ax]
+            if rem % n == 0:
+                picked.append(ax)
+                used.add(ax)
+                rem //= n
+        out.append(tuple(picked) if picked else None)
+    return tuple(out)
+
+
+def placements_for(mesh, dims: Sequence[str], shape: Sequence[int],
+                   rules: Optional[Dict[str, Tuple[str, ...]]] = None
+                   ) -> List[Any]:
+    """DTensor placements (one per mesh dim) of ``spec_for``'s result."""
+    names = list(mesh.mesh_dim_names)
+    out: List[Any] = [Replicate()] * len(names)
+    for tdim, axes in enumerate(spec_for(dims, shape, mesh, rules)):
+        if axes is None:
+            continue
+        order = [names.index(ax) for ax in axes]
+        if order != sorted(order):
+            raise ValueError(f"dims {tuple(dims)}: dim {tdim} goes over "
+                             f"{axes}, not in the mesh's axis order "
+                             f"{tuple(names)}; DTensor would nest the "
+                             "shards the other way")
+        for m in order:
+            out[m] = Shard(tdim)
+    return out
+
+
+def constrain(x, dims: Sequence[str]):
+    """A DTensor redistributed to the placements of ``dims`` (on the mesh
+    ``use_rules`` set, else its own); a plain tensor comes back as it is.
+    The port's model code calls no ``constrain``: each rank runs on its
+    own slices (the sharded pool's fetch, ``core/pool.py``)."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh = _mesh()
+    if mesh is None:
+        mesh = x.device_mesh
+    return x.redistribute(mesh, placements_for(mesh, dims, x.shape))
+
+
+def params_shardings(specs_tree, mesh, rules=None):
+    """ParamSpec tree (dicts and lists) -> the same tree of placements."""
+    if isinstance(specs_tree, ParamSpec):
+        return placements_for(mesh, specs_tree.dims, specs_tree.shape,
+                              rules)
+    if isinstance(specs_tree, dict):
+        return {k: params_shardings(v, mesh, rules)
+                for k, v in specs_tree.items()}
+    return [params_shardings(v, mesh, rules) for v in specs_tree]
+
+
+# ---------------------------------------------------------------------------
+# the serve state over a sharded pool
+# ---------------------------------------------------------------------------
+
+
+def shard_serve_state(state: Dict[str, Any], mesh,
+                      pool_axis: str = "model") -> Dict[str, Any]:
+    """This rank's serve state over a pool sharded on ``pool_axis``.
+
+    ``state`` holds the rank's own request lanes (its slice over the
+    batch axes) with whole pools ``[L, B, S, d]``, as a prefill, or a
+    splice of prefills, made them; S must divide by the pool axis.  The
+    result keeps every other entry (the hot tier's ``page_table`` stays
+    over all S positions: its input is the all-reduced fetch) and holds
+    ``kv_pool`` / ``idx_pool`` cut to the slice [base, base + S_local),
+    copied by the splice's shard form in one launch.  The whole pools
+    exist until the caller drops ``state``."""
+    shard = PoolShard.of(mesh, pool_axis)
+    keys = [k for k in ("kv_pool", "idx_pool") if k in state]
+    out = dict(state)
+    if not keys:
+        return out
+    S = state[keys[0]].shape[2]
+    if S % shard.size:
+        raise ValueError(f"a pool of {S} positions does not split over "
+                         f"{shard.size} ranks of {pool_axis!r}")
+    S_local = S // shard.size
+    for k in keys:
+        L, B, _, d = state[k].shape
+        out[k] = torch.empty((L, B, S_local, d), dtype=state[k].dtype,
+                             device=state[k].device)
+    ops.pool_splice_shard([out[k] for k in keys], [state[k] for k in keys],
+                          shard.base(S_local))
+    return out

@@ -37,25 +37,31 @@ _IP = ctypes.POINTER(ctypes.c_int)
 
 class GatherSeg(ctypes.Structure):
     """``sac_gather_seg`` (csrc/gather_kv.cu): kv [B, S, row_bytes], idx
-    [B, k] int32, out [B, k, row_bytes]."""
+    [B, k] int32, out [B, k, row_bytes]; ``shard`` != 0: kv is the slice
+    [base, base + S) of a pool, and an index outside it gives zeros."""
     _fields_ = [("kv", _VP), ("idx", _VP), ("out", _VP), ("B", _LL),
-                ("S", _LL), ("k", _LL), ("row_bytes", _LL)]
+                ("S", _LL), ("k", _LL), ("row_bytes", _LL), ("base", _LL),
+                ("shard", _LL)]
 
 
 class WriteSeg(ctypes.Structure):
     """``sac_write_seg`` (csrc/scatter_kv.cu): pool [L, B, S, row_bytes],
-    src [L, B, row_bytes]."""
+    the slice [base, base + S) of S_glob positions; src [L, B,
+    row_bytes]."""
     _fields_ = [("pool", _VP), ("src", _VP), ("L", _LL), ("B", _LL),
-                ("S", _LL), ("row_bytes", _LL)]
+                ("S", _LL), ("row_bytes", _LL), ("base", _LL),
+                ("S_glob", _LL)]
 
 
 class SpliceSeg(ctypes.Structure):
     """``sac_splice_seg`` (csrc/scatter_kv.cu): pool [L, B, S, row_bytes],
-    src [L, n_lanes, T, row_bytes] into lanes [lane0, lane0 + n_lanes),
-    rows [offset, offset + T); zero_tail zeroes rows [offset + T, S)."""
+    src [L, n_lanes, src_rows, row_bytes], whose rows [src_row0, src_row0
+    + T) go into lanes [lane0, lane0 + n_lanes), rows [offset, offset +
+    T); zero_tail zeroes rows [offset + T, S)."""
     _fields_ = [("pool", _VP), ("src", _VP), ("L", _LL), ("B", _LL),
                 ("S", _LL), ("lane0", _LL), ("n_lanes", _LL), ("T", _LL),
-                ("offset", _LL), ("zero_tail", _LL), ("row_bytes", _LL)]
+                ("offset", _LL), ("zero_tail", _LL), ("row_bytes", _LL),
+                ("src_rows", _LL), ("src_row0", _LL)]
 
 
 _SIGNATURES = {

@@ -4,21 +4,26 @@
 ``gather_kv_many`` moves up to ``MAX_SEGMENTS`` (kv, idx) segments in one
 launch (the decode step's demand set and speculation tail).  Plain
 versions: ``kernels/ref.py::gather_kv_ref`` and ``gather_kv_many_ref``.
+``gather_kv_shard`` is the shard form, for a pool whose sequence axis is
+split over ranks: each kv is one rank's slice [base, base + S_local),
+and a row outside it comes out as zeros (plain version
+``ref.gather_kv_shard_ref``).
 ``gather_kv_pages`` is the page-granular form (whole pages of ``page``
 consecutive rows, one block per page id), plain version
 ``ref.gather_kv_pages_ref``; no path of either package calls it.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import _lib
 
-#: kernel launches since the last reset (read by chip_smoke.py); a launch
-#: of several segments counts once
+#: kernel launches since the last reset, one counter per form (read by
+#: chip_smoke.py); a launch of several segments counts once
 launches = 0
+launches_shard = 0
 launches_pages = 0
 
 #: segments one launch takes (csrc/rowmove.cuh kMaxSegs)
@@ -38,7 +43,26 @@ def gather_kv_many(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]]
     one launch (1 to ``MAX_SEGMENTS`` pairs; dtypes and shapes may
     differ)."""
     global launches
-    name = "gather_kv"
+    outs = _launch("gather_kv", pairs, None)
+    launches += 1
+    return outs
+
+
+def gather_kv_shard(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                    base: int) -> List[torch.Tensor]:
+    """The shard form of ``gather_kv_many``: each kv [B, S_local, d] is the
+    slice [base, base + S_local) of a pool; idx [B, k] int32 holds global
+    rows, and out[b, i] is kv[b, idx[b, i] - base] when that row lies in
+    the slice, else zeros.  One launch for all the pairs."""
+    global launches_shard
+    if base < 0:
+        raise ValueError(f"gather_kv_shard: base {base} < 0")
+    outs = _launch("gather_kv_shard", pairs, base)
+    launches_shard += 1
+    return outs
+
+
+def _launch(name: str, pairs, base: Optional[int]) -> List[torch.Tensor]:
     if not 1 <= len(pairs) <= MAX_SEGMENTS:
         raise ValueError(f"{name}: 1 to {MAX_SEGMENTS} segments, got "
                          f"{len(pairs)}")
@@ -55,11 +79,11 @@ def gather_kv_many(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]]
         seg.kv, seg.idx, seg.out = kv.data_ptr(), idx.data_ptr(), \
             out.data_ptr()
         seg.B, seg.S, seg.k, seg.row_bytes = B, S, k, d * kv.element_size()
+        seg.base, seg.shard = base or 0, int(base is not None)
         outs.append(out)
     with torch.cuda.device(dev):
         rc = _lib.lib().sac_gather_kv(segs, len(pairs), _lib.stream())
     _lib.check(rc, name)
-    launches += 1
     return outs
 
 

@@ -20,24 +20,31 @@ from repro_torch.kernels import scatter_kv as _scatter
 from repro_torch.kernels import sparse_attn as _attn
 
 # kernel name -> (wrapper module, its counter attribute)
-_COUNTERS = {"gather_kv": (_gather, "launches"),
+_COUNTERS = {"gather_kv.rows": (_gather, "launches"),
+             "gather_kv.shard": (_gather, "launches_shard"),
              "gather_kv_pages": (_gather, "launches_pages"),
              "indexer_scores": (_indexer, "launches"),
              "sparse_attn": (_attn, "launches"),
              "sparse_attn_gqa": (_attn, "launches_gqa"),
              "scatter_kv.scatter": (_scatter, "launches"),
              "scatter_kv.rows_at": (_scatter, "launches_rows_at"),
-             "scatter_kv.splice": (_scatter, "launches_splice")}
+             "scatter_kv.rows_at_shard": (_scatter, "launches_rows_at_shard"),
+             "scatter_kv.splice": (_scatter, "launches_splice"),
+             "scatter_kv.splice_shard": (_scatter, "launches_splice_shard")}
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches per kernel since the last reset; ``scatter_kv`` is
-    the sum over its three forms, each also given as ``scatter_kv.<form>``
-    (``scatter``, ``rows_at``: the decode write, ``splice``)."""
+    """Kernel launches per kernel since the last reset; ``gather_kv`` is
+    the sum over its two forms (``gather_kv.rows``, ``gather_kv.shard``)
+    and ``scatter_kv`` over its five, each also given as
+    ``scatter_kv.<form>`` (``scatter``, ``rows_at``: the decode write,
+    ``splice``, and the shard forms ``rows_at_shard``,
+    ``splice_shard``)."""
     counts = {name: getattr(mod, attr)
               for name, (mod, attr) in _COUNTERS.items()}
-    counts["scatter_kv"] = sum(n for name, n in counts.items()
-                               if name.startswith("scatter_kv."))
+    for kernel in ("gather_kv", "scatter_kv"):
+        counts[kernel] = sum(n for name, n in counts.items()
+                             if name.startswith(kernel + "."))
     return counts
 
 
@@ -68,6 +75,18 @@ def batched_gather_many(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]]
         return _gather.gather_kv_many([(kv, idx.to(torch.int32).contiguous())
                                        for kv, idx in pairs])
     return ref.gather_kv_many_ref(pairs)
+
+
+def batched_gather_shard(kv: torch.Tensor, idx: torch.Tensor,
+                         base: int) -> torch.Tensor:
+    """The shard form: kv [B, S_local, d] is the slice [base, base +
+    S_local) of a pool; idx [B, k] global rows -> [B, k, d], zeros where
+    a row lies outside the slice."""
+    if _on_cuda(kv, idx):
+        return _gather.gather_kv_shard(
+            [(kv, idx.to(torch.int32).contiguous())], base)[0]
+    return torch.stack([ref.gather_kv_shard_ref(kv[b], idx[b], base)
+                        for b in range(kv.shape[0])])
 
 
 def batched_indexer_scores(q: torch.Tensor, w: torch.Tensor,
@@ -135,17 +154,24 @@ def _same_dtype(name: str, pools, srcs) -> None:
 
 
 def pool_rows_at(pools: Sequence[torch.Tensor],
-                 entries: Sequence[torch.Tensor], pos: torch.Tensor) -> None:
+                 entries: Sequence[torch.Tensor], pos: torch.Tensor,
+                 base: int = 0, seq_len: Optional[int] = None) -> None:
     """The decode write into each pool [L, B, S, d] of its entries [L, B,
     d] (the pool's dtype) at the positions pos [B] (clamped into [0, S)),
-    IN PLACE; on the card one launch for all the pools."""
+    IN PLACE; on the card one launch for all the pools.  With
+    ``seq_len`` (the shard form) each pool is the slice [base, base + S)
+    of ``seq_len`` positions and takes only the rows that fall in it."""
     _same_dtype("pool_rows_at", pools, entries)
     if _on_cuda(pos, *pools, *entries):
-        _scatter.write_rows_at(pools, [e.contiguous() for e in entries],
-                               pos.to(torch.int32).contiguous())
+        args = (pools, [e.contiguous() for e in entries],
+                pos.to(torch.int32).contiguous())
+        if seq_len is None:
+            _scatter.write_rows_at(*args)
+        else:
+            _scatter.write_rows_at_shard(*args, base, seq_len)
         return
     for pool, e in zip(pools, entries):
-        ref.write_rows_at_ref(pool, e, pos)
+        ref.write_rows_at_ref(pool, e, pos, base, seq_len)
 
 
 def pool_splice(pools: Sequence[torch.Tensor], srcs: Sequence[torch.Tensor],
@@ -162,3 +188,17 @@ def pool_splice(pools: Sequence[torch.Tensor], srcs: Sequence[torch.Tensor],
         return
     for pool, src in zip(pools, srcs):
         ref.splice_ref(pool, src, offset, lane, zero_tail)
+
+
+def pool_splice_shard(pools: Sequence[torch.Tensor],
+                      srcs: Sequence[torch.Tensor], base: int) -> None:
+    """The splice's shard form: each pool [L, B, S_local, d] (the slice
+    [base, base + S_local) of a pool) takes its source's [L, B, T, d] rows
+    [base, base + S_local), zeros past T, IN PLACE; on the card one launch
+    for all the pools."""
+    _same_dtype("pool_splice_shard", pools, srcs)
+    if _on_cuda(*pools, *srcs):
+        _scatter.splice_shard(pools, [s.contiguous() for s in srcs], base)
+        return
+    for pool, src in zip(pools, srcs):
+        ref.splice_ref(pool, src, zero_tail=True, src_row0=base)

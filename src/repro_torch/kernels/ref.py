@@ -29,6 +29,21 @@ def gather_kv_many_ref(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]]
             for kv, idx in pairs]
 
 
+def gather_kv_shard_ref(kv: torch.Tensor, idx: torch.Tensor,
+                        base: int) -> torch.Tensor:
+    """The shard form: kv [S_local, d] is the slice [base, base + S_local)
+    of a pool; idx [k] global rows -> [k, d], kv[idx - base] where that
+    row lies in the slice, zeros elsewhere (``torch.where`` over the
+    clamped gather, on the raw bytes of a 1-byte float)."""
+    S = kv.shape[0]
+    local = idx.long() - base
+    keep = (local >= 0) & (local < S)
+    rows = kv[local.clamp(0, S - 1)]
+    raw = rows.view(torch.uint8) if rows.element_size() == 1 else rows
+    return torch.where(keep[:, None], raw,
+                       torch.zeros_like(raw)).view(rows.dtype)
+
+
 def gather_kv_pages_ref(kv: torch.Tensor, page_idx: torch.Tensor,
                         page: int) -> torch.Tensor:
     """Page-granular gather: kv [S, d] with S % page == 0; page_idx [n]
@@ -126,27 +141,39 @@ def scatter_kv_ref(pool: torch.Tensor, entries: torch.Tensor,
 
 
 def write_rows_at_ref(pool: torch.Tensor, entries: torch.Tensor,
-                      pos: torch.Tensor) -> torch.Tensor:
+                      pos: torch.Tensor, base: int = 0,
+                      seq_len: Optional[int] = None) -> torch.Tensor:
     """The decode write: pool [L, B, S, d]; entries [L, B, d]; pos [B].
     Row (l, b) at clamp(pos[b], 0, S-1) takes entries[l, b], IN PLACE,
-    through ``scatter_kv_ref`` on the [L*B*S, d] rows; returns ``pool``."""
+    through ``scatter_kv_ref`` on the [L*B*S, d] rows; returns ``pool``.
+    The shard form (``seq_len``): the pool is the slice [base, base + S)
+    of ``seq_len`` positions, c = clamp(pos[b], 0, seq_len-1), and the
+    row goes to c - base when c lies in the slice, else nowhere."""
     L, B, S, d = pool.shape
     lanes = torch.arange(L * B, device=pool.device).reshape(L, B)
-    rows = lanes * S + pos.long().clamp(0, S - 1)[None, :]
+    local = pos.long().clamp(0, (seq_len or S) - 1) - base
+    # a position outside the slice: a row before the first, skipped
+    local = torch.where((local >= 0) & (local < S), local, -L * B * S)
+    rows = lanes * S + local[None, :]
     scatter_kv_ref(pool.view(L * B * S, d), entries.reshape(L * B, d),
                    rows.reshape(-1))
     return pool
 
 
 def splice_ref(pool: torch.Tensor, src: torch.Tensor, offset: int = 0,
-               lane: Optional[int] = None, zero_tail: bool = False
-               ) -> torch.Tensor:
+               lane: Optional[int] = None, zero_tail: bool = False,
+               src_row0: Optional[int] = None) -> torch.Tensor:
     """The prefill splice: pool [L, B, S, d]; src [L, b, T, d] (b = B, or
     1 with ``lane``).  Rows [offset, offset+T) of every layer of the lanes
     take src's rows and, with ``zero_tail``, rows [offset+T, S) become
     zeros, IN PLACE, through ``scatter_kv_ref`` on the [L*B*S, d] rows;
-    returns ``pool``."""
+    returns ``pool``.  With ``src_row0`` (the shard form) src's rows
+    [src_row0, src_row0 + n) are taken, n = clamp(T - src_row0, 0, S -
+    offset)."""
     L, B, S, d = pool.shape
+    if src_row0 is not None:
+        n = min(max(src.shape[2] - src_row0, 0), S - offset)
+        src = src[:, :, src_row0:src_row0 + n]
     T = src.shape[2]
     lanes = (torch.arange(B, device=pool.device) if lane is None
              else torch.tensor([lane], device=pool.device))

@@ -12,6 +12,13 @@ Three forms of ``csrc/scatter_kv.cu``, each with its plain version in
 - ``splice``: a prompt's contiguous rows of every layer into one lane
   (or every lane), optionally zeroing the rest of the lane, several pools
   in one launch (``ref.splice_ref``).
+
+The last two have shard forms, for a pool whose sequence axis is split
+over ranks (each rank holds the slice [base, base + S_local)):
+``write_rows_at_shard`` clamps the position into the whole pool and
+writes the row only on the rank that owns it (``ref.write_rows_at_ref``
+with ``base``); ``splice_shard`` copies a rank's slice of the prompt's
+rows into its pool (``ref.splice_ref`` with ``src_row0``).
 """
 from __future__ import annotations
 
@@ -26,7 +33,9 @@ from repro_torch.kernels.gather_kv import MAX_SEGMENTS
 #: chip_smoke.py)
 launches = 0
 launches_rows_at = 0
+launches_rows_at_shard = 0
 launches_splice = 0
+launches_splice_shard = 0
 
 
 def _check_pools(name: str, pools: Sequence[torch.Tensor],
@@ -80,7 +89,24 @@ def write_rows_at(pools: Sequence[torch.Tensor],
     position clamp(pos[b], 0, S-1) takes entries[l, b].  pos: [B]
     int32, shared by the pools."""
     global launches_rows_at
-    name = "write_rows_at"
+    _write("write_rows_at", pools, entries, pos, 0, None)
+    launches_rows_at += 1
+
+
+def write_rows_at_shard(pools: Sequence[torch.Tensor],
+                        entries: Sequence[torch.Tensor], pos: torch.Tensor,
+                        base: int, seq_len: int) -> None:
+    """The shard form of ``write_rows_at``: each pool [L, B, S_local, d]
+    is the slice [base, base + S_local) of a pool of ``seq_len``
+    positions; row (l, b) goes to c - base, c = clamp(pos[b], 0,
+    seq_len-1), when c lies in the slice, and nowhere otherwise."""
+    global launches_rows_at_shard
+    _write("write_rows_at_shard", pools, entries, pos, base, seq_len)
+    launches_rows_at_shard += 1
+
+
+def _write(name: str, pools, entries, pos, base: int,
+           seq_len: Optional[int]) -> None:
     _check_pools(name, pools, entries, src_dim=3)
     dev = _lib.require_cuda(name, pos, *pools, *entries)
     _lib.require_dtype(name, pos, torch.int32, "pos")
@@ -91,13 +117,16 @@ def write_rows_at(pools: Sequence[torch.Tensor],
             raise ValueError(f"{name}: entries [L,B,d] and pos [B] for a "
                              f"pool {tuple(pool.shape)}; got "
                              f"{tuple(src.shape)} and {tuple(pos.shape)}")
+        if seq_len is not None and not (0 <= base and base + S <= seq_len):
+            raise ValueError(f"{name}: the slice [{base}, {base + S}) lies "
+                             f"outside a pool of {seq_len} positions")
         seg.pool, seg.src = pool.data_ptr(), src.data_ptr()
         seg.L, seg.B, seg.S, seg.row_bytes = L, B, S, d * pool.element_size()
+        seg.base, seg.S_glob = base, S if seq_len is None else seq_len
     with torch.cuda.device(dev):
         rc = _lib.lib().sac_write_rows_at(segs, len(pools), pos.data_ptr(),
                                           _lib.stream())
     _lib.check(rc, name)
-    launches_rows_at += 1
 
 
 def splice(pools: Sequence[torch.Tensor], srcs: Sequence[torch.Tensor], *,
@@ -109,13 +138,37 @@ def splice(pools: Sequence[torch.Tensor], srcs: Sequence[torch.Tensor], *,
     or ``lane``) take the source's rows; with ``zero_tail`` rows
     [offset+T, S) of those lanes become zeros."""
     global launches_splice
-    name = "splice"
+    _splice("splice", pools, srcs, offset, lane, zero_tail, None)
+    launches_splice += 1
+
+
+def splice_shard(pools: Sequence[torch.Tensor], srcs: Sequence[torch.Tensor],
+                 base: int) -> None:
+    """The shard form of ``splice``: each pool [L, B, S_local, d] is the
+    slice [base, base + S_local) of a pool, and each source [L, B, T, d]
+    the prompts' whole rows (the pool's dtype).  Rows [0, n) of every
+    (layer, lane) take the source's rows [base, base + n), n =
+    clamp(T - base, 0, S_local), and rows [n, S_local) become zeros: the
+    rank's slice of the prompts' rows padded with zeros.  One launch."""
+    global launches_splice_shard
+    if base < 0:
+        raise ValueError(f"splice_shard: base {base} < 0")
+    _splice("splice_shard", pools, srcs, 0, None, True, base)
+    launches_splice_shard += 1
+
+
+def _splice(name: str, pools, srcs, offset: int, lane: Optional[int],
+            zero_tail: bool, src_row0: Optional[int]) -> None:
+    """The splice of each source's rows [src_row0, src_row0 + T) (T the
+    rows that are left, cut to the pool; None: all the source's rows)."""
     _check_pools(name, pools, srcs, src_dim=4)
     dev = _lib.require_cuda(name, *pools, *srcs)
     segs = (_lib.SpliceSeg * len(pools))()
     for seg, pool, src in zip(segs, pools, srcs):
         L, B, S, d = pool.shape
-        T = src.shape[2]
+        src_rows = src.shape[2]
+        T = (src_rows if src_row0 is None
+             else min(max(src_rows - src_row0, 0), S - offset))
         n_lanes = B if lane is None else 1
         if (tuple(src.shape[:2]) != (L, n_lanes) or offset < 0
                 or offset + T > S or not 0 <= (lane or 0) < B):
@@ -127,7 +180,7 @@ def splice(pools: Sequence[torch.Tensor], srcs: Sequence[torch.Tensor], *,
         seg.lane0, seg.n_lanes = lane or 0, n_lanes
         seg.T, seg.offset, seg.zero_tail = T, offset, int(zero_tail)
         seg.row_bytes = d * pool.element_size()
+        seg.src_rows, seg.src_row0 = src_rows, src_row0 or 0
     with torch.cuda.device(dev):
         rc = _lib.lib().sac_splice_kv(segs, len(pools), _lib.stream())
     _lib.check(rc, name)
-    launches_splice += 1

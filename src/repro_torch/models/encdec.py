@@ -170,6 +170,9 @@ class EncDecLM:
     def __init__(self, cfg: ModelConfig, fetch_fn: FetchFn = local_fetch,
                  mode: str = "sac", topk_fn: Optional[Callable] = None,
                  remat: bool = True, device="cuda"):
+        if getattr(fetch_fn, "shard", None) is not None:
+            raise NotImplementedError("an encoder-decoder over a sharded "
+                                      "pool is not ported (ROADMAP §1)")
         self.cfg = cfg
         self.device = torch.device(device)
         self.fetch_fn = fetch_fn

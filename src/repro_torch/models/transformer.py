@@ -44,7 +44,12 @@ pool layers: pool layer ``l`` takes its window from
                  warm-inserted too.
 
 ``decode`` updates the serve state IN PLACE (pools, hot tier, recurrent
-state) and returns the same dict.  Under ``torch.profiler`` it marks each
+state) and returns the same dict.  With the pooled fetch
+(``core/pool.py::make_pooled_fetch``) the pools are this rank's slices
+of a pool sharded over the mesh's ``model`` axis: each layer's scores
+are all-gathered before the selection (``core/sac.py``) and the
+write-back lands only on the rank that owns the position (the attention
+kinds in SAC mode; other kinds and dense mode raise, ROADMAP §1).  Under ``torch.profiler`` it marks each
 layer's work as a range named by ``DECODE_SPANS`` (a pool layer, a Mamba2
 layer, an xLSTM super-block), so that a trace splits a step by layer
 kind; with no profiler on, a layer pays one flag check.  With ``kv_quant="fp8"`` the pool and
@@ -413,6 +418,19 @@ def _zero_rec(shapes, n, device):
     return tuple(_zero_rec(s, n, device) for s in shapes)
 
 
+def _check_shardable(mode: str, segments: List[Segment]) -> None:
+    """A sharded pool (ROADMAP §1) serves the attention kinds in SAC
+    mode; ``dense`` mode would need the whole pool on each rank, and the
+    recurrent kinds are not ported over it yet."""
+    if mode != "sac":
+        raise NotImplementedError("a sharded pool in dense mode is not "
+                                  "ported (ROADMAP §1)")
+    kinds = {seg.kind for seg in segments} - set(_ATTN_KINDS)
+    if kinds:
+        raise NotImplementedError(f"a sharded pool with {sorted(kinds)} "
+                                  "segments is not ported (ROADMAP §1)")
+
+
 # ---------------------------------------------------------------------------
 # the model facade
 # ---------------------------------------------------------------------------
@@ -440,6 +458,10 @@ class TransformerLM:
         # beyond the paper: fp8 pool storage halves the pool's and the
         # hot tier's bytes and the fetch traffic
         self.kv_dtype = E4M3 if cfg.sac.kv_quant == "fp8" else DTYPE
+        # a pool sharded over ranks (core/pool.py::make_pooled_fetch)
+        self.shard = getattr(fetch_fn, "shard", None)
+        if self.shard is not None:
+            _check_shardable(self.mode, self.segments)
 
     # -- params ------------------------------------------------------------
     def init(self, generator: torch.Generator) -> Dict:
@@ -626,7 +648,7 @@ class TransformerLM:
             if idx_pool is not None:
                 pools.append(idx_pool)
                 rows.append(torch.stack(new_keys))
-            pool_write_step(pools, rows, cache_len)
+            pool_write_step(pools, rows, cache_len, shard=self.shard)
         if hot is not None:
             B = tokens.shape[0]
             zeros = torch.zeros((self.n_kv, B), dtype=torch.int32,

@@ -510,9 +510,20 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         scatter_kv.write_rows_at([pool], [kv[:, :1]], idx[0, :1])
     with pytest.raises(ValueError):
         scatter_kv.splice([pool], [pool[:, :, :2]], lane=0, zero_tail=True)
-    assert ops.launch_counts() == {"gather_kv": 0, "gather_kv_pages": 0,
+    with pytest.raises(ValueError):
+        gather_kv.gather_kv_shard([(kv, idx)], base=4)
+    with pytest.raises(ValueError):
+        scatter_kv.write_rows_at_shard([pool], [kv[:, :1]], idx[0, :1],
+                                       base=0, seq_len=64)
+    with pytest.raises(ValueError):
+        scatter_kv.splice_shard([pool], [pool], base=0)
+    assert ops.launch_counts() == {"gather_kv": 0, "gather_kv.rows": 0,
+                                   "gather_kv.shard": 0,
+                                   "gather_kv_pages": 0,
                                    "indexer_scores": 0, "sparse_attn": 0,
                                    "sparse_attn_gqa": 0, "scatter_kv": 0,
                                    "scatter_kv.scatter": 0,
                                    "scatter_kv.rows_at": 0,
-                                   "scatter_kv.splice": 0}
+                                   "scatter_kv.rows_at_shard": 0,
+                                   "scatter_kv.splice": 0,
+                                   "scatter_kv.splice_shard": 0}

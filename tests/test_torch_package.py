@@ -43,7 +43,11 @@ COPIED_DEFS = [("serving/prefetch.py", "analytic_prefetch"),
                ("serving/simulator.py", "profile_from_config"),
                ("core/sac.py", "RequestPages"),
                ("core/sac.py", "SACSystem"),
-               ("training/optimizer.py", "OptConfig")]
+               ("training/optimizer.py", "OptConfig"),
+               ("distributed/sharding.py", "TRAIN_RULES"),
+               ("distributed/sharding.py", "SERVE_RULES"),
+               ("distributed/elastic.py", "viable_mesh_shape"),
+               ("distributed/elastic.py", "StepReport")]
 
 _SACHECK = re.compile(r"\s*# sacheck: disable=.*$")
 
@@ -59,7 +63,10 @@ def _port_modules():
 
 def test_port_imports_with_jax_blocked():
     mods = list(_port_modules())
-    assert {"repro_torch.models.encdec", "repro_torch.launch.train"} | {
+    assert {"repro_torch.models.encdec", "repro_torch.launch.train",
+            "repro_torch.launch.mesh", "repro_torch.core.topk",
+            "repro_torch.distributed", "repro_torch.distributed.sharding",
+            "repro_torch.distributed.elastic"} | {
         f"repro_torch.training.{m}" for m in ("data", "optimizer",
                                               "train_loop", "checkpoint")
     } <= set(mods)
@@ -84,6 +91,10 @@ SCANNED = sorted([p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")]
 def test_scan_covers_the_entry_points():
     for path in ("src/repro_torch/launch/serve.py",
                  "src/repro_torch/launch/train.py",
+                 "src/repro_torch/launch/mesh.py",
+                 "src/repro_torch/core/topk.py",
+                 "src/repro_torch/distributed/sharding.py",
+                 "src/repro_torch/distributed/elastic.py",
                  "src/repro_torch/models/encdec.py",
                  "src/repro_torch/training/train_loop.py",
                  "src/repro_torch/serving/engine.py",
@@ -135,12 +146,22 @@ def test_host_copy_matches_reference(rel):
                          f"src/repro/{rel}: re-copy it")
 
 
+def _defines(node) -> str:
+    """The name a module-level statement defines (a function, a class or
+    an assignment such as a rule table), else None."""
+    if isinstance(node, ast.AnnAssign):
+        return getattr(node.target, "id", None)
+    if isinstance(node, ast.Assign) and len(node.targets) == 1:
+        return getattr(node.targets[0], "id", None)
+    return getattr(node, "name", None)
+
+
 @pytest.mark.parametrize("rel,name", COPIED_DEFS)
 def test_host_definitions_match_reference(rel, name):
     def segment(path):
         text = path.read_text()
         for node in ast.parse(text).body:
-            if getattr(node, "name", None) == name:
+            if _defines(node) == name:
                 seg = ast.get_source_segment(text, node)
                 deco = [ast.get_source_segment(text, d)
                         for d in getattr(node, "decorator_list", [])]

@@ -20,6 +20,11 @@ with ragged shapes, out-of-range indices and e4m3 rows.  Then the
 decode step with the fused gather against the unfused one (an injected
 ``fetch_fn``): logits, pools, hot-tier integer state and ``pf_*``
 equal; and the engine's launches of each form per step and per prompt.
+The shard forms (a pool whose sequence axis is split over ranks, odd
+slices) compose to the whole: the ranks' gathers, combined byte by byte
+with MAX, are the whole gather; their decode writes and splices, side by
+side, are the whole pool's (and the decode write the reference's
+``pool_write``).
 
 The card-only tests (marker ``gpu``) hold each form's CUDA kernel
 against the plain version at the main paths' shapes (Zamba2-7B's rows of
@@ -311,6 +316,91 @@ def test_engine_launches_each_form_per_step(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# the shard forms: one rank's slice [base, base + S_local) of the pool
+# ---------------------------------------------------------------------------
+
+
+def _edge_rows(S_local: int, n: int):
+    """Global rows at every slice's edges (base - 1, base, base +
+    S_local - 1, base + S_local) and past the pool on both sides."""
+    rows = [-2, -1, n * S_local, n * S_local + 3]
+    for r in range(n):
+        b = r * S_local
+        rows += [b - 1, b, b + S_local - 1, b + S_local]
+    return rows
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "e4m3"])
+@pytest.mark.parametrize("n,S_local", [(2, 17), (3, 5), (4, 1)])
+def test_shard_gathers_combine_to_the_whole(n, S_local, dtype):
+    """Each rank's gather of its slice is zeros outside it; the MAX of
+    the ranks' bytes is the whole pool's gather (indices in range), and
+    zeros where no rank holds the row."""
+    rng = np.random.default_rng(n * 100 + S_local)
+    B, d, S = 3, 6, n * S_local
+    pool = _bits(rng, (B, S, d), dtype)
+    rows = _edge_rows(S_local, n)
+    idx = torch.tensor(np.stack([rng.permutation(rows)
+                                 for _ in range(B)]), dtype=torch.int32)
+    parts = [ops.batched_gather_shard(
+        pool[:, r * S_local:(r + 1) * S_local].contiguous(), idx,
+        r * S_local) for r in range(n)]
+    got = torch.stack([p.view(torch.uint8) for p in parts]).amax(0)
+    whole = ops.batched_gather(pool, idx).view(torch.uint8)
+    inside = ((idx >= 0) & (idx < S))[..., None]
+    assert torch.equal(got, torch.where(inside, whole,
+                                        torch.zeros_like(whole)))
+    for r, part in enumerate(parts):
+        mine = ((idx >= r * S_local) & (idx < (r + 1) * S_local))[..., None]
+        assert not part.view(torch.uint8).masked_select(~mine).any()
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "e4m3"])
+@pytest.mark.parametrize("n,S_local", [(2, 17), (3, 5), (4, 1)])
+def test_shard_decode_writes_make_the_whole_write(jx, n, S_local, dtype):
+    """The ranks' decode writes, slices side by side, are the whole
+    pool's write and the reference's ``pool_write`` (positions at the
+    slices' edges and past the pool, which clamp)."""
+    rng = np.random.default_rng(n + 7 * S_local)
+    L, d, S = 2, 6, n * S_local
+    pos_l = _edge_rows(S_local, n)
+    B = len(pos_l)
+    pool = _bits(rng, (L, B, S, d), dtype)
+    new = _bits(rng, (L, B, d), dtype)
+    pos = torch.tensor(pos_l, dtype=torch.int32)
+    slices = [pool[:, :, r * S_local:(r + 1) * S_local].clone()
+              for r in range(n)]
+    for r, part in enumerate(slices):
+        ops.pool_rows_at([part], [new], pos, r * S_local, S)
+    got = torch.cat(slices, 2)
+    whole = pool.clone()
+    ops.pool_rows_at([whole], [new], pos)
+    assert _same(got, whole)
+    want = jx["pool"].pool_write(_to_jax(jx, pool), _to_jax(jx, new),
+                                 jx["jnp"].asarray(np.array(pos_l,
+                                                            np.int32)))
+    np.testing.assert_array_equal(_u8(got), _u8(want))
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "e4m3"])
+@pytest.mark.parametrize("n,S_local,T", [(2, 17, 30), (3, 5, 15), (3, 5, 4),
+                                         (4, 3, 0)])
+def test_shard_splices_make_the_whole_splice(n, S_local, T, dtype):
+    """The ranks' splices of a prompt's pool [L, B, T, d], slices side by
+    side, are the whole pool's splice with the tail zeroed (a slice past
+    the prompt all zeros)."""
+    rng = np.random.default_rng(T + n)
+    L, B, d, S = 2, 3, 6, n * S_local
+    src = _bits(rng, (L, B, T, d), dtype)
+    slices = [_bits(rng, (L, B, S_local, d), dtype) for _ in range(n)]
+    for r, part in enumerate(slices):
+        ops.pool_splice_shard([part], [src], r * S_local)
+    whole = _bits(rng, (L, B, S, d), dtype)
+    ops.pool_splice([whole], [src], zero_tail=True)
+    assert _same(torch.cat(slices, 2), whole)
+
+
+# ---------------------------------------------------------------------------
 # on the card (marker gpu): each form's kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -460,3 +550,85 @@ def test_gpu_engine_fetch_pipeline_launches(cuda):
     assert counts["scatter_kv.splice"] == 4
     assert eng.stats.prefetched_entries > 0
     assert toks[0] == toks[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bf16", "e4m3"])
+@pytest.mark.parametrize("B,S_local,d,k,rank", [
+    (8, 2064, 512, 2048, 1),      # Qwen2-1.5B's pool over 4 ranks
+    (8, 4128, 512, 2048, 1),      # ... over 2
+    (4, 2080, 576, 2048, 1),      # DeepSeek-V3.2's over 2
+    (3, 33, 7168, 17, 2),         # odd slice, rows past a chunk
+    (2, 7, 36, 9, 0)])            # unaligned rows, rank 0
+def test_gpu_gather_shard_exact(cuda, B, S_local, d, k, rank, dtype):
+    from repro_torch.kernels import gather_kv
+    g = torch.Generator(device=cuda).manual_seed(S_local + rank)
+    dt = torch.bfloat16 if dtype == "bf16" else E4M3
+    base = rank * S_local
+    kv = _rand(g, (B, S_local, d), dt, cuda)
+    idx = torch.randint(-3, 4 * S_local + 3, (B, k), generator=g,
+                        device=cuda, dtype=torch.int32)
+    idx[:, :4] = torch.tensor([base - 1, base, base + S_local - 1,
+                               base + S_local], device=cuda)
+    n0 = ops.launch_counts()["gather_kv.shard"]
+    got = gather_kv.gather_kv_shard([(kv, idx)], base)[0]
+    assert ops.launch_counts()["gather_kv.shard"] == n0 + 1
+    for b in range(B):
+        assert _same(got[b], ref.gather_kv_shard_ref(kv[b].view(torch.uint8),
+                                                     idx[b], base))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bf16", "e4m3"])
+@pytest.mark.parametrize("L,B,S_local,d,di,rank,n", [
+    (28, 8, 2064, 512, 64, 1, 4),     # Qwen2-1.5B over 4 ranks
+    (2, 4, 2080, 576, 128, 1, 2),     # DeepSeek-V3.2 over 2
+    (3, 8, 33, 7168, 64, 2, 3)])      # odd slice, rows past a chunk
+def test_gpu_write_rows_at_shard_exact(cuda, L, B, S_local, d, di, rank, n,
+                                       dtype):
+    from repro_torch.kernels import scatter_kv
+    g = torch.Generator(device=cuda).manual_seed(S_local * n + rank)
+    dt = torch.bfloat16 if dtype == "bf16" else E4M3
+    base, S = rank * S_local, n * S_local
+    pools = [_rand(g, (L, B, S_local, d), dt, cuda),
+             _rand(g, (L, B, S_local, di), torch.bfloat16, cuda)]
+    entries = [_rand(g, (L, B, d), dt, cuda),
+               _rand(g, (L, B, di), torch.bfloat16, cuda)]
+    pos = torch.tensor(([base - 1, base, base + S_local - 1, base + S_local,
+                         S + 2, -1, S - 1, 0] * B)[:B], dtype=torch.int32,
+                       device=cuda)
+    got = [p.clone() for p in pools]
+    n0 = ops.launch_counts()["scatter_kv.rows_at_shard"]
+    scatter_kv.write_rows_at_shard(got, entries, pos, base, S)
+    assert ops.launch_counts()["scatter_kv.rows_at_shard"] == n0 + 1
+    for p, e, out in zip(pools, entries, got):
+        want = ref.write_rows_at_ref(p.view(torch.uint8).clone(),
+                                     e.view(torch.uint8), pos, base, S)
+        assert _same(out, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bf16", "e4m3"])
+@pytest.mark.parametrize("L,B,S_local,T,d,rank", [
+    (28, 4, 2064, 8192, 512, 3),      # a Qwen2-1.5B prompt's last slice
+    (28, 4, 2064, 8192, 512, 0),
+    (3, 2, 33, 80, 7168, 2),          # odd slice past the prompt's end
+    (3, 2, 33, 40, 100, 1)])          # a slice the prompt ends inside
+def test_gpu_splice_shard_exact(cuda, L, B, S_local, T, d, rank, dtype):
+    from repro_torch.kernels import scatter_kv
+    g = torch.Generator(device=cuda).manual_seed(T + rank)
+    dt = torch.bfloat16 if dtype == "bf16" else E4M3
+    pools = [_rand(g, (L, B, S_local, d), dt, cuda),
+             _rand(g, (L, B, S_local, 64), torch.bfloat16, cuda)]
+    srcs = [_rand(g, (L, B, T, d), dt, cuda),
+            _rand(g, (L, B, T, 64), torch.bfloat16, cuda)]
+    got = [p.clone() for p in pools]
+    n0 = ops.launch_counts()["scatter_kv.splice_shard"]
+    scatter_kv.splice_shard(got, srcs, rank * S_local)
+    assert ops.launch_counts()["scatter_kv.splice_shard"] == n0 + 1
+    for p, s, out in zip(pools, srcs, got):
+        want = ref.splice_ref(p.view(torch.uint8), s.view(torch.uint8),
+                              zero_tail=True, src_row0=rank * S_local)
+        assert _same(out, want)
+    del pools, srcs, got
+    torch.cuda.empty_cache()
