@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --kernels  # phases 1-3 only (build and check)
     python3 chip_smoke.py --sharded  # phases 1-3 and 16 (the sharded pool)
+    python3 chip_smoke.py --twin     # phases 1-3 and 17 (the simulator twin)
 
 Phases, each printing one JSON line with its seconds; any failure raises
 (exit code != 0):
@@ -56,9 +57,11 @@ Phases, each printing one JSON line with its seconds; any failure raises
    shard forms (a rank's slice of a pool split over ranks: the gather,
    zeros for rows outside the slice; the decode write, only where the
    rank owns the position; the splice of a serve state's whole pools
-   into the slice) at the shapes phase 16 gives them (Qwen2-1.5B's pool
-   over 2 ranks and on 1, the small configs' over 2, each rank) and at
-   a 4-card host's (Qwen2-1.5B's pool over 4, DeepSeek-V3.2's over 2),
+   into the slice) at every shape phase 16 gives them, each with the
+   forms its run launches (Qwen2-1.5B's pool over 2 ranks and on 1, the
+   tail's 512 rows; Zamba2-7B's and Whisper-small's cross pools on 1;
+   the small configs' of (c) and (g) over 2, each rank) and at a 4-card
+   host's (Qwen2-1.5B's pool over 4, DeepSeek-V3.2's over 2),
    bf16 and e4m3, bit-exact, timed beside the plain version, a library
    call and the bound;
 4. small-input checks: the port on the card against the port's plain
@@ -169,7 +172,36 @@ Phases, each printing one JSON line with its seconds; any failure raises
    unsharded run of the same 4 lanes; (c) small DeepSeek-V3.2 (MLA) and
    Gemma3-12B (windowed) at mesh (1, 2) over gloo, bit-equal to their
    unsharded card runs, which hold SMALL_TOL against the CPU beside the
-   e4m3 control.  The kernels are built before any rank starts.
+   e4m3 control.  Then, at the NCCL rank of (a), each beside the
+   unsharded model on the same weights and state, bit for bit, with
+   its launches, median step, device ms and launches a step (profiled)
+   and the collectives' host time: (a) extended, (a)'s 8 lanes with
+   the fetch pipeline's speculation (width 512) and the hierarchical
+   top-k, whose tail (``with_tail``) must equal the fused selection's
+   (tokens, logits, hot tier with ``pf_*``); (d) Qwen2-1.5B in ``dense``
+   mode, 8 steps, each layer all-gathered (``PoolShard.gather_pool``);
+   (e) Zamba2-7B at full width and depth (81 Mamba2 and 13 pool layers),
+   4 requests of 8192 tokens, hot tier 6144, 4 steps (``rec_*`` too);
+   (f) Whisper-small at full width and depth, 4 requests of 32,768
+   frames, 8 steps in ``sac`` and in ``dense`` mode (``self_kv`` whole,
+   the cross-attention pools cut), launches a step as phase 14's.  (g)
+   four gloo ranks sharing the card, mesh (data 2, model 2), on small
+   configs: dense Qwen2, Zamba2, Whisper (``sac`` and ``dense``), a
+   batch of one replicated over ``data`` (``batch_axes=()``) and the
+   hierarchical top-k with the speculation tail, each rank bit-equal to
+   the unsharded card run of its lanes, which holds SMALL_TOL against
+   the CPU beside its e4m3 control.  The kernels are built before any
+   rank starts;
+17. the simulator twin: the port's ``Engine`` serves Qwen2-1.5B at full
+   width and depth in ``replay_engine_timeline``'s parity regime (no
+   warm-up, radix seeds or prefetch, no hot tier, overlap off), 8
+   requests of 8192 tokens arriving together behind 4 slots, 8 output
+   tokens, monolithic, chunked (2048-token chunks) and disaggregated;
+   the replay must give every request's dispatch, first-token and
+   finish time within 1e-9 s.  Then ``run_backend_sweep`` over
+   ``default_backends()`` on the same trace, whose TTFT, TBT and
+   throughput are the simulator's modeled clock (8 x H20), not a
+   measurement of the card.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -345,6 +377,17 @@ def _equal_bits(torch, a, b) -> bool:
     """Equal bytes (the row movers copy bits, also of fp8 entries)."""
     return torch.equal(a.reshape(-1).view(torch.uint8),
                        b.reshape(-1).view(torch.uint8))
+
+
+def _state_equal(torch, a, b) -> bool:
+    """Two tensors, or nested tuples and lists of them (a hot tier, a
+    recurrent state, a run's logits), bit for bit; None equals None."""
+    if a is None or b is None:
+        return a is b
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_state_equal(torch, x, y)
+                                        for x, y in zip(a, b))
+    return _equal_bits(torch, a, b)
 
 
 def gather_case(torch, ref, mod, shape: str, pairs, copies=None,
@@ -1097,13 +1140,15 @@ def _small_spec(scores, cache_len, W: int):
 
 
 def _small_params(torch, cfg, mode: str):
-    """small_check's weights: seed 1 on the CPU, QKV biases (where the
-    config has them) set non-zero."""
+    """small_check's weights: seed 1 on the CPU, QKV biases (where a
+    decoder's config has them) set non-zero."""
     from repro_torch.models.model import build_model
     from repro_torch.models.transformer import pool_layer_params
     m = build_model(cfg, mode=mode, device="cpu")
     gen = torch.Generator(device="cpu").manual_seed(1)
     params = m.init(gen)
+    if cfg.enc_dec:
+        return params
     for layer in pool_layer_params(cfg, params):
         for name in ("bq", "bk", "bv"):
             if name in layer["attn"]:
@@ -1112,89 +1157,127 @@ def _small_params(torch, cfg, mode: str):
     return params
 
 
-def _small_run(torch, cfg, params, dev, *, mode: str, prompt_len: int,
-               pool_len: int, prefetch: bool, degrade: bool = False,
-               mesh=None):
-    """One small_check run on ``dev``: lane 1 holds the prompt, lane 0 is
-    empty, four decode steps under the injected top-k (and speculation,
-    with ``prefetch``).  ``mesh``: the pool sharded over its ``model``
-    axis (``make_pooled_fetch``, ``shard_serve_state``; the pool returned
-    is this rank's slice).  Returns the logits, the hot tier's integer
-    state, the pool and ``rec_*``."""
+def _small_run(torch, cfg, params, dev, *, mode: str, prompt_len=40,
+               pool_len: int = 64, prefetch: bool = False,
+               degrade: bool = False, mesh=None, lanes=(0, 1),
+               batch_axes=("data",), hier_tail: bool = False,
+               device_buffer: int = 8):
+    """One small_check run on ``dev`` of ``lanes`` (of two), four decode
+    steps of tokens 5 and 7 under the injected top-k (the logits of each
+    prefill first).  A decoder's lane
+    b holds a prompt of ``prompt_len[b]`` tokens, each prefilled alone
+    and written into its lane as the engine splices it (an int: lane 1's
+    prompt, lane 0 empty); an encoder-decoder's lane b holds ``pool_len -
+    24 b`` encoder frames (seed 2).  ``prefetch``: the injected
+    speculation too, with per-step budgets and a warm-up plan for lane
+    1.  ``hier_tail``: the config's speculation tail and score margin,
+    selected by score (sharded: the hierarchical top-k).  ``mesh``: the
+    pool sharded over its ``model`` axis (``make_pooled_fetch`` with
+    ``batch_axes``, ``shard_serve_state``; the pool returned is this
+    rank's slice).  Returns the logits, the hot tier, the pool,
+    ``rec_*`` and ``self_kv`` (on the host)."""
     import functools
     from repro_torch.core.pool import make_pooled_fetch, pool_write_prefill
+    from repro_torch.core.topk import make_hierarchical_topk
     from repro_torch.distributed.sharding import shard_serve_state
     from repro_torch.models.model import build_model
     from repro_torch.serving.engine import Engine
 
     W = cfg.sac.prefetch_width
-    opts = (dict(prefetch_width=W, prefetch_fn=functools.partial(
-        _small_spec, W=W), score_margin=cfg.sac.score_margin)
-        if prefetch else None)
-    fetch = {} if mesh is None else dict(fetch_fn=make_pooled_fetch(mesh))
-    m = build_model(cfg, mode=mode, topk_fn=_small_topk, opts=opts,
-                    device=dev, **fetch)
+    topk, opts = _small_topk, None
+    if prefetch:
+        opts = dict(prefetch_width=W, score_margin=cfg.sac.score_margin,
+                    prefetch_fn=functools.partial(_small_spec, W=W))
+    if hier_tail:
+        opts = dict(prefetch_width=W, score_margin=cfg.sac.score_margin)
+        topk = (None if mesh is None
+                else make_hierarchical_topk(mesh, cfg.sac.topk))
+    fetch = ({} if mesh is None else
+             dict(fetch_fn=make_pooled_fetch(mesh, batch_axes=batch_axes)))
+    m = build_model(cfg, mode=mode, topk_fn=topk, opts=opts, device=dev,
+                    **fetch)
     p = _to(params, dev)
     if degrade:
         p = e4m3_weights(torch, p)
-    prompt = torch.arange(3, 3 + prompt_len, dtype=torch.int32,
-                          device=dev)[None] % cfg.vocab
-    st, first = m.prefill(p, prompt)
-    state = m.init_serve_state(2, pool_len, device_buffer=8)
-    for key in ("kv_pool", "idx_pool"):
-        if key in state:
-            pool_write_prefill(state[key], st[key], lane=1)
-    state["cache_len"][1] = prompt_len
-    if prefetch:
-        L = m.n_kv
-        j = torch.arange(12, dtype=torch.int32, device=dev)
-        idx = ((prompt_len - 1 - 5 * j)[None] + torch.arange(
-            L, dtype=torch.int32, device=dev)[:, None]) % prompt_len
-        Engine._warm_apply(state["hot_buf"], state["kv_pool"], 1, idx,
-                           (j % 6 != 2)[None].expand(L, 12))
+    sel = torch.as_tensor(lanes)
+    logits = []          # each prompt's prefill, then each decode step
+    if cfg.enc_dec:
+        g = torch.Generator(device="cpu").manual_seed(2)
+        frames = torch.randn((2, pool_len, cfg.d_model),
+                             generator=g).bfloat16()
+        state, _ = m.prefill(p, frames[sel].to(dev), torch.tensor(
+            [pool_len, pool_len - 24], dtype=torch.int32)[sel].to(dev))
+    else:
+        lens = ((0, prompt_len) if isinstance(prompt_len, int)
+                else prompt_len)
+        state = m.init_serve_state(len(lanes), pool_len,
+                                   device_buffer=device_buffer)
+        for i, lane in enumerate(lanes):
+            if not lens[lane]:
+                continue
+            # lane 1: tokens 3, 4, ...; lane 0 from 20
+            prompt = (torch.arange(lens[lane], dtype=torch.int32,
+                                   device=dev) + 20 - 17 * lane) % cfg.vocab
+            st, first = m.prefill(p, prompt[None])
+            logits.append(first.float().cpu())
+            for key in ("kv_pool", "idx_pool"):
+                if key in state:
+                    pool_write_prefill(state[key], st[key], lane=i)
+            state["cache_len"][i] = lens[lane]
+            if prefetch:
+                L = m.n_kv
+                j = torch.arange(12, dtype=torch.int32, device=dev)
+                T = lens[lane]
+                idx = ((T - 1 - 5 * j)[None] + torch.arange(
+                    L, dtype=torch.int32, device=dev)[:, None]) % T
+                Engine._warm_apply(state["hot_buf"], state["kv_pool"], i,
+                                   idx, (j % 6 != 2)[None].expand(L, 12))
     if mesh is not None:
         state = shard_serve_state(state, mesh)
-    logits = [first]
-    tok = torch.tensor([5, 7], dtype=torch.int32, device=dev)
+    tok = torch.tensor([5, 7], dtype=torch.int32)[sel].to(dev)
     for step in range(4):
         budget = (torch.tensor([step % 3, W - 2 * step], dtype=torch.int32,
-                               device=dev) if prefetch else None)
-        state, lg = m.decode(p, state, tok, pf_budget=budget)
-        logits.append(lg)
-    return dict(logits=[x.float().cpu() for x in logits],
-                hot=([t.cpu() for t in state["hot_buf"][1:]]
+                               device=dev)[sel] if prefetch else None)
+        state, lg = m.decode(p, state, tok, **(
+            dict(pf_budget=budget) if prefetch else {}))
+        logits.append(lg.float().cpu())
+    return dict(lanes=list(lanes), logits=logits,
+                hot=([t.cpu() for t in state["hot_buf"]]
                      if "hot_buf" in state else []),
                 pool=(state["kv_pool"].float().cpu()
                       if "kv_pool" in state else None),
-                rec=[t.float().cpu() for t in _rec_leaves(state)])
+                rec=[t.float().cpu() for t in _rec_leaves(state)],
+                self_kv=(state["self_kv"].float().cpu()
+                         if "self_kv" in state else None))
 
 
-def small_runs(torch, cfg, *, mode: str = "sac", prompt_len: int = 40,
-               pool_len: int = 64, prefetch: bool = False,
-               devices=("cpu", "cuda")):
+def small_runs(torch, cfg, *, mode: str = "sac", devices=("cpu", "cuda"),
+               **kw):
     """small_check's three runs on the same weights: ``devices[0]`` (the
     CPU's plain path), ``devices[1]`` (the card) and the card with the
-    weights rounded through e4m3 (the control)."""
+    weights rounded through e4m3 (the control); ``kw``: ``_small_run``'s
+    options."""
     params = _small_params(torch, cfg, mode)
-    kw = dict(mode=mode, prompt_len=prompt_len, pool_len=pool_len,
-              prefetch=prefetch)
-    return [_small_run(torch, cfg, params, dev, degrade=degrade, **kw)
+    return [_small_run(torch, cfg, params, dev, mode=mode, degrade=degrade,
+                       **kw)
             for dev, degrade in [(d, False) for d in devices]
             + [(devices[1], True)]]
 
 
-def small_check(torch, cfg, *, mode: str = "sac", prompt_len: int = 40,
+def small_check(torch, cfg, *, mode: str = "sac", prompt_len=40,
                 pool_len: int = 64, prefetch: bool = False,
-                devices=("cpu", "cuda"), runs=None):
+                devices=("cpu", "cuda"), runs=None,
+                injected: bool = True):
     """``cfg`` on the card against the same weights on the CPU (QKV
     biases, where the config has them, set non-zero): per-request
-    relative L2 error of the logits, the pool (where the model has one)
-    and each leaf of the recurrent state ``rec_*`` (where it has one)
-    within SMALL_TOL (bf16 activations round at other places in cuBLAS and on
-    the CPU; about 1e-2 is typical), and in SAC mode the hot-tier
-    integer state exact under an injected top-k.  Lane 1 holds the
-    prompt, lane 0 is empty; the recurrent state starts from zeros, as
-    the engine's splice of a prefill leaves it.
+    relative L2 error of the logits, the pool (where the model has one),
+    ``self_kv`` (where it has one) and each leaf of the recurrent state
+    ``rec_*`` (where it has one) within SMALL_TOL (bf16 activations round
+    at other places in cuBLAS and on the CPU; about 1e-2 is typical),
+    and in a decoder's SAC mode the hot-tier integer state exact under
+    an injected top-k (``injected``).  Lane 1 holds the prompt, lane 0
+    is empty; the recurrent state starts from zeros, as the engine's
+    splice of a prefill leaves it.
 
     A control: the card runs again with the weights rounded through
     e4m3 (``e4m3_weights``), and that run's error against the CPU must
@@ -1206,7 +1289,8 @@ def small_check(torch, cfg, *, mode: str = "sac", prompt_len: int = 40,
     budgets that change every step as the arbiter's grants do, and a
     warm-up plan for lane 1 applied by ``Engine._warm_apply``), so that
     the hot tier, its ``pf_*`` counters included, must match exactly.
-    ``runs``: ``small_runs``' result, made by the caller."""
+    ``runs``: ``small_runs``' result, made by the caller (its options
+    then stand in for these)."""
     if runs is None:
         runs = small_runs(torch, cfg, mode=mode, prompt_len=prompt_len,
                           pool_len=pool_len, prefetch=prefetch,
@@ -1226,14 +1310,14 @@ def small_check(torch, cfg, *, mode: str = "sac", prompt_len: int = 40,
         raise AssertionError(f"{cfg.name} ({mode}): the e4m3 control's "
                              f"error {control_err:.4f} is within "
                              f"{SMALL_TOL}")
-    if mode == "sac" and not ref_run["hot"]:
+    if mode == "sac" and not cfg.enc_dec and not ref_run["hot"]:
         raise AssertionError("no hot tier in the SAC small check")
     if prefetch and not int(dev_run["hot"][-2].sum()):
         raise AssertionError(f"{cfg.name}: nothing was warm-inserted")
-    for a, b in zip(ref_run["hot"], dev_run["hot"]):
-        if not torch.equal(a, b):
-            raise AssertionError(f"{cfg.name}: hot-tier state differs "
-                                 "card vs CPU")
+    if injected and not _state_equal(torch, ref_run["hot"][1:],
+                                     dev_run["hot"][1:]):
+        raise AssertionError(f"{cfg.name}: hot-tier state differs "
+                             "card vs CPU")
     return worst, control_err
 
 
@@ -1257,11 +1341,14 @@ def _rel_l2(got, want) -> float:
 
 def _run_pairs(want, got):
     """(want, got) pairs of two small-check runs: each request's logits
-    at each step, each lane of the pool, each ``rec_*`` leaf."""
+    at each step, each lane of the pool and of ``self_kv``, each
+    ``rec_*`` leaf."""
     pairs = [(a[i], b[i]) for a, b in zip(want["logits"], got["logits"])
              for i in range(a.shape[0])]
-    if want["pool"] is not None:
-        pairs += [(want["pool"][:, i], got["pool"][:, i]) for i in range(2)]
+    for key in ("pool", "self_kv"):
+        if want.get(key) is not None:
+            pairs += [(want[key][:, i], got[key][:, i])
+                      for i in range(want[key].shape[1])]
     return pairs + list(zip(want["rec"], got["rec"]))
 
 
@@ -1453,9 +1540,12 @@ def profile_steps(torch, step, *, n_steps: int, device_kernels, spans,
             raise AssertionError(f"no {key} on the device in the profile")
         ours[key]["us_per_call"] = (ours[key]["seconds"] * 1e6
                                     / ours[key]["calls"])
+    # one aggregation by operator: each key_averages call walks every
+    # event again
+    averages = prof.key_averages()
     # kernel launches the host made through cudaLaunchKernel (the count
     # earlier records give; cuBLAS's cudaLaunchKernelExC apart)
-    launches = {k: sum(e.count for e in prof.key_averages() if e.key == k)
+    launches = {k: sum(e.count for e in averages if e.key == k)
                 for k in ("cudaLaunchKernel", "cudaLaunchKernelExC")}
     kinds = {k: dict(calls=0, host_s=0.0, device_s=0.0, launches=0)
              for k in DECODE_SPANS}
@@ -1491,12 +1581,10 @@ def profile_steps(torch, step, *, n_steps: int, device_kernels, spans,
     host_ops = {e.key: dict(calls=e.count,
                             host_s=e.cpu_time_total * 1e-6,
                             self_host_s=e.self_cpu_time_total * 1e-6)
-                for e in prof.key_averages()
-                if e.key.startswith(COLLECTIVE_OPS)}
+                for e in averages if e.key.startswith(COLLECTIVE_OPS)}
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     # where the host's share goes: operators by their own (self) host time
-    host = sorted((e for e in prof.key_averages()
-                   if e.self_cpu_time_total > 0),
+    host = sorted((e for e in averages if e.self_cpu_time_total > 0),
                   key=lambda e: -e.self_cpu_time_total)[:top]
     return dict(
         decode_steps=n_steps, wall_s=wall_s, device_busy_s=busy_us * 1e-6,
@@ -2157,55 +2245,91 @@ def train_phase(torch, ops, argv=TRAIN_ARGV, device="cuda"):
 # phase 3 (continued): the row movers' shard forms
 # ---------------------------------------------------------------------------
 
-# the sharded pools (name, L, B, S, d, d_idx, model ranks, rank, top-k),
+# the sharded pools (name, L, B, S, d, d_idx or None, model ranks, rank,
+# top-k, forms: "g" the gather, "w" the decode write, "s" the splice),
 # each case one rank's slice.  First the shapes phase 16 hands the
-# kernels, at Qwen2-1.5B's full width: (b) a data slice's 4 lanes over 2
-# model ranks, each rank; (a) 8 lanes on one rank, base 0.  Phase (c)'s
-# small configs follow (``small_shard_shapes``).  Last, two shapes no
-# path on one card runs, those of a 4-card host: Qwen2-1.5B's pool over
-# 4 model ranks and DeepSeek-V3.2's (entries of 576) over 2.
-SHARD_SHAPES = (("qwen2-1.5b/2 (16b)", 28, 4, 8256, 512, 64, 2, 1, 2048),
-                ("qwen2-1.5b/2 (16b)", 28, 4, 8256, 512, 64, 2, 0, 2048),
-                ("qwen2-1.5b/1 (16a)", 28, 8, 8256, 512, 64, 1, 0, 2048),
-                ("qwen2-1.5b/4", 28, 8, 8256, 512, 64, 4, 1, 2048),
-                ("deepseek-v32/2", 2, 4, 4160, 576, 128, 2, 1, 2048))
+# kernels at Qwen2-1.5B's full width: (b) a data slice's 4 lanes over 2
+# model ranks, each rank; (a) and (d) 8 lanes on one rank, base 0; (a)
+# extended's second gather, the speculation tail's 512 rows.  Then two
+# shapes no path on one card runs, those of a 4-card host: Qwen2-1.5B's
+# pool over 4 model ranks and DeepSeek-V3.2's (entries of 576) over 2.
+# ``shard_shapes`` adds phase 16's other runs, read from their serve
+# states.
+SHARD_SHAPES = (
+    ("qwen2-1.5b/2 (16b)", 28, 4, 8256, 512, 64, 2, 1, 2048, "gws"),
+    ("qwen2-1.5b/2 (16b)", 28, 4, 8256, 512, 64, 2, 0, 2048, "gws"),
+    ("qwen2-1.5b/1 (16a, 16d)", 28, 8, 8256, 512, 64, 1, 0, 2048, "gws"),
+    ("qwen2-1.5b/1 tail (16a ext)", 28, 8, 8256, 512, 64, 1, 0, 512, "g"),
+    ("qwen2-1.5b/4", 28, 8, 8256, 512, 64, 4, 1, 2048, "gws"),
+    ("deepseek-v32/2", 2, 4, 4160, 576, 128, 2, 1, 2048, "gws"))
 
 
-def small_shard_shapes(torch):
-    """SHARD_SHAPES' entries of phase 16 (c): each small config's serve
-    state of ``_small_run`` (2 lanes, pool 64) over 2 model ranks, each
-    rank, top-k 16 (``_small_topk``)."""
+def shard_shapes(torch):
+    """SHARD_SHAPES, then the pools of phase 16's other runs, each read
+    from the run's serve state (``init_serve_state`` on the ``meta``
+    device) with the forms the run launches (SAC: the gather; a decoder's
+    pool: the decode write; every sharded state: the splice): (e)
+    Zamba2-7B (4 lanes of 8256, one rank); (f) Whisper-small's cross
+    pools (4 lanes of 32,768 frames, one rank; in ``dense`` mode the kv
+    pool alone, spliced, never gathered); (c) SHARDED_SMALL's small
+    configs (2 lanes, pool 64, top-k 16 over 2 model ranks, each rank);
+    (g) each FAMILY_SMALL case (one lane, pool 64, over 2 model ranks,
+    each rank; top-k 16, and the hierarchical top-k's speculation tail
+    of the small config's width)."""
+    from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
-    out = []
+    out = list(SHARD_SHAPES)
+
+    def add(name, cfg, mode, B, S, n, ks):
+        st = build_model(cfg, mode=mode, device="meta").init_serve_state(
+            B, S, device_buffer=0)
+        L, _, _, d = st["kv_pool"].shape
+        di = st["idx_pool"].shape[-1] if "idx_pool" in st else None
+        forms = (("g" if mode == "sac" else "")
+                 + ("" if cfg.enc_dec else "w") + "s")
+        for rank in range(n):
+            out.append((name, L, B, S, d, di, n, rank, ks[0], forms))
+            out.extend((f"{name} tail", L, B, S, d, di, n, rank, w, "g")
+                       for w in ks[1:])
+    spec = SHARDED_FAMILIES["zamba"]
+    cfg = get_config(spec["arch"])
+    add(f"{cfg.name}/1 (16e)", cfg, "sac", spec["requests"],
+        SHARDED["max_ctx"], 1, [cfg.sac.topk])
+    spec = SHARDED_FAMILIES["whisper"]
+    cfg = get_config(spec["arch"])
+    for mode in ("sac", "dense"):
+        add(f"{cfg.name}/1 (16f {mode})", cfg, mode, spec["requests"],
+            spec["frames"], 1, [cfg.sac.topk])
     for name in SHARDED_SMALL:
-        st = build_model(small_config(name), mode="sac",
-                         device="meta").init_serve_state(2, 64,
-                                                         device_buffer=8)
-        L, B, S, d = st["kv_pool"].shape
-        for rank in (0, 1):
-            out.append((f"{name} small/2 (16c)", L, B, S, d,
-                        st["idx_pool"].shape[-1], 2, rank, 16))
+        add(f"{name} small/2 (16c)", small_config(name), "sac", 2, 64, 2,
+            [16])
+    for case, kw in FAMILY_SMALL.items():
+        cfg = small_config(kw["arch"])
+        add(f"{case} small/2 (16g)", cfg, kw["mode"], 1, 64, 2,
+            [16] + ([cfg.sac.prefetch_width] if kw.get("hier_tail")
+                    else []))
     return tuple(out)
 
 
 def check_shard_forms(torch, ref, gather_mod, scatter_mod):
-    """The three shard forms at SHARD_SHAPES and ``small_shard_shapes``
-    in bf16 and with e4m3 entries, bit-exact against their plain versions
-    (``ref``), each timed per call and batched, beside its plain version,
-    one library call for the same result and its bound (the bytes this
-    case's data moves: only the rows the slice holds are read or
-    written):
+    """The three shard forms at ``shard_shapes``' shapes (each the forms
+    phase 16 gives it) in bf16 and with e4m3 entries, bit-exact against
+    their plain versions (``ref``), each timed per call and batched,
+    beside its plain version, one library call for the same result and
+    its bound (the bytes this case's data moves: only the rows the slice
+    holds are read or written):
 
     - the gather's shard form (top-k rows a request, global indices over
       the whole pool, about 1/ranks of them in the slice; the batched run
       cycles through copies of the slice so each call reads from HBM),
       beside the row form on the same slice at equal rows (``ms_rows``:
       every row read) and ``torch.where`` over ``torch.gather``;
-    - the decode write's shard form (both pools, every layer, one launch;
+    - the decode write's shard form (the run's pools: the kv pool and,
+      where it has one, the indexer pool; every layer, one launch;
       positions at the slice's edges and past the pool), beside
       ``index_copy_`` of the rows the slice owns;
     - the splice's shard form (a serve state's whole pools [L, B, S, d]
-      into the slice, both pools), beside ``copy_``; also checked (not
+      into the slice, the run's pools), beside ``copy_``; also checked (not
       timed) with a prompt that ends inside the last slice (zeros past
       it).
 
@@ -2216,11 +2340,11 @@ def check_shard_forms(torch, ref, gather_mod, scatter_mod):
     g = torch.Generator(device=dev).manual_seed(20)
     recs = {}
     gathers, writes, splices = [], [], []
-    for name, L, B, S, d, di, n, rank, k in (SHARD_SHAPES
-                                             + small_shard_shapes(torch)):
+    for name, L, B, S, d, di, n, rank, k, forms in shard_shapes(torch):
         S_l = S // n
         base = rank * S_l
-        for dtype in (torch.bfloat16, E4M3):
+        idx_pool = [] if di is None else [(L, B, S_l, di)]
+        for dtype in (torch.bfloat16, E4M3) if "g" in forms else ():
             kv = _rand_pool(torch, g, (B, S_l, d), dtype)
             idx = torch.randint(0, S, (B, k), generator=g, device=dev,
                                 dtype=torch.int32)
@@ -2229,17 +2353,17 @@ def check_shard_forms(torch, ref, gather_mod, scatter_mod):
             gathers.append(_gather_shard_case(torch, ref, gather_mod, name,
                                               kv, idx, base))
             del kv
-        pools = [_rand_pool(torch, g, (L, B, S_l, d), torch.bfloat16),
-                 _rand_pool(torch, g, (L, B, S_l, di), torch.bfloat16)]
-        writes.append(_write_shard_case(torch, ref, scatter_mod, name,
-                                        pools, base, S))
-        pools[0] = _rand_pool(torch, g, (L, B, S_l, d), E4M3)
-        writes.append(_write_shard_case(torch, ref, scatter_mod, name,
-                                        pools, base, S))
-        del pools
-        for dtype in (torch.bfloat16, E4M3):
-            srcs = [_rand_pool(torch, g, (L, B, S, d), dtype),
-                    _rand_pool(torch, g, (L, B, S, di), torch.bfloat16)]
+        for dtype in (torch.bfloat16, E4M3) if "w" in forms else ():
+            pools = [_rand_pool(torch, g, shape, dt) for shape, dt in
+                     [((L, B, S_l, d), dtype)]
+                     + [(sh, torch.bfloat16) for sh in idx_pool]]
+            writes.append(_write_shard_case(torch, ref, scatter_mod, name,
+                                            pools, base, S))
+            del pools
+        for dtype in (torch.bfloat16, E4M3) if "s" in forms else ():
+            srcs = [_rand_pool(torch, g, shape, dt) for shape, dt in
+                    [((L, B, S, d), dtype)]
+                    + [((L, B, S, di), torch.bfloat16)] * bool(idx_pool)]
             splices.append(_splice_shard_case(torch, ref, scatter_mod, name,
                                               srcs, base, S_l))
             # a prompt that ends inside the last slice: the serve
@@ -2310,7 +2434,8 @@ def _write_shard_case(torch, ref, mod, name, pools, base, S):
     g = torch.Generator(device=dev).manual_seed(S_l)
     entries = [_rand_pool(torch, g, (L, B, p.shape[-1]), p.dtype)
                for p in pools]
-    edges = [base - 1, base, base + S_l - 1, base + S_l, S + 3, -1]
+    # the slice's first row first: a lane of one writes into the slice
+    edges = [base, base - 1, base + S_l - 1, base + S_l, S + 3, -1]
     pos = torch.randint(0, S, (B,), generator=g, device=dev,
                         dtype=torch.int32)
     pos[:min(B, len(edges))] = torch.tensor(edges[:B], device=dev)
@@ -2329,7 +2454,7 @@ def _write_shard_case(torch, ref, mod, name, pools, base, S):
     lanes = torch.arange(L * B, device=dev).reshape(L, B)
     rows = (lanes * S_l + local.clamp(0, S_l - 1))[:, owned].reshape(-1)
     flat = [p.view(-1, p.shape[-1]).view(torch.uint8) for p in pools]
-    e_own = [e[:, owned].reshape(rows.shape[0], -1).view(torch.uint8)
+    e_own = [e[:, owned].reshape(-1, e.shape[-1]).view(torch.uint8)
              for e in entries]
     n_own = rows.shape[0]
     nb = B * 4 + sum(2 * n_own * e.shape[-1] * e.element_size()
@@ -2458,22 +2583,26 @@ def _decode_steps(torch, m, params, state, tok, n: int):
     return state, tok, logits, toks, step_s
 
 
-def _state_lanes(torch, state, lanes):
+def _state_lanes(torch, state, lanes, segments=()):
     """A copy of a serve state's ``lanes`` (the hot tier's and the
-    per-layer counters' lane axis is 1)."""
+    per-layer counters' lane axis is 1; a Mamba2 state ``rec_{si}``'s is
+    2 in a ``zamba_super`` segment, [n, a, B, ...], and 1 in a
+    ``mamba_tail``, [n, B, ...]: ``segments``, the model's)."""
     from repro_torch.core.hisparse import BufferState
     idx = torch.as_tensor(lanes, device=state["cache_len"].device)
     out = {}
     for k, v in state.items():
         if k == "hot_buf":
             out[k] = BufferState(*(t.index_select(1, idx) for t in v))
+        elif k.startswith("rec_"):
+            kind = segments[int(k[4:])].kind
+            if kind not in ("zamba_super", "mamba_tail"):
+                raise ValueError(f"no lane copy of a {kind} state")
+            axis = 2 if kind == "zamba_super" else 1
+            out[k] = tuple(t.index_select(axis, idx) for t in v)
         else:
             out[k] = v.index_select(1 if v.dim() > 1 else 0, idx)
     return out
-
-
-def _hot_equal(torch, a, b) -> bool:
-    return all(_equal_bits(torch, x, y) for x, y in zip(a, b))
 
 
 def _median(xs):
@@ -2508,14 +2637,16 @@ def sharded_nccl(torch, ops):
     logits bit-equal, the hot tier (page table, slots, LRU clocks,
     ``pf_*``) and the hit counts equal; every layer of every step through
     the gather's and the decode write's shard forms; a profile of two
-    more steps of each (NCCL's kernels, where any ran, reported).  Then, for phase (b), each data slice's 4 lanes
-    alone, unsharded, 4 steps (the batch of a GEMM changes its bits on
-    the card).  Returns the record, phase (b)'s references and the shard
-    forms' launches."""
+    more steps of each (NCCL's kernels, where any ran, reported), all by
+    ``_twin_runs``.  Then, for phase (b), each data
+    slice's 4 lanes alone, unsharded, 4 steps (the batch of a GEMM
+    changes its bits on the card).  Returns the record, phase (b)'s
+    references and the shard forms' launches.  In the same NCCL world it
+    then runs (a) extended, (d), (e) and (f); the launches returned are
+    a list, one dict each run."""
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.core.pool import make_pooled_fetch
-    from repro_torch.distributed.sharding import shard_serve_state
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.model import build_model
     cfg = get_config(SHARDED["arch"])
@@ -2535,46 +2666,21 @@ def sharded_nccl(torch, ops):
                                   range(SHARDED["requests"]))
         prefill_s = time.perf_counter() - t0
         lanes = list(range(SHARDED["requests"]))
-        ops.reset_launch_counts()
-        st_u, tok_u, lg_u, tk_u, wall_u = _decode_steps(
-            torch, m, params, _state_lanes(torch, s0, lanes), tok0, n)
-        counts_u = ops.launch_counts()
-        ops.reset_launch_counts()
-        st_s, tok_s, lg_s, tk_s, wall_s = _decode_steps(
-            torch, ms, params,
-            shard_serve_state(_state_lanes(torch, s0, lanes), mesh), tok0, n)
-        counts_s = ops.launch_counts()
-        equal = dict(
-            tokens=all(torch.equal(a, b) for a, b in zip(tk_u, tk_s)),
-            logits=all(_equal_bits(torch, a, b) for a, b in zip(lg_u, lg_s)),
-            hot_tier=_hot_equal(torch, st_u["hot_buf"], st_s["hot_buf"]),
-            counters=all(torch.equal(st_u[k], st_s[k]) for k in (
-                "buf_hits", "buf_misses", "buf_hits_l", "buf_misses_l",
-                "pf_inserted", "pf_useful")),
-            pools=all(_equal_bits(torch, st_u[k], st_s[k])
-                      for k in ("kv_pool", "idx_pool")))
-        want = {"gather_kv.shard": n * L, "gather_kv.rows": 0,
-                "indexer_scores": n * L, "sparse_attn_gqa": n * L,
-                "scatter_kv.rows_at_shard": n, "scatter_kv.rows_at": 0,
-                "scatter_kv.splice_shard": 1}
-        bad = {k: counts_s[k] for k, v in want.items() if counts_s[k] != v}
-        kernels = GQA_DEVICE_KERNELS
-        t0 = time.perf_counter()
-        state = {"u": st_u, "s": st_s}
-        tok = {"u": tok_u, "s": tok_s}
-
-        def step(key, model):
-            state[key], lg = model.decode(params, state[key], tok[key])
-            tok[key] = lg.argmax(-1).to(torch.int32)
-        n_prof = 2
-        prof_u = profile_steps(torch, lambda: step("u", m), n_steps=n_prof,
-                               device_kernels=kernels,
-                               spans={"pool_layer": L})
-        prof_s = profile_steps(torch, lambda: step("s", ms), n_steps=n_prof,
-                               device_kernels=kernels,
-                               spans={"pool_layer": L}, report=("nccl",))
-        profile_s = time.perf_counter() - t0
-        del st_u, st_s, state
+        rec, lg_u = _twin_runs(
+            torch, ops, "nccl_world_1", mesh, (m, ms), params,
+            [_state_lanes(torch, s0, lanes) for _ in range(2)], tok0, n,
+            spans={"pool_layer": L}, kernels=GQA_DEVICE_KERNELS,
+            want={"gather_kv.shard": n * L, "gather_kv.rows": 0,
+                  "indexer_scores": n * L, "sparse_attn_gqa": n * L,
+                  "scatter_kv.rows_at_shard": n, "scatter_kv.rows_at": 0},
+            keys=("hot_buf", "buf_hits", "buf_misses", "buf_hits_l",
+                  "buf_misses_l", "pf_inserted", "pf_useful", "kv_pool",
+                  "idx_pool"),
+            extra=dict(config=f"{cfg.name} (n_layers={L}, d_model="
+                       f"{cfg.d_model})", requests=SHARDED["requests"],
+                       context=SHARDED["context"],
+                       pool_len=SHARDED["max_ctx"], prefill_s=prefill_s,
+                       collectives=facts), t0=t0)
         refs = []
         nd = SHARDED["mesh_gloo"][0]
         per = SHARDED["requests"] // nd
@@ -2585,48 +2691,23 @@ def sharded_nccl(torch, ops):
                 tok0[d * per:(d + 1) * per].contiguous(),
                 SHARDED["steps_gloo"])
             refs.append(dict(lanes=group, logits=lg, tokens=tk,
-                             hot=[t.cpu() for t in st["hot_buf"][1:]],
+                             hot=[t.cpu() for t in st["hot_buf"]],
                              same_as_8_lanes=all(
                                  _equal_bits(torch, a, b[d * per:
                                                          (d + 1) * per])
                                  for a, b in zip(lg, lg_u))))
             del st
-        rec = dict(
-            phase="sharded", run="nccl_world_1", mesh=[1, 1],
-            backend=dist.get_backend(), config=f"{cfg.name} (n_layers={L}, "
-            f"d_model={cfg.d_model})", requests=SHARDED["requests"],
-            context=SHARDED["context"], pool_len=SHARDED["max_ctx"],
-            decode_steps=n, prefill_s=prefill_s, equal=equal,
-            wall_s_per_decode_step_median=_median(wall_s),
-            wall_s_per_decode_step_median_unsharded=_median(wall_u),
-            launches=counts_s, launches_unsharded=counts_u,
-            profiled_steps=n_prof,
-            device_ms_per_step=prof_s["device_busy_s"] * 1e3 / n_prof,
-            device_ms_per_step_unsharded=(prof_u["device_busy_s"] * 1e3
-                                          / n_prof),
-            nccl_kernels=prof_s["reported"]["nccl"],
-            collective_host_ops=prof_s["host_ops"],
-            launches_per_step=prof_s["launches_per_step"],
-            launches_per_step_unsharded=prof_u["launches_per_step"],
-            launches_ex_per_step=prof_s["launches_ex_per_step"],
-            launches_ex_per_step_unsharded=prof_u["launches_ex_per_step"],
-            device_busy_share=prof_s["device_busy_share"],
-            device_busy_share_unsharded=prof_u["device_busy_share"],
-            port_kernels=prof_s["port_kernels"],
-            port_kernels_unsharded=prof_u["port_kernels"],
-            top_kernels=prof_s["top_kernels"],
-            lane_groups_same_as_8_lanes=[r["same_as_8_lanes"] for r in refs],
-            collectives=facts,
-            profile_s=profile_s)
-        emit(rec)
-        if not all(equal.values()):
-            raise AssertionError(f"sharded (NCCL, world 1) differs from the "
-                                 f"unsharded decode: {equal}")
-        if bad:
-            raise AssertionError(f"sharded (NCCL) launches {bad}, want "
-                                 f"{want}")
+        # (a) extended, then (d): the same weights and prefilled lanes
+        more = [sharded_prefetch_hier(torch, ops, mesh, cfg, params, s0,
+                                      tok0),
+                sharded_dense(torch, ops, mesh, cfg, params, s0, tok0)]
         del s0, m, ms, params
-        return rec, dict(refs=refs, tok0=tok0.cpu()), counts_s
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (e), (f)
+        more.append(sharded_zamba(torch, ops, mesh))
+        more += sharded_whisper(torch, ops, mesh)
+        return rec, dict(refs=refs, tok0=tok0.cpu()), [rec["launches"]] + more
     finally:
         dist.destroy_process_group()
         gc.collect()
@@ -2670,7 +2751,7 @@ def _sharded_rank(rank, world, port, out_dir):
         torch.save(dict(
             lanes=lanes, model_rank=mesh.get_local_rank("model"),
             tok0=tok0.cpu(), logits=logits, tokens=toks, step_s=step_s,
-            hot=[t.cpu() for t in state["hot_buf"][1:]],
+            hot=[t.cpu() for t in state["hot_buf"]],
             pool_rows=state["kv_pool"].shape[2],
             launches=ops.launch_counts(), collectives=facts,
             peak_bytes=torch.cuda.max_memory_allocated()),
@@ -2743,7 +2824,7 @@ def sharded_gloo(torch, refs):
                                                          ref["tokens"])),
             logits=all(_equal_bits(torch, a, b) for a, b in zip(
                 res["logits"], ref["logits"])),
-            hot_tier=_hot_equal(torch, res["hot"], ref["hot"]),
+            hot_tier=_state_equal(torch, res["hot"], ref["hot"]),
             wall_s_per_decode_step_median=_median(res["step_s"]),
             peak_bytes=res["peak_bytes"]))
     launches = {k: sum(res["launches"][k] for res in ranks)
@@ -2755,6 +2836,8 @@ def sharded_gloo(torch, refs):
     rec = dict(phase="sharded", run="gloo_4_ranks_one_card", mesh=[2, 2],
                backend="gloo", config=SHARDED["arch"], decode_steps=steps,
                ranks=checks, launches=launches,
+               lane_groups_same_as_8_lanes=[r["same_as_8_lanes"]
+                                            for r in refs["refs"]],
                collectives=ranks[0]["collectives"], seconds=seconds)
     emit(rec)
     failed = [c for c in checks
@@ -2783,7 +2866,7 @@ def sharded_small(torch):
         equal = dict(
             logits=all(all(torch.equal(a, b) for a, b in zip(
                 g["logits"], card["logits"])) for g in got),
-            hot_tier=all(_hot_equal(torch, g["hot"], card["hot"])
+            hot_tier=all(_state_equal(torch, g["hot"], card["hot"])
                          for g in got),
             pool=torch.equal(torch.cat([g["pool"] for g in got], 2),
                              card["pool"]))
@@ -2796,6 +2879,503 @@ def sharded_small(torch):
             raise AssertionError(f"small {name} sharded differs: {equal}")
 
 
+# ---------------------------------------------------------------------------
+# phase 16 (a)-(f): the sharded pool's other paths at one NCCL rank
+# ---------------------------------------------------------------------------
+
+# the paths' device kernels, dense mode's (attention and decode write)
+DENSE_DEVICE_KERNELS = ("sparse_gqa_partial_kernel",
+                        "sparse_attn_combine_kernel", "write_rows_at")
+# (a) extended: the fetch pipeline's speculation width, 4 steps; (d)
+# Qwen2-1.5B in dense mode, 8 steps; (e) Zamba2-7B, 4 requests of 8192
+# (hot tier 6144), 4 steps; (f) Whisper-small, 4 requests of 32,768
+# frames, 8 steps in sac and in dense mode
+SHARDED_FAMILIES = dict(prefetch_steps=4, dense_steps=8,
+                        zamba=dict(arch="zamba2-7b", requests=4, steps=4),
+                        whisper=dict(arch="whisper-small", requests=4,
+                                     frames=32768, steps=8))
+
+
+def _twin_runs(torch, ops, run, mesh, models, params, states, tok0, n, *,
+               spans, kernels, want, keys, t0, extra=None, post=None):
+    """Phase 16's comparison at one NCCL rank: ``n`` greedy decode steps
+    of the unsharded model ``models[0]`` on ``states[0]`` and of the
+    sharded one on ``states[1]`` (a copy of the same lanes, its pools cut
+    by ``shard_serve_state`` inside the sharded run's count: one splice
+    launch): tokens, logits and the state entries ``keys`` bit-equal,
+    the sharded run's launches at ``want``; then a profile of two more
+    steps of each (median step, device ms and launches a step, the
+    collectives' host time).  ``post(state)`` adds
+    facts of the sharded run's state after its steps to the record;
+    ``t0`` is when the caller began the run (its seconds, set-up
+    included).  Returns the record (``launches``: the sharded run's) and
+    the unsharded run's logits."""
+    from repro_torch.distributed.sharding import shard_serve_state
+    ops.reset_launch_counts()
+    st_u, tok_u, lg_u, tk_u, wall_u = _decode_steps(
+        torch, models[0], params, states[0], tok0, n)
+    counts_u = ops.launch_counts()
+    ops.reset_launch_counts()
+    st_s, tok_s, lg_s, tk_s, wall_s = _decode_steps(
+        torch, models[1], params, shard_serve_state(states[1], mesh), tok0,
+        n)
+    counts_s = ops.launch_counts()
+    equal = dict(
+        tokens=all(torch.equal(a, b) for a, b in zip(tk_u, tk_s)),
+        logits=all(_equal_bits(torch, a, b) for a, b in zip(lg_u, lg_s)),
+        **{k: _state_equal(torch, st_u[k], st_s[k]) for k in keys})
+    want = dict(want, **{"scatter_kv.splice_shard": 1})
+    bad = {k: counts_s[k] for k, v in want.items() if counts_s[k] != v}
+    after = post(st_s) if post is not None else {}
+    state = {"u": st_u, "s": st_s}
+    tok = {"u": tok_u, "s": tok_s}
+
+    def step(key, model):
+        state[key], lg = model.decode(params, state[key], tok[key])
+        tok[key] = lg.argmax(-1).to(torch.int32)
+    t_prof = time.perf_counter()
+    n_prof = 2
+    prof = {key: profile_steps(torch, lambda key=key, mm=mm: step(key, mm),
+                               n_steps=n_prof, device_kernels=kernels,
+                               spans=spans, report=("nccl",))
+            for key, mm in (("u", models[0]), ("s", models[1]))}
+    rec = dict(
+        phase="sharded", run=run, mesh=[1, 1], backend="nccl",
+        decode_steps=n, equal=equal,
+        wall_s_per_decode_step_median=_median(wall_s),
+        wall_s_per_decode_step_median_unsharded=_median(wall_u),
+        launches=counts_s, launches_unsharded=counts_u,
+        profiled_steps=n_prof,
+        device_ms_per_step=prof["s"]["device_busy_s"] * 1e3 / n_prof,
+        device_ms_per_step_unsharded=(prof["u"]["device_busy_s"] * 1e3
+                                      / n_prof),
+        launches_per_step=prof["s"]["launches_per_step"],
+        launches_per_step_unsharded=prof["u"]["launches_per_step"],
+        launches_ex_per_step=prof["s"]["launches_ex_per_step"],
+        launches_ex_per_step_unsharded=prof["u"]["launches_ex_per_step"],
+        device_busy_share=prof["s"]["device_busy_share"],
+        device_busy_share_unsharded=prof["u"]["device_busy_share"],
+        nccl_kernels=prof["s"]["reported"]["nccl"],
+        collective_host_ops=prof["s"]["host_ops"],
+        port_kernels=prof["s"]["port_kernels"],
+        port_kernels_unsharded=prof["u"]["port_kernels"],
+        top_kernels=prof["s"]["top_kernels"],
+        layer_kinds=prof["s"]["layer_kinds"],
+        layer_kinds_unsharded=prof["u"]["layer_kinds"],
+        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+        profile_s=time.perf_counter() - t_prof,
+        seconds=time.perf_counter() - t0, **after, **(extra or {}))
+    emit(rec)
+    if not all(equal.values()):
+        raise AssertionError(f"sharded {run} differs from the unsharded "
+                             f"decode: {equal}")
+    if bad:
+        raise AssertionError(f"sharded {run} launches {bad}, want {want}")
+    return rec, lg_u
+
+
+def sharded_prefetch_hier(torch, ops, mesh, cfg, params, s0, tok0):
+    """Phase 16 (a) extended: Qwen2-1.5B's 8 lanes with the fetch
+    pipeline's speculation (w = the config's 512, its score margin) and
+    the hierarchical top-k at one NCCL rank, against the unsharded fused
+    selection: tokens, logits, hot tier (``pf_*`` included) and counters
+    bit-equal; the speculation must warm-insert.  The sharded fetch is
+    two shard-form gathers a layer (the demand set, then the tail)."""
+    from repro_torch.core.pool import make_pooled_fetch
+    from repro_torch.core.topk import make_hierarchical_topk
+    from repro_torch.models.model import build_model
+    t0 = time.perf_counter()
+    L, n = cfg.n_layers, SHARDED_FAMILIES["prefetch_steps"]
+    opts = dict(prefetch_width=cfg.sac.prefetch_width,
+                score_margin=cfg.sac.score_margin)
+    m_u = build_model(cfg, opts=opts)
+    m_s = build_model(cfg, fetch_fn=make_pooled_fetch(mesh), opts=opts,
+                      topk_fn=make_hierarchical_topk(mesh, cfg.sac.topk))
+    lanes = list(range(SHARDED["requests"]))
+    rec, _ = _twin_runs(
+        torch, ops, "nccl_world_1_prefetch_hier", mesh, (m_u, m_s), params,
+        [_state_lanes(torch, s0, lanes) for _ in range(2)], tok0, n,
+        spans={"pool_layer": L},
+        kernels=GQA_DEVICE_KERNELS,
+        want={"gather_kv.shard": 2 * n * L, "gather_kv.rows": 0,
+              "indexer_scores": n * L, "sparse_attn_gqa": n * L,
+              "scatter_kv.rows_at_shard": n, "scatter_kv.rows_at": 0},
+        keys=("hot_buf", "buf_hits", "buf_misses", "buf_hits_l",
+              "buf_misses_l", "pf_inserted", "pf_useful", "kv_pool",
+              "idx_pool"),
+        extra=dict(config=cfg.name, prefetch_width=opts["prefetch_width"],
+                   score_margin=opts["score_margin"]), t0=t0,
+        post=lambda st: dict(pf_inserted=int(st["hot_buf"].pf_inserted.sum()),
+                             pf_used=int(st["hot_buf"].pf_used.sum())))
+    if not rec["pf_inserted"]:
+        raise AssertionError("(a) extended: nothing was warm-inserted")
+    return rec["launches"]
+
+
+def sharded_dense(torch, ops, mesh, cfg, params, s0, tok0):
+    """Phase 16 (d): Qwen2-1.5B in ``dense`` mode, 8 lanes of 8192 in a
+    pool of 8256, at one NCCL rank: each layer all-gathered
+    (``PoolShard.gather_pool``: at one rank a copy) before the unsharded
+    dense attention; tokens, logits and pools bit-equal to the unsharded
+    dense decode; no gather or indexer launch, one decode write (shard
+    form) a step."""
+    from repro_torch.core.pool import make_pooled_fetch
+    from repro_torch.models.model import build_model
+    t0 = time.perf_counter()
+    L, n = cfg.n_layers, SHARDED_FAMILIES["dense_steps"]
+    m_u = build_model(cfg, mode="dense")
+    m_s = build_model(cfg, mode="dense", fetch_fn=make_pooled_fetch(mesh))
+    keep = ("kv_pool", "idx_pool", "cache_len")
+    lanes = list(range(SHARDED["requests"]))
+
+    rec, _ = _twin_runs(
+        torch, ops, "nccl_world_1_dense", mesh, (m_u, m_s), params,
+        [_state_lanes(torch, {k: s0[k] for k in keep}, lanes)
+         for _ in range(2)], tok0, n, spans={"pool_layer": L},
+        kernels=DENSE_DEVICE_KERNELS,
+        want={"gather_kv": 0, "indexer_scores": 0, "sparse_attn_gqa": n * L,
+              "scatter_kv.rows_at_shard": n, "scatter_kv.rows_at": 0},
+        keys=("kv_pool", "idx_pool", "cache_len"),
+        extra=dict(config=cfg.name, mode="dense",
+                   gathered_bytes_per_layer=s0["kv_pool"][0].nbytes), t0=t0)
+    return rec["launches"]
+
+
+def sharded_zamba(torch, ops, mesh):
+    """Phase 16 (e): Zamba2-7B at full width and depth (81 Mamba2 and 13
+    pool layers), 4 requests of 8192 tokens, hot tier 6144, at one NCCL
+    rank: tokens, logits, hot tier, counters, ``rec_*`` and pools
+    bit-equal to the unsharded run; every pool layer of every step
+    through the gather's and the decode write's shard forms."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pool import make_pooled_fetch
+    from repro_torch.models.model import build_model
+    spec = SHARDED_FAMILIES["zamba"]
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(spec["arch"])
+    m_u = build_model(cfg)
+    params = m_u.init(torch.Generator(device="cuda").manual_seed(0))
+    m_s = build_model(cfg, fetch_fn=make_pooled_fetch(mesh))
+    lanes = list(range(spec["requests"]))
+    s0, tok0 = _sharded_state(torch, m_u, params, _sharded_prompts(cfg),
+                              lanes)
+    L, n = m_u.n_kv, spec["steps"]
+    recs = tuple(k for k in s0 if k.startswith("rec_"))
+    rec, _ = _twin_runs(
+        torch, ops, "nccl_world_1_zamba2", mesh, (m_u, m_s), params,
+        [s0, _state_lanes(torch, s0, lanes, m_u.segments)], tok0, n,
+        spans={"pool_layer": L, "mamba2_layer": cfg.n_layers},
+        kernels=GQA_DEVICE_KERNELS,
+        want={"gather_kv.shard": n * L, "gather_kv.rows": 0,
+              "indexer_scores": n * L, "sparse_attn_gqa": n * L,
+              "scatter_kv.rows_at_shard": n, "scatter_kv.rows_at": 0},
+        keys=("hot_buf", "buf_hits", "buf_misses", "kv_pool", "idx_pool")
+        + recs,
+        extra=dict(config=f"{cfg.name} (n_layers={cfg.n_layers}, pool "
+                   f"layers {L}, d_model={cfg.d_model})",
+                   requests=spec["requests"], context=SHARDED["context"],
+                   rec_keys=list(recs)), t0=t0)
+    del s0, m_u, m_s, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec["launches"]
+
+
+def sharded_whisper(torch, ops, mesh):
+    """Phase 16 (f): Whisper-small at full width and depth, 4 requests of
+    32,768 frames each prefilled alone and spliced into its lane, at one
+    NCCL rank, 8 decode steps in ``sac`` and in ``dense`` mode: tokens,
+    logits, ``self_kv``, ``dec_len`` and pools bit-equal to the unsharded
+    facade run; launches a step as phase 14's (the gather in its shard
+    form in SAC mode; dense mode no indexer and no gather)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pool import make_pooled_fetch, pool_splice_lane
+    from repro_torch.models.model import build_model
+    spec = SHARDED_FAMILIES["whisper"]
+    t0 = time.perf_counter()
+    cfg = get_config(spec["arch"])
+    B, S, n, L = spec["requests"], spec["frames"], spec["steps"], cfg.n_layers
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    s0 = model.init_serve_state(B, S)
+    pools = ["kv_pool", "idx_pool"]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for b in range(B):
+        frames = torch.randn((1, S, cfg.d_model), generator=g,
+                             device="cuda").bfloat16()
+        st, _ = model.prefill(params, frames)
+        pool_splice_lane([s0[k] for k in pools], [st[k] for k in pools],
+                         lane=b)
+        s0["cache_len"][b] = st["cache_len"][0]
+        del st, frames
+    prefill_s = time.perf_counter() - t0
+    tok0 = torch.arange(B, dtype=torch.int32, device="cuda")
+    lanes = list(range(B))
+    counts = []
+    for mode in ("sac", "dense"):
+        t1 = time.perf_counter()
+        keep = [k for k in s0 if mode == "sac" or k != "idx_pool"]
+        m_u = build_model(cfg, mode=mode)
+        m_s = build_model(cfg, mode=mode, fetch_fn=make_pooled_fetch(mesh))
+        sac = mode == "sac"
+        rec, _ = _twin_runs(
+            torch, ops, f"nccl_world_1_whisper_{mode}", mesh, (m_u, m_s),
+            params, [_state_lanes(torch, {k: s0[k] for k in keep}, lanes)
+                     for _ in range(2)], tok0, n,
+            spans={"pool_layer": L},
+            kernels=(GQA_DEVICE_KERNELS if sac else DENSE_DEVICE_KERNELS),
+            want={"indexer_scores": L * n if sac else 0,
+                  "gather_kv.shard": L * n if sac else 0,
+                  "gather_kv.rows": 0, "sparse_attn_gqa": 2 * L * n,
+                  "scatter_kv.rows_at": n, "scatter_kv.rows_at_shard": 0},
+            keys=("self_kv", "dec_len", "cache_len") + tuple(
+                k for k in pools if k in keep),
+            extra=dict(config=f"{cfg.name} (n_enc_layers="
+                       f"{cfg.n_enc_layers}, n_layers={L})", mode=mode,
+                       requests=B, frames=S, prefill_s=prefill_s), t0=t1)
+        counts.append(rec["launches"])
+    del s0, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 16 (g): the sharded families, small, four gloo ranks on the card
+# ---------------------------------------------------------------------------
+
+# case -> the small config and ``_small_run``'s options: mesh (data 2,
+# model 2), one lane a data rank (Qwen2-1.5B's B = 1 replicated over
+# data: the same lane 0 on every rank, ``batch_axes=()``), prompts of 40
+# and 31 tokens in a pool of 64 (encoder 64 and 40 frames), hot tier 24
+# (room beside a top-k of 16 for the tail), 4 decode steps; the
+# hierarchical top-k with the speculation tail selects by score, every
+# other SAC case by small_check's injected top-k
+FAMILY_SMALL = {"qwen2-dense": dict(arch="qwen2-1.5b", mode="dense"),
+                "zamba2": dict(arch="zamba2-7b", mode="sac"),
+                "whisper-sac": dict(arch="whisper-small", mode="sac"),
+                "whisper-dense": dict(arch="whisper-small", mode="dense"),
+                "qwen2-replicated": dict(arch="qwen2-1.5b", mode="sac",
+                                         batch_axes=()),
+                "qwen2-hier-tail": dict(arch="qwen2-1.5b", mode="sac",
+                                        hier_tail=True)}
+
+
+def _family_case(case):
+    """A FAMILY_SMALL case's small config and ``_small_run`` options."""
+    kw = dict(FAMILY_SMALL[case])
+    cfg = small_config(kw.pop("arch"))
+    kw.update(prompt_len=(40, 31), pool_len=64,
+              device_buffer=24 if kw["mode"] == "sac" else 0)
+    return cfg, kw
+
+
+def sharded_small_cases(torch, dev, mesh):
+    """Phase 16 (g), one rank: every FAMILY_SMALL case on this rank's
+    lanes (lane d of data rank d; lane 0 everywhere for the replicated
+    batch) with the pool sharded over ``mesh``'s model axis."""
+    d = mesh.get_local_rank("data")
+    out = {}
+    for case in FAMILY_SMALL:
+        cfg, kw = _family_case(case)
+        lanes = [0] if case == "qwen2-replicated" else [d]
+        out[case] = _small_run(torch, cfg,
+                               _small_params(torch, cfg, kw["mode"]), dev,
+                               lanes=lanes, mesh=mesh, **kw)
+    return out
+
+
+def check_small_cases(torch, ranks, dev, control: bool = False):
+    """Phase 16 (g), the parent: each rank's result of each case (``ranks``
+    in rank order on mesh (2, 2): data-major) against the unsharded run
+    of the same lanes on ``dev``: logits, hot tier, ``rec_*`` and
+    ``self_kv`` bit for bit, the two model ranks' pool slices side by
+    side equal to the unsharded pool.  With ``control`` the unsharded
+    card run is also held by ``small_check`` against the CPU (the hot
+    tier's integer state exact where the selection is injected), beside
+    its e4m3-weights control.  Returns a record a case and lane group;
+    raises on a difference."""
+    report = []
+    for case in FAMILY_SMALL:
+        cfg, kw = _family_case(case)
+        groups = {}
+        for res in ranks:
+            groups.setdefault(tuple(res[case]["lanes"]), []).append(
+                res[case])
+        for lanes, group in groups.items():
+            t0 = time.perf_counter()
+            runs = (small_runs(torch, cfg, devices=("cpu", dev),
+                               lanes=lanes, **kw) if control else
+                    [None, _small_run(torch, cfg,
+                                      _small_params(torch, cfg, kw["mode"]),
+                                      dev, lanes=lanes, **kw)])
+            want = runs[1]
+            # each data rank's two model ranks, in model order
+            halves = [group[i:i + 2] for i in range(0, len(group), 2)]
+            equal = {k: all(_state_equal(torch, g[k], want[k])
+                            for g in group)
+                     for k in ("logits", "hot", "rec", "self_kv")}
+            equal["pool"] = all(_equal_bits(torch, torch.cat(
+                [h["pool"] for h in half], 2), want["pool"])
+                for half in halves)
+            if kw.get("hier_tail"):      # the tail was warm-inserted
+                equal["speculated"] = bool(want["hot"][6].sum() > 0)
+            rec = dict(phase="sharded", run="small_family", case=case,
+                       config=cfg.name, mode=kw["mode"], mesh=[2, 2],
+                       backend="gloo", lanes=list(lanes), ranks=len(group),
+                       equal_unsharded=equal)
+            if control:
+                err, ctl = small_check(torch, cfg, mode=kw["mode"],
+                                       runs=runs,
+                                       injected=not kw.get("hier_tail"))
+                rec.update(max_rel_l2_err=err, control_e4m3_rel_l2_err=ctl,
+                           tolerance=SMALL_TOL)
+            rec["seconds"] = time.perf_counter() - t0
+            emit(rec)
+            report.append(rec)
+            if not all(equal.values()):
+                raise AssertionError(f"small {case} lanes {lanes}: {equal}")
+    return report
+
+
+def _family_sharded_rank(rank, world, port, out_dir):
+    """Phase 16 (g), one of four ranks sharing card 0 over gloo, mesh
+    (data 2, model 2): ``sharded_small_cases``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_mesh((2, 2), ("data", "model"))
+        torch.save(sharded_small_cases(torch, "cuda", mesh),
+                   Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_families_small(torch):
+    """Phase 16 (g): FAMILY_SMALL on four gloo ranks sharing the card,
+    each rank bit-equal to the unsharded card run of its lanes, which
+    holds SMALL_TOL against the CPU beside its e4m3 control."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = _spawn(_family_sharded_rank, 4, tmp)
+    spawn_s = time.perf_counter() - t0
+    report = check_small_cases(torch, ranks, "cuda", control=True)
+    emit(dict(phase="sharded", run="small_families_total",
+              cases=len(report), ranks_seconds=spawn_s,
+              seconds=time.perf_counter() - t0))
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the simulator twin on the card
+# ---------------------------------------------------------------------------
+
+# the replay's parity regime (no warm-up, radix seeds or prefetch; no hot
+# tier; overlap off; rolling admission): Qwen2-1.5B at full width and
+# depth, 8 requests of 8192 tokens arriving together (they queue behind
+# the 4 slots), 8 output tokens; monolithic, chunked (2048) and
+# disaggregated prefill
+TWIN = dict(arch="qwen2-1.5b", slots=4, max_ctx=8256, requests=8,
+            context=8192, output=8, arrival_rate=2000.0, seed=7,
+            modes=(("monolithic", 0, False), ("chunked", 2048, False),
+                   ("disagg", 0, True)))
+TWIN_TOL_S = 1e-9
+
+
+def _twin_trace(cfg):
+    from repro_torch.serving.request import sharegpt_trace
+    return sharegpt_trace(TWIN["requests"], context_len=TWIN["context"],
+                          output_len=TWIN["output"], seed=TWIN["seed"],
+                          arrival_rate=TWIN["arrival_rate"], ctx_jitter=0.0,
+                          vocab=cfg.vocab)
+
+
+def simulator_twin(torch, ops):
+    """Phase 17: the port's Engine serves TWIN's trace on the card in the
+    replay's parity regime three ways; ``replay_engine_timeline`` must
+    reproduce every request's dispatch, first-token and finish times
+    within TWIN_TOL_S.  Then ``run_backend_sweep`` over
+    ``default_backends()`` on the same trace: TTFT, TBT and throughput on
+    the simulator's modeled clock (8 x H20, the paper's server), not a
+    measurement of this card.  Returns the serving runs' launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.simulator import (SimConfig, default_backends,
+                                               profile_from_config,
+                                               replay_engine_timeline,
+                                               run_backend_sweep)
+    base = get_config(TWIN["arch"])
+    cfg = dataclasses.replace(base, sac=dataclasses.replace(
+        base.sac, warmup_entries=0, warmup_radix=0, prefetch_width=0))
+    launches = None
+    for name, chunk, disagg in TWIN["modes"]:
+        t0 = time.perf_counter()
+        eng = Engine(cfg, slots=TWIN["slots"], max_ctx=TWIN["max_ctx"],
+                     device_buffer=0, overlap=False, seed=0,
+                     prefill_chunk_tokens=chunk, disagg=disagg)
+        reqs = _twin_trace(cfg)
+        ops.reset_launch_counts()
+        out = eng.run(reqs)
+        counts = ops.launch_counts()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        rep = replay_engine_timeline(eng, reqs)
+        worst, queued = 0.0, 0
+        for r, q in zip(sorted(reqs, key=lambda r: r.request_id), rep):
+            if r.request_id != q.request_id:
+                raise AssertionError("replay request order differs")
+            worst = max(worst, abs(r.dispatch_s - q.dispatch_s),
+                        abs(r.first_token_s - q.first_token_s),
+                        abs(r.finish_s - q.finish_s))
+            queued += r.dispatch_s > r.arrival_s + 1e-12
+        rec = dict(phase="simulator_twin", run=name,
+                   config=f"{cfg.name} (n_layers={cfg.n_layers}, "
+                   f"d_model={cfg.d_model})", slots=TWIN["slots"],
+                   requests=TWIN["requests"], context=TWIN["context"],
+                   output=TWIN["output"], prefill_chunk_tokens=chunk,
+                   disagg=disagg, n_done=out["n_done"], steps=eng.stats.steps,
+                   queued_requests=queued,
+                   replay_max_abs_diff_s=worst, tolerance_s=TWIN_TOL_S,
+                   modeled_clock_ttft_mean_s=out["ttft_mean_s"],
+                   modeled_clock_tbt_mean_s=out["tbt_mean_s"],
+                   wall_s=run_s, launches=counts)
+        emit(rec)
+        if out["n_done"] != TWIN["requests"] or worst >= TWIN_TOL_S:
+            raise AssertionError(f"simulator twin ({name}): served "
+                                 f"{out['n_done']}, replay differs by "
+                                 f"{worst} s")
+        if not queued:
+            raise AssertionError(f"simulator twin ({name}): no request "
+                                 "queued behind the slots")
+        launches = (counts if launches is None else
+                    {k: launches[k] + v for k, v in counts.items()})
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sweep = run_backend_sweep(_twin_trace(cfg), profile_from_config(cfg),
+                              default_backends(),
+                              SimConfig(concurrency=TWIN["slots"]))
+    keys = ("ttft_mean_s", "ttft_p99_s", "tbt_mean_s", "tbt_p99_s",
+            "throughput_tok_s", "n_done")
+    emit(dict(phase="simulator_twin", run="backend_sweep",
+              clock="modeled virtual clock (8 x H20 server, the paper's "
+              "testbed): not measured on this card",
+              config=cfg.name, requests=TWIN["requests"],
+              context=TWIN["context"],
+              backends={name: {k: v for k, v in s.items() if k in keys}
+                        for name, s in sweep.items()},
+              seconds=time.perf_counter() - t0))
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels", action="store_true",
@@ -2804,6 +3384,9 @@ def main() -> None:
                     help="print nvcc/ptxas resource usage of each kernel")
     ap.add_argument("--sharded", action="store_true",
                     help="phases 1-3, then only the sharded phase (16)")
+    ap.add_argument("--twin", action="store_true",
+                    help="phases 1-3, then only the simulator twin (17); "
+                    "with --sharded, phases 1-3, 16 and 17")
     args = ap.parse_args()
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -2851,7 +3434,7 @@ def main() -> None:
               seconds=time.perf_counter() - t0))
 
     launches = shard_launches = None
-    if not (args.kernels or args.sharded):
+    if not (args.kernels or args.sharded or args.twin):
         # 4. small inputs: card vs CPU plain path
         path_kernels = {
             "sac": ("gather_kv", "indexer_scores", "scatter_kv"),
@@ -2956,14 +3539,25 @@ def main() -> None:
                        + [fetch_counts, whisper_counts] + cli_counts):
             for k, n in counts.items():
                 launches[k] += n
-    if not args.kernels:
+    if not args.kernels and (args.sharded or not args.twin):
         # 16. the pool sharded over a torch.distributed mesh
         t0 = time.perf_counter()
         _, refs, counts_a = sharded_nccl(torch, ops)
         _, counts_b = sharded_gloo(torch, refs)
         sharded_small(torch)
-        shard_launches = {k: counts_a[k] + counts_b[k] for k in counts_a}
+        sharded_families_small(torch)
+        shard_launches = {k: sum(c[k] for c in counts_a + [counts_b])
+                          for k in counts_b}
         emit(dict(phase="sharded_total", launches=shard_launches,
+                  seconds=time.perf_counter() - t0))
+    if args.twin or not (args.kernels or args.sharded):
+        # 17. the simulator twin: the engine's timeline replayed
+        t0 = time.perf_counter()
+        twin_counts = simulator_twin(torch, ops)
+        if launches is not None:
+            for k, n in twin_counts.items():
+                launches[k] += n
+        emit(dict(phase="simulator_twin_total", launches=twin_counts,
                   seconds=time.perf_counter() - t0))
 
     info = {

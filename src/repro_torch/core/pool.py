@@ -27,7 +27,13 @@ non-zero bytes for any row, so every row arrives bit for bit, in bf16
 and in e4m3 (NaN and -0 included); a bf16 sum would turn -0 into +0,
 and gloo sums no float8.  The returned callable carries
 its shard (``.shard``), which the decode reads to score, select and
-write shard-aware (``core/sac.py``, ``models/transformer.py``).
+write shard-aware (``core/sac.py``, ``models/transformer.py``,
+``models/encdec.py``).  ``dense`` mode reads each layer whole: one
+all-gather of the slices' bytes (``PoolShard.gather_pool``), then the
+unsharded dense attention, so its bits do not depend on the world.
+Each rank decodes the lanes it is handed: split over the non-pool
+axes, or the same lanes on each of their ranks (a batch of one
+replicated over ``data``); ``batch_axes`` changes neither.
 """
 from __future__ import annotations
 
@@ -85,20 +91,23 @@ class PoolShard:
     @classmethod
     def of(cls, mesh, pool_axis: str = "model",
            batch_axes=("pod", "data")) -> "PoolShard":
-        """``mesh``'s pool axis.  Each rank hands in its own request
-        lanes, so the lanes are split over every other axis of the mesh:
-        ``batch_axes`` (filtered to the mesh's axes, as the reference
-        filters them) must name exactly those, or this raises."""
+        """``mesh``'s pool axis.  ``batch_axes`` is kept for the
+        reference's signature and changes no collective and no result:
+        the collectives run over the pool axis's group alone, and each
+        rank decodes the lanes its caller hands in.  Whether those lanes
+        are split over the other axes (``("data",)``) or the same on
+        each of their ranks (``()``, a batch of one replicated over
+        ``data``) is the caller's choice of lanes, not this value's.  It
+        is checked only for the pool axis, which cannot split the lanes:
+        naming it raises."""
         names = tuple(mesh.mesh_dim_names or ())
         if pool_axis not in names:
             raise ValueError(f"the mesh {names} has no pool axis "
                              f"{pool_axis!r}")
-        batch = {a for a in batch_axes if a in names}
-        if pool_axis in batch_axes or batch != set(names) - {pool_axis}:
+        if pool_axis in batch_axes:
             raise ValueError(
-                f"batch_axes {tuple(batch_axes)} on the mesh {names}: each "
-                f"rank passes its own lanes, so they must name every axis "
-                f"but the pool axis {pool_axis!r}")
+                f"batch_axes {tuple(batch_axes)} name the pool axis "
+                f"{pool_axis!r}: it splits the pool, not the lanes")
         return cls(mesh.get_group(pool_axis), mesh.get_local_rank(pool_axis),
                    mesh.size(names.index(pool_axis)))
 
@@ -116,6 +125,35 @@ class PoolShard:
         dist.all_gather_into_tensor(out, x.contiguous(), group=self.group)
         return out.view(self.size, B, n).permute(1, 0, 2).reshape(
             B, self.size * n)
+
+    def gather_pool(self, x: torch.Tensor, bufs: Optional[dict] = None
+                    ) -> torch.Tensor:
+        """A pool layer's slices [B, S_local, d] on each rank -> the whole
+        layer [B, S, d] on every rank, bit for bit: ONE all-gather of the
+        bytes (gloo takes no float8 and loses a bf16 -0 in a sum; a
+        gather of bytes moves every bit) into a buffer [size, B, S_local,
+        d], the slices in rank order, then (over more than one rank) one
+        copy into [B, S, d] order.  ``bufs`` (a dict the caller keeps
+        across layers) holds both buffers, so a decode step allocates
+        them once."""
+        B, S_local, d = x.shape
+
+        def buf(name, shape):
+            t = None if bufs is None else bufs.get(name)
+            if t is None or t.shape != shape or t.dtype != x.dtype:
+                t = x.new_empty(shape)
+                if bufs is not None:
+                    bufs[name] = t
+            return t
+        ranks = buf("ranks", (self.size, B, S_local, d))
+        dist.all_gather_into_tensor(
+            ranks.view(torch.uint8).view(-1),
+            x.contiguous().view(torch.uint8).view(-1), group=self.group)
+        if self.size == 1:
+            return ranks[0]
+        out = buf("pool", (B, self.size * S_local, d))
+        out.view(B, self.size, S_local, d).copy_(ranks.permute(1, 0, 2, 3))
+        return out
 
     def combine_rows(self, rows: torch.Tensor) -> torch.Tensor:
         """The ranks' masked gathers (zeros where a rank does not hold the
@@ -145,8 +183,9 @@ class PooledFetch:
 def make_pooled_fetch(mesh, *, batch_axes=("pod", "data"),
                       pool_axis: str = "model") -> PooledFetch:
     """The pooled-HBM fetch over ``mesh`` (a ``DeviceMesh``): each rank
-    calls it with its own lanes (its slice over ``batch_axes``, which
-    ``PoolShard.of`` checks) and its slice of the pool axis; the result
+    calls it with its own lanes (split over the non-pool axes or
+    replicated over them: ``batch_axes`` does not decide it,
+    ``PoolShard.of``) and its slice of the pool axis; the result
     is replicated over ``pool_axis`` (ready for the attention), as the
     reference's ``shard_map`` gives it.
     ``build_model(cfg, fetch_fn=make_pooled_fetch(mesh))`` serves from

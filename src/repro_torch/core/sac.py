@@ -91,15 +91,17 @@ def sparse_attend(p_attn: Dict, p_idx: Dict, x: torch.Tensor,
     the speculation tail, ``topk_fn`` and ``prefetch_fn`` see ``[B, S]``
     scores as on one device.  A ``topk_fn`` with ``local_scores``
     (``core/topk.py``'s hierarchical top-k) takes the slice's scores
-    instead (masked at their global positions), and so cannot feed the
-    speculation, which needs the global ranks [k, k+w).
+    instead (masked at their global positions); with speculation it
+    also gives the tail, ranks [k, k+w) of the global scores
+    (``with_tail``), bit for bit the fused selection's.  It takes no
+    ``prefetch_fn``, which would see only the slice.
     """
     shard = getattr(fetch_fn, "shard", None)
     local_sel = getattr(topk_fn, "local_scores", False)
     speculate = buf_state is not None and prefetch_width > 0
-    if local_sel and (shard is None or speculate):
+    if local_sel and (shard is None or (speculate and prefetch_fn)):
         raise ValueError("a top-k over local scores needs the pooled fetch "
-                         "and takes no speculation (it needs global ranks)")
+                         "and takes no prefetch_fn (it sees the slice)")
     scores = dsa.indexer_scores(p_idx, x, idx_pool_l, cfg)
     base, seq_len = 0, scores.shape[-1]
     if shard is not None:
@@ -113,7 +115,10 @@ def sparse_attend(p_attn: Dict, p_idx: Dict, x: torch.Tensor,
         in_win = pos[None, :] > (cache_len[:, None] - window)
         scores = torch.where(in_win, scores, dsa.NEG_INF)
     spec_idx = spec_valid = None
-    if topk_fn is not None:
+    if local_sel and speculate:
+        idx, valid, spec_idx, spec_valid = topk_fn.with_tail(
+            scores, cache_len, cfg.sac.topk, prefetch_width, score_margin)
+    elif topk_fn is not None:
         idx, valid = topk_fn(scores, cache_len)
     elif speculate and prefetch_fn is None:
         # fused selection: one top-(k+w) gives the (bit-identical)
@@ -162,13 +167,18 @@ def window_attend(p_attn: Dict, x: torch.Tensor, cfg: ModelConfig,
                   ) -> torch.Tensor:
     """Sliding-window decode: fetch the trailing ``window-1`` entries
     (contiguous indices through the same fetch path, the gather kernel on
-    the card) + the own entry."""
+    the card) + the own entry.  Over a sharded pool ``kv_pool_l`` is the
+    rank's slice and the indices are clamped into the whole pool."""
     B = x.shape[0]
     w = window - 1
+    S = kv_pool_l.shape[1]
+    shard = getattr(fetch_fn, "shard", None)
+    if shard is not None:
+        S = shard.seq_len(S)
     idx = (cache_len[:, None] - w
            + torch.arange(w, dtype=torch.int32, device=x.device)[None, :])
     valid = idx >= 0
-    idx = torch.clamp(idx, 0, kv_pool_l.shape[1] - 1).to(torch.int32)
+    idx = torch.clamp(idx, 0, S - 1).to(torch.int32)
     fetched = fetch_fn(kv_pool_l, idx)
     fetched = torch.cat([fetched, to_kv_dtype(own_entry[:, None, :],
                                               fetched.dtype)], dim=1)
@@ -181,7 +191,9 @@ def dense_attend(p_attn: Dict, x: torch.Tensor, cfg: ModelConfig,
                  kv_pool_l: torch.Tensor, cache_len: torch.Tensor,
                  positions: torch.Tensor, own_entry: torch.Tensor
                  ) -> torch.Tensor:
-    """Dense decode over the full pool slice (full-prefetch baseline)."""
+    """Dense decode over the full pool slice (full-prefetch baseline).
+    Over a sharded pool the caller hands in the whole layer
+    (``PoolShard.gather_pool``)."""
     B, S, _ = kv_pool_l.shape
     pool = torch.cat([kv_pool_l, to_kv_dtype(own_entry[:, None, :],
                                              kv_pool_l.dtype)], dim=1)

@@ -218,10 +218,13 @@ def shard_serve_state(state: Dict[str, Any], mesh,
     batch axes) with whole pools ``[L, B, S, d]``, as a prefill, or a
     splice of prefills, made them; S must divide by the pool axis.  The
     result keeps every other entry (the hot tier's ``page_table`` stays
-    over all S positions: its input is the all-reduced fetch) and holds
-    ``kv_pool`` / ``idx_pool`` cut to the slice [base, base + S_local),
-    copied by the splice's shard form in one launch.  The whole pools
-    exist until the caller drops ``state``."""
+    over all S positions: its input is the all-reduced fetch; the
+    recurrent state ``rec_*`` of the rank's lanes, which every pool rank
+    updates alike; an encoder-decoder's whole ``self_kv``) and holds
+    ``kv_pool`` / ``idx_pool`` (an encoder-decoder's cross-attention
+    pools) cut to the slice [base, base + S_local), copied by the
+    splice's shard form in one launch.  The whole pools exist until the
+    caller drops ``state``."""
     shard = PoolShard.of(mesh, pool_axis)
     keys = [k for k in ("kv_pool", "idx_pool") if k in state]
     out = dict(state)

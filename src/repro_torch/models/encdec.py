@@ -29,6 +29,11 @@ never calls it, the port calls ``topk_fn(scores, cache_len) -> (idx,
 valid)`` in place of the top-k when one is given, the hook the tests
 use to hold both packages to one selection.
 
+Over a pool sharded over ranks (``fetch_fn`` from ``make_pooled_fetch``)
+the cross-KV pools are each rank's slice of the encoder positions (cut
+by ``distributed/sharding.py::shard_serve_state``) and ``self_kv`` is
+whole on every rank, as the reference's ``P(None, b, None, None)``.
+
 ``prefill`` and ``decode`` update nothing of the caller's and run under
 ``torch.no_grad``; ``forward`` (training) runs under autograd, each
 layer under ``torch.utils.checkpoint`` when ``remat`` is on.
@@ -170,12 +175,13 @@ class EncDecLM:
     def __init__(self, cfg: ModelConfig, fetch_fn: FetchFn = local_fetch,
                  mode: str = "sac", topk_fn: Optional[Callable] = None,
                  remat: bool = True, device="cuda"):
-        if getattr(fetch_fn, "shard", None) is not None:
-            raise NotImplementedError("an encoder-decoder over a sharded "
-                                      "pool is not ported (ROADMAP §1)")
         self.cfg = cfg
         self.device = torch.device(device)
         self.fetch_fn = fetch_fn
+        # a cross-KV pool sharded over ranks (core/pool.py::
+        # make_pooled_fetch): ``kv_pool`` / ``idx_pool`` hold the rank's
+        # slice of the encoder positions, ``self_kv`` stays whole
+        self.shard = getattr(fetch_fn, "shard", None)
         self.mode = mode if cfg.sac.enabled else "dense"
         self.topk_fn = topk_fn
         self.remat = remat
@@ -243,8 +249,15 @@ class EncDecLM:
                                   device=dev)
 
     # -- decode: self-attn (local dense) + SAC cross-attn ------------------------
-    def _layer_decode(self, p, x, kv_l, ik_l, skv_l, dec_len, cache_len):
-        """One decoder layer's step: (x', the token's self entry)."""
+    def _layer_decode(self, p, x, kv_l, ik_l, skv_l, dec_len, cache_len,
+                      bufs=None):
+        """One decoder layer's step: (x', the token's self entry).
+
+        Over a sharded pool the indexer scores the rank's slice; the
+        scores are all-gathered before the selection (a ``topk_fn`` with
+        ``local_scores`` takes the slice's instead), the chosen entries
+        come through the pooled fetch, and ``dense`` mode all-gathers the
+        layer (``PoolShard.gather_pool`` into ``bufs``)."""
         cfg = self.cfg
         # 1) causal self-attention over the decoder cache
         xn = rms_norm(x, p["ln1"])
@@ -254,14 +267,23 @@ class EncDecLM:
         # 2) SAC cross-attention over the encoder pool (positions 0)
         xn = rms_norm(x, p["ln2"])
         zero_pos = torch.zeros_like(dec_len)
+        shard = self.shard
         if self.mode == "sac":
             scores = dsa.indexer_scores(p["idx"], xn, ik_l, cfg)
+            local_sel = getattr(self.topk_fn, "local_scores", False)
+            if local_sel and shard is None:
+                raise ValueError("a top-k over local scores needs the "
+                                 "pooled fetch")
+            if shard is not None and not local_sel:
+                scores = shard.all_gather(scores)
             if self.topk_fn is not None:
                 idx, valid = self.topk_fn(scores, cache_len)
             else:
                 idx, valid = dsa.topk_select(scores, cache_len, cfg.sac.topk)
             entries = self.fetch_fn(kv_l, idx)
         else:
+            if shard is not None:
+                kv_l = shard.gather_pool(kv_l, bufs)
             pos = torch.arange(kv_l.shape[1], dtype=torch.int32,
                                device=x.device)
             valid = pos[None, :] < cache_len[:, None]
@@ -282,13 +304,13 @@ class EncDecLM:
         dec_len = state["dec_len"]
         kv_pool, idx_pool = state["kv_pool"], state.get("idx_pool")
         self_kv = state["self_kv"]               # [L, B, MAX_DEC, d]
-        owns = []
+        owns, bufs = [], {}
         for layer, p in enumerate(params["dec"]):
             with _span("pool_layer"):
                 x, own = self._layer_decode(
                     p, x, kv_pool[layer],
                     idx_pool[layer] if idx_pool is not None else None,
-                    self_kv[layer], dec_len, state["cache_len"])
+                    self_kv[layer], dec_len, state["cache_len"], bufs)
             owns.append(own)
         pool_write(self_kv, torch.stack(owns), dec_len)
         state["dec_len"] = dec_len + 1

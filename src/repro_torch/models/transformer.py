@@ -304,6 +304,9 @@ def _attn_decode(p, x, cfg, ctx, kv_slice, idx_slice, window, hbuf=None):
                 p["attn"], xn, cfg, kv_slice, cache_len, positions, own,
                 window, fetch_fn=ctx["fetch_fn"])
         else:
+            shard = ctx.get("shard")
+            if shard is not None:            # the whole layer on each rank
+                kv_slice = shard.gather_pool(kv_slice, ctx.get("pool_bufs"))
             delta = sac_core.dense_attend(p["attn"], xn, cfg, kv_slice,
                                           cache_len, positions, own)
         new_key = torch.zeros((x.shape[0], cfg.sac.d_idx), dtype=DTYPE,
@@ -418,19 +421,6 @@ def _zero_rec(shapes, n, device):
     return tuple(_zero_rec(s, n, device) for s in shapes)
 
 
-def _check_shardable(mode: str, segments: List[Segment]) -> None:
-    """A sharded pool (ROADMAP §1) serves the attention kinds in SAC
-    mode; ``dense`` mode would need the whole pool on each rank, and the
-    recurrent kinds are not ported over it yet."""
-    if mode != "sac":
-        raise NotImplementedError("a sharded pool in dense mode is not "
-                                  "ported (ROADMAP §1)")
-    kinds = {seg.kind for seg in segments} - set(_ATTN_KINDS)
-    if kinds:
-        raise NotImplementedError(f"a sharded pool with {sorted(kinds)} "
-                                  "segments is not ported (ROADMAP §1)")
-
-
 # ---------------------------------------------------------------------------
 # the model facade
 # ---------------------------------------------------------------------------
@@ -458,10 +448,11 @@ class TransformerLM:
         # beyond the paper: fp8 pool storage halves the pool's and the
         # hot tier's bytes and the fetch traffic
         self.kv_dtype = E4M3 if cfg.sac.kv_quant == "fp8" else DTYPE
-        # a pool sharded over ranks (core/pool.py::make_pooled_fetch)
+        # a pool sharded over ranks (core/pool.py::make_pooled_fetch):
+        # each rank runs every layer on its own lanes; the pool layers
+        # read through the pooled fetch (``dense`` mode all-gathers each
+        # layer), the recurrent layers keep ``rec_*`` of those lanes
         self.shard = getattr(fetch_fn, "shard", None)
-        if self.shard is not None:
-            _check_shardable(self.mode, self.segments)
 
     # -- params ------------------------------------------------------------
     def init(self, generator: torch.Generator) -> Dict:
@@ -598,6 +589,8 @@ class TransformerLM:
             "prefetch_fn": self.opts.get("prefetch_fn"),
             "score_margin": float(self.opts.get("score_margin", -1.0)),
             "pf_budget": pf_budget,
+            "shard": self.shard,
+            "pool_bufs": {},     # dense mode's gathered layer, reused
         }
         kv_pool, idx_pool = state.get("kv_pool"), state.get("idx_pool")
         hot = state.get("hot_buf")

@@ -645,14 +645,31 @@ def test_pooled_fetch_equals_reference(runs):
 
 def test_pooled_fetch_checks_batch_axes():
     """Each rank hands in its own lanes: ``batch_axes`` (filtered to the
-    mesh's axes) must name every axis but the pool axis."""
+    mesh's axes) split them, the other non-pool axes replicate them; the
+    pool axis cannot split them, and the mesh must have a pool axis."""
     from repro_torch.core.pool import make_pooled_fetch
     from repro_torch.core.topk import make_hierarchical_topk
-    mesh = _Mesh(("data", "model"), (2, 2))
-    for bad in [(), ("pod",), ("data", "model")]:
-        with pytest.raises(ValueError, match="every axis but the pool"):
+
+    class _Mesh22(_Mesh):
+        def get_group(self, axis):
+            return f"group {axis}"
+
+        def get_local_rank(self, axis):
+            return self.mesh_dim_names.index(axis)
+
+        def size(self, dim):
+            return self.shape[dim]
+
+    mesh = _Mesh22(("data", "model"), (2, 2))
+    for ok in [("pod", "data"), ("data",), ("pod",), ()]:
+        shard = make_pooled_fetch(mesh, batch_axes=ok).shard
+        assert (shard.group, shard.rank, shard.size) == ("group model", 1, 2)
+        assert make_hierarchical_topk(mesh, 8, batch_axes=ok).shard.size \
+            == 2
+    for bad in [("data", "model"), ("model",)]:
+        with pytest.raises(ValueError, match="splits the pool"):
             make_pooled_fetch(mesh, batch_axes=bad)
-        with pytest.raises(ValueError, match="every axis but the pool"):
+        with pytest.raises(ValueError, match="splits the pool"):
             make_hierarchical_topk(mesh, 8, batch_axes=bad)
     with pytest.raises(ValueError, match="no pool axis"):
         make_pooled_fetch(mesh, pool_axis="seq")
@@ -851,22 +868,49 @@ def test_skip_slow_reducer_matches_reference(factor, quorum):
     np.testing.assert_array_equal(got_t["w"].numpy(), got["w"])
 
 
-def test_sharded_pool_refuses_what_is_not_ported():
-    """dense mode and the recurrent and encoder-decoder families over a
-    sharded pool raise, naming ROADMAP."""
+def test_sharded_pool_refuses_what_stays_unsupported():
+    """What the sharded pool still refuses: a top-k over local scores
+    without the pooled fetch (decoder-only and encoder-decoder), such a
+    top-k beside a ``prefetch_fn`` (which would see only the slice), and
+    a crossed axis order in ``placements_for``.  Every family builds over
+    a pooled fetch in both modes (tests/test_torch_sharded_families.py
+    decodes them)."""
     from repro_torch.core.pool import PooledFetch
+    from repro_torch.core.topk import HierarchicalTopK
+    from repro_torch.distributed import sharding as shd
     from repro_torch.models.model import build_model
 
     class _Shard:
         size, rank = 2, 0
 
     fetch = PooledFetch(_Shard())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(_cfg("qwen2-1.5b"), fetch_fn=fetch, mode="dense",
-                    device="cpu")
-    for name in ("zamba2-7b", "xlstm-125m", "whisper-small"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(_cfg(name), fetch_fn=fetch, device="cpu")
+    for name in ("qwen2-1.5b", "zamba2-7b", "xlstm-125m", "whisper-small"):
+        for mode in ("sac", "dense"):
+            build_model(_cfg(name), fetch_fn=fetch, mode=mode, device="cpu")
+    hier = HierarchicalTopK(_Shard(), 8)
+    cfg = _cfg("qwen2-1.5b")
+    m = build_model(cfg, topk_fn=hier, device="cpu")
+    params = m.init(torch.Generator().manual_seed(0))
+    state = m.init_serve_state(1, 16)
+    state["cache_len"].fill_(4)
+    with pytest.raises(ValueError, match="needs the pooled fetch"):
+        m.decode(params, state, torch.zeros(1, dtype=torch.int32))
+    m = build_model(cfg, fetch_fn=fetch, topk_fn=hier, device="cpu",
+                    opts=dict(prefetch_width=4,
+                              prefetch_fn=lambda s, c: None))
+    state = m.init_serve_state(1, 8, device_buffer=4)
+    with pytest.raises(ValueError, match="takes no prefetch_fn"):
+        m.decode(params, state, torch.zeros(1, dtype=torch.int32))
+    w = _cfg("whisper-small")
+    m = build_model(w, topk_fn=hier, device="cpu")
+    wp = m.init(torch.Generator().manual_seed(0))
+    st = m.init_serve_state(1, 8)
+    st["cache_len"].fill_(8)
+    with pytest.raises(ValueError, match="needs the pooled fetch"):
+        m.decode(wp, st, torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="axis order"):
+        shd.placements_for(_Mesh(("data", "model"), (2, 2)), ("E", "DE", "F"),
+                           (4, 8, 8), shd.TRAIN_RULES)
 
 
 def test_production_mesh_needs_its_world():
@@ -889,6 +933,6 @@ def test_chip_smoke_sharded_small_rehearses_on_cpu(runs):
         for g in got:
             assert all(torch.equal(a, b) for a, b in zip(g["logits"],
                                                          want["logits"]))
-            assert cs._hot_equal(torch, g["hot"], want["hot"])
+            assert cs._state_equal(torch, g["hot"], want["hot"])
         assert torch.equal(torch.cat([g["pool"] for g in got], 2),
                            want["pool"])

@@ -32,15 +32,14 @@ COPIED = sorted(
     [p.relative_to(REF).as_posix() for p in (REF / "configs").glob("*.py")]
     + [f"core/{m}.py" for m in ("transfer", "fabric", "traffic", "metadata",
                                 "placement")]
-    + [f"serving/{m}.py" for m in ("request", "radix", "arbiter")]
+    + [f"serving/{m}.py" for m in ("request", "radix", "arbiter",
+                                   "scheduler", "simulator")]
     + [p.relative_to(REF).as_posix()
        for p in (REF / "serving" / "policy").glob("*.py")]
     + ["training/data.py"])
 # classes/functions copied whole into a port module that is not a copy
 COPIED_DEFS = [("serving/prefetch.py", "analytic_prefetch"),
                ("serving/prefetch.py", "analytic_warmup"),
-               ("serving/simulator.py", "ModelProfile"),
-               ("serving/simulator.py", "profile_from_config"),
                ("core/sac.py", "RequestPages"),
                ("core/sac.py", "SACSystem"),
                ("training/optimizer.py", "OptConfig"),
