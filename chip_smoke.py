@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernels  # phases 1-3 only (build and check)
     python3 chip_smoke.py --sharded  # phases 1-3 and 16 (the sharded pool)
     python3 chip_smoke.py --twin     # phases 1-3 and 17 (the simulator twin)
+    python3 chip_smoke.py --dryrun   # phases 1-3 and 18 (the dry-run)
 
 Phases, each printing one JSON line with its seconds; any failure raises
 (exit code != 0):
@@ -201,7 +202,30 @@ Phases, each printing one JSON line with its seconds; any failure raises
    finish time within 1e-9 s.  Then ``run_backend_sweep`` over
    ``default_backends()`` on the same trace, whose TTFT, TBT and
    throughput are the simulator's modeled clock (8 x H20), not a
-   measurement of the card.
+   measurement of the card;
+18. the dry-run (``repro_torch.launch.dryrun``): first the host's
+   mirror of each kernel's shape rule (what ``meta`` calls check) against
+   the card's occupancy answer over a grid of shapes; then (a) the one
+   production cell that fits one card, Qwen2-1.5B x long_500k x sac (B
+   = 1, S = 524,288), built twice by ``build_cell`` at mesh (1, 1): on
+   ``meta`` in a subprocess (a ``fake`` group of one) and on the card
+   (one NCCL rank, random bf16 weights from seed 0, ``cache_len`` S -
+   1), each counted over one decode step by ``StepCost``: FLOPs,
+   bytes, collectives and each kernel's calls equal, the meta build's
+   calls equal to the card's real launches (``ops.launch_counts()``,
+   the shard forms named; nothing launches on ``meta``), the argument
+   bytes equal to the bytes the card's
+   allocator was asked for the inputs (its blocks beside), beside them the
+   launching operators against the profiler's launches a step, the
+   meta peak against ``max_memory_allocated``, device ms a step (2
+   profiled steps), the median wall step of 5 after 2 warm-ups and the
+   roofline share max(compute_s, memory_s) / device time; (b) the
+   dry-run CLI, one subprocess a cell on ``meta`` (several at once):
+   DRYRUN_CELLS, each ending ``ok`` or ``skipped`` with the reference's
+   reasons (a cell still running at DRYRUN_BUDGET_S fails the phase);
+   (c) the port's ``examples/torch/quickstart.py`` and
+   ``serve_sac.py`` on the card, exit 0.  (b), (c) and (a)'s meta build
+   run at once; (a)'s card part runs after them, alone.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -225,10 +249,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# bandwidth and peak of one H100 SXM (NVIDIA data sheet): the bound of a
-# kernel is max(bytes / HBM rate, operations / bf16 tensor-core peak)
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOP_PER_S = 989e12
+# a kernel's bound is max(bytes / HBM rate, operations / bf16
+# tensor-core peak) of one H100 SXM, from the kernel's analytic cost
+# (src/repro_torch/kernels/cost.py, which the dry-run counts too)
 # stated tolerances against the plain PyTorch versions on the card:
 # row movers copy bits; the indexer and attention sum in f32 in another
 # order (and the attention uses the hardware exp), so they agree to
@@ -302,13 +325,6 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         end.record()
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in events) / iters
-
-
-def bound_ms(n_bytes: float, n_flops: float):
-    t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = n_flops / BF16_FLOP_PER_S
-    by = "bytes" if t_bytes >= t_ops else "operations"
-    return max(t_bytes, t_ops) * 1e3, by
 
 
 # ---------------------------------------------------------------------------
@@ -400,6 +416,7 @@ def gather_case(torch, ref, mod, shape: str, pairs, copies=None,
     indices (the same bytes, batched over the same copies), ``was(pairs)``
     (the earlier calls for the same rows: ``ms_was``) and the bound.
     Returns its record."""
+    from repro_torch.kernels import cost
     want = ref.gather_kv_many_ref(pairs)
     got = mod.gather_kv_many(pairs)
     if not all(_equal_bits(torch, a, b) for a, b in zip(got, want)):
@@ -408,7 +425,7 @@ def gather_case(torch, ref, mod, shape: str, pairs, copies=None,
     del got, want
     rows = [(kv.shape[0] * idx.shape[1], kv.shape[-1] * kv.element_size())
             for kv, idx in pairs]
-    bound, by = bound_ms(sum(n * 4 + 2 * n * w for n, w in rows), 0.0)
+    bound, by = cost.bound_ms(cost.gather(pairs))
     if copies is None:
         copies = cold_copies(pairs, sum(n * w for n, w in rows))
     rec = dict(shape=shape,
@@ -556,6 +573,7 @@ def check_pool_writes(torch, ref, mod):
     Returns the scatter's record: the decode write at DeepSeek-V3.2's
     shape in its own fields, every case in ``shapes``."""
     from repro_torch.core.pool import E4M3
+    from repro_torch.kernels import cost
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(10)
     shapes = []
@@ -572,9 +590,9 @@ def check_pool_writes(torch, ref, mod):
             raise AssertionError(f"scatter_kv differs from its plain "
                                  f"version ({n_rows} rows)")
         if n_rows < L * S:
-            nb = n_rows * 4 + 2 * n_rows * d * 2
             rows_l = rows[0].long()
-            bound, by = bound_ms(nb, 0.0)
+            bound, by = cost.bound_ms(cost.rows(n_rows,
+                                                d * pool.element_size()))
             shapes.append(dict(
                 shape="deepseek-v32", form="index", rows=n_rows,
                 max_abs_err=0.0, l2="warm", bound_ms=bound, bound_by=by,
@@ -624,9 +642,8 @@ def check_pool_writes(torch, ref, mod):
                 for f, e in zip(flat, e_flat):
                     f.view(torch.uint8).index_copy_(0, rows_l,
                                                     e.view(torch.uint8))
-            nb = B * 4 + sum(2 * L * B * e.shape[-1] * e.element_size()
-                             for e in entries)
-            bound, by = bound_ms(nb, 0.0)
+            bound, by = cost.bound_ms(cost.write_rows_at(
+                B, [(L, e.shape[-1] * e.element_size()) for e in entries]))
             case = dict(
                 shape=name, form="decode", dtype=str(dtype),
                 pools=[list(p.shape) for p in pools],
@@ -681,9 +698,8 @@ def check_pool_writes(torch, ref, mod):
                 p = p.view(torch.uint8)
                 p[:, lane, :T].copy_(s[:, 0].view(torch.uint8))
                 p[:, lane, T:].zero_()
-        nb = sum(L * T * s.shape[-1] * s.element_size()
-                 + L * S * s.shape[-1] * s.element_size() for s in srcs)
-        bound, by = bound_ms(nb, 0.0)
+        bound, by = cost.bound_ms(cost.splice_pools(got, srcs, lane=lane,
+                                                    zero_tail=True))
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         was()
@@ -736,6 +752,7 @@ def check_indexer(torch, ref, mod):
     computes it).  Returns the record of DeepSeek-V3.2's shape, with the
     worst error of every shape and both kinds of q, and every shape's
     record in ``shapes``."""
+    from repro_torch.kernels import cost
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2)
     per_shape = []
@@ -756,14 +773,14 @@ def check_indexer(torch, ref, mod):
         def plain():
             return torch.stack([ref.indexer_scores_ref(q[b], w[b], keys[b])
                                 for b in range(B)])
-        nb = B * S * di * 2 + B * H * (di + 1) * 4 + B * S * 4
         per_shape.append(dict(
             shape=cell, B=B, S=S, H=H, di=di, key_bytes=B * S * di * 2,
             max_abs_err=errs[0], max_abs_err_bf16_q=errs[1],
             ms=cuda_time_ms(lambda: mod.indexer_scores(q, w, keys)),
             ms_bf16_q=cuda_time_ms(lambda: mod.indexer_scores(q16, w, keys)),
             plain_ms=cuda_time_ms(plain), library_ms=None,
-            bound=bound_ms(nb, 2.0 * B * S * H * di)))
+            bound=cost.bound_ms(cost.indexer(B, S, H, di,
+                                             keys.element_size()))))
         del q, q16, w, keys
     rec = dict(per_shape[0])
     rec["max_abs_err"] = max(max(r["max_abs_err"], r["max_abs_err_bf16_q"])
@@ -826,6 +843,7 @@ def attention_case(torch, ref, mod, g, case, dtype, k: int = 2049):
     exactly).  The bound counts the valid entry rows at the dtype's
     bytes, q and out in f32 and the mask a byte a lane."""
     from repro_torch.core.pool import E4M3, to_kv_dtype
+    from repro_torch.kernels import cost
     cell, form, B, H, a, b, local = case
     dev = torch.device("cuda")
     fp8 = dtype == E4M3
@@ -859,7 +877,7 @@ def attention_case(torch, ref, mod, g, case, dtype, k: int = 2049):
         def library():                  # the H heads as one query sequence
             return torch.nn.functional.scaled_dot_product_attention(
                 q[:, None], kf, vf, attn_mask=bias, scale=scale)[:, 0]
-        flops = 2.0 * n_valid * H * (dq + dv)
+        work = cost.mla(B, H, k, dq, dv, row, ent.element_size(), n_valid)
         splits = mod.mla_plan(B, H, dc, k, fp8=fp8)[0]
         shape = dict(heads=H, dq=dq, dv=dv)
     else:
@@ -877,13 +895,12 @@ def attention_case(torch, ref, mod, g, case, dtype, k: int = 2049):
             return torch.nn.functional.scaled_dot_product_attention(
                 q[:, :, None], kf, vf, attn_mask=bias, scale=scale,
                 enable_gqa=True)[:, :, 0]
-        flops = 4.0 * n_valid * H * hd
+        work = cost.gqa(B, H, n_kv, hd, k, ent.element_size(), n_valid)
         splits = mod.gqa_plan(B, H, n_kv, hd, k, fp8=fp8)[0]
         shape = dict(heads=H, kv_heads=n_kv, head_dim=hd)
     got, want = kernel(ent), plain()
     torch.testing.assert_close(got, want, **TOL_F32)
-    bound, by = bound_ms(n_valid * row * ent.element_size()
-                         + B * H * (dq + dv) * 4 + B * k, flops)
+    bound, by = cost.bound_ms(work)
     rec = dict(cell=cell, form=form, dtype=str(dtype), B=B, k=k,
                valid_lanes=n_valid, **shape, splits=splits,
                max_abs_err=(got - want).abs().max().item(),
@@ -1035,6 +1052,7 @@ def check_gather_pages(torch, ref, mod):
     """The page gather (on no path) at one layer of Qwen2-1.5B's serving
     pool, [8 * 8256, 512] bf16 in pages of 16 rows: 1024 page ids, the
     pages of a top-2048 per request."""
+    from repro_torch.kernels import cost
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(4)
     B, S, d, page = 8, 8256, 512, 16
@@ -1048,14 +1066,14 @@ def check_gather_pages(torch, ref, mod):
                              "version")
     view = kv.view(B * S // page, page * d)
     pl = pidx.long()
-    nb = n * 4 + 2 * n * page * d * 2
     return dict(
         max_abs_err=0.0,
         ms=cuda_time_ms(lambda: mod.gather_kv_pages(kv, pidx, page=page)),
         plain_ms=cuda_time_ms(lambda: ref.gather_kv_pages_ref(kv, pidx,
                                                               page)),
         library_ms=cuda_time_ms(lambda: view.index_select(0, pl)),
-        bound=bound_ms(nb, 0.0))
+        bound=cost.bound_ms(cost.gather_pages(n, page,
+                                              d * kv.element_size())))
 
 
 def check_indexer_edges(torch, ref, mod):
@@ -2385,6 +2403,7 @@ def check_shard_forms(torch, ref, gather_mod, scatter_mod):
 
 
 def _gather_shard_case(torch, ref, mod, name, kv, idx, base):
+    from repro_torch.kernels import cost
     want = torch.stack([ref.gather_kv_shard_ref(kv[b].view(torch.uint8),
                                                 idx[b], base)
                         for b in range(kv.shape[0])])
@@ -2397,7 +2416,7 @@ def _gather_shard_case(torch, ref, mod, name, kv, idx, base):
     w, n = d * kv.element_size(), idx.numel()
     inside = (idx >= base) & (idx < base + S_l)
     n_in = int(inside.sum())
-    bound, by = bound_ms(n * 4 + n_in * w + n * w, 0.0)
+    bound, by = cost.bound_ms(cost.rows(n, w, n_in))
     copies = cold_copies([(kv, idx)], n_in * w)
     local = torch.clamp(idx - base, 0, S_l - 1)
     u8 = kv.view(torch.uint8)
@@ -2429,6 +2448,7 @@ def _gather_shard_case(torch, ref, mod, name, kv, idx, base):
 
 
 def _write_shard_case(torch, ref, mod, name, pools, base, S):
+    from repro_torch.kernels import cost
     dev = pools[0].device
     L, B, S_l = pools[0].shape[:3]
     g = torch.Generator(device=dev).manual_seed(S_l)
@@ -2457,9 +2477,9 @@ def _write_shard_case(torch, ref, mod, name, pools, base, S):
     e_own = [e[:, owned].reshape(-1, e.shape[-1]).view(torch.uint8)
              for e in entries]
     n_own = rows.shape[0]
-    nb = B * 4 + sum(2 * n_own * e.shape[-1] * e.element_size()
-                     for e in entries)
-    bound, by = bound_ms(nb, 0.0)
+    bound, by = cost.bound_ms(cost.write_rows_at(
+        B, [(L, e.shape[-1] * e.element_size()) for e in entries],
+        lanes=int(owned.sum())))
     rec = dict(shape=name, form="decode_write_shard",
                dtype=str(pools[0].dtype), pools=[list(p.shape) for p in pools],
                base=base, seq_len=S, rows=len(pools) * n_own,
@@ -2477,6 +2497,7 @@ def _write_shard_case(torch, ref, mod, name, pools, base, S):
 
 
 def _splice_shard_case(torch, ref, mod, name, srcs, base, S_l, timed=True):
+    from repro_torch.kernels import cost
     L, B, T = srcs[0].shape[:3]
     pools = [torch.full((L, B, S_l, s.shape[-1] * s.element_size()), 7,
                         dtype=torch.uint8, device=s.device).view(s.dtype)
@@ -2494,9 +2515,8 @@ def _splice_shard_case(torch, ref, mod, name, srcs, base, S_l, timed=True):
     if not timed:
         return None
     n = min(max(T - base, 0), S_l)
-    nb = sum(L * B * (n + S_l) * s.shape[-1] * s.element_size()
-             for s in srcs)
-    bound, by = bound_ms(nb, 0.0)
+    bound, by = cost.bound_ms(cost.splice_pools(pools, srcs, zero_tail=True,
+                                                src_row0=base))
 
     def library():
         for p, s in zip(pools, srcs):
@@ -3376,6 +3396,352 @@ def simulator_twin(torch, ops):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the dry-run, and the one production cell that fits a card
+# ---------------------------------------------------------------------------
+
+# (a): the cell built on meta and on the card; its decode steps
+DRYRUN_CELL = dict(arch="qwen2-1.5b", shape="long_500k", mode="sac")
+DRYRUN_STEPS = dict(warmup=2, timed=5, profiled=2)
+# (b): one arch of each family at every shape on the single pod, and
+# DeepSeek-V3.2 at decode_32k on both meshes, each on meta in its own
+# process (DRYRUN_WORKERS at once), the quick shapes first.  A cell's
+# step runs every operator on meta, at tens to hundreds of microseconds
+# of host each: a decode cell takes 18-30 s of its process on the card's
+# host (6 at once), a train cell minutes (the CPU sweep, ``python -m
+# repro_torch.launch.dryrun --all``, runs them).  So the phase cuts up
+# front, and only here, every train_4k cell and the prefill_32k cells
+# but Qwen2-1.5B's and Whisper-small's (xLSTM-125M's sLSTM steps one
+# token at a time: 32,768 times a token's operators).  The 16 cells that
+# stay took 66-77 s on the card's host with (c) and (a)'s meta build beside
+# them; DRYRUN_BUDGET_S is a hang guard: a cell still running then, or
+# not yet started, fails the phase
+DRYRUN_ARCHS = ("qwen2-1.5b", "mixtral-8x22b", "gemma3-12b", "zamba2-7b",
+                "xlstm-125m", "whisper-small")
+DRYRUN_SHAPES = ("decode_32k", "long_500k", "prefill_32k", "train_4k")
+DRYRUN_CUT = ({(a, "train_4k") for a in DRYRUN_ARCHS}
+              | {(a, "prefill_32k") for a in ("mixtral-8x22b", "gemma3-12b",
+                                              "zamba2-7b", "xlstm-125m")})
+DRYRUN_CELLS = ([("deepseek-v32", "decode_32k", m)
+                 for m in ("single", "multi")]
+                + [(a, s, "single") for s in DRYRUN_SHAPES
+                   for a in DRYRUN_ARCHS if (a, s) not in DRYRUN_CUT])
+DRYRUN_WORKERS = 6
+DRYRUN_BUDGET_S = 300
+# the port's examples run on the card in (c)
+DRYRUN_EXAMPLES = ("quickstart", "serve_sac")
+
+# the meta build of (a), in its own process: a fake group of one rank
+_META_CELL = """
+import json, sys
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_mesh
+arch, shape, mode = sys.argv[1:4]
+with dryrun.fake_world(1):
+    mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+    step, in_sh, in_spec, meta = dryrun.build_cell(arch, shape, mesh, mode)
+    counts = dryrun.count_step(step, in_spec)
+    layout = dryrun.layout_bytes(in_sh, meta, mesh)
+from repro_torch.configs import SHAPES_BY_NAME, get_config
+rec = dryrun.record(meta, counts, layout, get_config(arch),
+                    SHAPES_BY_NAME[shape], chips=1, t_build=0.0)
+print("META " + json.dumps(rec))
+"""
+
+
+def _sub_env(**extra):
+    """A subprocess's environment: the checkout's ``src`` on the path."""
+    import os
+    return dict(os.environ, PYTHONPATH=str(SRC), **extra)
+
+
+# a meta process: no card, one intra-op thread (several run at once)
+META_ENV = dict(CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+                MKL_NUM_THREADS="1")
+
+
+def start_meta_cell():
+    """Phase 18 (a)'s meta build, started in its own process (it runs
+    while (b) and (c) do; ``dryrun_cell_on_card`` reads it)."""
+    c = DRYRUN_CELL
+    return subprocess.Popen([sys.executable, "-c", _META_CELL, c["arch"],
+                             c["shape"], c["mode"]], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            env=_sub_env(**META_ENV))
+
+
+def check_host_rules(torch, indexer, sparse_attn) -> dict:
+    """The host's mirror of each kernel's shape rule (what a ``meta``
+    call checks: ``indexer_accepts``, ``gqa_accepts``, ``mla_accepts``)
+    against the card's occupancy answer (slots 0: refused) over a grid of
+    shapes; every disagreement fails."""
+    bad, n = [], 0
+    for H in (1, 4, 64, 128, 129):
+        for di in (8, 16, 24, 64, 128, 256, 272):
+            n += 1
+            if indexer.indexer_accepts(H, di) != bool(
+                    indexer.indexer_slots(H, di)[0]):
+                bad.append(("indexer", H, di))
+    for fp8 in (False, True):
+        for n_rep in (1, 2, 4, 6, 8, 16, 32, 64):
+            for hd in (8, 16, 64, 72, 112, 128, 240, 256, 512, 520):
+                n += 1
+                if sparse_attn.gqa_accepts(n_rep, hd, fp8) != bool(
+                        sparse_attn.gqa_slots(n_rep, hd, fp8=fp8)):
+                    bad.append(("gqa", n_rep, hd, fp8))
+        for dq, st_w in ((576, 576), (48, 48), (192, 192), (576, 1024),
+                         (1024, 1024), (64, 32)):
+            n += 1
+            if sparse_attn.mla_accepts(dq, st_w, fp8) != bool(
+                    sparse_attn.mla_slots(dq, st_w, fp8=fp8)):
+                bad.append(("mla", dq, st_w, fp8))
+    rec = dict(phase="dryrun_host_rules", shapes=n, disagree=bad)
+    emit(rec)
+    if bad:
+        raise AssertionError(f"host shape rules disagree with the card: "
+                             f"{bad}")
+    return rec
+
+
+def dryrun_cell_on_card(torch, smi: str, meta_proc) -> dict:
+    """Phase 18 (a): DRYRUN_CELL on meta (``meta_proc``, from
+    ``start_meta_cell``) and on the card (one NCCL rank, mesh (1, 1)),
+    counted over one decode step each."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import n_kv_layers
+    c = DRYRUN_CELL
+    t0 = time.perf_counter()
+    stdout, stderr = meta_proc.communicate(timeout=600)
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("META ")]
+    if meta_proc.returncode or not lines:
+        raise AssertionError(f"the meta build failed:\n{stderr[-3000:]}")
+    meta = json.loads(lines[-1][5:])
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        base_req = torch.cuda.memory_stats()["requested_bytes.all.current"]
+        t1 = time.perf_counter()
+        step, in_sh, in_spec, info = dryrun.build_cell(
+            c["arch"], c["shape"], mesh, c["mode"], device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t1
+        allocated = torch.cuda.memory_allocated() - base
+        requested = (torch.cuda.memory_stats()["requested_bytes.all.current"]
+                     - base_req)
+        torch.cuda.reset_peak_memory_stats()
+        card = dryrun.count_step(step, in_spec)
+        torch.cuda.synchronize()
+        card_peak = torch.cuda.max_memory_allocated() - base
+        params, state, tokens = in_spec
+
+        def one():
+            nonlocal state
+            state, logits = step(params, state, tokens)
+            return logits
+        for _ in range(DRYRUN_STEPS["warmup"]):
+            logits = one()
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("the long_500k decode gave non-finite "
+                                 "logits")
+        walls = []
+        for _ in range(DRYRUN_STEPS["timed"]):
+            t2 = time.perf_counter()
+            one()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t2)
+        n = DRYRUN_STEPS["profiled"]
+        prof = profile_steps(torch, one, n_steps=n,
+                             device_kernels=GQA_DEVICE_KERNELS,
+                             spans={"pool_layer": n_kv_layers(
+                                 get_config(c["arch"]))})
+    finally:
+        dist.destroy_process_group()
+    device_s = prof["device_busy_s"] / n
+    roof_s = max(meta["compute_s"], meta["memory_s"])
+    keys = ("flops", "bytes", "collective_bytes", "collective_breakdown",
+            "collective_counts", "ops", "kernels")
+    rec = dict(
+        phase="dryrun_cell", card=smi, cell=c, lanes=info["lanes_per_rank"],
+        pool_rows=info["pool_rows_per_rank"],
+        meta={k: meta[k] for k in keys}, card_counts={k: card[k]
+                                                     for k in keys},
+        card_launches=card["launches"],
+        argument_bytes=meta["mem_per_device"]["argument_bytes"],
+        step_argument_bytes=meta["mem_per_device"]["step_argument_bytes"],
+        card_requested_bytes=requested, card_allocated_bytes=allocated,
+        meta_peak_bytes=meta["mem_per_device"]["peak_bytes"],
+        card_max_memory_allocated=card_peak,
+        card_count_peak_bytes=card["peak_bytes"],
+        launching_ops=meta["ops"],
+        profiler_launches_per_step=prof["launches_per_step"],
+        profiler_launches_ex_per_step=prof["launches_ex_per_step"],
+        device_ms_per_step=device_s * 1e3,
+        wall_s_median=_median(walls), wall_s=walls,
+        compute_s=meta["compute_s"], memory_s=meta["memory_s"],
+        collective_s=meta["collective_s"], dominant=meta["dominant"],
+        roofline_share=roof_s / device_s, model_flops=meta["model_flops"],
+        useful_flops_ratio=meta["useful_flops_ratio"],
+        port_kernels_us=prof["port_kernels"], meta_count_s=meta["compile_s"],
+        build_s=build_s, seconds=time.perf_counter() - t0)
+    emit(rec)
+    want = {"gather_kv.shard": 28, "gather_kv": 28, "indexer_scores": 28,
+            "sparse_attn_gqa": 28, "scatter_kv.rows_at_shard": 1,
+            "scatter_kv": 1}
+    diff = [k for k in keys if meta[k] != card[k]]
+    if diff:
+        raise AssertionError(f"meta and card counts differ in {diff}")
+    if card["launches"] != want:
+        raise AssertionError(f"launches a step {card['launches']}, want "
+                             f"{want}")
+    # the meta build's calls against what the card launched, by form
+    forms = {k: n for k, n in card["launches"].items()
+             if k not in ("gather_kv", "scatter_kv")}
+    if meta["kernels"] != forms:
+        raise AssertionError(f"the meta build's kernel calls "
+                             f"{meta['kernels']} differ from the card's "
+                             f"launches {forms}")
+    if not (meta["mem_per_device"]["argument_bytes"]
+            == meta["mem_per_device"]["step_argument_bytes"] == requested):
+        raise AssertionError(
+            f"argument bytes differ: meta {meta['mem_per_device']}, the "
+            f"card's requests {requested}")
+    return rec
+
+
+def dryrun_cli_cells(lines: list) -> list:
+    """Phase 18 (b): the dry-run CLI, one process a cell of DRYRUN_CELLS
+    (DRYRUN_WORKERS at once, none on the card).  Every cell must end
+    ``ok`` or ``skipped``; one still running at DRYRUN_BUDGET_S is killed
+    and reported ``timeout`` with its stderr's tail, and one not started
+    by then ``not_started``.  Runs in a thread beside (c): its records go
+    to ``lines`` (emitted by the caller after the join), and the cells'
+    records are returned."""
+    import os
+    import tempfile
+    t0 = time.perf_counter()
+    recs = []
+    with tempfile.TemporaryDirectory() as out:
+        pending = list(DRYRUN_CELLS)
+        running = []
+        env = _sub_env(**META_ENV)
+        while pending or running:
+            late = time.perf_counter() - t0 > DRYRUN_BUDGET_S
+            while pending and len(running) < DRYRUN_WORKERS and not late:
+                arch, shape, mesh = pending.pop(0)
+                cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                       "--arch", arch, "--shape", shape, "--mesh", mesh,
+                       "--out", out]
+                running.append(((arch, shape, mesh), time.perf_counter(),
+                                subprocess.Popen(
+                                    cmd, stdout=subprocess.DEVNULL,
+                                    stderr=subprocess.PIPE, text=True,
+                                    env=env)))
+            time.sleep(0.2)
+            late = time.perf_counter() - t0 > DRYRUN_BUDGET_S
+            still = []
+            for cell, start, proc in running:
+                rec = dict(arch=cell[0], shape=cell[1], mesh=cell[2])
+                if proc.poll() is None:
+                    if not late:
+                        still.append((cell, start, proc))
+                        continue
+                    proc.kill()
+                    rec.update(status="timeout",
+                               seconds=time.perf_counter() - start,
+                               error=(proc.communicate()[1] or "")[-2000:])
+                else:
+                    err = proc.communicate()[1]
+                    files = [f for f in os.listdir(out) if f.startswith(
+                        f"{cell[0]}__{cell[1]}__{cell[2]}")]
+                    r = (json.load(open(os.path.join(out, files[0])))
+                         if files else {})
+                    rec.update(status=r.get("status", "failed"),
+                               rc=proc.returncode,
+                               seconds=time.perf_counter() - start)
+                    if r.get("status") == "ok":
+                        mem = r["mem_per_device"]
+                        rec.update({k: r[k] for k in (
+                            "mode", "flops", "bytes", "ops",
+                            "collective_counts", "compute_s", "memory_s",
+                            "collective_s", "dominant", "useful_flops_ratio",
+                            "kernels")},
+                            argument_bytes=mem["argument_bytes"],
+                            step_argument_bytes=mem["step_argument_bytes"],
+                            peak_bytes=mem["peak_bytes"],
+                            build_s=r["lower_s"], count_s=r["compile_s"])
+                    elif r.get("status") == "skipped":
+                        rec["skip"] = r["skip"]
+                    else:
+                        rec["error"] = (err or "")[-2000:]
+                recs.append(rec)
+                lines.append(dict(phase="dryrun_cli", **rec))
+            running = still
+            if late:
+                for arch, shape, mesh in pending:
+                    rec = dict(arch=arch, shape=shape, mesh=mesh,
+                               status="not_started")
+                    recs.append(rec)
+                    lines.append(dict(phase="dryrun_cli", **rec))
+                pending = []
+    lines.append(dict(phase="dryrun_cli_total", cells=len(recs),
+              ok=sum(r["status"] == "ok" for r in recs),
+              skipped=sum(r["status"] == "skipped" for r in recs),
+              failed=[(r["arch"], r["shape"], r["mesh"], r["status"])
+                      for r in recs if r["status"] not in ("ok", "skipped")],
+              cut_up_front=sorted(DRYRUN_CUT), budget_s=DRYRUN_BUDGET_S,
+              seconds=time.perf_counter() - t0))
+    return recs
+
+
+def dryrun_phase(torch, indexer, sparse_attn, smi: str) -> None:
+    """Phase 18: the host's shape rules; then (b) in a thread of
+    subprocesses, (a)'s meta build in its own process and (c) on the
+    card, all at once; then (a) on the card alone (its wall and device
+    times uncontended)."""
+    import threading
+    check_host_rules(torch, indexer, sparse_attn)
+    meta_proc = start_meta_cell()
+    lines, recs = [], []
+    cli = threading.Thread(target=lambda: recs.extend(
+        dryrun_cli_cells(lines)))
+    cli.start()
+    try:
+        dryrun_examples(torch)
+    finally:
+        cli.join()
+        for line in lines:
+            emit(line)
+    bad = [r for r in recs if r["status"] not in ("ok", "skipped")]
+    if bad or len(recs) != len(DRYRUN_CELLS):
+        raise AssertionError(f"dry-run cells failed: {bad}")
+    dryrun_cell_on_card(torch, smi, meta_proc)
+
+
+def dryrun_examples(torch) -> None:
+    """Phase 18 (c): the port's examples on the card, exit 0."""
+    for name in DRYRUN_EXAMPLES:
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, str(ROOT / "examples" / "torch" / f"{name}.py")],
+            capture_output=True, text=True, env=_sub_env(), timeout=600)
+        emit(dict(phase="dryrun_example", example=name, rc=out.returncode,
+                  tail=out.stdout.strip().splitlines()[-3:],
+                  seconds=time.perf_counter() - t0))
+        if out.returncode:
+            raise AssertionError(f"examples/torch/{name}.py failed:\n"
+                                 f"{out.stderr[-3000:]}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels", action="store_true",
@@ -3387,7 +3753,10 @@ def main() -> None:
     ap.add_argument("--twin", action="store_true",
                     help="phases 1-3, then only the simulator twin (17); "
                     "with --sharded, phases 1-3, 16 and 17")
+    ap.add_argument("--dryrun", action="store_true",
+                    help="phases 1-3, then only the dry-run (18)")
     args = ap.parse_args()
+    only = args.kernels or args.sharded or args.twin or args.dryrun
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
              "a checkout of the repository")
@@ -3434,7 +3803,7 @@ def main() -> None:
               seconds=time.perf_counter() - t0))
 
     launches = shard_launches = None
-    if not (args.kernels or args.sharded or args.twin):
+    if not only:
         # 4. small inputs: card vs CPU plain path
         path_kernels = {
             "sac": ("gather_kv", "indexer_scores", "scatter_kv"),
@@ -3539,7 +3908,7 @@ def main() -> None:
                        + [fetch_counts, whisper_counts] + cli_counts):
             for k, n in counts.items():
                 launches[k] += n
-    if not args.kernels and (args.sharded or not args.twin):
+    if args.sharded or not only:
         # 16. the pool sharded over a torch.distributed mesh
         t0 = time.perf_counter()
         _, refs, counts_a = sharded_nccl(torch, ops)
@@ -3550,7 +3919,7 @@ def main() -> None:
                           for k in counts_b}
         emit(dict(phase="sharded_total", launches=shard_launches,
                   seconds=time.perf_counter() - t0))
-    if args.twin or not (args.kernels or args.sharded):
+    if args.twin or not only:
         # 17. the simulator twin: the engine's timeline replayed
         t0 = time.perf_counter()
         twin_counts = simulator_twin(torch, ops)
@@ -3559,6 +3928,14 @@ def main() -> None:
                 launches[k] += n
         emit(dict(phase="simulator_twin_total", launches=twin_counts,
                   seconds=time.perf_counter() - t0))
+
+    if args.dryrun or not only:
+        # 18. the dry-run: the host's shape rules, the one production
+        # cell that fits a card on meta and on the card, the CLI's
+        # cells, the examples
+        t0 = time.perf_counter()
+        dryrun_phase(torch, indexer, sparse_attn, smi[0])
+        emit(dict(phase="dryrun_total", seconds=time.perf_counter() - t0))
 
     info = {
         "gather_kv": ("src/repro_torch/csrc/gather_kv.cu",

@@ -120,7 +120,7 @@ def _numpy_tree(item):
     """Port parameters -> numpy: a list becomes one stack on a new
     leading axis, as the reference stacks layers for its scan."""
     if isinstance(item, torch.Tensor):
-        return _to_numpy(item)
+        return item if item.is_meta else _to_numpy(item)
     if isinstance(item, dict):
         return {k: _numpy_tree(v) for k, v in item.items()}
     return _stack([_numpy_tree(v) for v in item])
@@ -129,6 +129,8 @@ def _numpy_tree(item):
 def _stack(trees):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    if isinstance(trees[0], torch.Tensor):          # meta: shapes only
+        return torch.stack(trees)
     return np.stack(trees)
 
 
@@ -138,7 +140,9 @@ def params_to_numpy(params: Dict[str, Any],
     (each segment's list stacked on a leading [n] axis and its inner
     lists on a second one; an ``lg_super`` segment split into its
     ``local`` [n, r] and ``global`` [n] stacks; an encoder-decoder's
-    ``enc`` and ``dec`` lists stacked; bf16 as uint16 bits)."""
+    ``enc`` and ``dec`` lists stacked; bf16 as uint16 bits).  ``meta``
+    leaves (``param_shapes``, the dry-run's per-rank trees) stay
+    ``meta`` tensors, stacked alike: the reference's layout of shapes."""
     if cfg.enc_dec:
         return {k: _numpy_tree(v) for k, v in params.items()}
     out = {k: _numpy_tree(params[k])

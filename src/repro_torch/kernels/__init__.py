@@ -10,5 +10,8 @@ Each TPU kernel of ``repro/kernels/`` becomes a CUDA C++ kernel for
 - sparse_attn: top-k sparse attention, online softmax (MLA form)
 
 ``ops.py`` dispatches a batch: CPU tensors go to the plain versions in
-``ref.py``, CUDA tensors to the kernels (or the call raises).
+``ref.py``, CUDA tensors to the kernels (or the call raises), ``meta``
+tensors through the wrappers' checks with no launch (the dry-run).
+``cost.py`` holds each kernel's analytic FLOPs and bytes (the bounds of
+chip_smoke.py, the dry-run's counts).
 """

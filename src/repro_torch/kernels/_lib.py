@@ -185,18 +185,27 @@ def card_slots(index: int, entry: str, *shape: int,
     return (sms * vals[0].value,) + tuple(v.value for v in vals[1:])
 
 
+#: blocks the split plans take on ``meta``, where no card answers the
+#: occupancy query: the H100 SXM's 132 SMs at one block each (the plan
+#: sizes only a scratch buffer, never a count)
+META_SLOTS = 132
+
+
 def stream() -> int:
     """PyTorch's current CUDA stream, as the pointer the kernels take."""
     return torch.cuda.current_stream().cuda_stream
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
-    """Every tensor on one CUDA device, contiguous; returns the device."""
+    """Every tensor on one CUDA device, or every one on ``meta`` (the
+    dry-run: the wrapper checks the shapes and makes its outputs, and
+    launches nothing), contiguous; returns the device."""
     dev = tensors[0].device
     for t in tensors:
-        if not t.is_cuda or t.device != dev:
+        if not (t.is_cuda or t.is_meta) or t.device != dev:
             raise ValueError(f"{name}: every tensor must be on one CUDA "
-                             f"device, got {[str(x.device) for x in tensors]}")
+                             f"device (or on meta), got "
+                             f"{[str(x.device) for x in tensors]}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
     return dev

@@ -18,7 +18,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels import _lib
+from repro_torch.kernels import _lib, cost
 
 #: kernel launches since the last reset, one counter per form (read by
 #: chip_smoke.py); a launch of several segments counts once
@@ -43,8 +43,10 @@ def gather_kv_many(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]]
     one launch (1 to ``MAX_SEGMENTS`` pairs; dtypes and shapes may
     differ)."""
     global launches
-    outs = _launch("gather_kv", pairs, None)
-    launches += 1
+    outs, launched = _launch("gather_kv", pairs, None)
+    launches += launched
+    if cost.RECORDERS:
+        cost.record("gather_kv.rows", cost.gather(pairs))
     return outs
 
 
@@ -57,12 +59,17 @@ def gather_kv_shard(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]],
     global launches_shard
     if base < 0:
         raise ValueError(f"gather_kv_shard: base {base} < 0")
-    outs = _launch("gather_kv_shard", pairs, base)
-    launches_shard += 1
+    outs, launched = _launch("gather_kv_shard", pairs, base)
+    launches_shard += launched
+    if cost.RECORDERS:
+        cost.record("gather_kv.shard", cost.gather(pairs))
     return outs
 
 
-def _launch(name: str, pairs, base: Optional[int]) -> List[torch.Tensor]:
+def _launch(name: str, pairs, base: Optional[int]
+            ) -> Tuple[List[torch.Tensor], bool]:
+    """The gather's checks and outputs, and its launch unless the tensors
+    lie on ``meta``; (outs, whether it launched)."""
     if not 1 <= len(pairs) <= MAX_SEGMENTS:
         raise ValueError(f"{name}: 1 to {MAX_SEGMENTS} segments, got "
                          f"{len(pairs)}")
@@ -81,10 +88,12 @@ def _launch(name: str, pairs, base: Optional[int]) -> List[torch.Tensor]:
         seg.B, seg.S, seg.k, seg.row_bytes = B, S, k, d * kv.element_size()
         seg.base, seg.shard = base or 0, int(base is not None)
         outs.append(out)
+    if dev.type == "meta":
+        return outs, False
     with torch.cuda.device(dev):
         rc = _lib.lib().sac_gather_kv(segs, len(pairs), _lib.stream())
     _lib.check(rc, name)
-    return outs
+    return outs, True
 
 
 def gather_kv_pages(kv: torch.Tensor, page_idx: torch.Tensor, *,
@@ -104,10 +113,14 @@ def gather_kv_pages(kv: torch.Tensor, page_idx: torch.Tensor, *,
     S, d = kv.shape
     n = page_idx.shape[0]
     out = torch.empty((n * page, d), dtype=kv.dtype, device=dev)
-    with torch.cuda.device(dev):
-        rc = _lib.lib().sac_gather_kv_pages(
-            kv.data_ptr(), page_idx.data_ptr(), out.data_ptr(), S // page,
-            n, page * d * kv.element_size(), _lib.stream())
-    _lib.check(rc, name)
-    launches_pages += 1
+    if dev.type != "meta":
+        with torch.cuda.device(dev):
+            rc = _lib.lib().sac_gather_kv_pages(
+                kv.data_ptr(), page_idx.data_ptr(), out.data_ptr(),
+                S // page, n, page * d * kv.element_size(), _lib.stream())
+        _lib.check(rc, name)
+        launches_pages += 1
+    if cost.RECORDERS:
+        cost.record("gather_kv_pages",
+                    cost.gather_pages(n, page, d * kv.element_size()))
     return out

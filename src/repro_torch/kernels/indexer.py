@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _lib, sparse_attn
+from repro_torch.kernels import _lib, cost, sparse_attn
 
 #: kernel launches since the last reset (read by chip_smoke.py)
 launches = 0
@@ -43,6 +43,13 @@ def indexer_slots(H: int, di: int,
                            outs=2)
 
 
+def indexer_accepts(H: int, di: int) -> bool:
+    """The shapes the kernel takes (``csrc/indexer.cu::pick``, which two
+    ring stages fit on an H100 at every such shape): the host's rule, for
+    ``meta`` calls, where no card answers ``indexer_slots``."""
+    return di % 16 == 0 and 16 <= di <= 256 and 1 <= H <= 128
+
+
 def indexer_scores(q: torch.Tensor, w: torch.Tensor,
                    keys: torch.Tensor) -> torch.Tensor:
     """q: [B, H, di] f32; w: [B, H] f32; keys: [B, S, di] bf16
@@ -60,7 +67,10 @@ def indexer_scores(q: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"{name}: q [B,H,di], w [B,H], keys [B,S,di]; got "
                          f"{tuple(q.shape)}, {tuple(w.shape)}, "
                          f"{tuple(keys.shape)}")
-    slots, rows = indexer_slots(H, di, dev.index)
+    if dev.type == "meta":
+        slots, rows = int(indexer_accepts(H, di)), 0
+    else:
+        slots, rows = indexer_slots(H, di, dev.index)
     if not slots or keys.data_ptr() % 16 or q.data_ptr() % 16:
         raise ValueError(f"{name}: the kernel takes di a multiple of 16 in "
                          f"[16, 256], H in [1, 128] and 16-byte aligned q "
@@ -68,6 +78,10 @@ def indexer_scores(q: torch.Tensor, w: torch.Tensor,
     S = keys.shape[1]
     out = torch.empty((B, S), dtype=torch.float32, device=dev)
     if B == 0 or S == 0:
+        return out
+    if cost.RECORDERS:
+        cost.record(name, cost.indexer(B, S, H, di, keys.element_size()))
+    if dev.type == "meta":
         return out
     chunk = indexer_plan(B, S, rows, slots)[1]
     with torch.cuda.device(dev):

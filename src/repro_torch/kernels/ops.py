@@ -4,7 +4,11 @@ A call whose tensors lie on the CPU runs the plain versions of
 ``ref.py`` (one request at a time, as the reference vmaps them).  A call
 whose tensors lie on a CUDA device launches the kernel once for the
 whole batch (the batch is part of the kernel's grid), or raises: there
-is no fallback from a CUDA tensor to the plain version.
+is no fallback from a CUDA tensor to the plain version.  A call on
+``meta`` tensors (the dry-run, ``launch/dryrun.py``) goes through the
+same wrapper as a CUDA one, which checks its shapes, reports the call
+to an active counter and makes its outputs, but launches nothing (and
+so moves no ``launch_counts()`` counter).
 """
 from __future__ import annotations
 
@@ -53,15 +57,20 @@ def reset_launch_counts() -> None:
         setattr(mod, attr, 0)
 
 
-def _on_cuda(*tensors: torch.Tensor) -> bool:
-    """True when the call goes to the kernel.  CPU tensors take the
-    plain version; a mix of devices is refused by the kernel wrapper."""
-    return any(t.is_cuda for t in tensors)
+def _to_kernel(*tensors: torch.Tensor) -> bool:
+    """True when the call goes to the kernel wrapper: a CUDA tensor (the
+    kernel launches) or a ``meta`` one (the dry-run: the wrapper applies
+    its own shape checks, reports the call under its ``launch_counts()``
+    name with its cost to an active counter (``kernels/cost.py``) and
+    returns empty ``meta`` outputs of the kernel's shapes and dtypes,
+    launching nothing and counting no launch).  CPU tensors take
+    the plain version; a mix of devices is refused by the wrapper."""
+    return any(t.is_cuda or t.is_meta for t in tensors)
 
 
 def batched_gather(kv: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """kv: [B, S, d]; idx: [B, k] -> [B, k, d]."""
-    if _on_cuda(kv, idx):
+    if _to_kernel(kv, idx):
         return _gather.gather_kv(kv, idx.to(torch.int32).contiguous())
     return torch.stack([ref.gather_kv_ref(kv[b], idx[b])
                         for b in range(kv.shape[0])])
@@ -71,7 +80,7 @@ def batched_gather_many(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]]
                         ) -> List[torch.Tensor]:
     """Each (kv [B, S, d], idx [B, k]) -> [B, k, d]; on the card one
     launch for all the pairs."""
-    if _on_cuda(*(t for pair in pairs for t in pair)):
+    if _to_kernel(*(t for pair in pairs for t in pair)):
         return _gather.gather_kv_many([(kv, idx.to(torch.int32).contiguous())
                                        for kv, idx in pairs])
     return ref.gather_kv_many_ref(pairs)
@@ -82,7 +91,7 @@ def batched_gather_shard(kv: torch.Tensor, idx: torch.Tensor,
     """The shard form: kv [B, S_local, d] is the slice [base, base +
     S_local) of a pool; idx [B, k] global rows -> [B, k, d], zeros where
     a row lies outside the slice."""
-    if _on_cuda(kv, idx):
+    if _to_kernel(kv, idx):
         return _gather.gather_kv_shard(
             [(kv, idx.to(torch.int32).contiguous())], base)[0]
     return torch.stack([ref.gather_kv_shard_ref(kv[b], idx[b], base)
@@ -92,7 +101,7 @@ def batched_gather_shard(kv: torch.Tensor, idx: torch.Tensor,
 def batched_indexer_scores(q: torch.Tensor, w: torch.Tensor,
                            keys: torch.Tensor) -> torch.Tensor:
     """q: [B, H, di]; w: [B, H]; keys: [B, S, di] -> [B, S] f32."""
-    if _on_cuda(q, w, keys):
+    if _to_kernel(q, w, keys):
         return _indexer.indexer_scores(q.float().contiguous(),
                                        w.float().contiguous(), keys)
     return torch.stack([ref.indexer_scores_ref(q[b], w[b], keys[b])
@@ -104,7 +113,7 @@ def batched_sparse_mla(q_lat: torch.Tensor, q_pe: torch.Tensor,
                        dc: int, scale: float) -> torch.Tensor:
     """q_lat: [B,H,dc]; q_pe: [B,H,dr]; entries: [B,k,dc+dr]; valid: [B,k]
     -> out_lat [B,H,dc] f32."""
-    if _on_cuda(q_lat, q_pe, entries, valid):
+    if _to_kernel(q_lat, q_pe, entries, valid):
         q = torch.cat([q_lat.float(), q_pe.float()], dim=-1).contiguous()
         return _attn.sparse_attn(q, entries.contiguous(), valid.contiguous(),
                                  scale=scale, dv=dc)
@@ -119,7 +128,7 @@ def batched_sparse_gqa(q: torch.Tensor, entries: torch.Tensor,
     """q: [B,H,hd]; entries: [B,k,2*n_kv*hd]; valid: [B,k] -> [B,H,hd] f32.
 
     Scale 1/sqrt(hd), as the reference divides q before the dot."""
-    if _on_cuda(q, entries, valid):
+    if _to_kernel(q, entries, valid):
         return _attn.sparse_attn_gqa(q.float().contiguous(),
                                      entries.contiguous(), valid.contiguous(),
                                      n_kv=n_kv,
@@ -138,7 +147,7 @@ def batched_scatter(pool: torch.Tensor, entries: torch.Tensor,
     if entries.dtype != pool.dtype:
         raise TypeError(f"batched_scatter: entries are {entries.dtype}, the "
                         f"pool {pool.dtype}: cast with to_kv_dtype first")
-    if _on_cuda(pool, entries, idx):
+    if _to_kernel(pool, entries, idx):
         return _scatter.scatter_kv(pool, entries.contiguous(),
                                    idx.to(torch.int32).contiguous())
     for b in range(pool.shape[0]):
@@ -162,7 +171,7 @@ def pool_rows_at(pools: Sequence[torch.Tensor],
     ``seq_len`` (the shard form) each pool is the slice [base, base + S)
     of ``seq_len`` positions and takes only the rows that fall in it."""
     _same_dtype("pool_rows_at", pools, entries)
-    if _on_cuda(pos, *pools, *entries):
+    if _to_kernel(pos, *pools, *entries):
         args = (pools, [e.contiguous() for e in entries],
                 pos.to(torch.int32).contiguous())
         if seq_len is None:
@@ -182,7 +191,7 @@ def pool_splice(pools: Sequence[torch.Tensor], srcs: Sequence[torch.Tensor],
     with ``zero_tail`` zeros into rows [offset+T, S) of those lanes, IN
     PLACE; on the card one launch for all the pools."""
     _same_dtype("pool_splice", pools, srcs)
-    if _on_cuda(*pools, *srcs):
+    if _to_kernel(*pools, *srcs):
         _scatter.splice(pools, [s.contiguous() for s in srcs], offset=offset,
                         lane=lane, zero_tail=zero_tail)
         return
@@ -197,7 +206,7 @@ def pool_splice_shard(pools: Sequence[torch.Tensor],
     [base, base + S_local), zeros past T, IN PLACE; on the card one launch
     for all the pools."""
     _same_dtype("pool_splice_shard", pools, srcs)
-    if _on_cuda(*pools, *srcs):
+    if _to_kernel(*pools, *srcs):
         _scatter.splice_shard(pools, [s.contiguous() for s in srcs], base)
         return
     for pool, src in zip(pools, srcs):

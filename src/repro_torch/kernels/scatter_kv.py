@@ -26,7 +26,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from repro_torch.kernels import _lib
+from repro_torch.kernels import _lib, cost
 from repro_torch.kernels.gather_kv import MAX_SEGMENTS
 
 #: kernel launches since the last reset, one counter per form (read by
@@ -71,13 +71,16 @@ def scatter_kv(pool: torch.Tensor, entries: torch.Tensor,
                          f"{tuple(entries.shape)}, {tuple(idx.shape)}")
     B, S, d = pool.shape
     k = idx.shape[1]
-    with torch.cuda.device(dev):
-        rc = _lib.lib().sac_scatter_kv(pool.data_ptr(), entries.data_ptr(),
-                                       idx.data_ptr(), B, S, k,
-                                       d * pool.element_size(),
-                                       _lib.stream())
-    _lib.check(rc, name)
-    launches += 1
+    if dev.type != "meta":
+        with torch.cuda.device(dev):
+            rc = _lib.lib().sac_scatter_kv(
+                pool.data_ptr(), entries.data_ptr(), idx.data_ptr(), B, S,
+                k, d * pool.element_size(), _lib.stream())
+        _lib.check(rc, name)
+        launches += 1
+    if cost.RECORDERS:
+        cost.record("scatter_kv.scatter",
+                    cost.rows(B * k, d * pool.element_size()))
     return pool
 
 
@@ -89,8 +92,10 @@ def write_rows_at(pools: Sequence[torch.Tensor],
     position clamp(pos[b], 0, S-1) takes entries[l, b].  pos: [B]
     int32, shared by the pools."""
     global launches_rows_at
-    _write("write_rows_at", pools, entries, pos, 0, None)
-    launches_rows_at += 1
+    launches_rows_at += _write("write_rows_at", pools, entries, pos, 0,
+                               None)
+    if cost.RECORDERS:
+        cost.record("scatter_kv.rows_at", _write_cost(pools, pos))
 
 
 def write_rows_at_shard(pools: Sequence[torch.Tensor],
@@ -101,12 +106,21 @@ def write_rows_at_shard(pools: Sequence[torch.Tensor],
     positions; row (l, b) goes to c - base, c = clamp(pos[b], 0,
     seq_len-1), when c lies in the slice, and nowhere otherwise."""
     global launches_rows_at_shard
-    _write("write_rows_at_shard", pools, entries, pos, base, seq_len)
-    launches_rows_at_shard += 1
+    launches_rows_at_shard += _write("write_rows_at_shard", pools, entries,
+                                     pos, base, seq_len)
+    if cost.RECORDERS:
+        cost.record("scatter_kv.rows_at_shard", _write_cost(pools, pos))
+
+
+def _write_cost(pools, pos) -> cost.Cost:
+    return cost.write_rows_at(pos.shape[0], [
+        (p.shape[0], p.shape[-1] * p.element_size()) for p in pools])
 
 
 def _write(name: str, pools, entries, pos, base: int,
-           seq_len: Optional[int]) -> None:
+           seq_len: Optional[int]) -> bool:
+    """The decode write's checks, and its launch unless the tensors lie
+    on ``meta``; whether it launched."""
     _check_pools(name, pools, entries, src_dim=3)
     dev = _lib.require_cuda(name, pos, *pools, *entries)
     _lib.require_dtype(name, pos, torch.int32, "pos")
@@ -123,10 +137,13 @@ def _write(name: str, pools, entries, pos, base: int,
         seg.pool, seg.src = pool.data_ptr(), src.data_ptr()
         seg.L, seg.B, seg.S, seg.row_bytes = L, B, S, d * pool.element_size()
         seg.base, seg.S_glob = base, S if seq_len is None else seq_len
+    if dev.type == "meta":
+        return False
     with torch.cuda.device(dev):
         rc = _lib.lib().sac_write_rows_at(segs, len(pools), pos.data_ptr(),
                                           _lib.stream())
     _lib.check(rc, name)
+    return True
 
 
 def splice(pools: Sequence[torch.Tensor], srcs: Sequence[torch.Tensor], *,
@@ -138,8 +155,11 @@ def splice(pools: Sequence[torch.Tensor], srcs: Sequence[torch.Tensor], *,
     or ``lane``) take the source's rows; with ``zero_tail`` rows
     [offset+T, S) of those lanes become zeros."""
     global launches_splice
-    _splice("splice", pools, srcs, offset, lane, zero_tail, None)
-    launches_splice += 1
+    launches_splice += _splice("splice", pools, srcs, offset, lane,
+                               zero_tail, None)
+    if cost.RECORDERS:
+        cost.record("scatter_kv.splice", cost.splice_pools(
+            pools, srcs, offset=offset, lane=lane, zero_tail=zero_tail))
 
 
 def splice_shard(pools: Sequence[torch.Tensor], srcs: Sequence[torch.Tensor],
@@ -153,14 +173,18 @@ def splice_shard(pools: Sequence[torch.Tensor], srcs: Sequence[torch.Tensor],
     global launches_splice_shard
     if base < 0:
         raise ValueError(f"splice_shard: base {base} < 0")
-    _splice("splice_shard", pools, srcs, 0, None, True, base)
-    launches_splice_shard += 1
+    launches_splice_shard += _splice("splice_shard", pools, srcs, 0, None,
+                                     True, base)
+    if cost.RECORDERS:
+        cost.record("scatter_kv.splice_shard", cost.splice_pools(
+            pools, srcs, zero_tail=True, src_row0=base))
 
 
 def _splice(name: str, pools, srcs, offset: int, lane: Optional[int],
-            zero_tail: bool, src_row0: Optional[int]) -> None:
+            zero_tail: bool, src_row0: Optional[int]) -> bool:
     """The splice of each source's rows [src_row0, src_row0 + T) (T the
-    rows that are left, cut to the pool; None: all the source's rows)."""
+    rows that are left, cut to the pool; None: all the source's rows),
+    launched unless the tensors lie on ``meta``; whether it launched."""
     _check_pools(name, pools, srcs, src_dim=4)
     dev = _lib.require_cuda(name, *pools, *srcs)
     segs = (_lib.SpliceSeg * len(pools))()
@@ -181,6 +205,9 @@ def _splice(name: str, pools, srcs, offset: int, lane: Optional[int],
         seg.T, seg.offset, seg.zero_tail = T, offset, int(zero_tail)
         seg.row_bytes = d * pool.element_size()
         seg.src_rows, seg.src_row0 = src_rows, src_row0 or 0
+    if dev.type == "meta":
+        return False
     with torch.cuda.device(dev):
         rc = _lib.lib().sac_splice_kv(segs, len(pools), _lib.stream())
     _lib.check(rc, name)
+    return True

@@ -30,7 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _lib
+from repro_torch.kernels import _lib, cost
 
 #: kernel launches since the last reset (read by chip_smoke.py), MLA
 #: form and GQA form
@@ -108,6 +108,43 @@ def gqa_plan(B: int, H: int, n_kv: int, hd: int, k: int,
     return split_plan(k, B * n_kv, B * H * (hd + 2) * 4, slots)
 
 
+# csrc/sparse_attn.cu's pass-1 constants, for the host's mirror of the
+# shapes it takes (``gqa_accepts``, ``mla_accepts``)
+_WARPS, _MAX_ITEMS, _P_STRIDE, _MAX_SMEM = 8, 5, TILE + 8, 232448
+
+
+def _partial_smem(ranges: int, stages: int, stride: int, rows: int,
+                  qs: int, rstride: int) -> int:
+    """``csrc/sparse_attn.cu::partial_smem``: pass 1's shared memory."""
+    tile = 2 * TILE * stride
+    ring = (ranges * (stages * TILE * rstride + tile) if rstride
+            else stages * ranges * tile)
+    return (ring + 2 * (2 * rows * qs + 2 * rows * _P_STRIDE)
+            + 4 * (2 * rows * _P_STRIDE + 3 * rows))
+
+
+def gqa_accepts(n_rep: int, hd: int, fp8: bool = False) -> bool:
+    """Whether GQA pass 1 takes n_rep heads of head dim hd
+    (``csrc/sparse_attn.cu::gqa_pass1``): the host's rule, for ``meta``
+    calls, where no card answers ``gqa_slots``."""
+    epc = 16 if fp8 else 8
+    if n_rep < 1 or hd < epc or hd % epc or hd > 512:
+        return False
+    dp, ht = -(-hd // 16) * 16, -(-n_rep // 16)
+    if (-(-ht * (dp // 16) // _WARPS) > _MAX_ITEMS
+            or n_rep * hd * 4 > 2 * 2 * TILE * (dp + 8)):
+        return False
+    return any(_partial_smem(2, st, dp + 8, 16 * ht, dp + 8,
+                             hd if fp8 else 0) <= _MAX_SMEM for st in (2, 1))
+
+
+def mla_accepts(dq: int, st_w: int, fp8: bool = False) -> bool:
+    """Whether MLA pass 1 takes q of dq columns over a staged range of
+    st_w (``csrc/sparse_attn.cu::mla_pass1``), for ``meta`` calls."""
+    return dq <= st_w and _partial_smem(1, 2, st_w + 8, 16, dq + 8,
+                                        st_w if fp8 else 0) <= _MAX_SMEM
+
+
 def _entry_values(name: str, entries: torch.Tensor) -> int:
     """Entry values a 16-byte copy moves (8 bf16, 16 e4m3); raises for
     any other dtype."""
@@ -157,7 +194,8 @@ def sparse_attn(q: torch.Tensor, entries: torch.Tensor, valid: torch.Tensor,
                          f"({epc}-element multiples in {entries.dtype}), dq "
                          f"and dv multiples of 16, dv <= 512, inside de={de} "
                          f"(dq={dq}, dv={dv}, k_col={k_col}, v_col={v_col})")
-    slots = mla_slots(dq, st_w, dev.index, fp8)
+    slots = (_lib.META_SLOTS * mla_accepts(dq, st_w, fp8)
+             if dev.type == "meta" else mla_slots(dq, st_w, dev.index, fp8))
     if not slots:
         raise ValueError(f"{name}: pass 1 does not fit shared memory at "
                          f"dq={dq}, staged width {st_w}")
@@ -165,6 +203,11 @@ def sparse_attn(q: torch.Tensor, entries: torch.Tensor, valid: torch.Tensor,
     part = torch.empty(B * H * splits * (dv + 2), dtype=torch.float32,
                        device=dev)
     out = torch.empty((B, H, dv), dtype=torch.float32, device=dev)
+    if cost.RECORDERS:
+        cost.record(name, cost.mla(B, H, k, dq, dv, de,
+                                   entries.element_size()))
+    if dev.type == "meta":
+        return out
     with torch.cuda.device(dev):
         rc = _lib.lib().sac_sparse_attn(
             q.data_ptr(), entries.data_ptr(), vbytes.data_ptr(),
@@ -204,7 +247,8 @@ def sparse_attn_gqa(q: torch.Tensor, entries: torch.Tensor,
     vbytes = _valid_bytes(name, valid, B, k)
     n_rep = H // n_kv
     fp8 = entries.dtype == torch.float8_e4m3fn
-    slots = gqa_slots(n_rep, hd, dev.index, fp8)
+    slots = (_lib.META_SLOTS * gqa_accepts(n_rep, hd, fp8)
+             if dev.type == "meta" else gqa_slots(n_rep, hd, dev.index, fp8))
     if not slots or entries.data_ptr() % 16 or q.data_ptr() % 16:
         raise ValueError(
             f"{name}: the kernel takes hd % {epc} == 0 ({entries.dtype} "
@@ -218,6 +262,11 @@ def sparse_attn_gqa(q: torch.Tensor, entries: torch.Tensor,
     part = torch.empty(B * H * splits * (hd + 2), dtype=torch.float32,
                        device=dev)
     out = torch.empty((B, H, hd), dtype=torch.float32, device=dev)
+    if cost.RECORDERS:
+        cost.record("sparse_attn_gqa", cost.gqa(B, H, n_kv, hd, k,
+                                                entries.element_size()))
+    if dev.type == "meta":
+        return out
     with torch.cuda.device(dev):
         rc = _lib.lib().sac_sparse_attn_gqa(
             q.data_ptr(), entries.data_ptr(), vbytes.data_ptr(),

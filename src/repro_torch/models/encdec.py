@@ -52,7 +52,7 @@ from repro_torch.models import dsa
 from repro_torch.models.layers import (DTYPE, ParamSpec, attn_param_specs,
                                        dense_attention_block, init_params,
                                        mlp_block, mlp_param_specs, repeat_kv,
-                                       rms_norm)
+                                       rms_norm, spec_shapes)
 from repro_torch.models.transformer import _span, run_layer
 
 MAX_DEC = 448  # whisper decoder context
@@ -193,6 +193,10 @@ class EncDecLM:
         """Random parameters drawn from ``generator`` on the model's
         device, one tensor at a time in its own dtype."""
         return init_params(self.specs, generator, self.device)
+
+    def param_shapes(self) -> Dict:
+        """The parameters as empty ``meta`` tensors (the dry-run's)."""
+        return spec_shapes(self.specs)
 
     # -- encoder -------------------------------------------------------------
     def encode(self, params, frames) -> torch.Tensor:
@@ -339,6 +343,12 @@ class EncDecLM:
         """Zero serve state on the model's device (``device_buffer`` is
         ignored: the decoder's cross-attention has no hot tier)."""
         return self._empty_state(batch, seq_len, self.device)
+
+    def serve_state_shapes(self, batch: int, seq_len: int,
+                           device_buffer: int = 0) -> Dict:
+        """The zero serve state's tree on ``meta`` (nothing allocated;
+        ``device_buffer`` ignored, as in ``init_serve_state``)."""
+        return self._empty_state(batch, seq_len, torch.device("meta"))
 
     def _logits(self, params, x):
         x = rms_norm(x, params["final_norm"])

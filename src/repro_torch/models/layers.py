@@ -55,6 +55,20 @@ def init_params(specs, generator: torch.Generator, device):
     raise TypeError(f"not a ParamSpec tree: {type(specs)}")
 
 
+def spec_shapes(specs, device="meta"):
+    """ParamSpec tree -> the same tree of empty tensors of each spec's
+    shape and dtype on ``device`` (on ``meta`` nothing is allocated: the
+    dry-run's parameters).  Draws nothing: ``init_params`` takes a
+    generator, this takes none."""
+    if isinstance(specs, ParamSpec):
+        return torch.empty(specs.shape, dtype=specs.dtype, device=device)
+    if isinstance(specs, dict):
+        return {k: spec_shapes(v, device) for k, v in specs.items()}
+    if isinstance(specs, (list, tuple)):
+        return [spec_shapes(v, device) for v in specs]
+    raise TypeError(f"not a ParamSpec tree: {type(specs)}")
+
+
 def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """``jax.lax.top_k`` over the last axis: the k largest values in
     descending order, ties broken by the LOWER index first.
@@ -190,6 +204,25 @@ def dense_attention_block(p, x, cfg, positions, *, window: int = 0):
     out = blocked_causal_attention(q, repeat_kv(k, n_rep),
                                    repeat_kv(v, n_rep), window=window)
     return out.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"], (k, v)
+
+
+def decode_attention(q, k_cache, v_cache, length_mask):
+    """Single-token decode attention over an explicit KV set.
+    q: [B, nh, hd]; k/v_cache: [B, T, nkv, hd]; length_mask: [B, T] bool
+    -> [B, nh, hd] in the cache's dtype.  f32 scores and softmax, masked
+    lanes at -1e30 (a row with no valid lane averages every value, as
+    the reference's softmax does).  No path of either package calls it."""
+    B, T, nkv, hd = k_cache.shape
+    nh = q.shape[1]
+    n_rep = nh // nkv
+    scale = 1.0 / math.sqrt(hd)
+    qf = q.float().reshape(B, nkv, n_rep, hd) * scale
+    s = torch.einsum("bgrd,btgd->bgrt", qf, k_cache.float())
+    s = torch.where(length_mask[:, None, None, :], s,
+                    torch.tensor(-1e30, dtype=s.dtype, device=s.device))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bgrt,btgd->bgrd", p, v_cache.float())
+    return out.reshape(B, nh, hd).to(k_cache.dtype)
 
 
 # ---------------------------------------------------------------------------

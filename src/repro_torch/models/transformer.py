@@ -78,7 +78,7 @@ from repro_torch.models import dsa, moe, ssm
 from repro_torch.models.layers import (DTYPE, ParamSpec, attn_param_specs,
                                        dense_attention_block, init_params,
                                        mlp_block, mlp_param_specs, rms_norm,
-                                       top_k)
+                                       spec_shapes, top_k)
 
 _ATTN_KINDS = ("dense", "moe", "mla_dense", "mla_moe", "lg_super")
 #: decode's profiler ranges: one per pool (attention) layer, Mamba2 layer
@@ -460,6 +460,11 @@ class TransformerLM:
         device), one tensor at a time in its own dtype."""
         return init_params(self.specs, generator, self.device)
 
+    def param_shapes(self) -> Dict:
+        """The parameters as empty ``meta`` tensors (the dry-run's): the
+        tree ``init`` returns, with no storage."""
+        return spec_shapes(self.specs)
+
     # -- the layer walk, shared by the training forward and prefill -----------
     def _embed_seq(self, params, tokens):
         B, S = tokens.shape
@@ -664,8 +669,19 @@ class TransformerLM:
         cache lengths, each recurrent segment's ``rec_{si}`` and, with
         ``device_buffer`` (one size or per-layer sizes), the HiSparse hot
         tier and its measured counters."""
+        return self._empty_state(batch, seq_len, device_buffer,
+                                 buffer_width, self.device)
+
+    def serve_state_shapes(self, batch: int, seq_len: int,
+                           device_buffer=0, buffer_width=None) -> Dict:
+        """``init_serve_state``'s tree on the ``meta`` device: every
+        shape and dtype, nothing allocated (the dry-run's inputs)."""
+        return self._empty_state(batch, seq_len, device_buffer,
+                                 buffer_width, torch.device("meta"))
+
+    def _empty_state(self, batch: int, seq_len: int, device_buffer,
+                     buffer_width, dev) -> Dict:
         cfg = self.cfg
-        dev = self.device
         buffered = (max(device_buffer) if isinstance(device_buffer,
                                                      (list, tuple))
                     else device_buffer)

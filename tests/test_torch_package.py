@@ -65,7 +65,10 @@ def test_port_imports_with_jax_blocked():
     assert {"repro_torch.models.encdec", "repro_torch.launch.train",
             "repro_torch.launch.mesh", "repro_torch.core.topk",
             "repro_torch.distributed", "repro_torch.distributed.sharding",
-            "repro_torch.distributed.elastic"} | {
+            "repro_torch.distributed.elastic", "repro_torch.launch.dryrun",
+            "repro_torch.distributed.collectives",
+            "repro_torch.distributed.cost_analysis",
+            "repro_torch.kernels.cost"} | {
         f"repro_torch.training.{m}" for m in ("data", "optimizer",
                                               "train_loop", "checkpoint")
     } <= set(mods)
@@ -82,8 +85,11 @@ def test_port_imports_with_jax_blocked():
     assert out.stdout.startswith("ok")
 
 
-# every module of the port and chip_smoke.py: none may import JAX or repro
+# every module of the port, its examples and chip_smoke.py: none may
+# import JAX or repro
 SCANNED = sorted([p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")]
+                 + [p.relative_to(ROOT).as_posix()
+                    for p in (ROOT / "examples" / "torch").glob("*.py")]
                  + ["chip_smoke.py"])
 
 
@@ -97,7 +103,15 @@ def test_scan_covers_the_entry_points():
                  "src/repro_torch/models/encdec.py",
                  "src/repro_torch/training/train_loop.py",
                  "src/repro_torch/serving/engine.py",
-                 "src/repro_torch/serving/prefetch.py", "chip_smoke.py"):
+                 "src/repro_torch/serving/prefetch.py",
+                 "src/repro_torch/launch/dryrun.py",
+                 "src/repro_torch/distributed/collectives.py",
+                 "src/repro_torch/distributed/cost_analysis.py",
+                 "src/repro_torch/kernels/cost.py",
+                 "examples/torch/quickstart.py",
+                 "examples/torch/serve_sac.py",
+                 "examples/torch/train_sparse_lm.py",
+                 "examples/torch/failover_restart.py", "chip_smoke.py"):
         assert path in SCANNED
 
 
@@ -196,6 +210,84 @@ def test_train_cli_flags_match_reference():
     got = _cli_flags(PORT / "launch" / "train.py")
     assert got.pop("--device") == {"default": "'cuda'"}
     assert got == want
+
+
+def test_dryrun_cli_flags_match_reference():
+    assert _cli_flags(PORT / "launch" / "dryrun.py") == \
+        _cli_flags(REF / "launch" / "dryrun.py")
+
+
+def _meta(*shape, dtype=None):
+    import torch
+    return torch.empty(shape, dtype=dtype or torch.bfloat16, device="meta")
+
+
+def _meta_call(fn):
+    """True when the meta branch takes the call, False when it refuses
+    it (ValueError or TypeError, as the kernel wrapper raises)."""
+    try:
+        fn()
+    except (ValueError, TypeError):
+        return False
+    return True
+
+
+def test_meta_branch_refuses_what_the_kernels_refuse():
+    """``kernels/ops.py`` on ``meta`` tensors goes through each kernel
+    wrapper's own checks: the shapes and dtypes the wrappers refuse on
+    the card are refused here (the occupancy-dependent rules by the
+    host's mirror of the C side's, ``indexer_accepts``, ``gqa_accepts``,
+    ``mla_accepts``, which ``chip_smoke.py`` phase 18 holds against the
+    card).  A call the card would launch reports one call to the
+    counter; none moves a ``launch_counts()`` counter (nothing launches
+    on meta), and a refusal reports nothing."""
+    import torch
+    from repro_torch.distributed.cost_analysis import StepCost
+    from repro_torch.kernels import ops
+    f32, i32, b = torch.float32, torch.int32, torch.bool
+    E4M3 = torch.float8_e4m3fn
+
+    def indexer(H, di):
+        return lambda: ops.batched_indexer_scores(
+            _meta(2, H, di, dtype=f32), _meta(2, H, dtype=f32),
+            _meta(2, 100, di))
+
+    def gqa(H, n_kv, hd, dtype=torch.bfloat16):
+        return lambda: ops.batched_sparse_gqa(
+            _meta(2, H, hd, dtype=f32), _meta(2, 17, 2 * n_kv * hd,
+                                              dtype=dtype),
+            _meta(2, 17, dtype=b), n_kv=n_kv)
+
+    def mla(dc, dr, dtype=torch.bfloat16):
+        return lambda: ops.batched_sparse_mla(
+            _meta(2, 16, dc), _meta(2, 16, dr), _meta(2, 17, dc + dr,
+                                                      dtype=dtype),
+            _meta(2, 17, dtype=b), dc=dc, scale=0.1)
+    ops.reset_launch_counts()
+    refused = [indexer(4, 8), indexer(4, 24), indexer(4, 272),
+               indexer(129, 64), gqa(12, 2, 72, E4M3), gqa(4, 1, 520),
+               gqa(12, 5, 64), gqa(12, 2, 12), mla(512, 8), mla(520, 64),
+               mla(512, 64, torch.float16),
+               lambda: ops.batched_gather(_meta(2, 10, 8),
+                                          _meta(3, 4, dtype=i32)),
+               lambda: ops.pool_rows_at([_meta(2, 2, 10, 8)],
+                                        [_meta(2, 3, 8)],
+                                        _meta(2, dtype=i32)),
+               lambda: ops.pool_splice([_meta(2, 2, 10, 8)],
+                                       [_meta(2, 1, 11, 8)], lane=0)]
+    with StepCost() as c:
+        for fn in refused:
+            assert not _meta_call(fn)
+        assert not c.kernels
+        taken = [indexer(4, 64), indexer(64, 128), indexer(128, 256),
+                 gqa(12, 2, 128), gqa(16, 8, 240), gqa(32, 32, 112),
+                 gqa(12, 2, 72), gqa(12, 2, 128, E4M3), mla(512, 64),
+                 mla(512, 64, E4M3), mla(32, 16)]
+        for fn in taken:
+            assert _meta_call(fn)
+    assert dict(c.kernels) == {"indexer_scores": 3, "sparse_attn_gqa": 5,
+                               "sparse_attn": 3}
+    assert not any(ops.launch_counts().values())
 
 
 def test_serve_cli_on_cpu_prints_the_reference_keys(monkeypatch):
