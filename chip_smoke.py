@@ -6,6 +6,7 @@
     python3 chip_smoke.py --sharded  # phases 1-3 and 16 (the sharded pool)
     python3 chip_smoke.py --twin     # phases 1-3 and 17 (the simulator twin)
     python3 chip_smoke.py --dryrun   # phases 1-3 and 18 (the dry-run)
+    python3 chip_smoke.py --tp       # phases 1-3 and 19 (tensor parallelism)
 
 Phases, each printing one JSON line with its seconds; any failure raises
 (exit code != 0):
@@ -64,7 +65,10 @@ Phases, each printing one JSON line with its seconds; any failure raises
    the small configs' of (c) and (g) over 2, each rank) and at a 4-card
    host's (Qwen2-1.5B's pool over 4, DeepSeek-V3.2's over 2),
    bf16 and e4m3, bit-exact, timed beside the plain version, a library
-   call and the bound;
+   call and the bound; and both attention forms at the heads a
+   tensor-parallel rank attends with (phase 19): the MLA form at 8, 32
+   and 64 heads (DeepSeek-V3.2 at model 16, 4, 2), the GQA form at 3 and
+   6 heads over one KV head's entries (Qwen2-1.5B at model 4, 2);
 4. small-input checks: the port on the card against the port's plain
    path on the CPU with the same weights (reduced DeepSeek-V3.2, reduced
    Qwen2 with non-zero QKV biases, reduced Mixtral past its sliding
@@ -90,7 +94,7 @@ Phases, each printing one JSON line with its seconds; any failure raises
    top-k 2048, hot tier 6144, 256 experts top-8; random bf16 weights
    from a seed), 4 slots, 8 requests of 4096-token context and 8 output
    tokens; every kernel of the path launched on every layer of every
-   decode step; then a profile of three pure decode steps (the device's
+   decode step; then a profile of two pure decode steps (the device's
    busy share and the kernels that take its time; each kernel of the
    path, both attention passes included, must show on the device);
 6. the same for Qwen2-1.5B at full width and full depth (28 layers,
@@ -225,7 +229,29 @@ Phases, each printing one JSON line with its seconds; any failure raises
    reasons (a cell still running at DRYRUN_BUDGET_S fails the phase);
    (c) the port's ``examples/torch/quickstart.py`` and
    ``serve_sac.py`` on the card, exit 0.  (b), (c) and (a)'s meta build
-   run at once; (a)'s card part runs after them, alone.
+   run at once; (a)'s card part runs after them, alone;
+19. tensor and expert parallelism of the weights (``distributed/tp.py``
+   under ``use_rules(SERVE_RULES, mesh)``, over the sharded pool, with
+   the hot tier and a score-independent top-k of 2048): (a) Qwen2-1.5B
+   at full width and depth, 4 requests of 1024 tokens, 16 decode steps;
+   (b) DeepSeek-V3.2 at full width with 2 layers, 4 requests of 1024
+   tokens, 4 steps.  The unsharded run (DeepSeek-V3.2's in a child
+   process: its 50 GB of weights leave the card before the ranks start)
+   beside the TP path at an NCCL world of one, bit for bit (weights drawn
+   by ``init_shards``, logits, tokens, hot tier, expert choices); then
+   four processes sharing the card over gloo, (a) at meshes (1, 4) and
+   (2, 2), (b) at (2, 2), each rank with its blocks of the weights (drawn
+   one rank at a time) and its lanes, fed the unsharded run's tokens:
+   every request and step within tests/test_torch_tp.py's relative L2
+   and element-fraction limits of the unsharded logits (its largest
+   element's ratio reported, beside Qwen2-1.5B's unsharded run with its
+   row-parallel products in f32 as a rank makes them; DeepSeek-V3.2's
+   but where an expert choice of that token
+   differs between the runs at a gate near a tie: listed, at most half),
+   the hot tier's integer state exact, and a control (model rank 1's
+   ``wo`` zeroed) outside both limits; rank 0's weight bytes,
+   peak memory, device ms, launches and collectives a step (two
+   profiled steps), with the card's name and power limit.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -241,6 +267,7 @@ import gc
 import io
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -833,6 +860,16 @@ ATTN_CASES = (("deepseek-v32", "mla", 4, 128, 512, 64, None),
 # (case as ATTN_CASES, lanes)
 WHISPER_ATTN = ((("whisper-small cross", "gqa", 8, 12, 12, 64, None), 2048),
                 (("whisper-small self", "gqa", 8, 12, 12, 64, None), 449))
+# the heads a tensor-parallel rank attends with (bf16, as ATTN_CASES):
+# DeepSeek-V3.2's MLA at model 16 (the production single pod), 4 and 2
+# (phase 19's mesh); Qwen2-1.5B's GQA on the entries cut to a rank's KV
+# head, 3 heads to it at model 4 and 6 at model 2 (at model 16 its 96
+# q columns are not whole heads: every head attends, as ATTN_CASES')
+TP_ATTN_CASES = (("deepseek-v32 rank, model 16", "mla", 4, 8, 512, 64, None),
+                 ("deepseek-v32 rank, model 4", "mla", 4, 32, 512, 64, None),
+                 ("deepseek-v32 rank, model 2", "mla", 4, 64, 512, 64, None),
+                 ("qwen2-1.5b rank, model 4", "gqa", 8, 3, 1, 128, None),
+                 ("qwen2-1.5b rank, model 2", "gqa", 8, 6, 1, 128, None))
 
 
 def attention_case(torch, ref, mod, g, case, dtype, k: int = 2049):
@@ -920,8 +957,9 @@ def attention_case(torch, ref, mod, g, case, dtype, k: int = 2049):
 def check_attention(torch, ref, mod):
     """Both attention forms at the cases of ATTN_CASES in both dtypes,
     the GQA form in bf16 at the (heads, KV heads, head dim) of every
-    dense/MoE and local:global config of the registry (B = 8) and at
-    Whisper-small's two calls (WHISPER_ATTN).  Returns
+    dense/MoE and local:global config of the registry (B = 8), at
+    Whisper-small's two calls (WHISPER_ATTN) and both forms at a
+    tensor-parallel rank's heads (TP_ATTN_CASES).  Returns
     {kernel name: record}: the row's times and bound are the first bf16
     case's (DeepSeek-V3.2's MLA, Qwen2-1.5B's GQA), ``max_abs_err`` the
     worst of the form's cases, ``e4m3`` its e4m3 cases; and every case's
@@ -936,6 +974,8 @@ def check_attention(torch, ref, mod):
            for case, dt in cases]
     out += [attention_case(torch, ref, mod, g, case, torch.bfloat16, k=k)
             for case, k in WHISPER_ATTN]
+    out += [attention_case(torch, ref, mod, g, case, torch.bfloat16)
+            for case in TP_ATTN_CASES]
     torch.cuda.empty_cache()
     recs = {}
     for name, form in (("sparse_attn", "mla"), ("sparse_attn_gqa", "gqa")):
@@ -1621,7 +1661,7 @@ def profile_steps(torch, step, *, n_steps: int, device_kernels, spans,
 
 
 def profile_decode(torch, eng, *, requests: int, context: int,
-                   device_kernels, n_steps: int = 3, top: int = 8):
+                   device_kernels, n_steps: int = 2, top: int = 8):
     """``profile_steps`` over pure decode steps of the engine at full
     width: ``requests`` more requests (new ids, the serving phase's
     lengths) are admitted and prefilled outside the trace, then their
@@ -2038,7 +2078,7 @@ def serve_whisper(torch, ops, cfg=None, *, device="cuda", **sizes):
     the GQA attention 24 (cross over the 2048 fetched lanes and self over
     449) and the decode write once; every logit finite; ``dec_len`` =
     steps and ``self_kv`` written in rows [0, steps) only.  Then a
-    profile of three more decode steps.  Returns the decode steps'
+    profile of two more decode steps.  Returns the decode steps'
     launch counts.  (``cfg``, ``device`` and ``sizes`` -- requests,
     frames, steps -- let the same phase run reduced on the CPU as a
     rehearsal, with no profile.)"""
@@ -2121,7 +2161,7 @@ def serve_whisper(torch, ops, cfg=None, *, device="cuda", **sizes):
         nonlocal state, tok
         state, logits = model.decode(params, state, tok)
         tok = logits.argmax(-1).to(torch.int32)
-    prof = profile_steps(torch, step, n_steps=3,
+    prof = profile_steps(torch, step, n_steps=2,
                          device_kernels=GQA_DEVICE_KERNELS,
                          spans=dict(pool_layer=cfg.n_layers))
     emit(dict(phase="profile", run="whisper-small", config=cfg.name,
@@ -3408,7 +3448,8 @@ DRYRUN_STEPS = dict(warmup=2, timed=5, profiled=2)
 # process (DRYRUN_WORKERS at once), the quick shapes first.  A cell's
 # step runs every operator on meta, at tens to hundreds of microseconds
 # of host each: a decode cell takes 18-30 s of its process on the card's
-# host (6 at once), a train cell minutes (the CPU sweep, ``python -m
+# host (6 at once; 8 on its 8 cores since tensor parallelism, two
+# waves of the 16 cells), a train cell minutes (the CPU sweep, ``python -m
 # repro_torch.launch.dryrun --all``, runs them).  So the phase cuts up
 # front, and only here, every train_4k cell and the prefill_32k cells
 # but Qwen2-1.5B's and Whisper-small's (xLSTM-125M's sLSTM steps one
@@ -3426,7 +3467,7 @@ DRYRUN_CELLS = ([("deepseek-v32", "decode_32k", m)
                  for m in ("single", "multi")]
                 + [(a, s, "single") for s in DRYRUN_SHAPES
                    for a in DRYRUN_ARCHS if (a, s) not in DRYRUN_CUT])
-DRYRUN_WORKERS = 6
+DRYRUN_WORKERS = 8
 DRYRUN_BUDGET_S = 300
 # the port's examples run on the card in (c)
 DRYRUN_EXAMPLES = ("quickstart", "serve_sac")
@@ -3742,6 +3783,587 @@ def dryrun_examples(torch) -> None:
                                  f"{out.stderr[-3000:]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: tensor and expert parallelism of the weights
+# ---------------------------------------------------------------------------
+
+# the cases: arch, depth (None: the config's), requests of ``context``
+# tokens in a pool of ``max_ctx`` rows (the config's hot tier), decode
+# steps (the unsharded run's greedy ones; the TP ranks are fed its
+# tokens), and the meshes the four gloo ranks run.  Qwen2-1.5B
+# at model 4 holds 3 q heads and half a KV head a rank, at model 2 six q
+# heads over one KV head; DeepSeek-V3.2 at (2, 2) 64 heads, 32 indexer
+# heads and 64 experts a rank.  Its prompts are 1024 tokens: the whole
+# model prefills the 4 prompts at once (as the ranks' expert dispatch
+# sees them), which took 72.9 GB of the card at 2048.  The ranks run it
+# first, while their allocators are fresh: its four ranks' 54 GB of
+# blocks and one rank's 7.5 GB leaf being cut leave little of the card
+TP_CASES = {
+    "deepseek-v32": dict(arch="deepseek-v32", n_layers=2, requests=4,
+                         context=1024, max_ctx=1088, steps=4,
+                         meshes=((2, 2),)),
+    "qwen2-1.5b": dict(arch="qwen2-1.5b", n_layers=None, requests=4,
+                       context=1024, max_ctx=1088, steps=16,
+                       meshes=((1, 4), (2, 2))),
+}
+# tests/test_torch_tp.py's limits, a request and a step: relative L2,
+# and BF16_TOL (rtol = atol) element by element, which up to TP_MISS_FRAC
+# of the logits may miss.  Its third, the largest element's ratio to
+# BF16_TOL (TP_MISS_FACTOR, 3.0 over 256 logits), is a maximum over the
+# vocabulary that grows with it: here (151,936 and 129,280 logits) it is
+# reported, not held, beside the same three figures of Qwen2-1.5B's
+# unsharded run with its row-parallel products in f32 as a rank makes
+# them (against the unsharded run itself: cuBLAS rounds a bf16 GEMM's
+# f32 sums in another order, and 28 random layers amplify an ulp).  A request and step whose token's
+# experts differ between the runs at a gate within TP_GATE_TIE of a tie
+# (log-probability; bf16 router logits tie often among 256 experts) is
+# listed instead of held, at most half of them: the runs' hidden states
+# differ by rounding (phase 19's NCCL world of one computes the same
+# function bit for bit), so a router logit can move by a few bf16 ulps
+# (2^-6 in [2, 4)), and DeepSeek-V3.2's top 8 of 256 sit that close at
+# one token in four or so
+TP_REL_L2, TP_BF16_TOL, TP_MISS_FRAC, TP_MISS_FACTOR = 3e-2, 2e-2, 0.1, 3.0
+TP_GATE_TIE = 0.0625
+# the device of phase 19's runs: the card, or with CHIP_SMOKE_TP_DEVICE
+# set to "cpu" a rehearsal on the CPU at the reduced configs and small
+# sizes (tests/test_torch_tp_chip.py; its ranks inherit the setting)
+TP_DEV = os.environ.get("CHIP_SMOKE_TP_DEVICE", "cuda")
+if TP_DEV == "cpu":
+    TP_CASES = {k: dict(v, requests=4, context=24, max_ctx=32, steps=2)
+                for k, v in TP_CASES.items()}
+
+
+def _tp_sync(torch):
+    if TP_DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+def _tp_peak(torch) -> int:
+    return torch.cuda.max_memory_allocated() if TP_DEV == "cuda" else 0
+
+
+def _tp_world_of_one(torch, dist, port: int):
+    """A process group of this process alone: NCCL on the card."""
+    if TP_DEV == "cuda":
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                                rank=0, world_size=1,
+                                device_id=torch.device("cuda", 0))
+    else:
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                                rank=0, world_size=1)
+
+
+def _tp_topk(scores, cache_len):
+    """Phase 19's injected top-k (``_small_topk``'s formula at the
+    config's k): the runs' indexer scores round differently, and a
+    near-tie would select differently."""
+    return _small_topk(scores, cache_len, 2048 if TP_DEV == "cuda" else 16)
+
+
+def _tp_cfg(case):
+    from repro_torch.configs import get_config
+    cfg = get_config(case["arch"])
+    if TP_DEV == "cpu":
+        return cfg.reduced()
+    if case["n_layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=case["n_layers"])
+    return cfg
+
+
+def _tp_prompts(torch, cfg, case):
+    from repro_torch.serving.request import sharegpt_trace
+    reqs = sharegpt_trace(case["requests"], context_len=case["context"],
+                          output_len=case["steps"], ctx_jitter=0.0, seed=0,
+                          vocab=cfg.vocab)
+    return torch.tensor([r.prompt_tokens for r in reqs], dtype=torch.int32,
+                        device=TP_DEV)
+
+
+def _tp_state(torch, m, params, prompts, case, mesh=None):
+    """The lanes' prompts prefilled in one call (the expert dispatch sees
+    them together, as the ranks' does), written into a serve state of
+    ``max_ctx`` rows with the config's hot tier, its pools cut to the
+    rank's slice with ``mesh``; returns it and the prefill's logits."""
+    from repro_torch.core.pool import pool_write_prefill
+    from repro_torch.distributed.sharding import shard_serve_state
+    st, logits = m.prefill(params, prompts)
+    state = m.init_serve_state(prompts.shape[0], case["max_ctx"],
+                               device_buffer=m.cfg.sac.device_buffer_size)
+    for k in ("kv_pool", "idx_pool"):
+        pool_write_prefill(state[k], st[k])
+    state["cache_len"] = st["cache_len"].clone()
+    del st
+    if mesh is not None:
+        state = shard_serve_state(state, mesh)
+    return state, logits
+
+
+@contextlib.contextmanager
+def _tp_gates(record):
+    """Each MoE dispatch's chosen experts and the gap between the K-th and
+    the next log-probability, token by token (``moe.top_k``'s calls);
+    nothing with ``record`` None."""
+    import torch
+    from repro_torch.models import moe
+    if record is None:
+        yield
+        return
+    orig = moe.top_k
+
+    def top_k(probs, k):
+        vals, ids = orig(probs, k + 1)
+        lp = torch.log(vals.double())
+        record.append((ids[..., :k].sort(-1)[0].cpu(),
+                       (lp[..., k - 1] - lp[..., k]).cpu()))
+        return orig(probs, k)
+    moe.top_k = top_k
+    try:
+        yield
+    finally:
+        moe.top_k = orig
+
+
+@contextlib.contextmanager
+def _f32_row_products(torch):
+    """The unsharded path's row-parallel products (``wo``, ``w_down``:
+    ``tp.Whole.matmul_sum``) in f32, rounded once, as a TP rank's."""
+    from repro_torch.distributed import tp
+    orig = tp.Whole.matmul_sum
+    tp.Whole.matmul_sum = lambda self, a, w, axes: torch.matmul(
+        a.float(), w.float()).to(a.dtype)
+    try:
+        yield
+    finally:
+        tp.Whole.matmul_sum = orig
+
+
+def _tp_hot(state):
+    """A copy of the hot tier's integer state on the host."""
+    return [t.to("cpu", copy=True) for t in state["hot_buf"]
+            if not t.is_floating_point()]
+
+
+def _tp_greedy(torch, m, params, state, logits0, steps: int, gates=None):
+    """``steps`` greedy decode steps from the prefill's logits: each
+    step's logits and fed tokens (on the host) and wall seconds; with
+    ``gates`` (a list) the decode steps' expert choices are recorded."""
+    tok = logits0.argmax(-1).to(torch.int32)
+    logits, fed, wall = [logits0.cpu()], [], []
+    with _tp_gates(gates):
+        for _ in range(steps):
+            fed.append(tok.cpu())
+            _tp_sync(torch)
+            t1 = time.perf_counter()
+            state, lg = m.decode(params, state, tok)
+            _tp_sync(torch)
+            wall.append(time.perf_counter() - t1)
+            logits.append(lg.cpu())
+            tok = lg.argmax(-1).to(torch.int32)
+    return state, logits, fed, wall
+
+
+def _tp_reference(torch, ops, case, mesh):
+    """The unsharded run of a case's requests (prefill, greedy steps, the
+    hot tier's integer state, the decode steps' expert choices), then the
+    TP path at ``mesh``, a world of one rank: its weights drawn by
+    ``init_shards`` (Qwen2-1.5B; DeepSeek-V3.2's 50 GB are the unsharded
+    run's, whose blocks are whole at one rank) and its steps under
+    ``use_rules(SERVE_RULES, mesh)`` over the sharded pool, which must
+    equal the unsharded run bit for bit: weights, logits, tokens, hot
+    tier, expert choices."""
+    from repro_torch.core.pool import make_pooled_fetch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.model import build_model
+    cfg = _tp_cfg(case)
+    prompts = _tp_prompts(torch, cfg, case)
+    m = build_model(cfg, topk_fn=_tp_topk, device=TP_DEV)
+    params = m.init(torch.Generator(device=TP_DEV).manual_seed(0))
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    gates = [] if cfg.n_experts else None
+    with _tp_gates(gates):
+        state, lg0 = _tp_state(torch, m, params, prompts, case)
+    state, logits, fed, wall = _tp_greedy(torch, m, params, state, lg0,
+                                          case["steps"], gates)
+    ref = dict(logits=logits, tokens=fed, hot=_tp_hot(state), gates=gates,
+               launches=ops.launch_counts(), wall_s=wall,
+               seconds=time.perf_counter() - t0, peak_bytes=_tp_peak(torch))
+    del state
+    if not cfg.n_experts:
+        # the unsharded run with its row-parallel products (``wo``,
+        # ``w_down``) made as the TP ranks make them: in f32, rounded once
+        with _f32_row_products(torch):
+            st, lg = _tp_state(torch, m, params, prompts, case)
+            got = [lg.cpu()]
+            for tok in fed:
+                st, lg = m.decode(params, st, tok.to(TP_DEV))
+                got.append(lg.cpu())
+        del st
+        near = [_tp_near(a[i], b[i]) for a, b in zip(got, logits)
+                for i in range(a.shape[0])]
+        ref["f32_products"] = [max(x[j] for x in near) for j in range(3)]
+    mt = build_model(cfg, fetch_fn=make_pooled_fetch(mesh), topk_fn=_tp_topk,
+                     device=TP_DEV)
+    with shd.use_rules(shd.SERVE_RULES, mesh):
+        if cfg.n_experts:
+            same_weights, tp_params = True, params
+        else:
+            tp_params = shd.init_shards(
+                mt.specs, torch.Generator(device=TP_DEV).manual_seed(0),
+                TP_DEV)
+            same_weights = _state_equal(torch, _tree_tensors(params),
+                                        _tree_tensors(tp_params))
+            del params
+        ops.reset_launch_counts()
+        tgates = [] if cfg.n_experts else None
+        with _tp_gates(tgates):
+            state, lg0 = _tp_state(torch, mt, tp_params, prompts, case, mesh)
+        state, logits, fed, wall = _tp_greedy(torch, mt, tp_params, state,
+                                              lg0, case["steps"], tgates)
+        ref["world_of_one"] = dict(
+            weights=same_weights,
+            logits=_state_equal(torch, logits, ref["logits"]),
+            tokens=_state_equal(torch, fed, ref["tokens"]),
+            hot_tier=_state_equal(torch, _tp_hot(state), ref["hot"]),
+            gates=(tgates is None or all(
+                torch.equal(a[0], b[0]) for a, b in zip(tgates, gates))),
+            launches=ops.launch_counts(),
+            wall_s_per_decode_step_median=_median(wall))
+    return ref
+
+
+def _tp_deepseek_child(rank, world, port, out_dir):
+    """Phase 19 (b)'s unsharded DeepSeek-V3.2 run in a process of its own
+    (its 50 GB of weights leave the card when it exits, before the TP
+    ranks start), with the TP path at an NCCL world of one beside it."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if TP_DEV == "cuda":
+        torch.cuda.set_device(0)
+    _tp_world_of_one(torch, dist, port)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device=TP_DEV)
+        ref = _tp_reference(torch, ops, TP_CASES["deepseek-v32"], mesh)
+        torch.save(ref, Path(out_dir) / "rank0.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_rank_case(torch, dist, ops, case, mesh, tokens, rank, world):
+    """One TP case on one of the four gloo ranks: the rank's blocks of the
+    weights (drawn leaf by leaf, one rank at a time: a whole expert stack
+    is 7.5 GB), its lanes prefilled, the unsharded run's tokens fed for
+    the case's steps; then two profiled steps (on rank 0; the others run
+    them), and the control: the last step again from a copy of its state
+    with model rank 1's ``wo`` blocks zeroed."""
+    from repro_torch.core.pool import make_pooled_fetch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import pool_layer_params
+    if TP_DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    cfg = _tp_cfg(case)
+    per = case["requests"] // mesh.size(0)
+    d = mesh.get_local_rank("data")
+    lanes = list(range(d * per, (d + 1) * per))
+    prompts = _tp_prompts(torch, cfg, case)[d * per:(d + 1) * per]
+    m = build_model(cfg, fetch_fn=make_pooled_fetch(mesh), topk_fn=_tp_topk,
+                    device=TP_DEV)
+    L = cfg.n_layers
+    with shd.use_rules(shd.SERVE_RULES, mesh):
+        for r in range(world):
+            if r == rank:
+                params = shd.init_shards(
+                    m.specs, torch.Generator(device=TP_DEV).manual_seed(0),
+                    TP_DEV)
+                _tp_sync(torch)
+                torch.cuda.empty_cache()
+            dist.barrier()
+        weight_bytes = sum(t.numel() * t.element_size()
+                           for t in _tree_tensors(params))
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        gates = [] if cfg.n_experts else None
+        with _tp_gates(gates):
+            state, lg0 = _tp_state(torch, m, params, prompts, case, mesh)
+        prefill_s = time.perf_counter() - t0
+        logits, wall = [lg0.cpu()], []
+        with _tp_gates(gates):
+            for i, tok in enumerate(tokens[:case["steps"]]):
+                if i == case["steps"] - 1:
+                    before_last = _tp_clone(state)
+                _tp_sync(torch)
+                t1 = time.perf_counter()
+                state, lg = m.decode(params, state,
+                                     tok[d * per:(d + 1) * per].to(TP_DEV))
+                _tp_sync(torch)
+                wall.append(time.perf_counter() - t1)
+                logits.append(lg.cpu())
+        launches = ops.launch_counts()
+        hot = _tp_hot(state)
+        last = {"tok": tokens[case["steps"] - 1][d * per:(d + 1) * per]
+                .to(TP_DEV)}
+
+        def step():
+            last["state"], _ = m.decode(params, last.get("state", state),
+                                        last["tok"])
+        if rank == 0 and TP_DEV == "cuda":
+            prof = profile_steps(
+                torch, step, n_steps=2,
+                device_kernels=SERVES[case["arch"]]["device_kernels"],
+                spans={"pool_layer": L})
+        else:
+            step()
+            step()
+            prof = None
+        peak = _tp_peak(torch)
+        # the control: the last step again from its state, with model
+        # rank 1's ``wo`` blocks zeroed
+        del state, last
+        if mesh.get_local_rank("model") == 1:
+            for layer in pool_layer_params(cfg, params):
+                layer["attn"]["wo"].zero_()
+        _, lg = m.decode(params, before_last,
+                         tokens[case["steps"] - 1][d * per:(d + 1) * per]
+                         .to(TP_DEV))
+        control = lg.cpu()
+    return dict(lanes=lanes, model_rank=mesh.get_local_rank("model"),
+                logits=logits, control=control, gates=gates, hot=hot,
+                launches=launches, wall_s=wall, prefill_s=prefill_s,
+                weight_bytes=weight_bytes, peak_bytes=peak, profile=prof,
+                seconds=time.perf_counter() - t0)
+
+
+def _tp_clone(state):
+    """A copy of a serve state (its pools, hot tier and counters)."""
+    from repro_torch.core.hisparse import BufferState
+    return {k: (BufferState(*(t.clone() for t in v)) if k == "hot_buf"
+                else v.clone()) for k, v in state.items()}
+
+
+def _tree_tensors(tree) -> list:
+    """The tensors of a tree of dicts and lists, in order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tree_tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tree_tensors(v)]
+    return [tree]
+
+
+def _tp_rank(rank, world, port, out_dir):
+    """Phase 19, one of four ranks sharing card 0 over gloo: every case
+    of TP_CASES at each of its meshes, in order."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    # segments that grow in place: four processes share the card, and
+    # a rank's freed blocks must not stay stranded in its cache
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if TP_DEV == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        inp = torch.load(Path(out_dir) / "inputs.pt", weights_only=False)
+        out = {}
+        for arch, case in TP_CASES.items():
+            for shape in case["meshes"]:
+                mesh = make_mesh(shape, ("data", "model"), device=TP_DEV)
+                out[arch, shape] = _tp_rank_case(torch, dist, ops, case, mesh,
+                                                 inp[arch], rank, world)
+                gc.collect()
+                torch.cuda.empty_cache()
+                dist.barrier()
+        torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_near(got, want):
+    """(relative L2, logits outside BF16_TOL, the worst ratio to it)."""
+    got, want = got.double(), want.double()
+    err = ((got - want).norm() / want.norm()).item()
+    ratio = (got - want).abs() / (TP_BF16_TOL + TP_BF16_TOL * want.abs())
+    return err, int((ratio > 1).sum()), ratio.max().item()
+
+
+def _tp_flips(ref_gates, gates, lane: int, step: int, layers: int,
+              prompt: int):
+    """The layers whose experts for the token behind ``lane``'s logits at
+    ``step`` differ between the runs (step 0: the prefill's last prompt
+    token, the dispatch of the whole [B, prompt] batch; step i: decode
+    step i), each with the unsharded run's gap at that token."""
+    token = lane * prompt + prompt - 1 if step == 0 else lane
+    out = []
+    for layer in range(layers):
+        a = ref_gates[step * layers + layer]
+        b = gates[step * layers + layer]
+        if not bool((a[0][token] == b[0][token]).all()):
+            out.append(dict(layer=layer, gap=float(a[1][token])))
+    return out
+
+
+def tp_phase(torch, ops, smi: str) -> dict:
+    """Phase 19: tensor and expert parallelism of the weights on the card.
+    (a) Qwen2-1.5B at full width and depth and (b) DeepSeek-V3.2 at full
+    width with 2 layers: the unsharded run (in this process; DeepSeek-V3.2
+    in a child) beside the TP path at an NCCL world of one, bit-equal;
+    then four gloo ranks sharing the card hold their blocks, are fed the
+    unsharded run's tokens, and each rank's logits are held against the
+    unsharded run's lanes at the CPU tests' limits, every request and
+    step (for DeepSeek-V3.2, but where the runs' experts for that token
+    differ: a gate near a tie, listed), with the hot tier's integer state
+    exact; the control (model rank 1's ``wo`` zeroed) must fail both
+    limits.  Returns the launches of the path's runs."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    t0 = time.perf_counter()
+    refs, totals = {}, {}
+
+    def add(counts):
+        for k, n in counts.items():
+            totals[k] = totals.get(k, 0) + n
+    _tp_world_of_one(torch, dist, _free_port())
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device=TP_DEV)
+        refs["qwen2-1.5b"] = _tp_reference(torch, ops,
+                                           TP_CASES["qwen2-1.5b"], mesh)
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        refs["deepseek-v32"] = _spawn(_tp_deepseek_child, 1, tmp)[0]
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch, ref in refs.items():
+        one = ref["world_of_one"]
+        add(one["launches"])
+        emit(dict(phase="tensor_parallel", run="nccl_world_1", config=arch,
+                  card=smi, equal_unsharded={k: one[k] for k in (
+                      "weights", "logits", "tokens", "hot_tier", "gates")},
+                  launches=one["launches"],
+                  wall_s_per_decode_step_median=one[
+                      "wall_s_per_decode_step_median"],
+                  wall_s_per_decode_step_median_unsharded=_median(
+                      ref["wall_s"]),
+                  peak_bytes_unsharded=ref["peak_bytes"]))
+        if not all(one[k] for k in ("weights", "logits", "tokens",
+                                    "hot_tier", "gates")):
+            raise AssertionError(f"TP at a world of one differs from the "
+                                 f"unsharded {arch}: {one}")
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({arch: ref["tokens"] for arch, ref in refs.items()},
+                   Path(tmp) / "inputs.pt")
+        t1 = time.perf_counter()
+        ranks = _spawn(_tp_rank, 4, tmp)
+        ranks_s = time.perf_counter() - t1
+    failures = []
+    for arch, case in TP_CASES.items():
+        ref, L = refs[arch], _tp_cfg(case).n_layers
+        steps = case["steps"]
+        for shape in case["meshes"]:
+            worst = [0.0, 0, 0.0]
+            control_least = [math.inf, math.inf]
+            exempt = []
+            kernels_missing = []
+            for r, res in enumerate(ranks):
+                x = res[arch, shape]
+                lanes = x["lanes"]
+                add(x["launches"])
+                for step, (got, want) in enumerate(zip(x["logits"],
+                                                       ref["logits"])):
+                    for i, lane in enumerate(lanes):
+                        err, n_out, top = _tp_near(got[i], want[lane])
+                        flips = ([] if not ref["gates"] else _tp_flips(
+                            ref["gates"], x["gates"], lane, step, L,
+                            case["context"]))
+                        ok = (err <= TP_REL_L2 and
+                              n_out <= TP_MISS_FRAC * want.shape[-1])
+                        if not ok and flips and all(
+                                f["gap"] < TP_GATE_TIE for f in flips):
+                            exempt.append(dict(rank=r, lane=lane, step=step,
+                                               rel_l2=err, flips=flips))
+                            continue
+                        worst = [max(worst[0], err), max(worst[1], n_out),
+                                 max(worst[2], top)]
+                        if not ok:
+                            failures.append((arch, shape, r, lane, step,
+                                             err, n_out, top, flips))
+                for i, lane in enumerate(lanes):
+                    err, n_out, _ = _tp_near(x["control"][i],
+                                             ref["logits"][steps][lane])
+                    control_least = [min(control_least[0], err),
+                                     min(control_least[1], n_out)]
+                    if not (err > TP_REL_L2 and
+                            n_out > TP_MISS_FRAC * x["control"].shape[-1]):
+                        failures.append((arch, shape, r, lane,
+                                         "control within the limits"))
+                want_hot = [t[:, lanes] for t in ref["hot"]]
+                if not _state_equal(torch, x["hot"], want_hot):
+                    failures.append((arch, shape, r, "hot tier", [
+                        (tuple(a.shape), tuple(b.shape), int((a != b).sum()))
+                        for a, b in zip(x["hot"], want_hot)]))
+                path = ("indexer_scores", "gather_kv.shard",
+                        SERVES[arch]["attn"], "scatter_kv.rows_at_shard")
+                kernels_missing += [(r, k) for k in path
+                                    if TP_DEV == "cuda"
+                                    and not x["launches"].get(k)]
+            x0 = ranks[0][arch, shape]
+            prof = x0["profile"] or dict(
+                launches_per_step=None, launches_ex_per_step=None,
+                device_busy_s=math.nan, device_busy_share=None, host_ops={},
+                port_kernels=None)
+            emit(dict(
+                phase="tensor_parallel", run="gloo_4_ranks_one_card",
+                config=arch, mesh=list(shape), card=smi,
+                requests=case["requests"], context=case["context"],
+                decode_steps=steps, limits=dict(
+                    rel_l2=TP_REL_L2, bf16_tol=TP_BF16_TOL,
+                    miss_frac=TP_MISS_FRAC, miss_factor=TP_MISS_FACTOR),
+                worst_rel_l2=worst[0], worst_logits_outside=worst[1],
+                worst_ratio=worst[2],
+                unsharded_f32_products=ref.get("f32_products"),
+                control_least_rel_l2=control_least[0],
+                control_least_logits_outside=control_least[1],
+                exempt_routing_flips=exempt,
+                rank0=dict(
+                    weight_bytes=x0["weight_bytes"],
+                    peak_bytes=x0["peak_bytes"],
+                    prefill_s=x0["prefill_s"],
+                    wall_s_per_decode_step_median=_median(x0["wall_s"]),
+                    launches=x0["launches"],
+                    launches_per_step=prof["launches_per_step"],
+                    launches_ex_per_step=prof["launches_ex_per_step"],
+                    device_ms_per_step=prof["device_busy_s"] * 1e3 / 2,
+                    device_busy_share=prof["device_busy_share"],
+                    collectives_per_step={k: v["calls"] / 2 for k, v in
+                                          prof["host_ops"].items()},
+                    collective_host_ms_per_step=sum(
+                        v["host_s"] for v in prof["host_ops"].values())
+                    * 1e3 / 2,
+                    port_kernels=prof["port_kernels"]),
+                kernels_missing=kernels_missing))
+            if kernels_missing:
+                failures.append((arch, shape, "kernels", kernels_missing))
+            held = case["requests"] * (steps + 1)
+            if len({(e["lane"], e["step"]) for e in exempt}) > held // 2:
+                failures.append((arch, shape, "routing flips", exempt))
+    emit(dict(phase="tensor_parallel_total", launches=totals,
+              ranks_seconds=ranks_s, seconds=time.perf_counter() - t0))
+    if failures:
+        raise AssertionError(f"tensor parallel: {failures[:12]}")
+    return totals
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels", action="store_true",
@@ -3755,8 +4377,11 @@ def main() -> None:
                     "with --sharded, phases 1-3, 16 and 17")
     ap.add_argument("--dryrun", action="store_true",
                     help="phases 1-3, then only the dry-run (18)")
+    ap.add_argument("--tp", action="store_true",
+                    help="phases 1-3, then only tensor parallelism (19)")
     args = ap.parse_args()
-    only = args.kernels or args.sharded or args.twin or args.dryrun
+    only = (args.kernels or args.sharded or args.twin or args.dryrun
+            or args.tp)
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
              "a checkout of the repository")
@@ -3936,6 +4561,16 @@ def main() -> None:
         t0 = time.perf_counter()
         dryrun_phase(torch, indexer, sparse_attn, smi[0])
         emit(dict(phase="dryrun_total", seconds=time.perf_counter() - t0))
+
+    if args.tp or not only:
+        # 19. tensor and expert parallelism of the weights
+        tp_counts = tp_phase(torch, ops, smi[0])
+        if launches is not None:
+            for k in launches:
+                launches[k] += tp_counts.get(k, 0)
+        if shard_launches is not None:
+            for k in shard_launches:
+                shard_launches[k] += tp_counts.get(k, 0)
 
     info = {
         "gather_kv": ("src/repro_torch/csrc/gather_kv.cu",

@@ -19,7 +19,10 @@ here imports JAX or ``ml_dtypes``.  ``params_to_numpy`` is the inverse
 (bf16 leaves come back as uint16 bit patterns), for round-trip checks;
 ``state_from_jax`` and ``state_to_numpy`` do the same for serve states
 (any keys: the decoder-only models' pools, hot tier and ``rec_*``, an
-encoder-decoder's ``self_kv`` and ``dec_len``).
+encoder-decoder's ``self_kv`` and ``dec_len``).  ``shards_from_jax``
+gives one rank of a tensor-parallel mesh its blocks of the reference's
+parameters: the values ``jax.device_put(p, params_shardings(specs,
+mesh, rules))`` places on the device at the rank's coordinate.
 """
 from __future__ import annotations
 
@@ -80,6 +83,26 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
         segments.append(tree_from_numpy(seg_tree, seg_specs, device))
     out["segments"] = segments
     return out
+
+
+def shards_from_jax(tree: Dict[str, Any], cfg: ModelConfig, mesh, rules,
+                    device="cuda") -> Dict[str, Any]:
+    """Reference pytree (numpy leaves) -> this rank's blocks of the port's
+    parameters on ``mesh`` under ``rules`` (``sharding.shard_params``,
+    cut on the host, then moved to ``device``)."""
+    from repro_torch.distributed.sharding import shard_params
+    whole = params_from_jax(tree, cfg, "cpu")
+    specs = model_param_specs(cfg)
+    return _map_tensors(lambda t: t.to(device),
+                        shard_params(whole, specs, mesh, rules))
+
+
+def _map_tensors(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_tensors(fn, v) for v in tree]
+    return fn(tree)
 
 
 def _lg_flat(seg, seg_tree):

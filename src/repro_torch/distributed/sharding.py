@@ -10,25 +10,35 @@ serving and training can use different layouts without touching model
 code.  The rule tables are the reference's, copied as they are.
 
 ``spec_for`` returns, for each tensor dim, the tuple of mesh axes (or
-None) that the reference's ``PartitionSpec`` holds; ``placements_for``
-turns it into DTensor placements, one per mesh dim (``Shard(tensor
-dim)`` or ``Replicate()``).  A dim sharded over two mesh axes (batch
-over ``("pod", "data")``) is ``Shard`` on both mesh dims, which DTensor
-nests in mesh-dim order: so the rule's axis order must be the mesh's
-(``placements_for`` raises where it is not, e.g. experts over
-``("model", "data")`` on a ``(data, model)`` mesh when both divide).
+None) that the reference's ``PartitionSpec`` holds.  A dim over several
+axes is cut as JAX cuts it, the first axis major: over ``(a, b)`` the
+rank at indices ``(i_a, i_b)`` holds block ``i_a * size_b + i_b``
+(``block_of``).  ``placements_for`` turns a spec into DTensor
+placements, one per mesh dim (``Shard(tensor dim)`` or
+``Replicate()``); where the rule's order crosses the mesh's (experts
+over ``("model", "data")`` on a ``(data, model)`` mesh) the mesh dim
+that comes first but is minor in the block order is a
+``_StridedShard`` whose ``split_factor`` is the product of the sizes of
+the axes it must come after, which DTensor reads as that block order.
 
+``shard_params`` cuts whole parameters (torch tensors or the bridge's
+numpy arrays) to this rank's blocks and ``init_shards`` draws
+``init_params``' values leaf by leaf, keeping each leaf's block: the
+weights of the tensor-parallel serving path (``distributed/tp.py``).
 ``shard_serve_state`` cuts a serve state's pools to one rank's slice of
 the pool axis (``core/pool.py``'s sharded pool).
 """
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.placement_types import _StridedShard
 
 from repro_torch.core.pool import PoolShard
 from repro_torch.kernels import ops
@@ -164,21 +174,94 @@ def spec_for(dims: Sequence[str], shape: Sequence[int], mesh=None,
 def placements_for(mesh, dims: Sequence[str], shape: Sequence[int],
                    rules: Optional[Dict[str, Tuple[str, ...]]] = None
                    ) -> List[Any]:
-    """DTensor placements (one per mesh dim) of ``spec_for``'s result."""
+    """DTensor placements (one per mesh dim) of ``spec_for``'s result, in
+    its block order: a mesh dim that a more major axis of the rule
+    follows in the mesh is a ``_StridedShard`` (split factor: those
+    axes' sizes), the rest ``Shard``."""
     names = list(mesh.mesh_dim_names)
+    sizes = dict(zip(names, mesh.shape))
     out: List[Any] = [Replicate()] * len(names)
     for tdim, axes in enumerate(spec_for(dims, shape, mesh, rules)):
-        if axes is None:
-            continue
-        order = [names.index(ax) for ax in axes]
-        if order != sorted(order):
-            raise ValueError(f"dims {tuple(dims)}: dim {tdim} goes over "
-                             f"{axes}, not in the mesh's axis order "
-                             f"{tuple(names)}; DTensor would nest the "
-                             "shards the other way")
-        for m in order:
-            out[m] = Shard(tdim)
+        for j, ax in enumerate(axes or ()):
+            m = names.index(ax)
+            split = math.prod(sizes[b] for b in axes[:j]
+                              if names.index(b) > m)
+            out[m] = (Shard(tdim) if split == 1
+                      else _StridedShard(tdim, split_factor=split))
     return out
+
+
+def block_of(axes, mesh, coord=None) -> Tuple[int, int]:
+    """(blocks, this rank's block) of a dim over ``axes`` (a ``spec_for``
+    entry: None or a tuple, the first axis major) on ``mesh`` at the
+    coordinate ``coord`` (``{axis: index}``, by default this rank's)."""
+    if not axes:
+        return 1, 0
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    if coord is None:
+        coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    n, idx = 1, 0
+    for ax in axes:
+        idx = idx * sizes[ax] + coord[ax]
+        n *= sizes[ax]
+    return n, idx
+
+
+def _cut(x, spec, mesh):
+    """This rank's block of ``x``: each dim cut by ``block_of``."""
+    index = []
+    for size, axes in zip(x.shape, spec):
+        n, i = block_of(axes, mesh)
+        index.append(slice(i * (size // n), (i + 1) * (size // n)))
+    block = x[tuple(index)]
+    if isinstance(x, torch.Tensor):
+        return block.contiguous().clone()
+    return np.ascontiguousarray(block)
+
+
+def map_specs(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree of leaves shaped as ``specs``."""
+    if isinstance(specs, ParamSpec):
+        return fn(tree, specs)
+    if isinstance(specs, dict):
+        return {k: map_specs(fn, tree[k], s) for k, s in specs.items()}
+    return [map_specs(fn, t, s) for t, s in zip(tree, specs)]
+
+
+def shard_params(params, specs, mesh=None, rules=None):
+    """This rank's block of every leaf of ``params`` (torch tensors or
+    numpy arrays, whole, in ``specs``' tree) under ``rules`` on ``mesh``
+    (by default those ``use_rules`` set): each dim cut over the axes
+    ``spec_for`` names, as the reference's ``jax.device_put(p,
+    params_shardings(...))`` places it on the device at this rank's
+    coordinate.  A dim the rules leave whole stays whole; every block is
+    a copy."""
+    mesh = mesh if mesh is not None else _mesh()
+    return map_specs(
+        lambda t, s: _cut(t, spec_for(s.dims, s.shape, mesh, rules), mesh),
+        params, specs)
+
+
+def block_shape(spec: ParamSpec, mesh=None, rules=None) -> Tuple[int, ...]:
+    """The shape of a rank's block of ``spec``."""
+    mesh = mesh if mesh is not None else _mesh()
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return tuple(size // math.prod(sizes[a] for a in axes or ())
+                 for size, axes in zip(spec.shape, spec_for(
+                     spec.dims, spec.shape, mesh, rules)))
+
+
+def init_shards(specs, generator: torch.Generator, device, mesh=None,
+                rules=None):
+    """``init_params(specs, generator, device)``'s values, cut to this
+    rank's blocks: each leaf is drawn whole (in ``init_params``' order,
+    so the same generator gives the same bits) and cut before the next
+    is drawn, so one whole leaf at a time is live."""
+    mesh = mesh if mesh is not None else _mesh()
+    return map_specs(
+        lambda _, s: _cut(s.materialize(generator, device),
+                          spec_for(s.dims, s.shape, mesh, rules), mesh),
+        specs, specs)
 
 
 def constrain(x, dims: Sequence[str]):

@@ -15,16 +15,23 @@ which replaces the reference's HLO parsers: FLOPs (matmul family and the
 hand-written kernels' analytic counts), bytes, collectives by kind,
 operators and kernel calls, and the live storage's peak.
 
-What one rank runs is the port's program, which differs from the
-reference's partitioned one:
+What one rank runs is the port's program:
 
-- the rank runs every layer with WHOLE weights (the port's models have
-  no tensor parallelism) on its own lanes (the batch over the longest
-  prefix of ``(pod, data)`` that divides it, as ``batch_axes_for``), with
-  its slice of the pools' sequence axis (over ``model``, the sharded
-  pool of ``core/pool.py``) in a decode, the whole prompt in a prefill
-  (then cut to the slice by ``shard_serve_state``, as the port does), and
-  no gradient all-reduce in a train step;
+- in the serve cells of the attention families whose batch splits (the
+  rules leave the d_model rows whole), the reference's partitioned
+  program: the rank holds its ``spec_for`` block of every weight under
+  ``SERVE_RULES`` and runs ``prefill`` / ``decode`` under
+  ``use_rules(rules, mesh)``, tensor- and expert-parallel with their
+  collectives (``distributed/tp.py``);
+- in every other cell (train cells; serve cells whose batch does not
+  split, where the reference adds ``D=("data",)``; the recurrent and
+  encoder-decoder families) every layer with WHOLE weights;
+- either on its own lanes (the batch over the longest prefix of ``(pod,
+  data)`` that divides it, as ``batch_axes_for``), with its slice of the
+  pools' sequence axis (over ``model``, the sharded pool of
+  ``core/pool.py``) in a decode, the whole prompt in a prefill (then cut
+  to the slice by ``shard_serve_state``, as the port does), and no
+  gradient all-reduce in a train step;
 - so ``flops``, ``bytes`` and ``peak_bytes`` are that program's, and
   ``mem_per_device.argument_bytes`` is the reference's layout (each
   parameter's, optimizer state's, serve state's and batch's per-rank
@@ -239,9 +246,9 @@ def build_cell(arch: str, shape_name: str, mesh, mode: str = "sac",
     """Returns (step_fn, in_shardings, in_specs, meta) for one cell.
 
     ``in_specs``: the inputs this rank's step takes (its lanes, its pool
-    slice, whole weights), on ``device``: empty on ``meta``, else
-    materialized (weights from seed 0, zero state, ``cache_len`` S - 1,
-    zero tokens).  ``in_shardings``: the reference's layout of the same
+    slice, its blocks of the weights in a tensor-parallel cell, else
+    whole weights), on ``device``: empty on ``meta``, else materialized
+    (weights from seed 0, zero state, ``cache_len`` S - 1, zero tokens).  ``in_shardings``: the reference's layout of the same
     inputs, a spec per leaf of the global trees in ``meta["global"]``
     (``layout_bytes`` reads both)."""
     from repro_torch.configs import SHAPES_BY_NAME, get_config
@@ -250,6 +257,7 @@ def build_cell(arch: str, shape_name: str, mesh, mode: str = "sac",
     from repro_torch.distributed import sharding as shd
     from repro_torch.models.model import (build_model, cell_is_supported,
                                           input_specs)
+    from repro_torch.models.transformer import _ATTN_KINDS, build_segments
     from repro_torch.training.optimizer import OptConfig, init_opt_state
     from repro_torch.training.train_loop import make_train_step
 
@@ -283,20 +291,31 @@ def build_cell(arch: str, shape_name: str, mesh, mode: str = "sac",
                                          batch_axes=baxes)
     if opts.get("moe_groups") == "auto":
         opts["moe_groups"] = int(np_prod_axes(mesh, baxes))
+    tp = (shape.kind != "train" and bool(baxes) and not cfg.enc_dec
+          and all(s.kind in _ATTN_KINDS for s in build_segments(cfg)))
     model = build_model(cfg, fetch_fn=fetch, mode=mode, topk_fn=topk_fn,
-                        opts=opts, device=device)
+                        opts=dict(opts, batch_axes=baxes) if tp else opts,
+                        device=device)
 
     meta = {"arch": arch, "shape": shape_name, "mode": model.mode,
             "kind": shape.kind, "opts": {k: v for k, v in opts.items()},
             "batch": shape.global_batch, "seq": shape.seq_len,
-            "batch_axes": list(baxes), "lanes_per_rank": B_local}
+            "batch_axes": list(baxes), "lanes_per_rank": B_local,
+            "tensor_parallel": tp}
     real = device.type != "meta"
     p_global = model.param_shapes()
     p_shard = _param_specs(model.specs, mesh, rules)
-    if real:
-        params = model.init(torch.Generator(device=device).manual_seed(0))
+    gen = torch.Generator(device=device).manual_seed(0) if real else None
+    if tp:                  # this rank's blocks of the weights
+        with shd.use_rules(rules, mesh):
+            params = (shd.init_shards(model.specs, gen, device) if real
+                      else model.param_shapes())
+    elif real:
+        params = model.init(gen)
     else:
         params = p_global
+    ctx = ((lambda: shd.use_rules(rules, mesh)) if tp
+           else contextlib.nullcontext)
     b_entry = (baxes,) if baxes else (None,)
 
     def batch_local(specs):
@@ -329,7 +348,8 @@ def build_cell(arch: str, shape_name: str, mesh, mode: str = "sac",
 
         def step(params, batch):
             x = batch["frames"] if cfg.enc_dec else batch["tokens"]
-            state, logits = model.prefill(params, x)
+            with ctx():
+                state, logits = model.prefill(params, x)
             if cut:         # the rank's slice of its whole-prompt pools
                 state = shd.shard_serve_state(state, mesh)
             return state, logits
@@ -343,7 +363,8 @@ def build_cell(arch: str, shape_name: str, mesh, mode: str = "sac",
 
     # decode
     def step(params, state, tokens):
-        return model.decode(params, state, tokens)
+        with ctx():
+            return model.decode(params, state, tokens)
     S_local = shape.seq_len // (_sizes(mesh)["model"]
                                 if cfg.has_attention else 1)
     specs = input_specs(cfg, shape, model=model)

@@ -17,6 +17,17 @@ paths (``repro/models/dsa.py``).
   ``[2, n_kv, hd]``; decode attends over fetched entries through
   ``ops.batched_sparse_gqa`` (the GQA sparse attention kernel on the
   card).  The reference's einsum form is only the tests' oracle.
+
+Over a tensor-parallel rank (a config view with ``tp``,
+``distributed/tp.py``) each function runs on the rank's weight blocks:
+the indexer's q columns are all-gathered (its keys and weights are
+whole, so every rank scores its pool rows with every head); MLA absorbs
+and attends with the rank's whole heads over the whole latent entries
+(``w_dq``, ``w_dkv`` and the norms are whole); GQA's pool entry is
+whole (k / v columns all-gathered) and the rank attends with its heads
+over their KV heads, or with every head where its q columns are not
+whole heads (``tp.gqa_layout``).  ``wo`` is then a row block, and one
+all-reduce sums the ranks' outputs.
 """
 from __future__ import annotations
 
@@ -26,10 +37,12 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.tp import mla_heads, tp_of
 from repro_torch.kernels import ops
-from repro_torch.models.layers import (ParamSpec, apply_rope,
-                                       blocked_causal_attention, rms_norm,
-                                       top_k)
+from repro_torch.models.layers import (ParamSpec, apply_rope, attn_out,
+                                       blocked_causal_attention,
+                                       gather_kv_cols, gather_q_cols,
+                                       rank_kv_heads, rms_norm, top_k)
 
 NEG_INF = -1e30
 
@@ -60,7 +73,10 @@ def indexer_scores(p, xq, idx_keys, cfg) -> torch.Tensor:
     """
     B = xq.shape[0]
     ni, di = cfg.sac.n_idx_heads, cfg.sac.d_idx
-    q = (xq @ p["wq_idx"]).reshape(B, ni, di).float()
+    tp = tp_of(cfg)
+    q = tp.all_gather(xq @ p["wq_idx"], tp.split(
+        ("D", "H"), (cfg.d_model, ni * di), 1).axes)
+    q = q.reshape(B, ni, di).float()
     w = (xq @ p["w_w"]).float()                                  # [B, ni]
     return ops.batched_indexer_scores(q, w, idx_keys)
 
@@ -183,8 +199,10 @@ def mla_param_specs(cfg) -> Dict[str, ParamSpec]:
 
 
 def mla_q_proj(p, x, cfg, positions):
-    """x: [B(, S), D] -> q_nope [B(,S),nh,hd], q_pe [B(,S),nh,dr] (roped)."""
-    nh, hd, dr = cfg.n_heads, cfg.hd, cfg.qk_rope_dim
+    """x: [B(, S), D] -> q_nope [B(,S),nh,hd], q_pe [B(,S),nh,dr] (roped);
+    nh the rank's heads (``mla_heads``)."""
+    _, nh = mla_heads(cfg)
+    hd, dr = cfg.hd, cfg.qk_rope_dim
     lead = x.shape[:-1]
     q = rms_norm(x @ p["w_dq"], p["q_norm_g"]) @ p["w_uq"]
     q = q.reshape(*lead, nh, hd + dr)
@@ -207,7 +225,8 @@ def mla_prefill_attention(p, x, cfg, positions, *, chunk: int = 1024):
     x: [B, S, D] -> (out [B, S, D], cache_entries [B, S, dc+dr]).
     """
     B, S, _ = x.shape
-    nh, hd, dr, dc = cfg.n_heads, cfg.hd, cfg.qk_rope_dim, cfg.kv_lora_rank
+    split, nh = mla_heads(cfg)
+    hd, dr, dc = cfg.hd, cfg.qk_rope_dim, cfg.kv_lora_rank
     q_nope, q_pe = mla_q_proj(p, x, cfg, positions)
     entry = mla_kv_entry(p, x, cfg, positions)
     c, k_pe = entry[..., :dc], entry[..., dc:]
@@ -219,7 +238,8 @@ def mla_prefill_attention(p, x, cfg, positions, *, chunk: int = 1024):
     # pad v with zeros so q/k/v share the last dim for the blocked loop
     v_pad = torch.cat([v, v.new_zeros(B, S, nh, dr)], dim=-1)
     out = blocked_causal_attention(q, k, v_pad, chunk=chunk)[..., :hd]
-    return out.reshape(B, S, nh * hd) @ p["wo"], entry
+    return tp_of(cfg).matmul_sum(out.reshape(B, S, nh * hd), p["wo"],
+                                 split.axes), entry
 
 
 def mla_absorbed_decode(p, xq, cfg, fetched, valid, positions):
@@ -231,7 +251,8 @@ def mla_absorbed_decode(p, xq, cfg, fetched, valid, positions):
     up-projection and ``wo`` are f32/bf16 matmuls as in the reference.
     """
     B = xq.shape[0]
-    nh, hd, dr, dc = cfg.n_heads, cfg.hd, cfg.qk_rope_dim, cfg.kv_lora_rank
+    split, nh = mla_heads(cfg)
+    hd, dr, dc = cfg.hd, cfg.qk_rope_dim, cfg.kv_lora_rank
     q_nope, q_pe = mla_q_proj(p, xq, cfg, positions)          # [B,nh,hd|dr]
     w_uk = p["w_uk"].reshape(dc, nh, hd)
     # absorb: q_lat[b,h,c] = sum_d q_nope[b,h,d] * w_uk[c,h,d]
@@ -240,7 +261,8 @@ def mla_absorbed_decode(p, xq, cfg, fetched, valid, positions):
                                    dc=dc, scale=1.0 / math.sqrt(hd + dr))
     w_uv = p["w_uv"].reshape(dc, nh, hd)
     out = torch.einsum("bhc,chd->bhd", o_lat, w_uv.float())
-    return out.reshape(B, nh * hd).to(xq.dtype) @ p["wo"]
+    return tp_of(cfg).matmul_sum(out.reshape(B, nh * hd).to(xq.dtype),
+                                 p["wo"], split.axes)
 
 
 # ---------------------------------------------------------------------------
@@ -254,14 +276,15 @@ def gqa_entry_dim(cfg) -> int:
 
 def gqa_kv_entry(p, x, cfg, positions):
     """Pool entry for GQA archs: stacked (roped k, v) [.., 2*nkv*hd],
-    laid out as the decode side's ``reshape(B, k, 2, nkv, hd)``."""
+    laid out as the decode side's ``reshape(B, k, 2, nkv, hd)``; whole
+    on a tensor-parallel rank (its k / v columns all-gathered)."""
     lead = x.shape[:-1]
     nkv, hd = cfg.n_kv_heads, cfg.hd
-    k = (x @ p["wk"]).reshape(*lead, nkv, hd)
-    v = (x @ p["wv"]).reshape(*lead, nkv, hd)
+    k, v = x @ p["wk"], x @ p["wv"]
     if cfg.qkv_bias:
-        k = k + p["bk"].reshape(nkv, hd)
-        v = v + p["bv"].reshape(nkv, hd)
+        k, v = k + p["bk"], v + p["bv"]
+    k, v = gather_kv_cols(cfg, k, v)
+    k, v = k.reshape(*lead, nkv, hd), v.reshape(*lead, nkv, hd)
     return pack_kv_entry(apply_rope(k, positions, cfg.rope_theta), v)
 
 
@@ -273,12 +296,13 @@ def pack_kv_entry(k, v):
 
 
 def gqa_q_proj(p, x, cfg, positions):
+    """x: [.., D] -> the rank's roped q heads [.., heads, hd]."""
     lead = x.shape[:-1]
-    nh, hd = cfg.n_heads, cfg.hd
     q = x @ p["wq"]
     if cfg.qkv_bias:
         q = q + p["bq"]
-    q = q.reshape(*lead, nh, hd)
+    q = gather_q_cols(cfg, q)
+    q = q.reshape(*lead, q.shape[-1] // cfg.hd, cfg.hd)
     return apply_rope(q, positions, cfg.rope_theta)
 
 
@@ -287,11 +311,17 @@ def gqa_sparse_decode(p, xq, cfg, fetched, valid, positions):
 
     xq: [B, D]; fetched: [B, k, 2*nkv*hd]; valid: [B, k] -> [B, D].  The
     softmax core runs in ``ops.batched_sparse_gqa``; q and ``wo`` are
-    bf16 matmuls as in the reference."""
-    B = xq.shape[0]
+    bf16 matmuls as in the reference.  A tensor-parallel rank attends
+    with its heads over the entries cut to their KV heads."""
+    B, k = fetched.shape[:2]
+    nkv, hd = cfg.n_kv_heads, cfg.hd
     q = gqa_q_proj(p, xq, cfg, positions)                      # [B,nh,hd]
-    out = ops.batched_sparse_gqa(q, fetched, valid, n_kv=cfg.n_kv_heads)
-    return out.reshape(B, cfg.n_heads * cfg.hd).to(xq.dtype) @ p["wo"]
+    ent = rank_kv_heads(cfg, fetched.reshape(B, k, 2, nkv, hd), 3)
+    n_kv = ent.shape[3]
+    if n_kv != nkv:
+        fetched = ent.reshape(B, k, 2 * n_kv * hd)
+    out = ops.batched_sparse_gqa(q, fetched, valid, n_kv=n_kv)
+    return attn_out(p, out.reshape(B, q.shape[1] * hd).to(xq.dtype), cfg)
 
 
 def gqa_dense_decode(p, xq, cfg, pool_layer, cache_len, positions):

@@ -53,7 +53,16 @@ from repro_torch.models.layers import (DTYPE, ParamSpec, attn_param_specs,
                                        dense_attention_block, init_params,
                                        mlp_block, mlp_param_specs, repeat_kv,
                                        rms_norm, spec_shapes)
+from repro_torch.distributed import sharding as shd
 from repro_torch.models.transformer import _span, run_layer
+
+
+def _no_mesh():
+    """The encoder-decoder runs whole weights: it refuses the tensor-
+    parallel context (``use_rules(rules, mesh)``) rather than run a
+    weight its rules would split."""
+    if shd._mesh() is not None:
+        raise ValueError("the encoder-decoder does not run tensor-parallel")
 
 MAX_DEC = 448  # whisper decoder context
 
@@ -236,6 +245,7 @@ class EncDecLM:
         encoder's cross-KV entries of every decoder layer in ``kv_pool``
         and, in SAC mode, their indexer keys in ``idx_pool``; the
         decoder starts empty (``dec_len`` 0)."""
+        _no_mesh()
         cfg = self.cfg
         B, S_enc, _ = frames.shape
         dev = frames.device
@@ -304,6 +314,7 @@ class EncDecLM:
         state dict is updated IN PLACE (``self_kv``, ``dec_len``).  Each
         decoder layer is a ``pool_layer`` profiler range while a
         profiler records (``transformer.DECODE_SPANS``)."""
+        _no_mesh()
         x = params["embed"][tokens.long()].to(DTYPE)
         dec_len = state["dec_len"]
         kv_pool, idx_pool = state["kv_pool"], state.get("idx_pool")

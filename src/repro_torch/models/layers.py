@@ -6,6 +6,13 @@ Parameters are plain dictionaries of tensors.  Every leaf is declared by
 a ``ParamSpec`` with the reference's shape, logical dims and init rule;
 ``materialize`` draws it from an explicit ``torch.Generator`` directly
 in its own dtype on its own device (no f32 temporary of a large stack).
+
+Over a tensor-parallel rank (a config view with ``tp``,
+``distributed/tp.py``) the GQA projections and the MLP run on the rank's
+blocks: q, k, v and the MLP's gate and up are column blocks (k and v
+all-gathered, so the pool entry is whole; q too where its block is not
+whole heads), ``wo`` and ``w_down`` row blocks, each followed by one
+all-reduce.
 """
 from __future__ import annotations
 
@@ -14,6 +21,8 @@ import math
 from typing import Any, Dict, Tuple
 
 import torch
+
+from repro_torch.distributed.tp import gqa_layout, tp_of
 
 DTYPE = torch.bfloat16
 
@@ -132,21 +141,63 @@ def attn_param_specs(cfg, prefix_scale=1.0) -> Dict[str, ParamSpec]:
     return p
 
 
+def gather_kv_cols(cfg, k, v):
+    """A rank's k / v column blocks -> every KV head's (one all-gather of
+    both; unchanged where ``wk`` / ``wv`` are whole)."""
+    lay = gqa_layout(cfg)
+    if lay.kv.n == 1:
+        return k, v
+    kv = tp_of(cfg).all_gather(torch.stack([k, v]), lay.kv.axes)
+    return kv[0], kv[1]
+
+
+def gather_q_cols(cfg, q):
+    """A rank's q columns -> its whole heads: every head's columns where
+    its block is not whole heads of one GQA ratio (``gqa_layout``)."""
+    lay = gqa_layout(cfg)
+    if lay.heads is None:
+        return tp_of(cfg).all_gather(q, lay.q.axes)
+    return q
+
+
 def qkv_proj(p, x, cfg, positions):
-    """x: [B, S, D] -> q [B, S, nh, hd], k/v [B, S, nkv, hd] with RoPE."""
+    """x: [B, S, D] -> q [B, S, nh, hd], k/v [B, S, nkv, hd] with RoPE.
+    Over a tensor-parallel rank q holds its heads (``gather_q_cols``)."""
     B, S, _ = x.shape
-    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    nkv, hd = cfg.n_kv_heads, cfg.hd
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, nh, hd)
+    q = gather_q_cols(cfg, q)
+    k, v = gather_kv_cols(cfg, k, v)
+    q = q.reshape(B, S, q.shape[-1] // hd, hd)
     k = k.reshape(B, S, nkv, hd)
     v = v.reshape(B, S, nkv, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def rank_kv_heads(cfg, k, head_dim: int = -2):
+    """The KV heads a rank's q heads attend (all where it attends every
+    head): ``k`` [..., nkv, ...] cut on ``head_dim``."""
+    heads = gqa_layout(cfg).heads
+    if heads is None or heads[3] == cfg.n_kv_heads:
+        return k
+    return k.narrow(head_dim, heads[2], heads[3])
+
+
+def attn_out(p, out, cfg):
+    """Attention output [..., heads * hd] -> the layer's [..., D]: the
+    rank's block of ``wo``'s rows (the rank's columns of ``out`` where
+    every head attended), then one all-reduce of the partial sums."""
+    lay = gqa_layout(cfg)
+    if lay.heads is None:
+        lo, hi = lay.q.bounds(cfg.n_heads * cfg.hd)
+        out = out[..., lo:hi]
+    return tp_of(cfg).matmul_sum(out, p["wo"], lay.q.axes)
 
 
 def repeat_kv(k, n_rep: int):
@@ -200,10 +251,11 @@ def dense_attention_block(p, x, cfg, positions, *, window: int = 0):
     (out [B, S, D], (k, v) [B, S, nkv, hd], k roped)."""
     B, S, _ = x.shape
     q, k, v = qkv_proj(p, x, cfg, positions)
-    n_rep = cfg.n_heads // cfg.n_kv_heads
-    out = blocked_causal_attention(q, repeat_kv(k, n_rep),
-                                   repeat_kv(v, n_rep), window=window)
-    return out.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"], (k, v)
+    ka, va = rank_kv_heads(cfg, k), rank_kv_heads(cfg, v)
+    n_rep = q.shape[2] // ka.shape[2]
+    out = blocked_causal_attention(q, repeat_kv(ka, n_rep),
+                                   repeat_kv(va, n_rep), window=window)
+    return attn_out(p, out.reshape(B, S, q.shape[2] * cfg.hd), cfg), (k, v)
 
 
 def decode_attention(q, k_cache, v_cache, length_mask):
@@ -239,5 +291,13 @@ def mlp_param_specs(cfg) -> Dict[str, ParamSpec]:
     }
 
 
-def mlp_block(p, x):
-    return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+def mlp_block(p, x, cfg=None):
+    """SwiGLU MLP; over a tensor-parallel rank (``cfg.tp``) the gate and
+    up are column blocks and ``w_down`` a row block, whose partial sums
+    are all-reduced (``matmul_sum``)."""
+    if cfg is None:
+        return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+    tp = tp_of(cfg)
+    f = tp.split(("F", "D"), (cfg.d_ff, cfg.d_model), 0)
+    h = torch.nn.functional.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    return tp.matmul_sum(h, p["w_down"], f.axes)

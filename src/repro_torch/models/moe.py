@@ -6,6 +6,20 @@ Expert compute is E x C x (3 d f) with the reference's capacity
 is full is dropped for that expert, exactly as there.  Groups split the
 tokens as the reference does; the batch of groups is a written-out
 dimension and the per-group dispatch a Python loop.
+
+Expert parallelism (a config view with ``tp``, ``distributed/tp.py``):
+the reference dispatches the whole global batch (its decode as one
+group), so a rank all-gathers the tokens over the batch axes and every
+rank computes the same dispatch, with the reference's groups and
+capacity.  The router's E columns are all-gathered over the axes that
+split them.  A rank holds its block of the experts (E over ``("model",
+"data")`` where both divide, else over what divides), with their rows
+(``DE``) and hidden columns (``F``) cut where the rules cut them: it
+fills only its experts' slots, runs them (a rows block's partial gate /
+up products all-reduced over the rows' axes before the SwiGLU, a hidden
+block's outputs kept in f32), and adds its gated outputs into the token
+set's; one all-reduce over every axis that splits the experts' work
+sums the ranks' in f32, rounded once, and the rank keeps its own lanes.
 """
 from __future__ import annotations
 
@@ -14,6 +28,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.tp import tp_of
 from repro_torch.models.layers import ParamSpec, top_k
 
 
@@ -27,11 +42,15 @@ def moe_param_specs(cfg) -> Dict[str, ParamSpec]:
     }
 
 
-def _dispatch_one(xt, probs, E: int, K: int, C: int):
-    """Capacity dispatch for one token group.
+def _dispatch_one(xt, probs, E: int, K: int, C: int, lo: int = 0,
+                  n: int = 0):
+    """Capacity dispatch for one token group, into the slots of experts
+    [lo, lo + n) (all E by default; the others' tokens go to the
+    sentinel, as dropped ones do).
 
-    xt: [T, D]; probs: [T, E] -> (dispatched [E*C+1, D], slot [T*K],
+    xt: [T, D]; probs: [T, E] -> (dispatched [n*C+1, D], slot [T*K],
     weight [T*K], aux)."""
+    n = n or E
     T, D = xt.shape
     gate_vals, expert_ids = top_k(probs, K)                      # [T, K]
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
@@ -47,19 +66,28 @@ def _dispatch_one(xt, probs, E: int, K: int, C: int):
     pos_in_e = (torch.cumsum(onehot, dim=0) - onehot)[
         torch.arange(T * K, device=xt.device), flat_e]
     keep = pos_in_e < C
-    slot = torch.where(keep, flat_e * C + pos_in_e, E * C)      # sentinel
+    mine = keep if n == E else keep & (flat_e >= lo) & (flat_e < lo + n)
+    slot = torch.where(mine, (flat_e - lo) * C + pos_in_e, n * C)  # sentinel
     # kept slots are distinct, so a copy equals the reference's
     # scatter-add; dropped lanes copy zeros into the sentinel row
-    vals = xt.repeat_interleave(K, dim=0) * keep[:, None].to(xt.dtype)
-    dispatched = xt.new_zeros(E * C + 1, D).index_copy_(0, slot, vals)
+    vals = xt.repeat_interleave(K, dim=0) * mine[:, None].to(xt.dtype)
+    dispatched = xt.new_zeros(n * C + 1, D).index_copy_(0, slot, vals)
     w = gate_vals.reshape(-1) * keep.float()
     return dispatched, slot, w, aux
 
 
 def moe_block(p, x, cfg, *, cap_factor: float = 1.25, groups: int = 1):
-    """x: [B, S, D] -> ([B, S, D], aux_loss)."""
+    """x: [B, S, D] -> ([B, S, D], aux_loss); over an expert-parallel
+    rank ``x`` is its lanes and the groups split the whole batch."""
+    tp = tp_of(cfg)
+    x = tp.gather_lanes(x)
     B, S, D = x.shape
-    E, K = cfg.n_experts, cfg.topk_experts
+    E, K, Fh = cfg.n_experts, cfg.topk_experts, cfg.d_ff
+    e, rows, f = (tp.split(("E", "DE", "F"), (E, D, Fh), i) for i in range(3))
+    down = tp.split(("E", "F", "DE"), (E, Fh, D), 2)
+    if down != rows:
+        raise ValueError(f"w_gate's rows over {rows.axes}, w_down's "
+                         f"columns over {down.axes}")
     T = B * S
     groups = max(1, min(groups, T))
     while T % groups:
@@ -68,24 +96,45 @@ def moe_block(p, x, cfg, *, cap_factor: float = 1.25, groups: int = 1):
     C = max(int(K * Tg * cap_factor / E), 1)
 
     xt = x.reshape(groups, Tg, D)
-    probs = torch.softmax((xt @ p["router"]).float(), dim=-1)   # [G, Tg, E]
-    parts = [_dispatch_one(xt[g], probs[g], E, K, C) for g in range(groups)]
+    router = tp.split(("G", "E"), (D, E), 1)
+    logits = tp.all_gather(xt @ p["router"], router.axes)       # [G, Tg, E]
+    probs = torch.softmax(logits.float(), dim=-1)
+    n = E // e.n                          # the rank's experts [lo, lo + n)
+    parts = [_dispatch_one(xt[g], probs[g], E, K, C, e.index * n, n)
+             for g in range(groups)]
     dispatched = torch.stack([q[0] for q in parts])
     slot = torch.stack([q[1] for q in parts])
     w = torch.stack([q[2] for q in parts])
     aux = torch.stack([q[3] for q in parts])
-    ex = dispatched[:, : E * C].reshape(groups, E, C, D)
+    ex = dispatched[:, : n * C].reshape(groups, n, C, D)
+    r0, r1 = rows.bounds(D)
+    ex_in = ex if rows.n == 1 else ex[..., r0:r1]
 
-    h = torch.einsum("gecd,edf->gecf", ex, p["w_gate"])
-    h = F.silu(h) * torch.einsum("gecd,edf->gecf", ex, p["w_up"])
-    out_e = torch.einsum("gecf,efd->gecd", h, p["w_down"])      # [G,E,C,D]
+    if rows.n > 1:      # partial over the rows' blocks, summed in f32
+        hu = torch.einsum("gecd,sedf->sgecf", ex_in.float(), torch.stack(
+            [p["w_gate"], p["w_up"]]).float())
+        h, u = tp.all_reduce(hu, rows.axes).to(x.dtype)
+    else:
+        h = torch.einsum("gecd,edf->gecf", ex_in, p["w_gate"])
+        u = torch.einsum("gecd,edf->gecf", ex_in, p["w_up"])
+    h = F.silu(h) * u
+    if f.n > 1:         # partial over the hidden blocks: kept in f32
+        h = h.float()
+    out_e = torch.einsum("gecf,efd->gecd", h, p["w_down"].to(h.dtype))
+    if rows.n > 1:                  # the rank's block of the columns
+        out_e = F.pad(out_e, (r0, D - r1))
 
-    flat_out = torch.cat([out_e.reshape(groups, E * C, D),
+    flat_out = torch.cat([out_e.reshape(groups, n * C, D),
                           out_e.new_zeros(groups, 1, D)], dim=1)
     gathered = flat_out.gather(1, slot[..., None].expand(-1, -1, D))
-    combined = (gathered * w[..., None].to(x.dtype)
-                ).reshape(groups, Tg, K, D).sum(2)
-    return combined.reshape(B, S, D), aux.mean()
+    gated = (gathered * w[..., None].to(out_e.dtype)
+             ).reshape(groups, Tg, K, D)
+    axes = e.axes + f.axes + rows.axes
+    if tp.size(axes) == 1:
+        combined = gated.sum(2)
+    else:               # the ranks' gated outputs, summed in f32
+        combined = tp.all_reduce(gated.float().sum(2), axes).to(x.dtype)
+    return tp.own_lanes(combined.reshape(B, S, D)), aux.mean()
 
 
 def moe_decode(p, x, cfg, *, groups: int = 1):

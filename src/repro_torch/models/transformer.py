@@ -48,8 +48,20 @@ state) and returns the same dict.  With the pooled fetch
 (``core/pool.py::make_pooled_fetch``) the pools are this rank's slices
 of a pool sharded over the mesh's ``model`` axis: each layer's scores
 are all-gathered before the selection (``core/sac.py``) and the
-write-back lands only on the rank that owns the position (the attention
-kinds in SAC mode; other kinds and dense mode raise, ROADMAP §1).  Under ``torch.profiler`` it marks each
+write-back lands only on the rank that owns the position.
+
+Tensor parallelism of the weights: under ``sharding.use_rules(rules,
+mesh)`` (the context the reference's model reads its mesh and rules
+from) ``prefill`` and ``decode`` take this rank's block of every weight
+(``sharding.shard_params`` / ``init_shards``; ``param_shapes`` gives
+their shapes) and run through a ``distributed/tp.py::RankView`` of the
+config: a vocab-parallel embedding, column-parallel ``lm_head`` (the
+logits all-gathered), the attention, MLP and MoE layers of
+``models/{layers,dsa,moe}.py`` on their blocks, each with its
+collectives.  The ``opts`` key ``batch_axes`` names the axes the rank's
+lanes are split over (by default the rules' ``B`` axes in the mesh).
+The attention kinds only: the recurrent families refuse a mesh there.
+Outside that context nothing changes, bit for bit.  Under ``torch.profiler`` it marks each
 layer's work as a range named by ``DECODE_SPANS`` (a pool layer, a Mamba2
 layer, an xLSTM super-block), so that a trace splits a step by layer
 kind; with no profiler on, a layer pays one flag check.  With ``kv_quant="fp8"`` the pool and
@@ -74,6 +86,8 @@ from repro_torch.core import hisparse
 from repro_torch.core import sac as sac_core
 from repro_torch.core.pool import (E4M3, FetchFn, local_fetch,
                                    pool_write_step, to_kv_dtype)
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.tp import RankView, TensorParallel, tp_of
 from repro_torch.models import dsa, moe, ssm
 from repro_torch.models.layers import (DTYPE, ParamSpec, attn_param_specs,
                                        dense_attention_block, init_params,
@@ -243,7 +257,7 @@ def _mlp_apply(p_mlp, x, cfg, *, groups: int = 1):
     """MLP or MoE on [B, S, D]; returns (out, aux)."""
     if cfg.n_experts:
         return moe.moe_block(p_mlp, x, cfg, groups=groups)
-    return mlp_block(p_mlp, x), torch.zeros((), device=x.device)
+    return mlp_block(p_mlp, x, cfg), torch.zeros((), device=x.device)
 
 
 def _layer_fwd(p, x, cfg, positions, window, groups, warm_w=0,
@@ -453,6 +467,25 @@ class TransformerLM:
         # read through the pooled fetch (``dense`` mode all-gathers each
         # layer), the recurrent layers keep ``rec_*`` of those lanes
         self.shard = getattr(fetch_fn, "shard", None)
+        self._views: Dict[Any, RankView] = {}   # tensor parallelism
+
+    def rank_cfg(self):
+        """The config this rank runs: ``cfg`` itself outside
+        ``use_rules(rules, mesh)``, else a ``RankView`` with the mesh's
+        ``TensorParallel`` plan (made once a mesh and rule table)."""
+        mesh = shd._mesh()
+        if mesh is None:
+            return self.cfg
+        if any(s.kind not in _ATTN_KINDS for s in self.segments):
+            raise ValueError(
+                f"{sorted({s.kind for s in self.segments})}: only the "
+                f"attention kinds {_ATTN_KINDS} run tensor-parallel")
+        rules = shd._rules()
+        key = (id(mesh), tuple(sorted(rules.items())))
+        if key not in self._views:
+            self._views[key] = RankView(self.cfg, TensorParallel(
+                mesh, rules, self.opts.get("batch_axes")))
+        return self._views[key]
 
     # -- params ------------------------------------------------------------
     def init(self, generator: torch.Generator) -> Dict:
@@ -462,13 +495,18 @@ class TransformerLM:
 
     def param_shapes(self) -> Dict:
         """The parameters as empty ``meta`` tensors (the dry-run's): the
-        tree ``init`` returns, with no storage."""
-        return spec_shapes(self.specs)
+        tree ``init`` returns, with no storage; under ``use_rules(rules,
+        mesh)`` this rank's blocks (``sharding.block_shape``)."""
+        if shd._mesh() is None:
+            return spec_shapes(self.specs)
+        return shd.map_specs(lambda _, s: torch.empty(
+            shd.block_shape(s), dtype=s.dtype, device="meta"),
+            self.specs, self.specs)
 
     # -- the layer walk, shared by the training forward and prefill -----------
-    def _embed_seq(self, params, tokens):
+    def _embed_seq(self, params, tokens, cfg=None):
         B, S = tokens.shape
-        x = params["embed"][tokens.long()].to(DTYPE)
+        x = _embed(params, tokens, cfg or self.cfg)
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None, :].expand(B, S)
         return x, positions
@@ -531,12 +569,12 @@ class TransformerLM:
         as the reference's prefill returns it.  Logits are computed for
         the last prompt position only (the reference computes all S and
         keeps the last; the result is the same)."""
-        cfg = self.cfg
+        cfg = self.rank_cfg()
         B, S = tokens.shape
         dev = tokens.device
         if lengths is None:
             lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
-        x, positions = self._embed_seq(params, tokens)
+        x, positions = self._embed_seq(params, tokens, cfg)
         groups = int(self.opts.get("moe_groups", 1))
         warm_w = int(self.opts.get("warmup_w", 0))
         # each layer's entries land in the pool as they are made (no
@@ -570,7 +608,7 @@ class TransformerLM:
         state["cache_len"] = lengths.to(torch.int32)
         last_idx = torch.clamp(lengths.long() - 1, 0, S - 1)
         x_last = x[torch.arange(B, device=dev), last_idx]
-        return state, self._logits(params, x_last)
+        return state, self._logits(params, x_last, cfg)
 
     # -- decode ----------------------------------------------------------------
     @torch.no_grad()
@@ -581,8 +619,8 @@ class TransformerLM:
         ``pf_budget`` ([B] int32 or None) is the step's arbiter-granted
         speculative width per request: it caps the speculation lanes
         each request may warm-insert (traffic only, never tokens)."""
-        cfg = self.cfg
-        x = params["embed"][tokens.long()].to(DTYPE)
+        cfg = self.rank_cfg()
+        x = _embed(params, tokens, cfg)
         cache_len = state["cache_len"]
         ctx = {
             "positions": cache_len,       # 0-indexed position of new token
@@ -660,7 +698,7 @@ class TransformerLM:
             state["pf_inserted"] = hot.pf_inserted.sum(0) - pf_ins0
             state["pf_useful"] = hot.pf_used.sum(0) - pf_use0
         state["cache_len"] = cache_len + 1
-        return state, self._logits(params, x)
+        return state, self._logits(params, x, cfg)
 
     # -- state builders ---------------------------------------------------------
     def init_serve_state(self, batch: int, seq_len: int,
@@ -723,6 +761,26 @@ class TransformerLM:
         return out
 
     # -- shared pieces -----------------------------------------------------------
-    def _logits(self, params, x):
+    def _logits(self, params, x, cfg=None):
+        """Column-parallel over a tensor-parallel rank: its vocab block's
+        logits, all-gathered."""
+        cfg = cfg or self.cfg
         x = rms_norm(x, params["final_norm"])
-        return (x @ params["lm_head"]).float()
+        v = tp_of(cfg).split(("D", "V"), (cfg.d_model, cfg.vocab), 1)
+        return tp_of(cfg).all_gather((x @ params["lm_head"]).float(), v.axes)
+
+
+def _embed(params, tokens, cfg) -> torch.Tensor:
+    """The tokens' embedding rows; vocab-parallel over a tensor-parallel
+    rank: its block's rows (zeros for another block's tokens), summed
+    over the vocab's axes."""
+    tp = tp_of(cfg)
+    v = tp.split(("V", "D"), (cfg.vocab, cfg.d_model), 0)
+    if v.n == 1:
+        return params["embed"][tokens.long()].to(DTYPE)
+    lo, hi = v.bounds(cfg.vocab)
+    t = tokens.long() - lo
+    mine = ((t >= 0) & (t < hi - lo))[..., None]
+    rows = params["embed"][t.clamp(0, hi - lo - 1)].to(DTYPE)
+    return tp.all_reduce(torch.where(mine, rows, torch.zeros(
+        (), dtype=DTYPE, device=rows.device)), v.axes)

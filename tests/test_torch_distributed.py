@@ -801,6 +801,7 @@ def test_spec_for_equals_reference(runs, mesh):
 
 def test_placements_follow_specs_and_refuse_a_crossed_order():
     from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
     from repro_torch.distributed import sharding as shd
     mesh = _Mesh(("data", "model"), (2, 2))
     assert shd.placements_for(mesh, ("B", "SP", "G"), (4, 8, 3),
@@ -810,9 +811,11 @@ def test_placements_follow_specs_and_refuse_a_crossed_order():
     pod = _Mesh(("pod", "data", "model"), (2, 2, 2))
     assert shd.placements_for(pod, ("B", "D"), (8, 6), shd.SERVE_RULES) \
         == [Shard(0), Shard(0), Replicate()]
-    with pytest.raises(ValueError, match="axis order"):
-        shd.placements_for(mesh, ("E", "DE", "F"), (4, 8, 8),
-                           shd.TRAIN_RULES)
+    # the experts over ("model", "data") on a (data, model) mesh: block
+    # model * 2 + data, which DTensor reads from a strided data shard
+    assert shd.placements_for(mesh, ("E", "DE", "F"), (4, 8, 8),
+                              shd.TRAIN_RULES) == [
+        _StridedShard(0, split_factor=2), Shard(0)]
     with shd.use_rules(shd.SERVE_RULES, mesh):
         assert shd.spec_for(("D",), (8,)) == (None,)
         x = torch.ones(2)
@@ -870,10 +873,11 @@ def test_skip_slow_reducer_matches_reference(factor, quorum):
 
 def test_sharded_pool_refuses_what_stays_unsupported():
     """What the sharded pool still refuses: a top-k over local scores
-    without the pooled fetch (decoder-only and encoder-decoder), such a
-    top-k beside a ``prefetch_fn`` (which would see only the slice), and
-    a crossed axis order in ``placements_for``.  Every family builds over
-    a pooled fetch in both modes (tests/test_torch_sharded_families.py
+    without the pooled fetch (decoder-only and encoder-decoder) and such
+    a top-k beside a ``prefetch_fn`` (which would see only the slice).
+    ``placements_for`` no longer refuses a crossed axis order: it names
+    the reference's block order (a strided shard).  Every family builds
+    over a pooled fetch in both modes (tests/test_torch_sharded_families.py
     decodes them)."""
     from repro_torch.core.pool import PooledFetch
     from repro_torch.core.topk import HierarchicalTopK
@@ -908,9 +912,9 @@ def test_sharded_pool_refuses_what_stays_unsupported():
     st["cache_len"].fill_(8)
     with pytest.raises(ValueError, match="needs the pooled fetch"):
         m.decode(wp, st, torch.zeros(1, dtype=torch.int32))
-    with pytest.raises(ValueError, match="axis order"):
-        shd.placements_for(_Mesh(("data", "model"), (2, 2)), ("E", "DE", "F"),
-                           (4, 8, 8), shd.TRAIN_RULES)
+    assert shd.placements_for(_Mesh(("data", "model"), (2, 2)),
+                              ("E", "DE", "F"), (4, 8, 8),
+                              shd.TRAIN_RULES)[0].split_factor == 2
 
 
 def test_production_mesh_needs_its_world():

@@ -340,15 +340,20 @@ def test_pooled_fetch_collectives_on_fake_group():
 
 
 def test_decode_cell_counts_qwen2():
-    """Qwen2-1.5B x decode_32k at the single pod: 28 all-gathers and 28
-    all-reduces a step (one each a pool layer), one indexer, shard
-    gather and GQA call a layer and one shard decode write (the kernels
-    the card would launch; on meta none launches)."""
+    """Qwen2-1.5B x decode_32k at the single pod, tensor-parallel over
+    model 16: a pool layer's four all-gathers (the scores, the k / v
+    column blocks, q's 96 columns, which are not whole heads, and the
+    indexer's q) and three all-reduces (the fetch's rows, ``wo``'s and
+    ``w_down``'s partial sums), plus the vocab-parallel embedding's
+    all-reduce and the logits' all-gather; one indexer, shard gather and
+    GQA call a layer and one shard decode write (the kernels the card
+    would launch; on meta none launches)."""
     from repro_torch.launch import dryrun
     rec = dryrun.run_cell("qwen2-1.5b", "decode_32k", multi_pod=False,
                           mode="sac", verbose=False)
-    assert rec["status"] == "ok"
-    assert rec["collective_counts"] == {"all-gather": 28, "all-reduce": 28}
+    assert rec["status"] == "ok" and rec["tensor_parallel"]
+    assert rec["collective_counts"] == {"all-gather": 28 * 4 + 1,
+                                        "all-reduce": 28 * 3 + 1}
     assert rec["kernels"] == {"gather_kv.shard": 28, "indexer_scores": 28,
                               "sparse_attn_gqa": 28,
                               "scatter_kv.rows_at_shard": 1}
