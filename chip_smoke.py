@@ -7,6 +7,7 @@
     python3 chip_smoke.py --twin     # phases 1-3 and 17 (the simulator twin)
     python3 chip_smoke.py --dryrun   # phases 1-3 and 18 (the dry-run)
     python3 chip_smoke.py --tp       # phases 1-3 and 19 (tensor parallelism)
+    python3 chip_smoke.py --fsdp     # phases 1-3 and 20 (rows over ranks)
 
 Phases, each printing one JSON line with its seconds; any failure raises
 (exit code != 0):
@@ -251,7 +252,28 @@ Phases, each printing one JSON line with its seconds; any failure raises
    the hot tier's integer state exact, and a control (model rank 1's
    ``wo`` zeroed) outside both limits; rank 0's weight bytes,
    peak memory, device ms, launches and collectives a step (two
-   profiled steps), with the card's name and power limit.
+   profiled steps), with the card's name and power limit;
+20. the d_model rows split across ranks (``distributed/tp.py`` with the
+   rows over ``data``): (a) at an NCCL world of one, three training
+   steps of Qwen2-1.5B at full width and depth (8 x 512) under
+   ``TRAIN_RULES`` beside the unsharded steps (each step's loss and
+   gradient norm, and every parameter's and moment's bits by a
+   weighted 64-bit sum, equal), and the long_500k decode (one request
+   over 524,288 pool rows drawn from a seed, the hot tier, 4 steps) of
+   Qwen2-1.5B and of DeepSeek-V3.2 (2 layers, in a child) under
+   ``SERVE_RULES`` plus ``D=("data",)`` beside the unsharded decode, bit
+   for bit; (b) four gloo ranks sharing the card at (2, 2): the training
+   step on each rank's blocks and lanes (its loss and gradient norm
+   within 1e-3 of the unsharded step's, each gathered gradient leaf
+   within 5e-2, beside a control with every batch-axis gradient sum
+   skipped; a step's collectives by kind, wall s a step, rank 0's
+   profile), then each long_500k case on the rank's blocks and pool
+   slice, fed the unsharded run's tokens (the first step's residual
+   stream after the first two pool layers within 1e-2 relative L2 of
+   the unsharded run's, the logits within the case's fixed limits, the
+   hot tier exact, a control with ``data`` rank 1's ``wo`` zeroed
+   outside them); each rank's weight, optimizer, pool and peak bytes,
+   with the card's name and power limit.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -3926,15 +3948,20 @@ def _tp_gates(record):
 @contextlib.contextmanager
 def _f32_row_products(torch):
     """The unsharded path's row-parallel products (``wo``, ``w_down``:
-    ``tp.Whole.matmul_sum``) in f32, rounded once, as a TP rank's."""
+    the weights whose first dim is ``H`` or ``F``, through
+    ``tp.Whole.matmul``) in f32, rounded once, as a TP rank's."""
     from repro_torch.distributed import tp
-    orig = tp.Whole.matmul_sum
-    tp.Whole.matmul_sum = lambda self, a, w, axes: torch.matmul(
-        a.float(), w.float()).to(a.dtype)
+    orig = tp.Whole.matmul
+
+    def matmul(self, x, w, dims, shape, axes=()):
+        if dims[0] in ("H", "F"):
+            return torch.matmul(x.float(), w.float()).to(x.dtype)
+        return x @ w
+    tp.Whole.matmul = matmul
     try:
         yield
     finally:
-        tp.Whole.matmul_sum = orig
+        tp.Whole.matmul = orig
 
 
 def _tp_hot(state):
@@ -4364,6 +4391,768 @@ def tp_phase(torch, ops, smi: str) -> dict:
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the d_model rows split across ranks
+# ---------------------------------------------------------------------------
+
+# (a) at an NCCL world of one, (b) at FSDP_MESH on four gloo ranks
+# sharing the card.  Training: Qwen2-1.5B at full width and depth, the
+# train phase's global batch of 8 x 512, FSDP_TRAIN["steps"] steps in
+# (a), one step's gradients (and their control) and its AdamW update in
+# (b).  Serving (the long_500k cells, B = 1): one request
+# over S = 524,288 pool rows, its entries and indexer keys drawn from a
+# generator seeded by the layer, ``cache_len`` S - 8, the config's hot
+# tier, phase 19's score-independent top-k of 2048, FSDP_SERVE's steps
+# (one more on the unsharded run: the control's step)
+FSDP_TRAIN = dict(arch="qwen2-1.5b", n_layers=None, batch=8, seq=512,
+                  steps=3)
+# each serve case's coarse limits on a rank's logits a step: relative L2
+# and the share of the logits outside BF16_TOL (see below)
+FSDP_SERVE = {"qwen2-1.5b": dict(arch="qwen2-1.5b", n_layers=None,
+                                 seq=524288, steps=4, limits=(5.7e-2, 0.55)),
+              "deepseek-v32": dict(arch="deepseek-v32", n_layers=2,
+                                   seq=524288, steps=4,
+                                   limits=(TP_REL_L2, TP_MISS_FRAC))}
+FSDP_MESH = (2, 2)
+# (b)'s limits, fixed.  Tight, where rounding has not yet been amplified
+# by the random layers: the global loss and the gradient norm relative
+# (FSDP_LOSS_REL), and the residual stream after each of the first
+# FSDP_TIGHT_LAYERS pool layers of the first decode step, relative L2
+# (FSDP_HIDDEN_REL_L2).  Coarse, at full depth: each gathered gradient
+# leaf, relative L2 (FSDP_GRAD_REL_L2; on an H100 the unsharded bf16
+# step's leaves are up to 3.22 % from a float64 run of the same step),
+# and each serve case's logits at its ``limits``: Qwen2-1.5B's 28 layers
+# carry a change of rounding alone (the unsharded long_500k decode made
+# with a rank's f32 products) to 3.78 % relative L2 and 36.5 % of the
+# logits outside BF16_TOL, so its limits are 1.5 times those; the
+# 2-layer DeepSeek-V3.2 case meets phase 19's
+FSDP_LOSS_REL, FSDP_GRAD_REL_L2 = 1e-3, 5e-2
+FSDP_TIGHT_LAYERS, FSDP_HIDDEN_REL_L2 = 2, 1e-2
+# the reduced configs at small sizes: the CPU rehearsal, and with
+# CHIP_SMOKE_FSDP_SMALL=1 the card test (tests/test_torch_fsdp_chip.py)
+FSDP_SMALL = TP_DEV == "cpu" or os.environ.get("CHIP_SMOKE_FSDP_SMALL") == "1"
+if FSDP_SMALL:
+    FSDP_TRAIN = dict(FSDP_TRAIN, batch=4, seq=16, steps=2)
+    FSDP_SERVE = {k: dict(v, seq=64, steps=2) for k, v in FSDP_SERVE.items()}
+
+
+def _fsdp_cfg(case):
+    """A case's config (at FSDP_SMALL reduced, its indexer 32 dims wide,
+    as the kernel takes it)."""
+    from repro_torch.configs import get_config
+    if FSDP_SMALL:
+        base = get_config(case["arch"]).reduced()
+        return dataclasses.replace(base, sac=dataclasses.replace(
+            base.sac, d_idx=32))
+    return _tp_cfg(case)
+
+
+def _fsdp_topk(scores, cache_len):
+    """Phase 19's injected top-k, 16 lanes at FSDP_SMALL."""
+    return _small_topk(scores, cache_len, 16 if FSDP_SMALL else 2048)
+
+
+def _fsdp_serve_rules():
+    from repro_torch.distributed import sharding as shd
+    return dict(shd.SERVE_RULES, D=("data",))
+
+
+def _fsdp_batch(torch, cfg, lanes=None):
+    """The training batch (tokens and labels of FSDP_TRAIN's rows, from a
+    seeded generator), or its rows ``lanes``."""
+    t = torch.randint(0, cfg.vocab, (FSDP_TRAIN["batch"],
+                                     FSDP_TRAIN["seq"] + 1),
+                      generator=torch.Generator().manual_seed(0),
+                      dtype=torch.int32)
+    if lanes is not None:
+        t = t[lanes]
+    return {"tokens": t[:, :-1].to(TP_DEV), "labels": t[:, 1:].to(TP_DEV)}
+
+
+def _fsdp_tokens(torch, cfg, n: int):
+    """The serve runs' fed tokens, one a step (B = 1)."""
+    return torch.randint(0, cfg.vocab, (n, 1),
+                         generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+
+
+def _bit_sums(torch, tree) -> list:
+    """Each leaf's bits summed twice in 64-bit integers, once weighted by
+    2i + 1 (odd: any one changed element changes it), on the host."""
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = []
+    for t in _tree_tensors(tree):
+        v = t.detach().contiguous().view(ints[t.element_size()]) \
+            .reshape(-1).long()
+        w = torch.arange(v.numel(), device=v.device, dtype=torch.int64)
+        out.append((int((v * (2 * w + 1)).sum()), int(v.sum())))
+        del v, w
+    return out
+
+
+def _tree_paths(tree, path="") -> list:
+    """The leaf paths of a tree of dicts and lists, in ``_tree_tensors``'
+    order."""
+    if isinstance(tree, dict):
+        return [q for k, v in tree.items() for q in _tree_paths(v,
+                                                              f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [q for i, v in enumerate(tree)
+                for q in _tree_paths(v, f"{path}/{i}")]
+    return [path]
+
+
+def _fsdp_train_run(torch, m, params, mesh=None, grads_path=None):
+    """FSDP_TRAIN["steps"] steps from ``params`` (the rank's blocks under
+    ``use_rules(TRAIN_RULES, mesh)`` with ``mesh``): each step's loss and
+    gradient norm and each leaf's ``_bit_sums`` of the parameters and both
+    moments, wall seconds a step and the peak, and with ``mesh`` on the
+    card a profile of one more step; with ``grads_path`` the first
+    step's gradients are saved there first (phase 20 (b)'s reference)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.train_loop import make_grad_fn, make_train_step
+    batch = _fsdp_batch(torch, m.cfg)
+    ctx = (shd.use_rules(shd.TRAIN_RULES, mesh) if mesh is not None
+           else contextlib.nullcontext())
+    out = dict(loss=[], grad_norm=[], sums=[], wall_s=[])
+    with ctx:
+        if grads_path is not None:
+            metrics, grads = make_grad_fn(m)(params, batch)
+            torch.save({"loss": float(metrics["loss"]),
+                        "paths": _tree_paths(grads),
+                        "grads": [g.cpu() for g in _tree_tensors(grads)]},
+                       grads_path)
+            del grads
+            gc.collect()
+            torch.cuda.empty_cache()
+        step = make_train_step(m, OptConfig(warmup_steps=1, total_steps=100))
+        opt = init_opt_state(params)
+        if TP_DEV == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        for _ in range(FSDP_TRAIN["steps"]):
+            _tp_sync(torch)
+            t1 = time.perf_counter()
+            params, opt, met = step(params, opt, batch)
+            _tp_sync(torch)
+            out["wall_s"].append(time.perf_counter() - t1)
+            out["loss"].append(float(met["loss"]))
+            out["grad_norm"].append(float(met["grad_norm"]))
+            out["sums"].append(_bit_sums(torch, [params, opt["m"],
+                                                  opt["v"]]))
+        out["peak_bytes"] = _tp_peak(torch)
+        out["profile"] = None
+        if mesh is not None and TP_DEV == "cuda":    # one more step
+            state = {"p": params, "o": opt}
+
+            def one():
+                state["p"], state["o"], _ = step(state["p"], state["o"],
+                                                 batch)
+            out["profile"] = profile_steps(torch, one, n_steps=1,
+                                           device_kernels=(), spans={})
+    return out
+
+
+def _fsdp_state(torch, m, case, mesh=None):
+    """A serve state of one request over ``case["seq"]`` pool rows (the
+    rank's slice over ``model`` with ``mesh``): each pool layer's entries
+    and indexer keys drawn whole from a generator seeded by the layer
+    and cut, the config's hot tier over every row, ``cache_len`` S - 8."""
+    from repro_torch.core import hisparse
+    from repro_torch.core.pool import PoolShard
+    S, dev = case["seq"], m.device
+    n = PoolShard.of(mesh, "model").size if mesh is not None else 1
+    base = PoolShard.of(mesh, "model").base(S // n) if mesh is not None else 0
+    shapes = m.serve_state_shapes(1, S)
+    state = {}
+    for j, key in enumerate(("kv_pool", "idx_pool")):
+        L, B, _, d = shapes[key].shape
+        pool = torch.empty((L, B, S // n, d), dtype=shapes[key].dtype,
+                           device=dev)
+        for layer in range(L):
+            g = torch.Generator(device=dev).manual_seed(1000 * j + layer)
+            whole = torch.randn((B, S, d), generator=g, device=dev)
+            pool[layer] = whole[:, base:base + S // n].to(pool.dtype)
+            del whole
+        state[key] = pool
+    i32 = dict(dtype=torch.int32, device=dev)
+    buf = m.cfg.sac.device_buffer_size
+    state["hot_buf"] = hisparse.init_layered_buffer(
+        m.n_kv, 1, buf, S, m.kv_dim, m.kv_dtype, device=dev)
+    for k in ("buf_hits", "buf_misses", "pf_inserted", "pf_useful"):
+        state[k] = torch.zeros((1,), **i32)
+    for k in ("buf_hits_l", "buf_misses_l"):
+        state[k] = torch.zeros((m.n_kv, 1), **i32)
+    state["cache_len"] = torch.full((1,), S - 8, **i32)
+    return state
+
+
+def _fsdp_serve_model(cfg, mesh=None):
+    from repro_torch.core.pool import make_pooled_fetch
+    from repro_torch.models.model import build_model
+    if mesh is None:
+        return build_model(cfg, topk_fn=_fsdp_topk, device=TP_DEV)
+    return build_model(cfg, fetch_fn=make_pooled_fetch(mesh, batch_axes=()),
+                       topk_fn=_fsdp_topk, opts=dict(batch_axes=()),
+                       device=TP_DEV)
+
+
+@contextlib.contextmanager
+def _layer_outputs(into: list):
+    """While open, each pool layer's decode output (the residual stream
+    after the layer, ``transformer._layer_decode``'s first result) is
+    copied, unchanged, onto ``into`` in layer order."""
+    from repro_torch.models import transformer
+    plain = transformer._layer_decode
+
+    def recorded(*args):
+        out = plain(*args)
+        into.append(out[0].detach().clone())
+        return out
+    transformer._layer_decode = recorded
+    try:
+        yield into
+    finally:
+        transformer._layer_decode = plain
+
+
+def _fsdp_decode(torch, m, params, state, tokens, n: int, gates=None,
+                 hidden=None):
+    """``n`` decode steps fed ``tokens``: logits on the host, wall s; with
+    ``hidden`` (a list) the first step's residual stream after each pool
+    layer is put there, on the host."""
+    logits, wall = [], []
+    with _tp_gates(gates):
+        for i in range(n):
+            ctx = (_layer_outputs(hidden) if i == 0 and hidden is not None
+                   else contextlib.nullcontext())
+            _tp_sync(torch)
+            t1 = time.perf_counter()
+            with ctx:
+                state, lg = m.decode(params, state, tokens[i].to(TP_DEV))
+            _tp_sync(torch)
+            wall.append(time.perf_counter() - t1)
+            logits.append(lg.cpu())
+    if hidden is not None:
+        hidden[:] = [h.cpu() for h in hidden]
+    return state, logits, wall
+
+
+def _fsdp_serve_reference(torch, ops, case, mesh):
+    """The unsharded long_500k run of ``case`` (steps + 1 decode steps:
+    the last is the control's; the first step's residual stream after
+    each pool layer kept), then the path under ``SERVE_RULES`` plus
+    ``D=("data",)`` at ``mesh``, a world of one (its blocks are the whole
+    weights), which must equal it bit for bit: logits, the hot tier's
+    integer state, expert choices."""
+    from repro_torch.distributed import sharding as shd
+    cfg = _fsdp_cfg(case)
+    n = case["steps"]
+    tokens = _fsdp_tokens(torch, cfg, n + 1)
+    m = _fsdp_serve_model(cfg)
+    params = m.init(torch.Generator(device=TP_DEV).manual_seed(0))
+    gates = [] if cfg.n_experts else None
+    hidden = []
+    state = _fsdp_state(torch, m, case)
+    state, logits, wall = _fsdp_decode(torch, m, params, state, tokens, n,
+                                       gates, hidden)
+    hot = _tp_hot(state)
+    _, lg, _ = _fsdp_decode(torch, m, params, state, tokens[n:], 1)
+    ref = dict(tokens=tokens, logits=logits + lg, hot=hot, gates=gates,
+               hidden=hidden, wall_s=wall)
+    del state
+    gc.collect()
+    ref["peak_bytes"] = _tp_peak(torch)
+    mt = _fsdp_serve_model(cfg, mesh)
+    with shd.use_rules(_fsdp_serve_rules(), mesh):
+        ops.reset_launch_counts()
+        state = _fsdp_state(torch, mt, case, mesh)
+        tgates = [] if cfg.n_experts else None
+        state, logits, wall = _fsdp_decode(torch, mt, params, state, tokens,
+                                           n, tgates)
+        ref["world_of_one"] = dict(
+            logits=_state_equal(torch, logits, ref["logits"][:n]),
+            hot_tier=_state_equal(torch, _tp_hot(state), ref["hot"]),
+            gates=(tgates is None or all(
+                torch.equal(a[0], b[0]) for a, b in zip(tgates,
+                                                        ref["gates"]))),
+            launches=ops.launch_counts(),
+            wall_s_per_decode_step_median=_median(wall))
+    return ref
+
+
+def _fsdp_deepseek_child(rank, world, port, out_dir):
+    """Phase 20 (a)'s DeepSeek-V3.2 runs in a process of their own (its
+    50 GB of weights leave the card before the ranks start)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if TP_DEV == "cuda":
+        torch.cuda.set_device(0)
+    _tp_world_of_one(torch, dist, port)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device=TP_DEV)
+        ref = _fsdp_serve_reference(torch, ops, FSDP_SERVE["deepseek-v32"],
+                                    mesh)
+        torch.save(ref, Path(out_dir) / "rank0.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+class _CollectiveKinds:
+    """Collectives by the reference's kind while it is open
+    (``distributed/collectives.py::CollectiveCount`` fed by a dispatch
+    mode: every ``c10d`` op, the backward's too)."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from repro_torch.distributed.collectives import CollectiveCount
+        count = CollectiveCount()
+        self.counts = count.counts
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                count.observe(func, args)
+                return func(*args, **(kwargs or {}))
+        self.mode = Mode()
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+
+def _fsdp_rank_train(torch, dist, mesh, rank, grads_path):
+    """Phase 20 (b), training, on one rank: its blocks of Qwen2-1.5B's
+    weights (``init_shards`` under TRAIN_RULES) and its lanes of the
+    batch.  One step: its gradients (``make_step_grads``: timed, its
+    collectives counted by kind), gathered,
+    each leaf's relative L2 from the unsharded step's; the control, the
+    same gradients before the step's batch-axis sum (``reduce_grads``'s
+    input); then AdamW on the rank's blocks (timed)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.training import train_loop
+    from repro_torch.training.optimizer import (OptConfig, adamw_update,
+                                                init_opt_state)
+    cfg = _fsdp_cfg(FSDP_TRAIN)
+    m = build_model(cfg, device=TP_DEV)
+    nd = mesh.size(0)
+    d = mesh.get_local_rank("data")
+    rows = FSDP_TRAIN["batch"] // nd
+    batch = _fsdp_batch(torch, cfg, slice(d * rows, (d + 1) * rows))
+    ref = torch.load(grads_path, mmap=True, weights_only=False)
+    out = {}
+    if TP_DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with shd.use_rules(shd.TRAIN_RULES, mesh):
+        params = shd.init_shards(m.specs, torch.Generator(
+            device=TP_DEV).manual_seed(0), TP_DEV)
+        out["weight_bytes"] = sum(t.numel() * t.element_size()
+                                  for t in _tree_tensors(params))
+        step_grads = train_loop.make_step_grads(m)
+        kept, reduce = {}, train_loop.reduce_grads
+
+        def keep_local(grads, specs, plan):
+            kept["local"] = grads
+            return reduce(grads, specs, plan)
+        train_loop.reduce_grads = keep_local
+        ops.reset_launch_counts()
+        try:
+            with _CollectiveKinds() as kinds:
+                _tp_sync(torch)
+                t1 = time.perf_counter()
+                kept["out"] = step_grads(params, batch)
+                _tp_sync(torch)
+                out["grads_wall_s"] = time.perf_counter() - t1
+        finally:
+            train_loop.reduce_grads = reduce
+        out["collectives_per_step_grads"] = kinds.counts
+        metrics, grads = kept["out"]
+
+        specs = _tree_tensors(m.specs)
+
+        def errors(tree, leaves):
+            got = shd.gather_params([_tree_tensors(tree)[i] for i in leaves],
+                                    [specs[i] for i in leaves])
+            return {i: _rel_l2(g.float(), ref["grads"][i].to(g.device)
+                               .float()) for i, g in zip(leaves, got)}
+        out["grad_rel_l2"] = list(errors(grads, range(len(specs))).values())
+        # the control differs from the gradients only in the leaves the
+        # step's batch-axis sum reaches (the rows' came reduce-scattered)
+        out["control_grad_rel_l2"] = errors(kept.pop("local"), [
+            i for i, sp in enumerate(specs)
+            if train_loop.plan_of(m).grad_sum_axes(sp.dims, sp.shape)])
+        opt = init_opt_state(params)
+        out["opt_bytes"] = sum(t.numel() * t.element_size()
+                               for t in _tree_tensors(opt))
+        _tp_sync(torch)
+        t1 = time.perf_counter()
+        params, opt, stats = adamw_update(
+            params, grads, opt, OptConfig(warmup_steps=1, total_steps=100),
+            train_loop.whole_norm_of(m))
+        _tp_sync(torch)
+        out["adamw_wall_s"] = time.perf_counter() - t1
+        out["loss"] = float(metrics["loss"])
+        out["grad_norm"] = float(stats["grad_norm"])
+        out["launches"] = ops.launch_counts()
+    out["peak_bytes"] = _tp_peak(torch)
+    return out
+
+
+def _fsdp_rank_serve(torch, dist, ops, mesh, rank, world, case, tokens):
+    """Phase 20 (b), serving, on one rank: its blocks under SERVE_RULES
+    plus ``D=("data",)`` (drawn one rank at a time), its slice of the
+    pool over ``model``, the request's lane replicated over ``data``;
+    the unsharded run's tokens for the case's steps (the first one's
+    residual stream after each pool layer kept), then the control
+    (``data`` rank 1's ``wo`` blocks zeroed) for one more step, its
+    collectives counted, then one profiled step (on rank 0; the others
+    run it)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.transformer import pool_layer_params
+    cfg = _fsdp_cfg(case)
+    n = case["steps"]
+    if TP_DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    m = _fsdp_serve_model(cfg, mesh)
+    with shd.use_rules(_fsdp_serve_rules(), mesh):
+        for r in range(world):
+            if r == rank:
+                params = shd.init_shards(
+                    m.specs, torch.Generator(device=TP_DEV).manual_seed(0),
+                    TP_DEV)
+                _tp_sync(torch)
+                torch.cuda.empty_cache()
+            dist.barrier()
+        weight_bytes = sum(t.numel() * t.element_size()
+                           for t in _tree_tensors(params))
+        state = _fsdp_state(torch, m, case, mesh)
+        ops.reset_launch_counts()
+        gates, hidden = ([] if cfg.n_experts else None), []
+        state, logits, wall = _fsdp_decode(torch, m, params, state, tokens,
+                                           n, gates, hidden)
+        launches = ops.launch_counts()
+        hot = _tp_hot(state)
+        # the control: data rank 1's wo blocks zeroed for step n + 1
+        layers = pool_layer_params(cfg, params)
+        kept = [p["attn"]["wo"].clone() for p in layers]
+        if mesh.get_local_rank("data") == 1:
+            for p in layers:
+                p["attn"]["wo"].zero_()
+        with _CollectiveKinds() as kinds:        # the step's collectives
+            state, control, _ = _fsdp_decode(torch, m, params, state,
+                                             tokens[n:], 1)
+        for p, w in zip(layers, kept):
+            p["attn"]["wo"].copy_(w)
+        tok = {"t": tokens[n].to(TP_DEV), "s": state}
+
+        def step():
+            tok["s"], _ = m.decode(params, tok["s"], tok["t"])
+        if rank == 0 and TP_DEV == "cuda":
+            prof = profile_steps(
+                torch, step, n_steps=1,
+                device_kernels=SERVES[case["arch"]]["device_kernels"],
+                spans={"pool_layer": m.n_kv})
+        else:
+            step()
+            prof = None
+        peak = _tp_peak(torch)
+    return dict(logits=logits, control=control[0], hot=hot, gates=gates,
+                hidden=hidden, launches=launches, wall_s=wall, weight_bytes=weight_bytes,
+                pool_bytes=sum(state[k].numel() * state[k].element_size()
+                               for k in ("kv_pool", "idx_pool")),
+                peak_bytes=peak, collectives_per_step=kinds.counts,
+                profile=prof)
+
+
+def _fsdp_rank(rank, world, port, out_dir):
+    """Phase 20 (b), one of four ranks sharing card 0 over gloo at
+    FSDP_MESH: the training step, then each serve case."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if TP_DEV == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        inp = torch.load(Path(out_dir) / "inputs.pt", weights_only=False)
+        mesh = make_mesh(FSDP_MESH, ("data", "model"), device=TP_DEV)
+        t0 = time.perf_counter()
+        out = {"train": _fsdp_rank_train(torch, dist, mesh, rank,
+                                         Path(out_dir) / "grads.pt")}
+        out["train"]["seconds"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        for arch, case in FSDP_SERVE.items():
+            t0 = time.perf_counter()
+            out[arch] = _fsdp_rank_serve(torch, dist, ops, mesh, rank, world,
+                                         case, inp[arch])
+            out[arch]["seconds"] = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+            dist.barrier()
+        torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _prof_summary(prof):
+    if prof is None:
+        return None
+    return dict(launches_per_step=prof["launches_per_step"],
+                launches_ex_per_step=prof["launches_ex_per_step"],
+                device_ms_per_step=prof["device_busy_s"] * 1e3
+                / prof["decode_steps"],
+                device_busy_share=prof["device_busy_share"],
+                collective_host_ms_per_step=sum(
+                    v["host_s"] for v in prof["host_ops"].values()) * 1e3
+                / prof["decode_steps"],
+                port_kernels=prof["port_kernels"])
+
+
+def fsdp_phase(torch, ops, smi: str) -> dict:
+    """Phase 20: the d_model rows split across ranks.  (a) At an NCCL
+    world of one: Qwen2-1.5B's training steps under TRAIN_RULES equal the
+    unsharded steps bit for bit (each step's loss, gradient norm, and the
+    bits of every parameter and moment); the long_500k decode of
+    Qwen2-1.5B and (in a child) DeepSeek-V3.2 under SERVE_RULES plus
+    ``D=("data",)`` equals the unsharded decode bit for bit.  (b) Four
+    gloo ranks sharing the card at FSDP_MESH: the training step's loss
+    and gradient norm within FSDP_LOSS_REL of the unsharded step's, each
+    gathered gradient leaf within FSDP_GRAD_REL_L2, its control (the
+    batch-axis sums skipped) outside; each serve case's first step's
+    residual stream after each of its first FSDP_TIGHT_LAYERS pool
+    layers within FSDP_HIDDEN_REL_L2 of the unsharded run's, its logits a
+    step within the case's ``limits`` (but where an expert choice differs
+    at a near-tie: listed, at most half), the hot tier's integer state
+    exact, the control outside both limits.  Returns the launches of the
+    runs."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import build_model
+    t0 = time.perf_counter()
+    totals, failures = {}, []
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+    with tempfile.TemporaryDirectory() as tmp:
+        grads_path = Path(tmp) / "grads.pt"
+        refs = {}
+        _tp_world_of_one(torch, dist, _free_port())
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), device=TP_DEV)
+            cfg = _fsdp_cfg(FSDP_TRAIN)
+            runs = {}
+            for key, mesh_ in (("unsharded", None), ("world_of_one", mesh)):
+                m = build_model(cfg, device=TP_DEV)
+                gen = torch.Generator(device=TP_DEV).manual_seed(0)
+                if mesh_ is None:
+                    params = m.init(gen)
+                else:
+                    from repro_torch.distributed import sharding as shd
+                    with shd.use_rules(shd.TRAIN_RULES, mesh_):
+                        params = shd.init_shards(m.specs, gen, TP_DEV)
+                runs[key] = _fsdp_train_run(
+                    torch, m, params, mesh_,
+                    grads_path if mesh_ is None else None)
+                del params
+                gc.collect()
+                torch.cuda.empty_cache()
+            u, w = runs["unsharded"], runs["world_of_one"]
+            equal = {k: u[k] == w[k] for k in ("loss", "grad_norm")}
+            equal["params_m_v_bits"] = u["sums"] == w["sums"]
+            emit(dict(phase="fsdp", run="nccl_world_1_train",
+                      config=FSDP_TRAIN["arch"], card=smi,
+                      batch=[FSDP_TRAIN["batch"], FSDP_TRAIN["seq"]],
+                      steps=FSDP_TRAIN["steps"], equal_unsharded=equal,
+                      loss=u["loss"], grad_norm=u["grad_norm"],
+                      wall_s_per_step=w["wall_s"],
+                      wall_s_per_step_unsharded=u["wall_s"],
+                      peak_bytes=w["peak_bytes"],
+                      peak_bytes_unsharded=u["peak_bytes"],
+                      profile=_prof_summary(w["profile"])))
+            if not all(equal.values()):
+                failures.append(("train world of one", equal))
+            refs["qwen2-1.5b"] = _fsdp_serve_reference(
+                torch, ops, FSDP_SERVE["qwen2-1.5b"], mesh)
+        finally:
+            dist.destroy_process_group()
+            gc.collect()
+            torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as child:
+            refs["deepseek-v32"] = _spawn(_fsdp_deepseek_child, 1, child)[0]
+        gc.collect()
+        torch.cuda.empty_cache()
+        for arch, ref in refs.items():
+            one = ref["world_of_one"]
+            add(one["launches"])
+            ok = {k: one[k] for k in ("logits", "hot_tier", "gates")}
+            emit(dict(phase="fsdp", run="nccl_world_1_serve", config=arch,
+                      card=smi, seq=FSDP_SERVE[arch]["seq"],
+                      decode_steps=FSDP_SERVE[arch]["steps"],
+                      equal_unsharded=ok, launches=one["launches"],
+                      wall_s_per_decode_step_median=one[
+                          "wall_s_per_decode_step_median"],
+                      wall_s_per_decode_step_median_unsharded=_median(
+                          ref["wall_s"]),
+                      peak_bytes_unsharded=ref["peak_bytes"]))
+            if not all(ok.values()):
+                failures.append((arch, "serve world of one", ok))
+        torch.save({arch: ref["tokens"] for arch, ref in refs.items()},
+                   Path(tmp) / "inputs.pt")
+        t1 = time.perf_counter()
+        ranks = _spawn(_fsdp_rank, 4, tmp)
+        ranks_s = time.perf_counter() - t1
+        saved = torch.load(grads_path, mmap=True, weights_only=False)
+        ref_loss, paths = saved["loss"], saved["paths"]
+        del saved
+    # (b) training: the loss and the gradient norm within FSDP_LOSS_REL,
+    # each gathered leaf within FSDP_GRAD_REL_L2; the control must miss
+    tr = [r["train"] for r in ranks]
+    errs = [x["grad_rel_l2"] for x in tr]
+    over = [(r, paths[i], e[i]) for r, e in enumerate(errs)
+            for i in range(len(paths)) if e[i] > FSDP_GRAD_REL_L2]
+    control_over = [max(x["control_grad_rel_l2"].values()) / FSDP_GRAD_REL_L2
+                    for x in tr]
+    worst = max(range(len(paths)), key=lambda i: max(e[i] for e in errs))
+    ref_norm = runs["unsharded"]["grad_norm"][0]
+    loss_rel = max(abs(x["loss"] - ref_loss) / abs(ref_loss) for x in tr)
+    norm_rel = max(abs(x["grad_norm"] - ref_norm) / abs(ref_norm) for x in tr)
+    emit(dict(phase="fsdp", run="gloo_4_ranks_train",
+              config=FSDP_TRAIN["arch"], mesh=list(FSDP_MESH), card=smi,
+              batch=[FSDP_TRAIN["batch"], FSDP_TRAIN["seq"]],
+              limits=dict(loss_rel=FSDP_LOSS_REL, grad_norm_rel=FSDP_LOSS_REL,
+                          grad_rel_l2=FSDP_GRAD_REL_L2),
+              worst_grad_rel_l2=max(e[worst] for e in errs),
+              worst_leaf=paths[worst],
+              grad_rel_l2_median=sorted(errs[0])[len(paths) // 2],
+              leaves_over=over[:8],
+              control_least_over_limit=min(control_over),
+              loss_rel=loss_rel, loss=tr[0]["loss"],
+              grad_norm_rel=norm_rel, grad_norm=tr[0]["grad_norm"],
+              grad_norm_unsharded=ref_norm,
+              ranks=[dict(weight_bytes=x["weight_bytes"],
+                          opt_bytes=x["opt_bytes"],
+                          peak_bytes=x["peak_bytes"],
+                          collectives_per_step_grads=x[
+                              "collectives_per_step_grads"],
+                          grads_wall_s=x["grads_wall_s"],
+                          adamw_wall_s=x["adamw_wall_s"],
+                          seconds=x["seconds"]) for x in tr]))
+    if (over or min(control_over) <= 1 or loss_rel > FSDP_LOSS_REL
+            or norm_rel > FSDP_LOSS_REL):
+        failures.append(("train ranks", over[:8], min(control_over),
+                         loss_rel, norm_rel))
+    # (b) serving: the first step's residual stream after each of the
+    # first FSDP_TIGHT_LAYERS pool layers within FSDP_HIDDEN_REL_L2 of the
+    # unsharded run's (the whole depth's reported), each rank's logits a
+    # step within the case's coarse limits of the unsharded run's
+    for arch, case in FSDP_SERVE.items():
+        ref, n = refs[arch], case["steps"]
+        rel_lim, frac_lim = case["limits"]
+        layers = _fsdp_cfg(case).n_layers
+        worst, least, exempt, missing = [0.0, 0, 0.0], [math.inf, math.inf], \
+            [], []
+        depth = [0.0] * len(ref["hidden"])
+
+        def flips_at(x, step):
+            """The layers whose expert choice differs at ``step``."""
+            if not ref["gates"]:
+                return []
+            return [dict(layer=lyr, gap=float(ref["gates"][
+                step * layers + lyr][1][0]))
+                for lyr in range(layers)
+                if not bool((ref["gates"][step * layers + lyr][0][0]
+                             == x["gates"][step * layers + lyr][0][0]).all())]
+        for r, res in enumerate(ranks):
+            x = res[arch]
+            add(x["launches"])
+            hid = [_rel_l2(g.float(), w.float())
+                   for g, w in zip(x["hidden"], ref["hidden"])]
+            depth = [max(a, b) for a, b in zip(depth, hid)]
+            if max(hid[:FSDP_TIGHT_LAYERS]) > FSDP_HIDDEN_REL_L2:
+                flips = [f for f in flips_at(x, 0)
+                         if f["layer"] < FSDP_TIGHT_LAYERS]
+                if flips and all(f["gap"] < TP_GATE_TIE for f in flips):
+                    exempt.append(dict(rank=r, step=0, hidden=hid[:2],
+                                       flips=flips))
+                else:
+                    failures.append((arch, r, "hidden",
+                                     hid[:FSDP_TIGHT_LAYERS]))
+            for step, got in enumerate(x["logits"]):
+                V = got.shape[-1]
+                err, n_out, top = _tp_near(got[0], ref["logits"][step][0])
+                ok = err <= rel_lim and n_out <= frac_lim * V
+                flips = [] if ok else flips_at(x, step)
+                if not ok and flips and all(f["gap"] < TP_GATE_TIE
+                                            for f in flips):
+                    exempt.append(dict(rank=r, step=step, rel_l2=err,
+                                       flips=flips))
+                    continue
+                worst = [max(worst[0], err), max(worst[1], n_out),
+                         max(worst[2], top)]
+                if not ok:
+                    failures.append((arch, r, step, err, n_out, flips))
+            c = x["control"][0]
+            err, n_out, _ = _tp_near(c, ref["logits"][n][0])
+            least = [min(least[0], err), min(least[1], n_out)]
+            if not (err > rel_lim and n_out > frac_lim * c.shape[-1]):
+                failures.append((arch, r, "control within the limits"))
+            if not _state_equal(torch, x["hot"], ref["hot"]):
+                failures.append((arch, r, "hot tier"))
+            path = ("indexer_scores", "gather_kv.shard",
+                    SERVES[arch]["attn"], "scatter_kv.rows_at_shard")
+            missing += [(r, k) for k in path
+                        if TP_DEV == "cuda" and not x["launches"].get(k)]
+        x0 = ranks[0][arch]
+        emit(dict(phase="fsdp", run="gloo_4_ranks_serve", config=arch,
+                  mesh=list(FSDP_MESH), card=smi, seq=case["seq"],
+                  decode_steps=n, limits=dict(
+                      rel_l2=rel_lim, bf16_tol=TP_BF16_TOL,
+                      miss_frac=frac_lim, hidden_rel_l2=FSDP_HIDDEN_REL_L2,
+                      hidden_layers=FSDP_TIGHT_LAYERS),
+                  hidden_rel_l2_by_layer=depth,
+                  worst_rel_l2=worst[0], worst_logits_outside=worst[1],
+                  worst_ratio=worst[2],
+                  control_least_rel_l2=least[0],
+                  control_least_logits_outside=least[1],
+                  exempt_routing_flips=exempt, kernels_missing=missing,
+                  ranks=[dict(weight_bytes=res[arch]["weight_bytes"],
+                              pool_bytes=res[arch]["pool_bytes"],
+                              peak_bytes=res[arch]["peak_bytes"],
+                              collectives_per_step=res[arch][
+                                  "collectives_per_step"],
+                              wall_s_per_step=res[arch]["wall_s"],
+                              seconds=res[arch]["seconds"])
+                         for res in ranks],
+                  rank0_launches=x0["launches"],
+                  rank0_profile=_prof_summary(x0["profile"])))
+        if missing:
+            failures.append((arch, "kernels", missing))
+        if len({(e["step"]) for e in exempt}) > n // 2:
+            failures.append((arch, "routing flips", exempt))
+    emit(dict(phase="fsdp_total", launches=totals, ranks_seconds=ranks_s,
+              seconds=time.perf_counter() - t0))
+    if failures:
+        raise AssertionError(f"fsdp: {failures[:12]}")
+    return totals
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels", action="store_true",
@@ -4379,9 +5168,12 @@ def main() -> None:
                     help="phases 1-3, then only the dry-run (18)")
     ap.add_argument("--tp", action="store_true",
                     help="phases 1-3, then only tensor parallelism (19)")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="phases 1-3, then only the d_model rows split "
+                    "across ranks (20)")
     args = ap.parse_args()
     only = (args.kernels or args.sharded or args.twin or args.dryrun
-            or args.tp)
+            or args.tp or args.fsdp)
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
              "a checkout of the repository")
@@ -4571,6 +5363,16 @@ def main() -> None:
         if shard_launches is not None:
             for k in shard_launches:
                 shard_launches[k] += tp_counts.get(k, 0)
+
+    if args.fsdp or not only:
+        # 20. the d_model rows split across ranks: training, long_500k
+        fsdp_counts = fsdp_phase(torch, ops, smi[0])
+        if launches is not None:
+            for k in launches:
+                launches[k] += fsdp_counts.get(k, 0)
+        if shard_launches is not None:
+            for k in shard_launches:
+                shard_launches[k] += fsdp_counts.get(k, 0)
 
     info = {
         "gather_kv": ("src/repro_torch/csrc/gather_kv.cu",

@@ -22,10 +22,14 @@ here imports JAX or ``ml_dtypes``.  ``params_to_numpy`` is the inverse
 encoder-decoder's ``self_kv`` and ``dec_len``).  ``shards_from_jax``
 gives one rank of a tensor-parallel mesh its blocks of the reference's
 parameters: the values ``jax.device_put(p, params_shardings(specs,
-mesh, rules))`` places on the device at the rank's coordinate.
+mesh, rules))`` places on the device at the rank's coordinate;
+``opt_state_from_jax`` gives it its blocks of the reference's AdamW
+state (``m`` and ``v`` in the parameters' layout, f32, as the
+reference's dry-run shards them with the parameters' shardings).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List
 
 import numpy as np
@@ -65,13 +69,25 @@ def tree_from_numpy(tree, spec, device):
     return {k: tree_from_numpy(tree[k], s, device) for k, s in spec.items()}
 
 
+def _retype(spec, dtype):
+    """A ParamSpec tree with every leaf's dtype ``dtype`` (None: as is)."""
+    if dtype is None:
+        return spec
+    if isinstance(spec, ParamSpec):
+        return dataclasses.replace(spec, dtype=dtype)
+    if isinstance(spec, dict):
+        return {k: _retype(v, dtype) for k, v in spec.items()}
+    return [_retype(v, dtype) for v in spec]
+
+
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
-                    device="cuda") -> Dict[str, Any]:
-    """Reference pytree (numpy leaves) -> the port's parameter dict."""
+                    device="cuda", dtype=None) -> Dict[str, Any]:
+    """Reference pytree (numpy leaves) -> the port's parameter dict (with
+    ``dtype``, every leaf in it: an AdamW moment's f32)."""
     if cfg.enc_dec:
         return {k: tree_from_numpy(tree[k], s, device)
-                for k, s in encdec_param_specs(cfg).items()}
-    specs = model_param_specs(cfg)
+                for k, s in _retype(encdec_param_specs(cfg), dtype).items()}
+    specs = _retype(model_param_specs(cfg), dtype)
     out: Dict[str, Any] = {
         k: tree_from_numpy(tree[k], specs[k], device)
         for k in ("embed", "final_norm", "lm_head", "shared") if k in specs}
@@ -86,15 +102,27 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
 
 
 def shards_from_jax(tree: Dict[str, Any], cfg: ModelConfig, mesh, rules,
-                    device="cuda") -> Dict[str, Any]:
+                    device="cuda", dtype=None) -> Dict[str, Any]:
     """Reference pytree (numpy leaves) -> this rank's blocks of the port's
     parameters on ``mesh`` under ``rules`` (``sharding.shard_params``,
     cut on the host, then moved to ``device``)."""
     from repro_torch.distributed.sharding import shard_params
-    whole = params_from_jax(tree, cfg, "cpu")
+    whole = params_from_jax(tree, cfg, "cpu", dtype)
     specs = model_param_specs(cfg)
     return _map_tensors(lambda t: t.to(device),
                         shard_params(whole, specs, mesh, rules))
+
+
+def opt_state_from_jax(tree: Dict[str, Any], cfg: ModelConfig, mesh, rules,
+                       device="cuda") -> Dict[str, Any]:
+    """The reference's AdamW state (``{"m", "v", "step"}``, numpy
+    leaves) -> this rank's: its blocks of ``m`` and ``v`` (f32, cut as
+    ``shards_from_jax`` cuts the parameters) and the step."""
+    out = {k: shards_from_jax(tree[k], cfg, mesh, rules, device,
+                              torch.float32) for k in ("m", "v")}
+    out["step"] = torch.as_tensor(np.asarray(tree["step"]),
+                                  dtype=torch.int32, device=device)
+    return out
 
 
 def _map_tensors(fn, tree):

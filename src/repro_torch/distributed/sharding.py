@@ -24,7 +24,11 @@ the axes it must come after, which DTensor reads as that block order.
 ``shard_params`` cuts whole parameters (torch tensors or the bridge's
 numpy arrays) to this rank's blocks and ``init_shards`` draws
 ``init_params``' values leaf by leaf, keeping each leaf's block: the
-weights of the tensor-parallel serving path (``distributed/tp.py``).
+weights (and a train state's AdamW moments) of the tensor-parallel path
+(``distributed/tp.py``).  ``gather_params`` is the inverse: every rank
+gets each leaf whole (a checkpoint of a sharded train state is written
+whole, as the reference saves its global arrays, and cut again at any
+mesh).
 ``shard_serve_state`` cuts a serve state's pools to one rank's slice of
 the pool axis (``core/pool.py``'s sharded pool).
 """
@@ -240,6 +244,24 @@ def shard_params(params, specs, mesh=None, rules=None):
     return map_specs(
         lambda t, s: _cut(t, spec_for(s.dims, s.shape, mesh, rules), mesh),
         params, specs)
+
+
+def gather_params(blocks, specs, mesh=None, rules=None):
+    """The whole leaves of ``blocks`` (this rank's, ``shard_params``'
+    cut of ``specs``' tree under ``rules`` on ``mesh``): each split dim
+    all-gathered over its axes, in block order, every bit.  Every rank
+    of the mesh calls it, and gets every leaf."""
+    from repro_torch.distributed.tp import TensorParallel
+    mesh = mesh if mesh is not None else _mesh()
+    rules = rules or _rules()
+    tp = TensorParallel(mesh, rules)
+
+    def whole(t, s):
+        for i, axes in enumerate(spec_for(s.dims, s.shape, mesh, rules)):
+            if axes:
+                t = tp._gather(t, tuple(axes), i)
+        return t
+    return map_specs(whole, blocks, specs)
 
 
 def block_shape(spec: ParamSpec, mesh=None, rules=None) -> Tuple[int, ...]:

@@ -1,15 +1,16 @@
-"""Tensor and expert parallelism of the weights on the serving path: what
-the reference gets from ``params_shardings`` and the collectives GSPMD
-inserts (``repro/launch/dryrun.py:171-172``, the ``constrain`` calls of
-``repro/models/{transformer,moe}.py``), written out for one rank.
+"""Tensor and expert parallelism of the weights, with the d_model rows
+split too: what the reference gets from ``params_shardings`` and the
+collectives GSPMD inserts (``repro/launch/dryrun.py:147-199``, the
+``constrain`` calls of ``repro/models/{transformer,moe}.py``), written
+out for one rank.
 
 Under ``sharding.use_rules(rules, mesh)`` the decoder-only models'
-``prefill`` and ``decode`` (``models/transformer.py``) run on this rank's
-block of every weight (``sharding.shard_params`` / ``init_shards``, the
-blocks ``spec_for`` names) and read the config through ``RankView``: the
-config's fields plus ``tp``, this object.  The model functions ask it
-how a weight is split (``split``) and run its collectives, which move
-activations only, never a weight:
+``forward``, ``prefill`` and ``decode`` (``models/transformer.py``) run
+on this rank's block of every weight (``sharding.shard_params`` /
+``init_shards``, the blocks ``spec_for`` names) and read the config
+through ``RankView``: the config's fields plus ``tp``, this object.  The
+model functions ask it how a weight is split (``split``) and run its
+collectives:
 
 - vocab-parallel embedding (an all-reduce of the looked-up rows) and
   column-parallel ``lm_head`` (an all-gather of the logits' blocks);
@@ -22,11 +23,42 @@ activations only, never a weight:
   all-reduce of the partial outputs over the axes that split the
   experts' work, then the rank's own lanes.
 
+The d_model rows (``D``, and the experts' ``DE``) split over the
+``data`` axis under ``TRAIN_RULES`` and under the serve rules of a batch
+that does not split (``SERVE_RULES`` plus ``D=("data",)``).  ``matmul``
+runs a product with such a weight in one of two forms, by whether its
+input is the same on every rank of the rows' axes:
+
+- the same (a batch of one replicated over ``data``; the MoE block's
+  gathered tokens): the rank's columns of the input against its rows,
+  the partial products summed over the rows' axes; a product whose
+  output dim is ``D`` (``wo``, ``w_down``, the embedding) all-gathers
+  its output's blocks.  No weight moves;
+- different (the training batch split over ``data``): the weight's
+  rows all-gathered over those axes just before the product (``rows``:
+  ZeRO-3's gather, bit-exact with the whole block), whose backward
+  reduce-scatters the gradient.  Inside the per-layer activation
+  checkpoint the gathered block is not kept between layers.
+
 A partial sum is made and crosses in f32 and is rounded once, as the
-unsharded product rounds its f32 accumulation once.  A collective over
-axes whose sizes multiply to 1 is the identity, so a world of one runs
+unsharded product rounds its f32 accumulation once.  Every collective
+is an autograd function whose backward gives each rank its gradient of
+the global loss (each rank's loss is the mean over its lanes scaled by
+its share of the global lanes; the global loss is the sum over the
+batch ranks).  The gradient of a tensor that is the same on the ranks of
+an axis is held whole on each of them (DTensor's ``Replicate``; a
+``Partial`` gradient made by rank-specific work is summed into it by
+``enter``, Megatron's f, at the point where the rank-specific use
+starts): so an all-reduce's backward is the identity, an all-gather's
+the rank's block, and the rows' gather's a reduce-scatter (its whole
+weight is used on the rank's own lanes).  A collective over axes whose
+sizes multiply to 1 is the identity both ways, so a world of one runs
 the unsharded path's arithmetic bit for bit.  ``WHOLE`` is the plan
 without a mesh: every weight whole, every collective the identity.
+
+The recurrent and encoder-decoder families stay on whole weights, and
+the residual stream is replicated over ``model`` (the reference's
+sequence-parallel ``S`` is not split).
 """
 from __future__ import annotations
 
@@ -60,6 +92,8 @@ class Split:
 
 
 WHOLE_SPLIT = Split((), 1, 0)
+#: the logical dims of the d_model rows (a dense weight's, an expert's)
+ROW_DIMS = ("D", "DE")
 
 
 class Whole:
@@ -80,9 +114,15 @@ class Whole:
                    ) -> torch.Tensor:
         return x
 
-    def matmul_sum(self, a: torch.Tensor, w: torch.Tensor, axes
-                   ) -> torch.Tensor:
-        return a @ w
+    def matmul(self, x: torch.Tensor, w: torch.Tensor, dims, shape,
+               axes=()) -> torch.Tensor:
+        return x @ w
+
+    def rows(self, w: torch.Tensor, dims, shape) -> torch.Tensor:
+        return w
+
+    def enter(self, x: torch.Tensor, axes) -> torch.Tensor:
+        return x
 
     def gather_lanes(self, x: torch.Tensor) -> torch.Tensor:
         return x
@@ -99,16 +139,75 @@ def tp_of(cfg):
     return getattr(cfg, "tp", WHOLE)
 
 
+# ---------------------------------------------------------------------------
+# the collectives, under autograd
+# ---------------------------------------------------------------------------
+
+
+class _AllReduce(torch.autograd.Function):
+    """The sum over ``axes`` in f32 (a partial sum made whole on every
+    rank); backward: the identity (the whole sum's gradient is each
+    partial's)."""
+
+    @staticmethod
+    def forward(ctx, x, tp, axes):
+        y = x.to(torch.float32, copy=True)
+        dist.all_reduce(y, group=tp._group(axes)[0])
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Enter(torch.autograd.Function):
+    """Megatron's f: the identity, whose backward sums the gradient over
+    ``axes`` in f32 (the ranks' rank-specific uses of a tensor that is
+    the same on all of them each make a part of its gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, tp, axes):
+        ctx.tp, ctx.axes = tp, axes
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        y = g.to(torch.float32, copy=True)
+        dist.all_reduce(y, group=ctx.tp._group(ctx.axes)[0])
+        return y.to(g.dtype), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    """The blocks over ``axes`` joined along ``dim``; backward: the
+    rank's block of the gradient, summed over ``axes`` first (a
+    reduce-scatter in f32) with ``reduce``."""
+
+    @staticmethod
+    def forward(ctx, x, tp, axes, dim, reduce):
+        ctx.tp, ctx.axes, ctx.dim, ctx.reduce = tp, axes, dim, reduce
+        return tp._gather(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        tp, axes, dim = ctx.tp, ctx.axes, ctx.dim
+        if ctx.reduce:
+            return tp._reduce_scatter(g, axes, dim), None, None, None, None
+        n, i = _shd().block_of(axes, tp.mesh, tp.coord)
+        b = g.shape[dim] // n
+        return g.narrow(dim, i * b, b), None, None, None, None
+
+
 class TensorParallel(Whole):
     """One rank's place on ``mesh`` under ``rules``.
 
     ``batch_axes``: the axes this rank's request lanes are split over
     (each rank the same count, in block order); by default the ``B``
     rule's axes in the mesh.  Lanes replicated over an axis (a batch of
-    one) leave it out.  Rules that split the d_model rows (``D`` over
-    axes of more than one rank: the training rules, the serve cells
-    whose batch does not split) are refused: a row-parallel weight needs
-    its rows gathered or its inputs split, which this path does not do.
+    one) leave it out.  A weight whose rows (``D`` / ``DE``) are split
+    over axes of the batch has them gathered before use (``rows``); one
+    whose rows are split over axes the lanes are replicated over runs on
+    the input's columns (``matmul``).  Rows over axes of both kinds are
+    refused.
     """
 
     def __init__(self, mesh, rules: Dict[str, Tuple[str, ...]],
@@ -116,13 +215,6 @@ class TensorParallel(Whole):
         names = tuple(mesh.mesh_dim_names)
         self.mesh, self.rules, self.names = mesh, rules, names
         self.sizes = dict(zip(names, (int(s) for s in mesh.shape)))
-        rows = math.prod(self.sizes[a] for a in rules.get("D", ())
-                         if a in self.sizes)
-        if rows > 1:
-            raise ValueError(
-                f"rules that split the d_model rows (D over "
-                f"{rules['D']}) are not served tensor-parallel: every "
-                "row-parallel weight would need its rows gathered")
         coord = mesh.get_coordinate()
         if coord is None:
             raise ValueError("this rank is not in the mesh")
@@ -133,6 +225,7 @@ class TensorParallel(Whole):
         self._grid = mesh.mesh.numpy()
         self._groups: Dict[Tuple[str, ...], object] = {}
         self._orders: Dict[Tuple[str, ...], Tuple[object, list]] = {}
+        self._row_memo: Dict[Tuple, list] = {}
 
     # -- blocks ---------------------------------------------------------------
     def split(self, dims, shape, i):
@@ -143,6 +236,42 @@ class TensorParallel(Whole):
     def size(self, axes) -> int:
         """The ranks the axes hold (1: nothing is split over them)."""
         return math.prod(self.sizes[a] for a in axes or ())
+
+    def _row_splits(self, dims, shape):
+        """[(i, split, gathered)] of each of ``dims`` that is a row dim
+        split over more than one rank: ``gathered`` where its axes are
+        batch axes (the input differs over them)."""
+        key = (tuple(dims), tuple(shape))
+        if key in self._row_memo:
+            return self._row_memo[key]
+        out = []
+        for i, dim in enumerate(dims):
+            if dim not in ROW_DIMS:
+                continue
+            s = self.split(dims, shape, i)
+            if s.n == 1:
+                continue
+            batch = set(s.axes) & set(self.batch_axes)
+            if batch and batch != set(s.axes):
+                raise ValueError(
+                    f"{dim} over {s.axes}, the lanes over "
+                    f"{self.batch_axes}: the rows are neither all over "
+                    "the batch's axes nor all off them")
+            out.append((i, s, bool(batch)))
+        self._row_memo[key] = out
+        return out
+
+    def grad_sum_axes(self, dims, shape) -> Tuple[str, ...]:
+        """The batch axes a weight's gradient is summed over after the
+        backward: those its block is not split over (a row block gathered
+        by ``rows`` had its gradient reduce-scattered).  None for the MoE
+        block's weights (``E`` dims): they run on the whole token set, so
+        each rank's gradient is already the whole batch's."""
+        if "E" in dims:
+            return ()
+        spec = _shd().spec_for(dims, shape, self.mesh, self.rules)
+        split = {a for axes in spec for a in axes or ()}
+        return tuple(a for a in self.batch_axes if a not in split)
 
     # -- process groups -----------------------------------------------------
     def _members(self, axes, fixed) -> list:
@@ -192,10 +321,7 @@ class TensorParallel(Whole):
         to ``x``'s dtype (``x`` itself where the axes hold one rank)."""
         if self.size(axes) == 1:
             return x
-        group, _ = self._group(tuple(axes))
-        y = x.to(torch.float32, copy=True)
-        dist.all_reduce(y, group=group)
-        return y.to(x.dtype)
+        return _AllReduce.apply(x, self, tuple(axes)).to(x.dtype)
 
     def matmul_sum(self, a, w, axes):
         """``a @ w`` of a row-parallel weight block ``w`` (and ``a``'s
@@ -206,17 +332,62 @@ class TensorParallel(Whole):
         if self.size(axes) == 1:
             return a @ w
         y = torch.matmul(a.float(), w.float())
-        group, _ = self._group(tuple(axes))
-        dist.all_reduce(y, group=group)
-        return y.to(a.dtype)
+        return _AllReduce.apply(y, self, tuple(axes)).to(a.dtype)
+
+    def matmul(self, x, w, dims, shape, axes=()):
+        """``x @ w`` for this rank's block ``w`` of a weight of ``shape``
+        over the logical ``dims`` (``x``'s last dim against ``w``'s
+        first), summed over ``axes`` (the axes that split the contraction
+        besides the rows: ``wo``'s heads).  Rows over batch axes are
+        gathered (``rows``); rows over axes the input is the same on take
+        the input's matching columns (a contraction over them: its
+        partial products summed over their axes) or leave the output a
+        block of columns (all-gathered)."""
+        w = self.rows(w, dims, shape)
+        axes = tuple(axes)
+        out = []
+        for i, s, gathered in self._row_splits(dims, shape):
+            if gathered:
+                continue
+            if i == 0:
+                lo, hi = s.bounds(shape[0])
+                x = self.enter(x, s.axes)[..., lo:hi]
+                axes += s.axes
+            else:
+                out.append(s.axes)
+        y = self.matmul_sum(x, w, axes)
+        for a in out:
+            y = self.all_gather(y, a)
+        return y
+
+    def rows(self, w, dims, shape):
+        """``w`` with its row dims that are split over batch axes gathered
+        whole (ZeRO-3's gather; its backward reduce-scatters the
+        gradient); ``w`` itself where none is."""
+        for i, s, gathered in self._row_splits(dims, shape):
+            if gathered:
+                w = _AllGather.apply(w, self, s.axes, i, True)
+        return w
+
+    def enter(self, x, axes):
+        """``x``, the same on the ranks of ``axes``, where each of them
+        starts a use of its own: the identity, whose backward sums the
+        gradient over ``axes``."""
+        if self.size(axes) == 1:
+            return x
+        return _Enter.apply(x, self, tuple(axes))
 
     def all_gather(self, x, axes, dim=-1):
         """The blocks of ``x`` over ``axes`` joined along ``dim`` in block
-        order (one all-gather of the bytes: any dtype, every bit)."""
-        n = self.size(axes)
-        if n == 1:
+        order (one all-gather of the bytes: any dtype, every bit); its
+        backward takes the rank's block of the gradient."""
+        if self.size(axes) == 1:
             return x
-        group, order = self._group(tuple(axes))
+        return _AllGather.apply(x, self, tuple(axes), dim % x.dim(), False)
+
+    def _gather(self, x, axes, dim):
+        n = self.size(axes)
+        group, order = self._group(axes)
         x = x.contiguous()
         out = x.new_empty((n,) + tuple(x.shape))
         dist.all_gather_into_tensor(out.view(torch.uint8).view(-1),
@@ -224,19 +395,53 @@ class TensorParallel(Whole):
                                     group=group)
         if order != list(range(n)):     # group ranks -> block order
             out = out[torch.tensor(order, device=out.device)]
-        d = dim % x.dim()
-        return out.movedim(0, d).reshape(*x.shape[:d], n * x.shape[d],
-                                         *x.shape[d + 1:])
+        return out.movedim(0, dim).reshape(*x.shape[:dim], n * x.shape[dim],
+                                           *x.shape[dim + 1:])
+
+    def _reduce_scatter(self, g, axes, dim):
+        """The rank's block along ``dim`` of the sum over ``axes`` of every
+        rank's ``g``, in f32, rounded once to ``g``'s dtype."""
+        n = self.size(axes)
+        group, order = self._group(axes)
+        blocks = g.float().movedim(dim, 0)
+        blocks = blocks.reshape(n, blocks.shape[0] // n, *blocks.shape[1:])
+        if order != list(range(n)):     # block order -> group ranks
+            inv = sorted(range(n), key=order.__getitem__)
+            blocks = blocks[torch.tensor(inv, device=blocks.device)]
+        out = blocks.new_empty(blocks.shape[1:])
+        dist.reduce_scatter_tensor(out, blocks.reshape(-1, *out.shape[1:]),
+                                   group=group)
+        return out.movedim(0, dim).to(g.dtype)
 
     def gather_lanes(self, x):
         """Every rank's lanes (dim 0) over the batch axes, in lane order."""
         return self.all_gather(x, self.batch_axes, dim=0)
 
     def own_lanes(self, x):
-        """This rank's lanes of the whole batch ``x`` (dim 0)."""
+        """This rank's lanes of the whole batch ``x`` (dim 0), the same on
+        every rank of the batch axes: its gradient is every rank's
+        lanes' gradients, summed over them (``enter``)."""
         n, i = _shd().block_of(self.batch_axes, self.mesh, self.coord)
         b = x.shape[0] // n
-        return x[i * b:(i + 1) * b]
+        return self.enter(x, self.batch_axes)[i * b:(i + 1) * b]
+
+    def block_sums(self, sq: torch.Tensor, dims_shapes) -> torch.Tensor:
+        """Every leaf's squared sum over its whole tensor: ``sq`` [n]
+        holds this rank's block's of each leaf, ``dims_shapes`` the
+        leaves' (dims, shape).  One f32 all-reduce over the mesh, to which
+        one rank of each block's replicas (the one at coordinate 0 on the
+        axes that do not split it) gives the block's sum."""
+        keep = []
+        for dims, shape in dims_shapes:
+            spec = _shd().spec_for(dims, shape, self.mesh, self.rules)
+            split = {a for axes in spec for a in axes or ()}
+            keep.append(all(self.coord[a] == 0 for a in self.names
+                            if a not in split))
+        y = sq.float() * torch.tensor(keep, dtype=torch.float32,
+                                      device=sq.device)
+        if self.size(self.names) > 1:
+            dist.all_reduce(y, group=self._group(self.names)[0])
+        return y
 
 
 class RankView:

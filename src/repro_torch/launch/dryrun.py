@@ -17,21 +17,30 @@ operators and kernel calls, and the live storage's peak.
 
 What one rank runs is the port's program:
 
-- in the serve cells of the attention families whose batch splits (the
-  rules leave the d_model rows whole), the reference's partitioned
-  program: the rank holds its ``spec_for`` block of every weight under
-  ``SERVE_RULES`` and runs ``prefill`` / ``decode`` under
-  ``use_rules(rules, mesh)``, tensor- and expert-parallel with their
-  collectives (``distributed/tp.py``);
-- in every other cell (train cells; serve cells whose batch does not
-  split, where the reference adds ``D=("data",)``; the recurrent and
-  encoder-decoder families) every layer with WHOLE weights;
+- in every cell of the attention families (``dense``, ``moe``,
+  ``mla_dense``, ``mla_moe``, ``lg_super``), the reference's
+  partitioned program: the rank holds its ``spec_for`` block of every
+  weight (and, training, of the AdamW moments) and runs ``forward`` /
+  ``prefill`` / ``decode`` under ``use_rules(rules, mesh)``, tensor- and
+  expert-parallel with their collectives (``distributed/tp.py``).  The
+  rules are the reference's: ``TRAIN_RULES`` for a train cell (the
+  d_model rows over ``data``: each layer's row blocks gathered for the
+  product, their gradients reduce-scattered in the backward, the other
+  leaves' all-reduced over the batch axes), ``SERVE_RULES`` for a serve
+  cell, plus ``D=("data",)`` where its batch does not split (every
+  ``long_500k`` cell: the rank takes its columns of the input and sums
+  the partial products over ``data``);
+- the recurrent (Zamba2, xLSTM) and encoder-decoder (Whisper) families
+  run every layer with WHOLE weights (their tensor parallelism is not
+  ported yet);
+- in every cell the residual stream is replicated over ``model``
+  (``residual_over_model`` in the record): the reference's
+  sequence-parallel ``S`` is not split;
 - either on its own lanes (the batch over the longest prefix of ``(pod,
   data)`` that divides it, as ``batch_axes_for``), with its slice of the
   pools' sequence axis (over ``model``, the sharded pool of
   ``core/pool.py``) in a decode, the whole prompt in a prefill (then cut
-  to the slice by ``shard_serve_state``, as the port does), and no
-  gradient all-reduce in a train step;
+  to the slice by ``shard_serve_state``, as the port does);
 - so ``flops``, ``bytes`` and ``peak_bytes`` are that program's, and
   ``mem_per_device.argument_bytes`` is the reference's layout (each
   parameter's, optimizer state's, serve state's and batch's per-rank
@@ -291,7 +300,7 @@ def build_cell(arch: str, shape_name: str, mesh, mode: str = "sac",
                                          batch_axes=baxes)
     if opts.get("moe_groups") == "auto":
         opts["moe_groups"] = int(np_prod_axes(mesh, baxes))
-    tp = (shape.kind != "train" and bool(baxes) and not cfg.enc_dec
+    tp = (not cfg.enc_dec
           and all(s.kind in _ATTN_KINDS for s in build_segments(cfg)))
     model = build_model(cfg, fetch_fn=fetch, mode=mode, topk_fn=topk_fn,
                         opts=dict(opts, batch_axes=baxes) if tp else opts,
@@ -301,7 +310,8 @@ def build_cell(arch: str, shape_name: str, mesh, mode: str = "sac",
             "kind": shape.kind, "opts": {k: v for k, v in opts.items()},
             "batch": shape.global_batch, "seq": shape.seq_len,
             "batch_axes": list(baxes), "lanes_per_rank": B_local,
-            "tensor_parallel": tp}
+            "tensor_parallel": tp, "residual_over_model": "replicated",
+            "rows_over": list(rules.get("D", ())) if tp else []}
     real = device.type != "meta"
     p_global = model.param_shapes()
     p_shard = _param_specs(model.specs, mesh, rules)
@@ -331,7 +341,11 @@ def build_cell(arch: str, shape_name: str, mesh, mode: str = "sac",
         else:
             ga = grad_accum if shape.global_batch % grad_accum == 0 else 1
         ga = math.gcd(ga, B_local)          # this rank's microbatches
-        step = make_train_step(model, OptConfig(), ga)
+        train_step = make_train_step(model, OptConfig(), ga)
+
+        def step(params, opt_state, batch):
+            with ctx():
+                return train_step(params, opt_state, batch)
         opt_state = init_opt_state(params)
         opt_shard = {"m": p_shard, "v": p_shard, "step": ()}
         batch_specs = input_specs(cfg, shape)

@@ -27,7 +27,9 @@ and attends with the rank's whole heads over the whole latent entries
 whole (k / v columns all-gathered) and the rank attends with its heads
 over their KV heads, or with every head where its q columns are not
 whole heads (``tp.gqa_layout``).  ``wo`` is then a row block, and one
-all-reduce sums the ranks' outputs.
+all-reduce sums the ranks' outputs.  Every product with a weight whose
+d_model rows may be split (``w_dq``, ``w_dkv``, the indexer's, q / k /
+v, ``wo``) goes through ``tp.matmul``.
 """
 from __future__ import annotations
 
@@ -61,9 +63,12 @@ def indexer_param_specs(cfg) -> Dict[str, ParamSpec]:
     }
 
 
-def indexer_keys(p, x) -> torch.Tensor:
+def indexer_keys(p, x, cfg=None) -> torch.Tensor:
     """Per-token indexer keys. x: [..., D] -> [..., d_idx]."""
-    return x @ p["wk_idx"]
+    if cfg is None:
+        return x @ p["wk_idx"]
+    return tp_of(cfg).matmul(x, p["wk_idx"], ("D", "C"),
+                             (cfg.d_model, cfg.sac.d_idx))
 
 
 def indexer_scores(p, xq, idx_keys, cfg) -> torch.Tensor:
@@ -72,12 +77,12 @@ def indexer_scores(p, xq, idx_keys, cfg) -> torch.Tensor:
     xq: [B, D]; idx_keys: [B, S, d_idx] -> scores [B, S] (f32).
     """
     B = xq.shape[0]
-    ni, di = cfg.sac.n_idx_heads, cfg.sac.d_idx
+    d, ni, di = cfg.d_model, cfg.sac.n_idx_heads, cfg.sac.d_idx
     tp = tp_of(cfg)
-    q = tp.all_gather(xq @ p["wq_idx"], tp.split(
-        ("D", "H"), (cfg.d_model, ni * di), 1).axes)
+    q = tp.all_gather(tp.matmul(xq, p["wq_idx"], ("D", "H"), (d, ni * di)),
+                      tp.split(("D", "H"), (d, ni * di), 1).axes)
     q = q.reshape(B, ni, di).float()
-    w = (xq @ p["w_w"]).float()                                  # [B, ni]
+    w = tp.matmul(xq, p["w_w"], ("D", "C"), (d, ni)).float()    # [B, ni]
     return ops.batched_indexer_scores(q, w, idx_keys)
 
 
@@ -201,10 +206,12 @@ def mla_param_specs(cfg) -> Dict[str, ParamSpec]:
 def mla_q_proj(p, x, cfg, positions):
     """x: [B(, S), D] -> q_nope [B(,S),nh,hd], q_pe [B(,S),nh,dr] (roped);
     nh the rank's heads (``mla_heads``)."""
-    _, nh = mla_heads(cfg)
+    split, nh = mla_heads(cfg)
     hd, dr = cfg.hd, cfg.qk_rope_dim
     lead = x.shape[:-1]
-    q = rms_norm(x @ p["w_dq"], p["q_norm_g"]) @ p["w_uq"]
+    tp = tp_of(cfg)
+    cq = tp.matmul(x, p["w_dq"], ("D", "C"), (cfg.d_model, cfg.q_lora_rank))
+    q = tp.enter(rms_norm(cq, p["q_norm_g"]), split.axes) @ p["w_uq"]
     q = q.reshape(*lead, nh, hd + dr)
     q_nope, q_pe = q[..., :hd], q[..., hd:]
     return q_nope, apply_rope(q_pe, positions, cfg.rope_theta)
@@ -213,7 +220,8 @@ def mla_q_proj(p, x, cfg, positions):
 def mla_kv_entry(p, x, cfg, positions):
     """Latent cache entry per token: [.., dc+dr] (c_kv normed, k_pe roped)."""
     dc = cfg.kv_lora_rank
-    kv = x @ p["w_dkv"]
+    kv = tp_of(cfg).matmul(x, p["w_dkv"], ("D", "C"),
+                           (cfg.d_model, dc + cfg.qk_rope_dim))
     c = rms_norm(kv[..., :dc], p["kv_norm_g"])
     k_pe = apply_rope(kv[..., dc:], positions, cfg.rope_theta)
     return torch.cat([c, k_pe], dim=-1)
@@ -227,9 +235,11 @@ def mla_prefill_attention(p, x, cfg, positions, *, chunk: int = 1024):
     B, S, _ = x.shape
     split, nh = mla_heads(cfg)
     hd, dr, dc = cfg.hd, cfg.qk_rope_dim, cfg.kv_lora_rank
+    tp = tp_of(cfg)
     q_nope, q_pe = mla_q_proj(p, x, cfg, positions)
     entry = mla_kv_entry(p, x, cfg, positions)
-    c, k_pe = entry[..., :dc], entry[..., dc:]
+    ranked = tp.enter(entry, split.axes)         # used by the rank's heads
+    c, k_pe = ranked[..., :dc], ranked[..., dc:]
     k_nope = (c @ p["w_uk"]).reshape(B, S, nh, hd)
     v = (c @ p["w_uv"]).reshape(B, S, nh, hd)
     k_pe_b = k_pe[:, :, None, :].expand(B, S, nh, dr)
@@ -238,8 +248,8 @@ def mla_prefill_attention(p, x, cfg, positions, *, chunk: int = 1024):
     # pad v with zeros so q/k/v share the last dim for the blocked loop
     v_pad = torch.cat([v, v.new_zeros(B, S, nh, dr)], dim=-1)
     out = blocked_causal_attention(q, k, v_pad, chunk=chunk)[..., :hd]
-    return tp_of(cfg).matmul_sum(out.reshape(B, S, nh * hd), p["wo"],
-                                 split.axes), entry
+    return tp.matmul(out.reshape(B, S, nh * hd), p["wo"], ("H", "D"),
+                     (cfg.n_heads * hd, cfg.d_model), split.axes), entry
 
 
 def mla_absorbed_decode(p, xq, cfg, fetched, valid, positions):
@@ -261,8 +271,9 @@ def mla_absorbed_decode(p, xq, cfg, fetched, valid, positions):
                                    dc=dc, scale=1.0 / math.sqrt(hd + dr))
     w_uv = p["w_uv"].reshape(dc, nh, hd)
     out = torch.einsum("bhc,chd->bhd", o_lat, w_uv.float())
-    return tp_of(cfg).matmul_sum(out.reshape(B, nh * hd).to(xq.dtype),
-                                 p["wo"], split.axes)
+    return tp_of(cfg).matmul(out.reshape(B, nh * hd).to(xq.dtype), p["wo"],
+                             ("H", "D"), (cfg.n_heads * hd, cfg.d_model),
+                             split.axes)
 
 
 # ---------------------------------------------------------------------------
@@ -280,7 +291,9 @@ def gqa_kv_entry(p, x, cfg, positions):
     on a tensor-parallel rank (its k / v columns all-gathered)."""
     lead = x.shape[:-1]
     nkv, hd = cfg.n_kv_heads, cfg.hd
-    k, v = x @ p["wk"], x @ p["wv"]
+    tp, shape = tp_of(cfg), (cfg.d_model, nkv * hd)
+    k = tp.matmul(x, p["wk"], ("D", "KV"), shape)
+    v = tp.matmul(x, p["wv"], ("D", "KV"), shape)
     if cfg.qkv_bias:
         k, v = k + p["bk"], v + p["bv"]
     k, v = gather_kv_cols(cfg, k, v)
@@ -298,7 +311,8 @@ def pack_kv_entry(k, v):
 def gqa_q_proj(p, x, cfg, positions):
     """x: [.., D] -> the rank's roped q heads [.., heads, hd]."""
     lead = x.shape[:-1]
-    q = x @ p["wq"]
+    q = tp_of(cfg).matmul(x, p["wq"], ("D", "H"),
+                          (cfg.d_model, cfg.n_heads * cfg.hd))
     if cfg.qkv_bias:
         q = q + p["bq"]
     q = gather_q_cols(cfg, q)

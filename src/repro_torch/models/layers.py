@@ -12,7 +12,10 @@ Over a tensor-parallel rank (a config view with ``tp``,
 blocks: q, k, v and the MLP's gate and up are column blocks (k and v
 all-gathered, so the pool entry is whole; q too where its block is not
 whole heads), ``wo`` and ``w_down`` row blocks, each followed by one
-all-reduce.
+all-reduce.  Every product with a weight whose d_model rows may be
+split goes through ``tp.matmul`` (the rows gathered, or the input's
+columns taken); ``tp.enter`` marks where a rank's own use of an input
+that is the same on every rank starts (its gradient is summed there).
 """
 from __future__ import annotations
 
@@ -163,11 +166,14 @@ def gather_q_cols(cfg, q):
 def qkv_proj(p, x, cfg, positions):
     """x: [B, S, D] -> q [B, S, nh, hd], k/v [B, S, nkv, hd] with RoPE.
     Over a tensor-parallel rank q holds its heads (``gather_q_cols``)."""
-    B, S, _ = x.shape
-    nkv, hd = cfg.n_kv_heads, cfg.hd
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    B, S, d = x.shape
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    tp, lay = tp_of(cfg), gqa_layout(cfg)
+    xq = tp.enter(x, lay.q.axes)
+    xkv = xq if lay.kv.axes == lay.q.axes else tp.enter(x, lay.kv.axes)
+    q = tp.matmul(xq, p["wq"], ("D", "H"), (d, nh * hd))
+    k = tp.matmul(xkv, p["wk"], ("D", "KV"), (d, nkv * hd))
+    v = tp.matmul(xkv, p["wv"], ("D", "KV"), (d, nkv * hd))
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = gather_q_cols(cfg, q)
@@ -182,22 +188,28 @@ def qkv_proj(p, x, cfg, positions):
 
 def rank_kv_heads(cfg, k, head_dim: int = -2):
     """The KV heads a rank's q heads attend (all where it attends every
-    head): ``k`` [..., nkv, ...] cut on ``head_dim``."""
-    heads = gqa_layout(cfg).heads
-    if heads is None or heads[3] == cfg.n_kv_heads:
+    head): ``k`` [..., nkv, ...] cut on ``head_dim``.  Each rank's heads
+    use them on their own (``enter``)."""
+    lay = gqa_layout(cfg)
+    if lay.heads is None:
         return k
-    return k.narrow(head_dim, heads[2], heads[3])
+    k = tp_of(cfg).enter(k, lay.q.axes)
+    if lay.heads[3] == cfg.n_kv_heads:
+        return k
+    return k.narrow(head_dim, lay.heads[2], lay.heads[3])
 
 
 def attn_out(p, out, cfg):
     """Attention output [..., heads * hd] -> the layer's [..., D]: the
     rank's block of ``wo``'s rows (the rank's columns of ``out`` where
     every head attended), then one all-reduce of the partial sums."""
-    lay = gqa_layout(cfg)
+    lay, tp = gqa_layout(cfg), tp_of(cfg)
+    nhd = cfg.n_heads * cfg.hd
     if lay.heads is None:
-        lo, hi = lay.q.bounds(cfg.n_heads * cfg.hd)
-        out = out[..., lo:hi]
-    return tp_of(cfg).matmul_sum(out, p["wo"], lay.q.axes)
+        lo, hi = lay.q.bounds(nhd)
+        out = tp.enter(out, lay.q.axes)[..., lo:hi]
+    return tp.matmul(out, p["wo"], ("H", "D"), (nhd, cfg.d_model),
+                     lay.q.axes)
 
 
 def repeat_kv(k, n_rep: int):
@@ -294,10 +306,14 @@ def mlp_param_specs(cfg) -> Dict[str, ParamSpec]:
 def mlp_block(p, x, cfg=None):
     """SwiGLU MLP; over a tensor-parallel rank (``cfg.tp``) the gate and
     up are column blocks and ``w_down`` a row block, whose partial sums
-    are all-reduced (``matmul_sum``)."""
+    are all-reduced (``tp.matmul``)."""
     if cfg is None:
         return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
     tp = tp_of(cfg)
-    f = tp.split(("F", "D"), (cfg.d_ff, cfg.d_model), 0)
-    h = torch.nn.functional.silu(x @ p["w_gate"]) * (x @ p["w_up"])
-    return tp.matmul_sum(h, p["w_down"], f.axes)
+    d, f_ = cfg.d_model, cfg.d_ff
+    f = tp.split(("F", "D"), (f_, d), 0)
+    x = tp.enter(x, f.axes)
+    h = torch.nn.functional.silu(tp.matmul(x, p["w_gate"], ("D", "F"),
+                                           (d, f_))) \
+        * tp.matmul(x, p["w_up"], ("D", "F"), (d, f_))
+    return tp.matmul(h, p["w_down"], ("F", "D"), (f_, d), f.axes)

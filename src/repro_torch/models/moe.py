@@ -20,6 +20,20 @@ up products all-reduced over the rows' axes before the SwiGLU, a hidden
 block's outputs kept in f32), and adds its gated outputs into the token
 set's; one all-reduce over every axis that splits the experts' work
 sums the ranks' in f32, rounded once, and the rank keeps its own lanes.
+The rows stay on the rank whatever the rules (a contraction over its
+columns of the tokens, which are the same on every rank): the training
+rules' ``DE`` over ``data`` splits the experts as the serve rules do.
+
+Under autograd (the training step) each use of the whole token set and
+of the router's probabilities by the rank's own experts or router
+columns starts at ``tp.enter`` over the axes that make it the rank's:
+the tokens' and the gates' gradients are summed over every rank whose
+experts used them, the SwiGLU input's over the rows' ranks, and the
+combined output's over the batch axes (``own_lanes``: each rank's lanes
+carry their own gradient), never over ``model``, whose ranks hold the
+same lanes.  So each rank's gradient of its experts and router columns
+is the whole batch's, and the load-balance loss, the same on every rank,
+counts once.
 """
 from __future__ import annotations
 
@@ -96,15 +110,18 @@ def moe_block(p, x, cfg, *, cap_factor: float = 1.25, groups: int = 1):
     C = max(int(K * Tg * cap_factor / E), 1)
 
     xt = x.reshape(groups, Tg, D)
+    axes = e.axes + f.axes + rows.axes    # the axes that split the work
     router = tp.split(("G", "E"), (D, E), 1)
-    logits = tp.all_gather(xt @ p["router"], router.axes)       # [G, Tg, E]
+    logits = tp.all_gather(tp.enter(xt, router.axes) @ p["router"],
+                           router.axes)                         # [G, Tg, E]
     probs = torch.softmax(logits.float(), dim=-1)
     n = E // e.n                          # the rank's experts [lo, lo + n)
-    parts = [_dispatch_one(xt[g], probs[g], E, K, C, e.index * n, n)
+    xe = tp.enter(xt, axes)
+    parts = [_dispatch_one(xe[g], probs[g], E, K, C, e.index * n, n)
              for g in range(groups)]
     dispatched = torch.stack([q[0] for q in parts])
     slot = torch.stack([q[1] for q in parts])
-    w = torch.stack([q[2] for q in parts])
+    w = tp.enter(torch.stack([q[2] for q in parts]), axes)
     aux = torch.stack([q[3] for q in parts])
     ex = dispatched[:, : n * C].reshape(groups, n, C, D)
     r0, r1 = rows.bounds(D)
@@ -113,7 +130,7 @@ def moe_block(p, x, cfg, *, cap_factor: float = 1.25, groups: int = 1):
     if rows.n > 1:      # partial over the rows' blocks, summed in f32
         hu = torch.einsum("gecd,sedf->sgecf", ex_in.float(), torch.stack(
             [p["w_gate"], p["w_up"]]).float())
-        h, u = tp.all_reduce(hu, rows.axes).to(x.dtype)
+        h, u = tp.enter(tp.all_reduce(hu, rows.axes), rows.axes).to(x.dtype)
     else:
         h = torch.einsum("gecd,edf->gecf", ex_in, p["w_gate"])
         u = torch.einsum("gecd,edf->gecf", ex_in, p["w_up"])
@@ -129,7 +146,6 @@ def moe_block(p, x, cfg, *, cap_factor: float = 1.25, groups: int = 1):
     gathered = flat_out.gather(1, slot[..., None].expand(-1, -1, D))
     gated = (gathered * w[..., None].to(out_e.dtype)
              ).reshape(groups, Tg, K, D)
-    axes = e.axes + f.axes + rows.axes
     if tp.size(axes) == 1:
         combined = gated.sum(2)
     else:               # the ranks' gated outputs, summed in f32

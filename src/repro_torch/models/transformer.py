@@ -52,15 +52,19 @@ write-back lands only on the rank that owns the position.
 
 Tensor parallelism of the weights: under ``sharding.use_rules(rules,
 mesh)`` (the context the reference's model reads its mesh and rules
-from) ``prefill`` and ``decode`` take this rank's block of every weight
-(``sharding.shard_params`` / ``init_shards``; ``param_shapes`` gives
-their shapes) and run through a ``distributed/tp.py::RankView`` of the
-config: a vocab-parallel embedding, column-parallel ``lm_head`` (the
-logits all-gathered), the attention, MLP and MoE layers of
-``models/{layers,dsa,moe}.py`` on their blocks, each with its
-collectives.  The ``opts`` key ``batch_axes`` names the axes the rank's
-lanes are split over (by default the rules' ``B`` axes in the mesh).
-The attention kinds only: the recurrent families refuse a mesh there.
+from) ``forward``, ``prefill`` and ``decode`` take this rank's block of
+every weight (``sharding.shard_params`` / ``init_shards``;
+``param_shapes`` gives their shapes) and run through a
+``distributed/tp.py::RankView`` of the config: a vocab-parallel
+embedding, column-parallel ``lm_head`` (the logits all-gathered), the
+attention, MLP and MoE layers of ``models/{layers,dsa,moe}.py`` on their
+blocks, each with its collectives; the d_model rows split over ``data``
+too under the training rules (each layer's row blocks gathered inside
+its activation checkpoint) and under the serve rules of a batch that
+does not split.  The ``opts`` key ``batch_axes`` names the axes the
+rank's lanes are split over (by default the rules' ``B`` axes in the
+mesh).  The attention kinds only: the recurrent families refuse a mesh
+there.
 Outside that context nothing changes, bit for bit.  Under ``torch.profiler`` it marks each
 layer's work as a range named by ``DECODE_SPANS`` (a pool layer, a Mamba2
 layer, an xLSTM super-block), so that a trace splits a step by layer
@@ -284,7 +288,7 @@ def _layer_fwd(p, x, cfg, positions, window, groups, warm_w=0,
                                             window=window)
         entry = dsa.pack_kv_entry(k, v) if collect else None
     if collect and cfg.sac.enabled:
-        idx_keys = dsa.indexer_keys(p["idx"], xn)
+        idx_keys = dsa.indexer_keys(p["idx"], xn, cfg)
         if warm_w:
             scores = dsa.indexer_scores(p["idx"], xn[:, -1], idx_keys, cfg)
             S = scores.shape[-1]
@@ -331,7 +335,7 @@ def _attn_decode(p, x, cfg, ctx, kv_slice, idx_slice, window, hbuf=None):
             return delta, own, new_key, hbuf, zero, zero
         return delta, own, new_key, None, None, None
     # SAC path: indexer -> top-k -> fetch -> sparse attention
-    new_key = dsa.indexer_keys(p["idx"], xn)
+    new_key = dsa.indexer_keys(p["idx"], xn, cfg)
     if hbuf is None:
         delta = sac_core.sparse_attend(
             p["attn"], p["idx"], xn, cfg, kv_slice, idx_slice, cache_len,
@@ -539,9 +543,11 @@ class TransformerLM:
         """tokens [B, S] -> (logits [B, S, V] f32, aux f32: the MoE
         load-balance loss summed over layers).  Under autograd; no pool
         entries, indexer keys or warm-up candidates are made, so no
-        kernel of the port runs."""
-        cfg = self.cfg
-        x, positions = self._embed_seq(params, tokens)
+        kernel of the port runs.  Under ``use_rules(rules, mesh)`` it runs
+        on this rank's blocks and lanes (``rank_cfg``); the logits are the
+        lanes' and ``aux`` the whole batch's."""
+        cfg = self.rank_cfg()
+        x, positions = self._embed_seq(params, tokens, cfg)
         groups = int(self.opts.get("moe_groups", 1))
         windows = iter(self.windows)
         aux = [torch.zeros((), device=x.device)]
@@ -554,7 +560,7 @@ class TransformerLM:
             return x
 
         x = self._walk(params, x, attn, self.remat)
-        return self._logits(params, x), aux[0]
+        return self._logits(params, x, cfg), aux[0]
 
     # -- prefill -------------------------------------------------------------
     @torch.no_grad()
@@ -763,24 +769,36 @@ class TransformerLM:
     # -- shared pieces -----------------------------------------------------------
     def _logits(self, params, x, cfg=None):
         """Column-parallel over a tensor-parallel rank: its vocab block's
-        logits, all-gathered."""
+        logits, all-gathered (the loss, the same on every rank of the
+        vocab's axes, takes the whole gradient of each block)."""
         cfg = cfg or self.cfg
+        tp, shape = tp_of(cfg), (cfg.d_model, cfg.vocab)
         x = rms_norm(x, params["final_norm"])
-        v = tp_of(cfg).split(("D", "V"), (cfg.d_model, cfg.vocab), 1)
-        return tp_of(cfg).all_gather((x @ params["lm_head"]).float(), v.axes)
+        v = tp.split(("D", "V"), shape, 1)
+        y = tp.matmul(tp.enter(x, v.axes), params["lm_head"], ("D", "V"),
+                      shape)
+        return tp.all_gather(y, v.axes).float()
 
 
 def _embed(params, tokens, cfg) -> torch.Tensor:
     """The tokens' embedding rows; vocab-parallel over a tensor-parallel
     rank: its block's rows (zeros for another block's tokens), summed
-    over the vocab's axes."""
+    over the vocab's axes; a block of the rows' columns (``D`` over axes
+    the tokens are the same on) all-gathered, rows over the batch's axes
+    gathered first (``tp.rows``)."""
     tp = tp_of(cfg)
-    v = tp.split(("V", "D"), (cfg.vocab, cfg.d_model), 0)
+    dims, shape = ("V", "D"), (cfg.vocab, cfg.d_model)
+    v = tp.split(dims, shape, 0)
+    embed = tp.rows(params["embed"], dims, shape)
     if v.n == 1:
-        return params["embed"][tokens.long()].to(DTYPE)
-    lo, hi = v.bounds(cfg.vocab)
-    t = tokens.long() - lo
-    mine = ((t >= 0) & (t < hi - lo))[..., None]
-    rows = params["embed"][t.clamp(0, hi - lo - 1)].to(DTYPE)
-    return tp.all_reduce(torch.where(mine, rows, torch.zeros(
-        (), dtype=DTYPE, device=rows.device)), v.axes)
+        x = embed[tokens.long()].to(DTYPE)
+    else:
+        lo, hi = v.bounds(cfg.vocab)
+        t = tokens.long() - lo
+        mine = ((t >= 0) & (t < hi - lo))[..., None]
+        rows = embed[t.clamp(0, hi - lo - 1)].to(DTYPE)
+        x = tp.all_reduce(torch.where(mine, rows, torch.zeros(
+            (), dtype=DTYPE, device=rows.device)), v.axes)
+    if x.shape[-1] != cfg.d_model:
+        x = tp.all_gather(x, tp.split(dims, shape, 1).axes)
+    return x

@@ -19,6 +19,12 @@ is written, and leaves are written and checked by a few threads at once
 never visible under their final name: the rename is the commit point),
 skipping corrupt or torn ones, and puts each leaf on the device and in
 the dtype of the ``like`` tree's leaf.
+
+A train state sharded over a mesh (``distributed/tp.py``: each rank's
+blocks of the parameters and AdamW moments) is saved whole, as the
+reference saves its global arrays: every rank gathers each tree with
+``distributed/sharding.py::gather_params`` and one rank writes it; a
+restore at any mesh cuts its blocks with ``shard_params``.
 """
 from __future__ import annotations
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -107,18 +107,27 @@ def init_opt_state(params) -> Dict[str, Any]:
     }
 
 
-def global_norm(tree) -> torch.Tensor:
-    """The L2 norm of every leaf together, summed in f32."""
-    return torch.sqrt(sum(l.float().square().sum()
-                          for l in tree_leaves(tree)))
+def global_norm(tree, whole: Optional[Callable] = None) -> torch.Tensor:
+    """The L2 norm of every leaf together, summed in f32.  ``whole``
+    takes the leaves' squared sums stacked ([n]) and returns each
+    leaf's over its whole tensor (a rank of the tensor-parallel step
+    holds blocks: ``distributed/tp.py::TensorParallel.block_sums``)."""
+    sq = [l.float().square().sum() for l in tree_leaves(tree)]
+    if whole is not None:
+        sq = list(whole(torch.stack(sq)).unbind())
+    return torch.sqrt(sum(sq))
 
 
-def adamw_update(params, grads, opt_state, cfg: OptConfig
+def adamw_update(params, grads, opt_state, cfg: OptConfig,
+                 whole_norm: Optional[Callable] = None
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step with global-norm clipping: (new params in their
-    own dtypes, new opt state, {"lr", "grad_norm"})."""
+    own dtypes, new opt state, {"lr", "grad_norm"}).  Leaf by leaf, so a
+    rank's blocks of the parameters, gradients and moments update as the
+    whole tensors would; the clipping norm is the whole model's
+    (``global_norm``'s ``whole``)."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, whole_norm)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = schedule_lr(cfg, step)

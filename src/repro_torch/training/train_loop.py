@@ -9,13 +9,28 @@ or tensors (``tokens`` / ``labels``, and ``frames`` for an
 encoder-decoder); they are moved to the parameters' device.  The
 forward runs the plain PyTorch layers (no kernel of the port has a
 backward, as no Pallas kernel of the reference has one).
+
+Under ``sharding.use_rules(TRAIN_RULES, mesh)`` the step runs on this
+rank's blocks of the parameters and of the AdamW moments (ZeRO's
+sharding of both, ``distributed/tp.py``) and on its lanes of the batch
+(its slice over the batch axes; the microbatches of gradient
+accumulation are the rank's lanes).  Each rank's loss is the mean over
+its lanes scaled by its share of the global lanes, so the global loss is
+the sum over the batch ranks; the MoE load-balance loss is the whole
+batch's on every rank and counts once.  The gradient of a row block
+gathered for the forward is reduce-scattered over ``data`` by its
+backward; every other leaf's is summed over the batch axes its block is
+not split over (``reduce_grads``); the clipping norm is the whole
+model's, each distinct block counted once.  At a world of one the step
+is the unsharded step bit for bit.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.tp import TensorParallel, tp_of
 from repro_torch.training.optimizer import (OptConfig, adamw_update,
                                             tree_leaves, tree_map,
                                             tree_unflatten)
@@ -33,6 +48,13 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
     return (logz - label_logit).mean()
 
 
+def plan_of(model):
+    """The tensor-parallel plan the model runs under here (``WHOLE``
+    outside ``use_rules``, and for a model without one)."""
+    rank_cfg = getattr(model, "rank_cfg", None)
+    return tp_of(rank_cfg() if rank_cfg else model.cfg)
+
+
 def make_loss_fn(model) -> Callable:
     cfg = model.cfg
 
@@ -43,9 +65,35 @@ def make_loss_fn(model) -> Callable:
         else:
             logits, aux = model.forward(params, batch["tokens"])
         loss = cross_entropy(logits, batch["labels"])
-        return loss + AUX_COEF * aux, {"loss": loss, "aux": aux}
+        tp = plan_of(model)
+        share = tp.size(tp.batch_axes)     # this rank's lanes: 1/share
+        total = loss if share == 1 else loss / share
+        return total + AUX_COEF * aux, {"loss": loss, "aux": aux}
 
     return loss_fn
+
+
+def reduce_grads(grads, specs, tp):
+    """Each gradient leaf summed over the batch axes its block is not
+    split over (``tp.grad_sum_axes``: the ranks of those axes took other
+    lanes), one f32 all-reduce per set of axes, rounded once to the
+    leaf's dtype; ``grads`` itself where no leaf needs one."""
+    leaves, spec_leaves = tree_leaves(grads), tree_leaves(specs)
+    groups: Dict[Tuple[str, ...], list] = {}
+    for i, s in enumerate(spec_leaves):
+        axes = tp.grad_sum_axes(s.dims, s.shape)
+        if tp.size(axes) > 1:
+            groups.setdefault(axes, []).append(i)
+    if not groups:
+        return grads
+    out = list(leaves)
+    for axes, idx in groups.items():
+        flat = tp.all_reduce(torch.cat([leaves[i].float().reshape(-1)
+                                        for i in idx]), axes)
+        for i, part in zip(idx, flat.split([leaves[i].numel()
+                                            for i in idx])):
+            out[i] = part.view(leaves[i].shape).to(leaves[i].dtype)
+    return tree_unflatten(grads, out)
 
 
 def to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
@@ -75,11 +123,15 @@ def make_grad_fn(model) -> Callable:
     return grad_fn
 
 
-def make_train_step(model, opt_cfg: OptConfig, grad_accum: int = 1
-                    ) -> Callable:
+def make_step_grads(model, grad_accum: int = 1) -> Callable:
+    """``(params, batch) -> (metrics, grads)``: the training step's
+    gradients, summed in f32 over ``grad_accum`` microbatches of the
+    batch's rows and averaged; under ``use_rules`` also summed over the
+    batch axes (``reduce_grads``), with the global loss."""
     grad_fn = make_grad_fn(model)
 
-    def train_step(params, opt_state, batch):
+    def step_grads(params, batch):
+        tp = plan_of(model)
         batch = to_device(batch, tree_leaves(params)[0].device)
         if grad_accum == 1:
             metrics, grads = grad_fn(params, batch)
@@ -98,9 +150,36 @@ def make_train_step(model, opt_cfg: OptConfig, grad_accum: int = 1
             grads = tree_map(lambda g: g / grad_accum, grads)
             metrics = {"loss": loss_sum / grad_accum,
                        "aux": aux_sum / grad_accum}
+        if isinstance(tp, TensorParallel):
+            grads = reduce_grads(grads, model.specs, tp)
+            n = tp.size(tp.batch_axes)
+            if n > 1:
+                metrics["loss"] = tp.all_reduce(metrics["loss"] / n,
+                                                tp.batch_axes)
+        return metrics, grads
 
+    return step_grads
+
+
+def whole_norm_of(model) -> Optional[Callable]:
+    """The clipping norm's ``whole`` (``optimizer.global_norm``) under the
+    plan the model runs under: each leaf's squared sum over its whole
+    tensor (``tp.block_sums``); None unsharded."""
+    tp = plan_of(model)
+    if not isinstance(tp, TensorParallel):
+        return None
+    shapes = [(s.dims, s.shape) for s in tree_leaves(model.specs)]
+    return lambda sq: tp.block_sums(sq, shapes)
+
+
+def make_train_step(model, opt_cfg: OptConfig, grad_accum: int = 1
+                    ) -> Callable:
+    step_grads = make_step_grads(model, grad_accum)
+
+    def train_step(params, opt_state, batch):
+        metrics, grads = step_grads(params, batch)
         params, opt_state, stats = adamw_update(params, grads, opt_state,
-                                                opt_cfg)
+                                                opt_cfg, whole_norm_of(model))
         metrics.update(stats)
         return params, opt_state, metrics
 
