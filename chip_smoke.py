@@ -8,6 +8,9 @@
     python3 chip_smoke.py --dryrun   # phases 1-3 and 18 (the dry-run)
     python3 chip_smoke.py --tp       # phases 1-3 and 19 (tensor parallelism)
     python3 chip_smoke.py --fsdp     # phases 1-3 and 20 (rows over ranks)
+    python3 chip_smoke.py --families # phases 1-3 and 21 (TP of the
+                                     # recurrent and encoder-decoder
+                                     # families; with phase 16 (e)-(f))
 
 Phases, each printing one JSON line with its seconds; any failure raises
 (exit code != 0):
@@ -273,7 +276,29 @@ Phases, each printing one JSON line with its seconds; any failure raises
    the unsharded run's, the logits within the case's fixed limits, the
    hot tier exact, a control with ``data`` rank 1's ``wo`` zeroed
    outside them); each rank's weight, optimizer, pool and peak bytes,
-   with the card's name and power limit.
+   with the card's name and power limit;
+21. tensor parallelism of the recurrent and encoder-decoder families
+   (``models/ssm.py``'s Mamba2, mLSTM and sLSTM and ``models/encdec.py``
+   on a rank's blocks): (a) at phase 16's NCCL world of one, a third run
+   of its Zamba2-7B and Whisper-small decodes, the sharded model under
+   ``SERVE_RULES`` (tokens, logits, hot tier, ``rec_*``, pools,
+   ``self_kv`` bit-equal to the unsharded run, the kernels on every pool
+   layer of every step), xLSTM-125M at full width and depth (4 requests
+   of 2048 tokens, 4 steps: logits and ``rec_*`` bit-equal), and one
+   ``TRAIN_RULES`` step of xLSTM-125M and of Zamba2-7B at 2 super-blocks
+   plus its tail, bit-equal (loss, gradient norm, parameters and
+   moments); (b) in phase 20's spawned world, at meshes (2, 2) and (1, 4)
+   over the same four ranks: Zamba2-7B (15 layers), xLSTM-125M and
+   Whisper-small (4,096 frames) at full width, each rank's run fed the
+   unsharded run's tokens, the residual stream at its first three layer
+   norms of the prefill and of the first decode step (up to its first
+   pool read) within 1e-2 relative L2, the logits within FAM_LIMITS'
+   coarse limits, the kernels on every pool layer of every step; a
+   control (the prefill, and Whisper's first step, with model rank 1's
+   ``w_out``, Whisper's attention ``wo``, zeroed) outside both; one
+   training step of each at (2, 2), the loss and each gathered gradient
+   leaf within FAM_LIMITS', a control without the batch-axis sums
+   outside.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -2711,7 +2736,7 @@ def _collective_facts(torch, dist, group):
     return facts
 
 
-def sharded_nccl(torch, ops):
+def sharded_nccl(torch, ops, families=False):
     """Phase 16 (a): Qwen2-1.5B at full width and depth over a world of
     one NCCL rank, mesh (1, 1), through the real collectives (the scores'
     all-gather and the fetch's byte all-reduce): 16 decode steps beside
@@ -2724,8 +2749,9 @@ def sharded_nccl(torch, ops):
     slice's 4 lanes alone, unsharded, 4 steps (the batch of a GEMM
     changes its bits on the card).  Returns the record, phase (b)'s
     references and the shard forms' launches.  In the same NCCL world it
-    then runs (a) extended, (d), (e) and (f); the launches returned are
-    a list, one dict each run."""
+    then runs (a) extended, (d), (e) and (f), and with ``families`` phase
+    21 (a) (the third runs of (e) and (f), ``families_world_of_one``);
+    the launches returned are a list, one dict each run."""
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.core.pool import make_pooled_fetch
@@ -2787,8 +2813,10 @@ def sharded_nccl(torch, ops):
         gc.collect()
         torch.cuda.empty_cache()
         # (e), (f)
-        more.append(sharded_zamba(torch, ops, mesh))
-        more += sharded_whisper(torch, ops, mesh)
+        more.append(sharded_zamba(torch, ops, mesh, tp=families))
+        more += sharded_whisper(torch, ops, mesh, tp=families)
+        if families:
+            more.append(families_world_of_one(torch, ops, mesh))
         return rec, dict(refs=refs, tok0=tok0.cpu()), [rec["launches"]] + more
     finally:
         dist.destroy_process_group()
@@ -2979,7 +3007,8 @@ SHARDED_FAMILIES = dict(prefetch_steps=4, dense_steps=8,
 
 
 def _twin_runs(torch, ops, run, mesh, models, params, states, tok0, n, *,
-               spans, kernels, want, keys, t0, extra=None, post=None):
+               spans, kernels, want, keys, t0, extra=None, post=None,
+               tp=False):
     """Phase 16's comparison at one NCCL rank: ``n`` greedy decode steps
     of the unsharded model ``models[0]`` on ``states[0]`` and of the
     sharded one on ``states[1]`` (a copy of the same lanes, its pools cut
@@ -2990,8 +3019,12 @@ def _twin_runs(torch, ops, run, mesh, models, params, states, tok0, n, *,
     collectives' host time).  ``post(state)`` adds
     facts of the sharded run's state after its steps to the record;
     ``t0`` is when the caller began the run (its seconds, set-up
-    included).  Returns the record (``launches``: the sharded run's) and
-    the unsharded run's logits."""
+    included).  With ``tp`` (phase 21 (a)) a third run, the sharded model
+    under ``use_rules(SERVE_RULES, mesh)`` on ``states[2]``: at a world of
+    one every block whole and every collective the identity, so tokens,
+    logits and ``keys`` bit-equal to the unsharded run, launches at
+    ``want`` (``tp_world_1`` in the record).  Returns the record
+    (``launches``: the sharded runs') and the unsharded run's logits."""
     from repro_torch.distributed.sharding import shard_serve_state
     ops.reset_launch_counts()
     st_u, tok_u, lg_u, tk_u, wall_u = _decode_steps(
@@ -3009,6 +3042,27 @@ def _twin_runs(torch, ops, run, mesh, models, params, states, tok0, n, *,
     want = dict(want, **{"scatter_kv.splice_shard": 1})
     bad = {k: counts_s[k] for k, v in want.items() if counts_s[k] != v}
     after = post(st_s) if post is not None else {}
+    if tp:
+        from repro_torch.distributed import sharding as shd
+        ops.reset_launch_counts()
+        with shd.use_rules(shd.SERVE_RULES, mesh):
+            st_t, _, lg_t, tk_t, wall_t = _decode_steps(
+                torch, models[1], params, shard_serve_state(states[2], mesh),
+                tok0, n)
+        counts_t = ops.launch_counts()
+        tp_equal = dict(
+            tokens=all(torch.equal(a, b) for a, b in zip(tk_u, tk_t)),
+            logits=all(_equal_bits(torch, a, b) for a, b in zip(lg_u, lg_t)),
+            **{k: _state_equal(torch, st_u[k], st_t[k]) for k in keys})
+        tp_bad = {k: counts_t[k] for k, v in want.items() if counts_t[k] != v}
+        after["tp_world_1"] = dict(
+            rules="SERVE_RULES", equal=tp_equal, launches=counts_t,
+            wall_s_per_decode_step_median=_median(wall_t))
+        del st_t
+        if not all(tp_equal.values()) or tp_bad:
+            raise AssertionError(f"{run} under SERVE_RULES at one rank: "
+                                 f"{tp_equal}, launches {tp_bad}")
+        counts_s = {k: v + counts_t[k] for k, v in counts_s.items()}
     state = {"u": st_u, "s": st_s}
     tok = {"u": tok_u, "s": tok_s}
 
@@ -3123,12 +3177,13 @@ def sharded_dense(torch, ops, mesh, cfg, params, s0, tok0):
     return rec["launches"]
 
 
-def sharded_zamba(torch, ops, mesh):
+def sharded_zamba(torch, ops, mesh, tp=False):
     """Phase 16 (e): Zamba2-7B at full width and depth (81 Mamba2 and 13
     pool layers), 4 requests of 8192 tokens, hot tier 6144, at one NCCL
     rank: tokens, logits, hot tier, counters, ``rec_*`` and pools
     bit-equal to the unsharded run; every pool layer of every step
-    through the gather's and the decode write's shard forms."""
+    through the gather's and the decode write's shard forms.  With
+    ``tp``, phase 21 (a)'s third run (``_twin_runs``)."""
     from repro_torch.configs import get_config
     from repro_torch.core.pool import make_pooled_fetch
     from repro_torch.models.model import build_model
@@ -3146,7 +3201,8 @@ def sharded_zamba(torch, ops, mesh):
     recs = tuple(k for k in s0 if k.startswith("rec_"))
     rec, _ = _twin_runs(
         torch, ops, "nccl_world_1_zamba2", mesh, (m_u, m_s), params,
-        [s0, _state_lanes(torch, s0, lanes, m_u.segments)], tok0, n,
+        [s0] + [_state_lanes(torch, s0, lanes, m_u.segments)
+                for _ in range(2 if tp else 1)], tok0, n,
         spans={"pool_layer": L, "mamba2_layer": cfg.n_layers},
         kernels=GQA_DEVICE_KERNELS,
         want={"gather_kv.shard": n * L, "gather_kv.rows": 0,
@@ -3157,20 +3213,21 @@ def sharded_zamba(torch, ops, mesh):
         extra=dict(config=f"{cfg.name} (n_layers={cfg.n_layers}, pool "
                    f"layers {L}, d_model={cfg.d_model})",
                    requests=spec["requests"], context=SHARDED["context"],
-                   rec_keys=list(recs)), t0=t0)
+                   rec_keys=list(recs)), t0=t0, tp=tp)
     del s0, m_u, m_s, params
     gc.collect()
     torch.cuda.empty_cache()
     return rec["launches"]
 
 
-def sharded_whisper(torch, ops, mesh):
+def sharded_whisper(torch, ops, mesh, tp=False):
     """Phase 16 (f): Whisper-small at full width and depth, 4 requests of
     32,768 frames each prefilled alone and spliced into its lane, at one
     NCCL rank, 8 decode steps in ``sac`` and in ``dense`` mode: tokens,
     logits, ``self_kv``, ``dec_len`` and pools bit-equal to the unsharded
     facade run; launches a step as phase 14's (the gather in its shard
-    form in SAC mode; dense mode no indexer and no gather)."""
+    form in SAC mode; dense mode no indexer and no gather).  With ``tp``,
+    phase 21 (a)'s third run (``_twin_runs``)."""
     from repro_torch.configs import get_config
     from repro_torch.core.pool import make_pooled_fetch, pool_splice_lane
     from repro_torch.models.model import build_model
@@ -3204,7 +3261,7 @@ def sharded_whisper(torch, ops, mesh):
         rec, _ = _twin_runs(
             torch, ops, f"nccl_world_1_whisper_{mode}", mesh, (m_u, m_s),
             params, [_state_lanes(torch, {k: s0[k] for k in keep}, lanes)
-                     for _ in range(2)], tok0, n,
+                     for _ in range(3 if tp else 2)], tok0, n,
             spans={"pool_layer": L},
             kernels=(GQA_DEVICE_KERNELS if sac else DENSE_DEVICE_KERNELS),
             want={"indexer_scores": L * n if sac else 0,
@@ -3215,7 +3272,8 @@ def sharded_whisper(torch, ops, mesh):
                 k for k in pools if k in keep),
             extra=dict(config=f"{cfg.name} (n_enc_layers="
                        f"{cfg.n_enc_layers}, n_layers={L})", mode=mode,
-                       requests=B, frames=S, prefill_s=prefill_s), t0=t1)
+                       requests=B, frames=S, prefill_s=prefill_s), t0=t1,
+            tp=tp)
         counts.append(rec["launches"])
     del s0, model, params
     gc.collect()
@@ -4872,9 +4930,20 @@ def _fsdp_rank_serve(torch, dist, ops, mesh, rank, world, case, tokens):
                 profile=prof)
 
 
+def _fam_wait(out_dir, families: bool, timeout_s: float = 600.0):
+    """Wait until the parent has made phase 21 (b)'s references (and
+    released the card's memory they took)."""
+    t0 = time.perf_counter()
+    while families and not (out_dir / "families.ready").exists():
+        if time.perf_counter() - t0 > timeout_s:
+            raise TimeoutError("no phase 21 references from the parent")
+        time.sleep(0.05)
+
+
 def _fsdp_rank(rank, world, port, out_dir):
     """Phase 20 (b), one of four ranks sharing card 0 over gloo at
-    FSDP_MESH: the training step, then each serve case."""
+    FSDP_MESH: the training step, then each serve case; then phase 21
+    (b) where the parent asked for it."""
     import torch
     import torch.distributed as dist
     from repro_torch.kernels import ops
@@ -4888,22 +4957,30 @@ def _fsdp_rank(rank, world, port, out_dir):
                             rank=rank, world_size=world)
     try:
         inp = torch.load(Path(out_dir) / "inputs.pt", weights_only=False)
-        mesh = make_mesh(FSDP_MESH, ("data", "model"), device=TP_DEV)
-        t0 = time.perf_counter()
-        out = {"train": _fsdp_rank_train(torch, dist, mesh, rank,
-                                         Path(out_dir) / "grads.pt")}
-        out["train"]["seconds"] = time.perf_counter() - t0
-        gc.collect()
-        torch.cuda.empty_cache()
-        dist.barrier()
-        for arch, case in FSDP_SERVE.items():
+        out = {}
+        if inp["fsdp"]:
+            mesh = make_mesh(FSDP_MESH, ("data", "model"), device=TP_DEV)
             t0 = time.perf_counter()
-            out[arch] = _fsdp_rank_serve(torch, dist, ops, mesh, rank, world,
-                                         case, inp[arch])
-            out[arch]["seconds"] = time.perf_counter() - t0
+            out["train"] = _fsdp_rank_train(torch, dist, mesh, rank,
+                                            Path(out_dir) / "grads.pt")
+            out["train"]["seconds"] = time.perf_counter() - t0
             gc.collect()
             torch.cuda.empty_cache()
+            _fam_wait(Path(out_dir), inp["families"])
             dist.barrier()
+            for arch, case in FSDP_SERVE.items():
+                t0 = time.perf_counter()
+                out[arch] = _fsdp_rank_serve(torch, dist, ops, mesh, rank,
+                                             world, case, inp[arch])
+                out[arch]["seconds"] = time.perf_counter() - t0
+                gc.collect()
+                torch.cuda.empty_cache()
+                dist.barrier()
+        if inp["families"]:            # phase 21 (b)
+            _fam_wait(Path(out_dir), True)
+            dist.barrier()
+            out["families"] = _fam_rank(torch, dist, ops, rank, world,
+                                        Path(out_dir) / "families.pt")
         torch.save(out, Path(out_dir) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -4923,7 +5000,8 @@ def _prof_summary(prof):
                 port_kernels=prof["port_kernels"])
 
 
-def fsdp_phase(torch, ops, smi: str) -> dict:
+def fsdp_phase(torch, ops, smi: str, fsdp: bool = True,
+               families: bool = False) -> dict:
     """Phase 20: the d_model rows split across ranks.  (a) At an NCCL
     world of one: Qwen2-1.5B's training steps under TRAIN_RULES equal the
     unsharded steps bit for bit (each step's loss, gradient norm, and the
@@ -4938,8 +5016,10 @@ def fsdp_phase(torch, ops, smi: str) -> dict:
     layers within FSDP_HIDDEN_REL_L2 of the unsharded run's, its logits a
     step within the case's ``limits`` (but where an expert choice differs
     at a near-tie: listed, at most half), the hot tier's integer state
-    exact, the control outside both limits.  Returns the launches of the
-    runs."""
+    exact, the control outside both limits.  With ``families`` the same
+    four ranks then run phase 21 (b) (``_fam_rank``, against the parent's
+    ``_fam_references``); with ``fsdp`` false, only that.  Returns the
+    launches of the runs."""
     import tempfile
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh
@@ -4953,204 +5033,895 @@ def fsdp_phase(torch, ops, smi: str) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         grads_path = Path(tmp) / "grads.pt"
         refs = {}
-        _tp_world_of_one(torch, dist, _free_port())
-        try:
-            mesh = make_mesh((1, 1), ("data", "model"), device=TP_DEV)
-            cfg = _fsdp_cfg(FSDP_TRAIN)
-            runs = {}
-            for key, mesh_ in (("unsharded", None), ("world_of_one", mesh)):
-                m = build_model(cfg, device=TP_DEV)
-                gen = torch.Generator(device=TP_DEV).manual_seed(0)
-                if mesh_ is None:
-                    params = m.init(gen)
-                else:
-                    from repro_torch.distributed import sharding as shd
-                    with shd.use_rules(shd.TRAIN_RULES, mesh_):
-                        params = shd.init_shards(m.specs, gen, TP_DEV)
-                runs[key] = _fsdp_train_run(
-                    torch, m, params, mesh_,
-                    grads_path if mesh_ is None else None)
-                del params
+        if fsdp:
+            _tp_world_of_one(torch, dist, _free_port())
+            try:
+                mesh = make_mesh((1, 1), ("data", "model"), device=TP_DEV)
+                cfg = _fsdp_cfg(FSDP_TRAIN)
+                runs = {}
+                for key, mesh_ in (("unsharded", None), ("world_of_one", mesh)):
+                    m = build_model(cfg, device=TP_DEV)
+                    gen = torch.Generator(device=TP_DEV).manual_seed(0)
+                    if mesh_ is None:
+                        params = m.init(gen)
+                    else:
+                        from repro_torch.distributed import sharding as shd
+                        with shd.use_rules(shd.TRAIN_RULES, mesh_):
+                            params = shd.init_shards(m.specs, gen, TP_DEV)
+                    runs[key] = _fsdp_train_run(
+                        torch, m, params, mesh_,
+                        grads_path if mesh_ is None else None)
+                    del params
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                u, w = runs["unsharded"], runs["world_of_one"]
+                equal = {k: u[k] == w[k] for k in ("loss", "grad_norm")}
+                equal["params_m_v_bits"] = u["sums"] == w["sums"]
+                emit(dict(phase="fsdp", run="nccl_world_1_train",
+                          config=FSDP_TRAIN["arch"], card=smi,
+                          batch=[FSDP_TRAIN["batch"], FSDP_TRAIN["seq"]],
+                          steps=FSDP_TRAIN["steps"], equal_unsharded=equal,
+                          loss=u["loss"], grad_norm=u["grad_norm"],
+                          wall_s_per_step=w["wall_s"],
+                          wall_s_per_step_unsharded=u["wall_s"],
+                          peak_bytes=w["peak_bytes"],
+                          peak_bytes_unsharded=u["peak_bytes"],
+                          profile=_prof_summary(w["profile"])))
+                if not all(equal.values()):
+                    failures.append(("train world of one", equal))
+                refs["qwen2-1.5b"] = _fsdp_serve_reference(
+                    torch, ops, FSDP_SERVE["qwen2-1.5b"], mesh)
+            finally:
+                dist.destroy_process_group()
                 gc.collect()
                 torch.cuda.empty_cache()
-            u, w = runs["unsharded"], runs["world_of_one"]
-            equal = {k: u[k] == w[k] for k in ("loss", "grad_norm")}
-            equal["params_m_v_bits"] = u["sums"] == w["sums"]
-            emit(dict(phase="fsdp", run="nccl_world_1_train",
-                      config=FSDP_TRAIN["arch"], card=smi,
-                      batch=[FSDP_TRAIN["batch"], FSDP_TRAIN["seq"]],
-                      steps=FSDP_TRAIN["steps"], equal_unsharded=equal,
-                      loss=u["loss"], grad_norm=u["grad_norm"],
-                      wall_s_per_step=w["wall_s"],
-                      wall_s_per_step_unsharded=u["wall_s"],
-                      peak_bytes=w["peak_bytes"],
-                      peak_bytes_unsharded=u["peak_bytes"],
-                      profile=_prof_summary(w["profile"])))
-            if not all(equal.values()):
-                failures.append(("train world of one", equal))
-            refs["qwen2-1.5b"] = _fsdp_serve_reference(
-                torch, ops, FSDP_SERVE["qwen2-1.5b"], mesh)
-        finally:
-            dist.destroy_process_group()
+            with tempfile.TemporaryDirectory() as child:
+                refs["deepseek-v32"] = _spawn(_fsdp_deepseek_child, 1, child)[0]
             gc.collect()
             torch.cuda.empty_cache()
-        with tempfile.TemporaryDirectory() as child:
-            refs["deepseek-v32"] = _spawn(_fsdp_deepseek_child, 1, child)[0]
-        gc.collect()
-        torch.cuda.empty_cache()
-        for arch, ref in refs.items():
-            one = ref["world_of_one"]
-            add(one["launches"])
-            ok = {k: one[k] for k in ("logits", "hot_tier", "gates")}
-            emit(dict(phase="fsdp", run="nccl_world_1_serve", config=arch,
-                      card=smi, seq=FSDP_SERVE[arch]["seq"],
-                      decode_steps=FSDP_SERVE[arch]["steps"],
-                      equal_unsharded=ok, launches=one["launches"],
-                      wall_s_per_decode_step_median=one[
-                          "wall_s_per_decode_step_median"],
-                      wall_s_per_decode_step_median_unsharded=_median(
-                          ref["wall_s"]),
-                      peak_bytes_unsharded=ref["peak_bytes"]))
-            if not all(ok.values()):
-                failures.append((arch, "serve world of one", ok))
-        torch.save({arch: ref["tokens"] for arch, ref in refs.items()},
-                   Path(tmp) / "inputs.pt")
+            for arch, ref in refs.items():
+                one = ref["world_of_one"]
+                add(one["launches"])
+                ok = {k: one[k] for k in ("logits", "hot_tier", "gates")}
+                emit(dict(phase="fsdp", run="nccl_world_1_serve", config=arch,
+                          card=smi, seq=FSDP_SERVE[arch]["seq"],
+                          decode_steps=FSDP_SERVE[arch]["steps"],
+                          equal_unsharded=ok, launches=one["launches"],
+                          wall_s_per_decode_step_median=one[
+                              "wall_s_per_decode_step_median"],
+                          wall_s_per_decode_step_median_unsharded=_median(
+                              ref["wall_s"]),
+                          peak_bytes_unsharded=ref["peak_bytes"]))
+                if not all(ok.values()):
+                    failures.append((arch, "serve world of one", ok))
+        inputs = {arch: ref["tokens"] for arch, ref in refs.items()}
+        inputs.update(fsdp=fsdp, families=families)
+        torch.save(inputs, Path(tmp) / "inputs.pt")
         t1 = time.perf_counter()
-        ranks = _spawn(_fsdp_rank, 4, tmp)
+        import torch.multiprocessing as mp
+        spawned = mp.start_processes(
+            _fsdp_rank, args=(4, _free_port(), str(tmp)), nprocs=4,
+            start_method="spawn", join=False)
+        if families:
+            # phase 21 (b)'s references, made while the ranks start; the
+            # ranks wait for them before phase 20's serve cases (the card's
+            # memory) and phase 21's work
+            t2 = time.perf_counter()
+            _fam_references(torch, ops, Path(tmp) / "families.pt")
+            fam_ref_s = time.perf_counter() - t2
+            fam_train_loss = {key[1]: ref["loss"] for key, ref in
+                              torch.load(Path(tmp) / "families.pt",
+                                         weights_only=False).items()
+                              if isinstance(key, tuple)}
+            gc.collect()
+            if TP_DEV == "cuda":
+                torch.cuda.empty_cache()
+            (Path(tmp) / "families.ready").touch()
+        while not spawned.join():
+            pass
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                 for r in range(4)]
         ranks_s = time.perf_counter() - t1
-        saved = torch.load(grads_path, mmap=True, weights_only=False)
-        ref_loss, paths = saved["loss"], saved["paths"]
-        del saved
-    # (b) training: the loss and the gradient norm within FSDP_LOSS_REL,
-    # each gathered leaf within FSDP_GRAD_REL_L2; the control must miss
-    tr = [r["train"] for r in ranks]
-    errs = [x["grad_rel_l2"] for x in tr]
-    over = [(r, paths[i], e[i]) for r, e in enumerate(errs)
-            for i in range(len(paths)) if e[i] > FSDP_GRAD_REL_L2]
-    control_over = [max(x["control_grad_rel_l2"].values()) / FSDP_GRAD_REL_L2
-                    for x in tr]
-    worst = max(range(len(paths)), key=lambda i: max(e[i] for e in errs))
-    ref_norm = runs["unsharded"]["grad_norm"][0]
-    loss_rel = max(abs(x["loss"] - ref_loss) / abs(ref_loss) for x in tr)
-    norm_rel = max(abs(x["grad_norm"] - ref_norm) / abs(ref_norm) for x in tr)
-    emit(dict(phase="fsdp", run="gloo_4_ranks_train",
-              config=FSDP_TRAIN["arch"], mesh=list(FSDP_MESH), card=smi,
-              batch=[FSDP_TRAIN["batch"], FSDP_TRAIN["seq"]],
-              limits=dict(loss_rel=FSDP_LOSS_REL, grad_norm_rel=FSDP_LOSS_REL,
-                          grad_rel_l2=FSDP_GRAD_REL_L2),
-              worst_grad_rel_l2=max(e[worst] for e in errs),
-              worst_leaf=paths[worst],
-              grad_rel_l2_median=sorted(errs[0])[len(paths) // 2],
-              leaves_over=over[:8],
-              control_least_over_limit=min(control_over),
-              loss_rel=loss_rel, loss=tr[0]["loss"],
-              grad_norm_rel=norm_rel, grad_norm=tr[0]["grad_norm"],
-              grad_norm_unsharded=ref_norm,
-              ranks=[dict(weight_bytes=x["weight_bytes"],
-                          opt_bytes=x["opt_bytes"],
-                          peak_bytes=x["peak_bytes"],
-                          collectives_per_step_grads=x[
-                              "collectives_per_step_grads"],
-                          grads_wall_s=x["grads_wall_s"],
-                          adamw_wall_s=x["adamw_wall_s"],
-                          seconds=x["seconds"]) for x in tr]))
-    if (over or min(control_over) <= 1 or loss_rel > FSDP_LOSS_REL
-            or norm_rel > FSDP_LOSS_REL):
-        failures.append(("train ranks", over[:8], min(control_over),
-                         loss_rel, norm_rel))
-    # (b) serving: the first step's residual stream after each of the
-    # first FSDP_TIGHT_LAYERS pool layers within FSDP_HIDDEN_REL_L2 of the
-    # unsharded run's (the whole depth's reported), each rank's logits a
-    # step within the case's coarse limits of the unsharded run's
-    for arch, case in FSDP_SERVE.items():
-        ref, n = refs[arch], case["steps"]
-        rel_lim, frac_lim = case["limits"]
-        layers = _fsdp_cfg(case).n_layers
-        worst, least, exempt, missing = [0.0, 0, 0.0], [math.inf, math.inf], \
-            [], []
-        depth = [0.0] * len(ref["hidden"])
+        if fsdp:
+            saved = torch.load(grads_path, mmap=True, weights_only=False)
+            ref_loss, paths = saved["loss"], saved["paths"]
+            del saved
+    if fsdp:
+        # (b) training: the loss and the gradient norm within FSDP_LOSS_REL,
+        # each gathered leaf within FSDP_GRAD_REL_L2; the control must miss
+        tr = [r["train"] for r in ranks]
+        errs = [x["grad_rel_l2"] for x in tr]
+        over = [(r, paths[i], e[i]) for r, e in enumerate(errs)
+                for i in range(len(paths)) if e[i] > FSDP_GRAD_REL_L2]
+        control_over = [max(x["control_grad_rel_l2"].values()) / FSDP_GRAD_REL_L2
+                        for x in tr]
+        worst = max(range(len(paths)), key=lambda i: max(e[i] for e in errs))
+        ref_norm = runs["unsharded"]["grad_norm"][0]
+        loss_rel = max(abs(x["loss"] - ref_loss) / abs(ref_loss) for x in tr)
+        norm_rel = max(abs(x["grad_norm"] - ref_norm) / abs(ref_norm) for x in tr)
+        emit(dict(phase="fsdp", run="gloo_4_ranks_train",
+                  config=FSDP_TRAIN["arch"], mesh=list(FSDP_MESH), card=smi,
+                  batch=[FSDP_TRAIN["batch"], FSDP_TRAIN["seq"]],
+                  limits=dict(loss_rel=FSDP_LOSS_REL, grad_norm_rel=FSDP_LOSS_REL,
+                              grad_rel_l2=FSDP_GRAD_REL_L2),
+                  worst_grad_rel_l2=max(e[worst] for e in errs),
+                  worst_leaf=paths[worst],
+                  grad_rel_l2_median=sorted(errs[0])[len(paths) // 2],
+                  leaves_over=over[:8],
+                  control_least_over_limit=min(control_over),
+                  loss_rel=loss_rel, loss=tr[0]["loss"],
+                  grad_norm_rel=norm_rel, grad_norm=tr[0]["grad_norm"],
+                  grad_norm_unsharded=ref_norm,
+                  ranks=[dict(weight_bytes=x["weight_bytes"],
+                              opt_bytes=x["opt_bytes"],
+                              peak_bytes=x["peak_bytes"],
+                              collectives_per_step_grads=x[
+                                  "collectives_per_step_grads"],
+                              grads_wall_s=x["grads_wall_s"],
+                              adamw_wall_s=x["adamw_wall_s"],
+                              seconds=x["seconds"]) for x in tr]))
+        if (over or min(control_over) <= 1 or loss_rel > FSDP_LOSS_REL
+                or norm_rel > FSDP_LOSS_REL):
+            failures.append(("train ranks", over[:8], min(control_over),
+                             loss_rel, norm_rel))
+        # (b) serving: the first step's residual stream after each of the
+        # first FSDP_TIGHT_LAYERS pool layers within FSDP_HIDDEN_REL_L2 of the
+        # unsharded run's (the whole depth's reported), each rank's logits a
+        # step within the case's coarse limits of the unsharded run's
+        for arch, case in FSDP_SERVE.items():
+            ref, n = refs[arch], case["steps"]
+            rel_lim, frac_lim = case["limits"]
+            layers = _fsdp_cfg(case).n_layers
+            worst, least, exempt, missing = [0.0, 0, 0.0], [math.inf, math.inf], \
+                [], []
+            depth = [0.0] * len(ref["hidden"])
 
-        def flips_at(x, step):
-            """The layers whose expert choice differs at ``step``."""
-            if not ref["gates"]:
-                return []
-            return [dict(layer=lyr, gap=float(ref["gates"][
-                step * layers + lyr][1][0]))
-                for lyr in range(layers)
-                if not bool((ref["gates"][step * layers + lyr][0][0]
-                             == x["gates"][step * layers + lyr][0][0]).all())]
-        for r, res in enumerate(ranks):
-            x = res[arch]
-            add(x["launches"])
-            hid = [_rel_l2(g.float(), w.float())
-                   for g, w in zip(x["hidden"], ref["hidden"])]
-            depth = [max(a, b) for a, b in zip(depth, hid)]
-            if max(hid[:FSDP_TIGHT_LAYERS]) > FSDP_HIDDEN_REL_L2:
-                flips = [f for f in flips_at(x, 0)
-                         if f["layer"] < FSDP_TIGHT_LAYERS]
-                if flips and all(f["gap"] < TP_GATE_TIE for f in flips):
-                    exempt.append(dict(rank=r, step=0, hidden=hid[:2],
-                                       flips=flips))
-                else:
-                    failures.append((arch, r, "hidden",
-                                     hid[:FSDP_TIGHT_LAYERS]))
-            for step, got in enumerate(x["logits"]):
-                V = got.shape[-1]
-                err, n_out, top = _tp_near(got[0], ref["logits"][step][0])
-                ok = err <= rel_lim and n_out <= frac_lim * V
-                flips = [] if ok else flips_at(x, step)
-                if not ok and flips and all(f["gap"] < TP_GATE_TIE
-                                            for f in flips):
-                    exempt.append(dict(rank=r, step=step, rel_l2=err,
-                                       flips=flips))
-                    continue
-                worst = [max(worst[0], err), max(worst[1], n_out),
-                         max(worst[2], top)]
-                if not ok:
-                    failures.append((arch, r, step, err, n_out, flips))
-            c = x["control"][0]
-            err, n_out, _ = _tp_near(c, ref["logits"][n][0])
-            least = [min(least[0], err), min(least[1], n_out)]
-            if not (err > rel_lim and n_out > frac_lim * c.shape[-1]):
-                failures.append((arch, r, "control within the limits"))
-            if not _state_equal(torch, x["hot"], ref["hot"]):
-                failures.append((arch, r, "hot tier"))
-            path = ("indexer_scores", "gather_kv.shard",
-                    SERVES[arch]["attn"], "scatter_kv.rows_at_shard")
-            missing += [(r, k) for k in path
-                        if TP_DEV == "cuda" and not x["launches"].get(k)]
-        x0 = ranks[0][arch]
-        emit(dict(phase="fsdp", run="gloo_4_ranks_serve", config=arch,
-                  mesh=list(FSDP_MESH), card=smi, seq=case["seq"],
-                  decode_steps=n, limits=dict(
-                      rel_l2=rel_lim, bf16_tol=TP_BF16_TOL,
-                      miss_frac=frac_lim, hidden_rel_l2=FSDP_HIDDEN_REL_L2,
-                      hidden_layers=FSDP_TIGHT_LAYERS),
-                  hidden_rel_l2_by_layer=depth,
-                  worst_rel_l2=worst[0], worst_logits_outside=worst[1],
-                  worst_ratio=worst[2],
-                  control_least_rel_l2=least[0],
-                  control_least_logits_outside=least[1],
-                  exempt_routing_flips=exempt, kernels_missing=missing,
-                  ranks=[dict(weight_bytes=res[arch]["weight_bytes"],
-                              pool_bytes=res[arch]["pool_bytes"],
-                              peak_bytes=res[arch]["peak_bytes"],
-                              collectives_per_step=res[arch][
-                                  "collectives_per_step"],
-                              wall_s_per_step=res[arch]["wall_s"],
-                              seconds=res[arch]["seconds"])
-                         for res in ranks],
-                  rank0_launches=x0["launches"],
-                  rank0_profile=_prof_summary(x0["profile"])))
-        if missing:
-            failures.append((arch, "kernels", missing))
-        if len({(e["step"]) for e in exempt}) > n // 2:
-            failures.append((arch, "routing flips", exempt))
+            def flips_at(x, step):
+                """The layers whose expert choice differs at ``step``."""
+                if not ref["gates"]:
+                    return []
+                return [dict(layer=lyr, gap=float(ref["gates"][
+                    step * layers + lyr][1][0]))
+                    for lyr in range(layers)
+                    if not bool((ref["gates"][step * layers + lyr][0][0]
+                                 == x["gates"][step * layers + lyr][0][0]).all())]
+            for r, res in enumerate(ranks):
+                x = res[arch]
+                add(x["launches"])
+                hid = [_rel_l2(g.float(), w.float())
+                       for g, w in zip(x["hidden"], ref["hidden"])]
+                depth = [max(a, b) for a, b in zip(depth, hid)]
+                if max(hid[:FSDP_TIGHT_LAYERS]) > FSDP_HIDDEN_REL_L2:
+                    flips = [f for f in flips_at(x, 0)
+                             if f["layer"] < FSDP_TIGHT_LAYERS]
+                    if flips and all(f["gap"] < TP_GATE_TIE for f in flips):
+                        exempt.append(dict(rank=r, step=0, hidden=hid[:2],
+                                           flips=flips))
+                    else:
+                        failures.append((arch, r, "hidden",
+                                         hid[:FSDP_TIGHT_LAYERS]))
+                for step, got in enumerate(x["logits"]):
+                    V = got.shape[-1]
+                    err, n_out, top = _tp_near(got[0], ref["logits"][step][0])
+                    ok = err <= rel_lim and n_out <= frac_lim * V
+                    flips = [] if ok else flips_at(x, step)
+                    if not ok and flips and all(f["gap"] < TP_GATE_TIE
+                                                for f in flips):
+                        exempt.append(dict(rank=r, step=step, rel_l2=err,
+                                           flips=flips))
+                        continue
+                    worst = [max(worst[0], err), max(worst[1], n_out),
+                             max(worst[2], top)]
+                    if not ok:
+                        failures.append((arch, r, step, err, n_out, flips))
+                c = x["control"][0]
+                err, n_out, _ = _tp_near(c, ref["logits"][n][0])
+                least = [min(least[0], err), min(least[1], n_out)]
+                if not (err > rel_lim and n_out > frac_lim * c.shape[-1]):
+                    failures.append((arch, r, "control within the limits"))
+                if not _state_equal(torch, x["hot"], ref["hot"]):
+                    failures.append((arch, r, "hot tier"))
+                path = ("indexer_scores", "gather_kv.shard",
+                        SERVES[arch]["attn"], "scatter_kv.rows_at_shard")
+                missing += [(r, k) for k in path
+                            if TP_DEV == "cuda" and not x["launches"].get(k)]
+            x0 = ranks[0][arch]
+            emit(dict(phase="fsdp", run="gloo_4_ranks_serve", config=arch,
+                      mesh=list(FSDP_MESH), card=smi, seq=case["seq"],
+                      decode_steps=n, limits=dict(
+                          rel_l2=rel_lim, bf16_tol=TP_BF16_TOL,
+                          miss_frac=frac_lim, hidden_rel_l2=FSDP_HIDDEN_REL_L2,
+                          hidden_layers=FSDP_TIGHT_LAYERS),
+                      hidden_rel_l2_by_layer=depth,
+                      worst_rel_l2=worst[0], worst_logits_outside=worst[1],
+                      worst_ratio=worst[2],
+                      control_least_rel_l2=least[0],
+                      control_least_logits_outside=least[1],
+                      exempt_routing_flips=exempt, kernels_missing=missing,
+                      ranks=[dict(weight_bytes=res[arch]["weight_bytes"],
+                                  pool_bytes=res[arch]["pool_bytes"],
+                                  peak_bytes=res[arch]["peak_bytes"],
+                                  collectives_per_step=res[arch][
+                                      "collectives_per_step"],
+                                  wall_s_per_step=res[arch]["wall_s"],
+                                  seconds=res[arch]["seconds"])
+                             for res in ranks],
+                      rank0_launches=x0["launches"],
+                      rank0_profile=_prof_summary(x0["profile"])))
+            if missing:
+                failures.append((arch, "kernels", missing))
+            if len({(e["step"]) for e in exempt}) > n // 2:
+                failures.append((arch, "routing flips", exempt))
+    if families:
+        failures += _fam_check(ranks, smi) + _fam_check_train(
+            ranks, fam_train_loss, smi)
+        for r in ranks:
+            for key, x in r["families"].items():
+                add(x.get("launches", {}))
     emit(dict(phase="fsdp_total", launches=totals, ranks_seconds=ranks_s,
+              fsdp=fsdp, families=families,
+              families_references_seconds=fam_ref_s if families else None,
               seconds=time.perf_counter() - t0))
     if failures:
         raise AssertionError(f"fsdp: {failures[:12]}")
     return totals
+
+
+# ---------------------------------------------------------------------------
+# phase 21: tensor parallelism of the recurrent and encoder-decoder families
+# ---------------------------------------------------------------------------
+
+# (b)'s cases, at full width: Zamba2-7B at 2 super-blocks plus its 3-layer
+# tail (15 Mamba2 layers, 2 calls of the shared block), 4 requests of 254
+# tokens (one SSD chunk) in a pool of 256 rows; xLSTM-125M whole, 4
+# requests of 64 tokens; Whisper-small whole, 4 requests of 4,096 frames.
+# Each is prefilled, then decoded ``steps`` steps on the unsharded run's
+# greedy tokens, by the parent (unsharded, all lanes) and by each of four
+# gloo ranks at every mesh of FAM_MESHES (its lanes).  The training step
+# (``FAM_TRAIN``): one step's gradients at (2, 2) against the unsharded
+# step's.  (a) rides on phase 16: Zamba2-7B's and Whisper-small's
+# unsharded and sharded runs there get a third run, the sharded model
+# under SERVE_RULES at its NCCL world of one, and in that world
+# xLSTM-125M prefills FAM_XLSTM's requests and decodes, and one
+# TRAIN_RULES step of xLSTM-125M and of the 15-layer Zamba2-7B runs,
+# each beside the unsharded run
+FAM_CASES = {
+    "zamba2-7b": dict(arch="zamba2-7b", n_layers=15, requests=4,
+                      context=254, steps=2),
+    "xlstm-125m": dict(arch="xlstm-125m", n_layers=None, requests=4,
+                       context=64, steps=2),
+    "whisper-small": dict(arch="whisper-small", n_layers=None, requests=4,
+                          context=4096, steps=2),
+}
+# (b)'s Zamba2-7B step runs in f32 (every weight and activation) and
+# without activation checkpointing: 15 random Mamba2 layers carry bf16's
+# rounding into every gradient leaf (the bf16 step's median leaf is
+# 66 % from the unsharded bf16 step, its control 99 %: PERF.md §6),
+# and the recompute's row gathers would double its gloo traffic; (a)
+# holds its bf16 step with checkpointing bit for bit at one rank
+FAM_TRAIN = {
+    "zamba2-7b": dict(arch="zamba2-7b", n_layers=15, batch=4, seq=128,
+                      f32=True),
+    "xlstm-125m": dict(arch="xlstm-125m", n_layers=None, batch=4, seq=64),
+    "whisper-small": dict(arch="whisper-small", n_layers=None, batch=4,
+                          seq=64, frames=512),
+}
+FAM_XLSTM = dict(requests=4, context=2048, steps=4)
+FAM_MESHES = ((2, 2), (1, 4))
+# (b)'s limits.  Tight, fixed (FAM_HIDDEN_REL_L2, relative L2): the
+# residual stream at the input of the first FAM_TIGHT layer norms (the
+# embedding's output and the first two layers') of the prefill, and of
+# the first decode step up to its first read of the pool, which carries
+# the whole prefill's depth (``first``: Whisper-small's decoder layer 0
+# reads its cross pool, made by the 12-layer encoder, after its
+# self-attention); the training step's loss (``loss``).  Coarse, set
+# once from recorded readings (PERF.md §6), each case's logits a
+# lane, relative L2: the first logits (the prefill's; Whisper-small's
+# first step's) and each later step's (``logits``), and each gradient
+# leaf of the training step (``grads``)
+FAM_TIGHT, FAM_HIDDEN_REL_L2 = 3, 1e-2
+FAM_LIMITS = {"zamba2-7b": dict(first=3, logits=(0.4, 1.2), loss=1e-4,
+                                grads=1e-2),
+              "xlstm-125m": dict(first=3, logits=(0.06, 0.06), loss=1e-3,
+                                 grads=0.25),
+              "whisper-small": dict(first=2, logits=(0.07, 0.07), loss=1e-3,
+                                    grads=0.25)}
+# CHIP_SMOKE_FAM_SPREAD=1: the references also report the unsharded
+# runs' own spread under another rounding (the (2, 2) ranks' lane halves
+# served alone; the training step in two microbatches), the readings the
+# coarse limits are set against
+FAM_SPREAD = os.environ.get("CHIP_SMOKE_FAM_SPREAD") == "1"
+# the reduced configs at small sizes: the CPU rehearsal
+FAM_SMALL = TP_DEV == "cpu"
+if FAM_SMALL:
+    FAM_CASES = {k: dict(v, context=30 if k == "zamba2-7b" else 32)
+                 for k, v in FAM_CASES.items()}
+    FAM_TRAIN = {k: dict(v, seq=16, frames=32) for k, v in FAM_TRAIN.items()}
+    FAM_XLSTM = dict(requests=4, context=32, steps=2)
+
+
+def _fam_cfg(case):
+    """A case's config: its depth; at FAM_SMALL reduced, the indexer 32
+    dims wide (the kernel's widths)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(case["arch"])
+    if FAM_SMALL:
+        cfg = cfg.reduced()
+        return dataclasses.replace(cfg, sac=dataclasses.replace(
+            cfg.sac, d_idx=32))
+    if case["n_layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=case["n_layers"])
+    return cfg
+
+
+def _fam_topk(scores, cache_len):
+    return _small_topk(scores, cache_len, 16 if FAM_SMALL else 2048)
+
+
+def _fam_model(cfg, mesh=None):
+    from repro_torch.core.pool import make_pooled_fetch
+    from repro_torch.models.model import build_model
+    fetch = ({} if mesh is None or not cfg.has_attention
+             else dict(fetch_fn=make_pooled_fetch(mesh)))
+    return build_model(cfg, topk_fn=_fam_topk, device=TP_DEV, **fetch)
+
+
+def _fam_inputs(torch, cfg, case):
+    """The case's prompts [R, context + steps] (the decode's room; each
+    lane's length ``context``) or frames [R, context, D], from a seeded
+    generator, on the host."""
+    g = torch.Generator().manual_seed(0)
+    R, T = case["requests"], case["context"]
+    if cfg.enc_dec:
+        return torch.randn((R, T, cfg.d_model), generator=g).bfloat16()
+    return torch.randint(0, cfg.vocab, (R, T + case["steps"]), generator=g,
+                         dtype=torch.int32)
+
+
+@contextlib.contextmanager
+def _fam_residuals(into: list):
+    """While open, the input of every residual-stream norm
+    (``transformer.rms_norm``, ``encdec.rms_norm``: each layer's input,
+    and the final norm's) is copied to the host onto ``into`` (bf16, as
+    the stream is: no bit is lost)."""
+    from repro_torch.models import encdec, transformer
+    plain = transformer.rms_norm
+
+    def recorded(x, gamma, *a):
+        into.append(x.detach().cpu())
+        return plain(x, gamma, *a)
+    transformer.rms_norm = encdec.rms_norm = recorded
+    try:
+        yield into
+    finally:
+        transformer.rms_norm = encdec.rms_norm = plain
+
+
+def _fam_serve(torch, m, params, case, inp, lanes, mesh=None, fed=None,
+               steps=None):
+    """Prefill ``inp``'s ``lanes`` (the pool cut to the rank's slice
+    with ``mesh``), then ``steps`` (by default the case's) decode steps,
+    fed ``fed``'s tokens or greedy: the residual records of the prefill
+    and of the first decode step, the logits (the prefill's, but for the
+    encoder-decoder, whose prefill makes none, then each step's) and
+    each step's token on the host, wall s a step."""
+    from repro_torch.distributed.sharding import shard_serve_state
+    cfg = m.cfg
+    x = inp[lanes].to(TP_DEV)
+    R, T = x.shape[0], case["context"]
+    pre, first, logits, toks, wall = [], [], [], [], []
+    with _fam_residuals(pre):
+        if cfg.enc_dec:
+            st, _ = m.prefill(params, x)
+            tok = torch.zeros((R,), dtype=torch.int32, device=TP_DEV)
+        else:
+            st, lg = m.prefill(params, x, torch.full((R,), T,
+                                                     dtype=torch.int32,
+                                                     device=TP_DEV))
+            tok = lg.argmax(-1).to(torch.int32)
+            logits.append(lg.float().cpu())
+    if mesh is not None and cfg.has_attention:
+        st = shard_serve_state(st, mesh)
+    for i in range(case["steps"] if steps is None else steps):
+        if fed is not None:
+            tok = fed[i][lanes].to(TP_DEV)
+        ctx = (_fam_residuals(first) if i == 0
+               else contextlib.nullcontext())
+        _tp_sync(torch)
+        t1 = time.perf_counter()
+        with ctx:
+            st, lg = m.decode(params, st, tok)
+        _tp_sync(torch)
+        wall.append(time.perf_counter() - t1)
+        toks.append(tok.cpu())
+        logits.append(lg.float().cpu())
+        tok = lg.argmax(-1).to(torch.int32)
+    return dict(prefill=pre, first=first, logits=logits, tokens=toks,
+                wall_s=wall, state=st)
+
+
+def _fam_errors(run, ref, lanes) -> dict:
+    """A run's distances from the reference run of its lanes: relative L2
+    of each residual record (prefill, first step) and of each lane's
+    logits (the first logits, then each later step's)."""
+    return dict(
+        prefill=[_rel_l2(g.float(), w[lanes].float())
+                 for g, w in zip(run["prefill"], ref["prefill"])],
+        first=[_rel_l2(g.float(), w[lanes].float())
+               for g, w in zip(run["first"], ref["first"])],
+        logits=[[_rel_l2(g[b], w[lanes][b]) for b in range(g.shape[0])]
+                for g, w in zip(run["logits"], ref["logits"])])
+
+
+def _fam_batch(torch, cfg, case, lanes=slice(None)):
+    g = torch.Generator().manual_seed(1)
+    t = torch.randint(0, cfg.vocab, (case["batch"], case["seq"] + 1),
+                      generator=g, dtype=torch.int32)[lanes]
+    out = {"tokens": t[:, :-1].to(TP_DEV), "labels": t[:, 1:].to(TP_DEV)}
+    if cfg.enc_dec:
+        out["frames"] = torch.randn(
+            (case["batch"], case["frames"], cfg.d_model),
+            generator=g)[lanes].bfloat16().to(TP_DEV)
+    return out
+
+
+@contextlib.contextmanager
+def _fam_precision(torch, case):
+    """A training case's precision: with ``f32`` the models' activations
+    in f32 (the embedding's and the frames' cast)."""
+    from repro_torch.models import encdec, transformer
+    if not case.get("f32"):
+        yield
+        return
+    dtype = transformer.DTYPE
+    transformer.DTYPE = encdec.DTYPE = torch.float32
+    try:
+        yield
+    finally:
+        transformer.DTYPE = encdec.DTYPE = dtype
+
+
+def _fam_train_model(torch, case, params):
+    """(model, params) of a training case: the bf16 default, or with
+    ``f32`` f32 weights and no activation checkpointing."""
+    from repro_torch.models.model import build_model
+    from repro_torch.training.optimizer import tree_map
+    f32 = bool(case.get("f32"))
+    m = build_model(_fam_cfg(case), remat=not f32, device=TP_DEV)
+    if params is None:
+        params = m.init(torch.Generator(device=TP_DEV).manual_seed(0))
+    return m, (tree_map(lambda t: t.float(), params) if f32 else params)
+
+
+def _fam_zero_w_out(tree, key: str, restore=None):
+    """Zero every ``key`` leaf of ``tree`` in place (the control), keeping
+    copies; with ``restore`` (those copies) put them back."""
+    kept = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                if k == key and not isinstance(v, (dict, list)):
+                    if restore is None:
+                        kept.append(v.clone())
+                        v.zero_()
+                    else:
+                        v.copy_(restore.pop(0))
+                else:
+                    walk(v)
+        elif isinstance(t, list):
+            for v in t:
+                walk(v)
+    walk(tree)
+    return kept
+
+
+def _fam_w_out_key(cfg) -> str:
+    return "wo" if cfg.enc_dec else "w_out"
+
+
+def _fam_references(torch, ops, path):
+    """Phase 21 (b)'s references, made by the parent before the ranks
+    start: each case's unsharded run of all its lanes and each training
+    step's loss and gradients, saved on the host at ``path``; with
+    FAM_SPREAD, each one's spread under another rounding, emitted."""
+    from repro_torch.models.model import build_model
+    from repro_torch.training.train_loop import make_grad_fn, make_step_grads
+    out = {}
+    for arch, case in FAM_CASES.items():
+        cfg = _fam_cfg(case)
+        m = _fam_model(cfg)
+        params = m.init(torch.Generator(device=TP_DEV).manual_seed(0))
+        inp = _fam_inputs(torch, cfg, case)
+        ops.reset_launch_counts()
+        run = _fam_serve(torch, m, params, case, inp, slice(None))
+        del run["state"]
+        run.update(inputs=inp, launches=ops.launch_counts())
+        out[arch] = run
+        if FAM_SPREAD:
+            half = case["requests"] // 2
+            errs = [_fam_errors(_fam_serve(torch, m, params, case, inp, lanes,
+                                           fed=run["tokens"]), run, lanes)
+                    for lanes in (slice(0, half), slice(half, None))]
+            emit(dict(phase="families_tp", run="unsharded_spread",
+                      config=arch, what="lane halves served alone",
+                      **_fam_summary(errs)))
+        del m, params
+        gc.collect()
+        if TP_DEV == "cuda":
+            torch.cuda.empty_cache()
+    for arch, case in FAM_TRAIN.items():
+        cfg = _fam_cfg(case)
+        m, params = _fam_train_model(torch, case, None)
+        batch = _fam_batch(torch, cfg, case)
+        with _fam_precision(torch, case):
+            metrics, grads = make_grad_fn(m)(params, batch)
+        ref = dict(loss=float(metrics["loss"]), paths=_tree_paths(grads),
+                   grads=[g.cpu() for g in _tree_tensors(grads)])
+        out["train", arch] = ref
+        if FAM_SPREAD:
+            with _fam_precision(torch, case):
+                met2, g2 = make_step_grads(m, 2)(params, batch)
+            errs = [_rel_l2(a.float(), w.float().to(a.device))
+                    for a, w in zip(_tree_tensors(g2), ref["grads"])
+                    if bool(w.any())]
+            emit(dict(phase="families_tp", run="unsharded_spread",
+                      config=arch, what="training step in two microbatches",
+                      loss_rel=abs(float(met2["loss"]) - ref["loss"])
+                      / abs(ref["loss"]), worst_grad_rel_l2=max(errs),
+                      grad_rel_l2_median=sorted(errs)[len(errs) // 2]))
+            del g2
+        del m, params, grads
+        gc.collect()
+        if TP_DEV == "cuda":
+            torch.cuda.empty_cache()
+    torch.save(out, path)
+
+
+def _fam_summary(errs: list) -> dict:
+    """The worst of several runs' ``_fam_errors``: each residual record's,
+    and the logits' by step."""
+    def worst(key):
+        return [max(e[key][i] for e in errs)
+                for i in range(len(errs[0][key]))]
+    return dict(hidden_prefill=worst("prefill"),
+                hidden_first_step=worst("first"),
+                logits_rel_l2_by_step=[max(max(e["logits"][i]) for e in errs)
+                                       for i in range(len(errs[0]["logits"]))])
+
+
+def _fam_rank_serve(torch, dist, ops, mesh, case, ref):
+    """Phase 21 (b), serving, on one rank: its blocks under SERVE_RULES
+    (drawn leaf by leaf from the parent's seed), its lanes, the case's
+    run fed the unsharded run's tokens, then the control (model rank 1's
+    ``w_out`` blocks zeroed; Whisper's attention ``wo``); each against
+    the reference's records and logits of its lanes."""
+    from repro_torch.distributed import sharding as shd
+    cfg = _fam_cfg(case)
+    nd, d = mesh.size(0), mesh.get_local_rank("data")
+    R = case["requests"]
+    lanes = slice(d * R // nd, (d + 1) * R // nd)
+    m = _fam_model(cfg, mesh)
+    if TP_DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with shd.use_rules(shd.SERVE_RULES, mesh):
+        params = shd.init_shards(m.specs, torch.Generator(
+            device=TP_DEV).manual_seed(0), TP_DEV)
+        weight_bytes = sum(t.numel() * t.element_size()
+                           for t in _tree_tensors(params))
+        ops.reset_launch_counts()
+        with _CollectiveKinds() as kinds:
+            run = _fam_serve(torch, m, params, case, ref["inputs"], lanes,
+                             mesh, fed=ref["tokens"])
+        launches = ops.launch_counts()
+        ctrl = None
+        if mesh.size(0) == FAM_MESHES[0][0]:   # the control, at (2, 2)
+            key = _fam_w_out_key(cfg)
+            kept = (_fam_zero_w_out(params, key)
+                    if mesh.get_local_rank("model") == 1 else None)
+            ctrl = _fam_errors(_fam_serve(
+                torch, m, params, case, ref["inputs"], lanes, mesh,
+                fed=ref["tokens"], steps=1 if cfg.enc_dec else 0), ref,
+                lanes)
+            if kept is not None:
+                _fam_zero_w_out(params, key, kept)
+    return dict(errors=_fam_errors(run, ref, lanes), control=ctrl,
+                launches=launches,
+                collectives_per_run=kinds.counts, wall_s=run["wall_s"],
+                weight_bytes=weight_bytes, peak_bytes=_tp_peak(torch))
+
+
+def _fam_rank_train(torch, mesh, case, ref):
+    """Phase 21 (b), training, on one rank at (2, 2): one step's gradients
+    under TRAIN_RULES, each leaf's relative L2 from the unsharded step's
+    (on the ranks' blocks: nothing gathered); the control, before the
+    batch-axis sums."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.model import build_model
+    from repro_torch.training import train_loop
+    cfg = _fam_cfg(case)
+    m = build_model(cfg, device=TP_DEV)
+    nd, d = mesh.size(0), mesh.get_local_rank("data")
+    rows = case["batch"] // nd
+    batch = _fam_batch(torch, cfg, case, slice(d * rows, (d + 1) * rows))
+    with shd.use_rules(shd.TRAIN_RULES, mesh), _fam_precision(torch, case):
+        m, params = _fam_train_model(torch, case, shd.init_shards(
+            m.specs, torch.Generator(device=TP_DEV).manual_seed(0), TP_DEV))
+        kept, reduce = {}, train_loop.reduce_grads
+
+        def keep_local(grads, specs, plan):
+            kept["local"] = grads
+            return reduce(grads, specs, plan)
+        train_loop.reduce_grads = keep_local
+        try:
+            with _CollectiveKinds() as kinds:
+                _tp_sync(torch)
+                t1 = time.perf_counter()
+                metrics, grads = train_loop.make_step_grads(m)(params, batch)
+                _tp_sync(torch)
+                wall = time.perf_counter() - t1
+        finally:
+            train_loop.reduce_grads = reduce
+        specs = _tree_tensors(m.specs)
+        plan = train_loop.plan_of(m)
+
+        def errors(tree, leaves):
+            """Each leaf's relative L2 from the reference's, from the
+            rank's block alone: the squared sums of its difference from
+            the reference's block and of that block, summed over the mesh
+            with one replica of each block (``block_sums``)."""
+            got, diff, norm = _tree_tensors(tree), [], []
+            for i in leaves:
+                w = shd._cut(ref["grads"][i], shd.spec_for(
+                    specs[i].dims, specs[i].shape), mesh).to(TP_DEV).float()
+                diff.append((got[i].float() - w).square().sum())
+                norm.append(w.square().sum())
+            sums = plan.block_sums(torch.stack(diff + norm), [
+                (specs[i].dims, specs[i].shape) for i in leaves] * 2)
+            n = len(leaves)
+            return [float((sums[k] / sums[n + k]).sqrt()) for k in range(n)]
+        live = [i for i, g in enumerate(ref["grads"]) if bool(g.any())]
+        grad_rel = errors(grads, live)
+        summed = [i for i in live
+                  if plan.grad_sum_axes(specs[i].dims, specs[i].shape)]
+        control = errors(kept.pop("local"), summed)
+    return dict(loss=float(metrics["loss"]), grad_rel_l2=grad_rel,
+                leaves=[ref["paths"][i] for i in live],
+                control_grad_rel_l2=control, grads_wall_s=wall,
+                collectives=kinds.counts, peak_bytes=_tp_peak(torch))
+
+
+def _fam_rank(torch, dist, ops, rank, world, path):
+    """Phase 21 (b) on one rank of phase 20's spawned world: every case at
+    each mesh of FAM_MESHES (two meshes over the same four ranks), then
+    each training step at (2, 2)."""
+    from repro_torch.launch.mesh import make_mesh
+    ref = torch.load(path, mmap=True, weights_only=False)
+    out = {}
+    meshes = {s: make_mesh(s, ("data", "model"), device=TP_DEV)
+              for s in FAM_MESHES}
+    for shape, mesh in meshes.items():
+        for arch, case in FAM_CASES.items():
+            t0 = time.perf_counter()
+            out[shape, arch] = _fam_rank_serve(torch, dist, ops, mesh, case,
+                                               ref[arch])
+            out[shape, arch]["seconds"] = time.perf_counter() - t0
+            gc.collect()
+            if TP_DEV == "cuda":
+                torch.cuda.empty_cache()
+            dist.barrier()
+    for arch, case in FAM_TRAIN.items():
+        t0 = time.perf_counter()
+        out["train", arch] = _fam_rank_train(torch, meshes[(2, 2)], case,
+                                             ref["train", arch])
+        out["train", arch]["seconds"] = time.perf_counter() - t0
+        gc.collect()
+        if TP_DEV == "cuda":
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def _fam_check(ranks, smi: str) -> list:
+    """Phase 21 (b)'s serving limits over the ranks' results: records,
+    and the failures."""
+    failures = []
+    for shape in FAM_MESHES:
+        for arch, case in FAM_CASES.items():
+            lim = FAM_LIMITS[arch]
+            xs = [r["families"][shape, arch] for r in ranks]
+            cfg = _fam_cfg(case)
+            if cfg.has_attention and TP_DEV == "cuda":
+                # every pool layer of every step through the four kernels
+                L, n = _fam_model(cfg).n_kv, case["steps"]
+                write = ("scatter_kv.rows_at" if cfg.enc_dec
+                         else "scatter_kv.rows_at_shard")
+                want = {"indexer_scores": L * n, "gather_kv.shard": L * n,
+                        "sparse_attn_gqa": (2 if cfg.enc_dec else 1) * L * n,
+                        write: n, "scatter_kv.splice_shard": 1}
+                bad = [(r, k, x["launches"][k]) for r, x in enumerate(xs)
+                       for k, v in want.items() if x["launches"][k] != v]
+                if bad:
+                    failures.append((arch, shape, "launches", bad[:4]))
+            run = _fam_summary([x["errors"] for x in xs])
+            ctrls = [x["control"] for x in xs if x["control"] is not None]
+            least = ([min(max(c["prefill"][1:FAM_TIGHT]) for c in ctrls),
+                      min(min(c["logits"][0]) for c in ctrls)] if ctrls
+                     else [None, None])
+            tight = max(run["hidden_prefill"][:FAM_TIGHT]
+                        + run["hidden_first_step"][:lim["first"]])
+            logit_lims = [lim["logits"][min(i, 1)]
+                          for i in range(len(run["logits_rel_l2_by_step"]))]
+            emit(dict(phase="families_tp", run="gloo_4_ranks_serve",
+                      config=arch, mesh=list(shape), card=smi,
+                      requests=case["requests"], context=case["context"],
+                      decode_steps=case["steps"],
+                      limits=dict(hidden_rel_l2=FAM_HIDDEN_REL_L2,
+                                  hidden_prefill_records=FAM_TIGHT,
+                                  hidden_first_step_records=lim["first"],
+                                  logits_rel_l2=list(lim["logits"])),
+                      worst_tight_rel_l2=tight, **run,
+                      control_least_tight_rel_l2=least[0],
+                      control_least_first_logits_rel_l2=least[1],
+                      ranks=[dict(weight_bytes=x["weight_bytes"],
+                                  peak_bytes=x["peak_bytes"],
+                                  collectives_per_run=x[
+                                      "collectives_per_run"],
+                                  launches=x["launches"],
+                                  wall_s_per_step=x["wall_s"],
+                                  seconds=x["seconds"]) for x in xs]))
+            if not (tight <= FAM_HIDDEN_REL_L2 and all(
+                    e <= w for e, w in zip(run["logits_rel_l2_by_step"],
+                                           logit_lims))):
+                failures.append((arch, shape, "limits", tight,
+                                 run["logits_rel_l2_by_step"]))
+            if ctrls and not (least[0] > FAM_HIDDEN_REL_L2
+                              and least[1] > lim["logits"][0]):
+                failures.append((arch, shape, "control within", least))
+    return failures
+
+
+def _fam_check_train(ranks, refs_train, smi: str) -> list:
+    failures = []
+    for arch in FAM_TRAIN:
+        lim, loss_lim = FAM_LIMITS[arch]["grads"], FAM_LIMITS[arch]["loss"]
+        xs = [r["families"]["train", arch] for r in ranks]
+        ref_loss = refs_train[arch]
+        loss_rel = max(abs(x["loss"] - ref_loss) / abs(ref_loss) for x in xs)
+        errs = [max(x["grad_rel_l2"]) for x in xs]
+        worst = max(range(len(xs[0]["leaves"])),
+                    key=lambda i: max(x["grad_rel_l2"][i] for x in xs))
+        ctrl = min(max(x["control_grad_rel_l2"]) for x in xs)
+        emit(dict(phase="families_tp", run="gloo_4_ranks_train",
+                  config=arch, mesh=[2, 2], card=smi,
+                  batch=[FAM_TRAIN[arch]["batch"], FAM_TRAIN[arch]["seq"]],
+                  limits=dict(loss_rel=loss_lim, grad_rel_l2=lim),
+                  loss_rel=loss_rel, worst_grad_rel_l2=max(errs),
+                  worst_leaf=xs[0]["leaves"][worst],
+                  grad_rel_l2_median=sorted(xs[0]["grad_rel_l2"])[
+                      len(xs[0]["grad_rel_l2"]) // 2],
+                  control_least_worst=ctrl,
+                  ranks=[dict(peak_bytes=x["peak_bytes"],
+                              collectives=x["collectives"],
+                              grads_wall_s=x["grads_wall_s"],
+                              seconds=x["seconds"]) for x in xs]))
+        if not (loss_rel <= loss_lim and max(errs) <= lim):
+            failures.append((arch, "train", loss_rel, max(errs)))
+        if not ctrl > lim:
+            failures.append((arch, "train control within", ctrl))
+    return failures
+
+
+def families_world_of_one(torch, ops, mesh) -> dict:
+    """Phase 21 (a) beyond phase 16's third runs, at the NCCL world of one
+    of ``mesh`` (1, 1): xLSTM-125M at full width and depth, FAM_XLSTM's
+    requests prefilled and decoded under SERVE_RULES beside the unsharded
+    model (logits and ``rec_*`` bit-equal, no kernel launched); one
+    TRAIN_RULES step of xLSTM-125M and of Zamba2-7B (15 layers) beside the
+    unsharded step (loss, gradient norm, parameters and AdamW moments
+    bit-equal).  Returns the launches."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.model import build_model
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.train_loop import make_train_step
+    t0 = time.perf_counter()
+    case = dict(FAM_CASES["xlstm-125m"], **FAM_XLSTM)
+    cfg = _fam_cfg(case)
+    m = _fam_model(cfg)
+    params = m.init(torch.Generator(device=TP_DEV).manual_seed(0))
+    inp = _fam_inputs(torch, cfg, case)
+    ops.reset_launch_counts()
+    runs = {}
+    for key, ctx in (("unsharded", contextlib.nullcontext()),
+                     ("tp", shd.use_rules(shd.SERVE_RULES, mesh))):
+        with ctx:
+            runs[key] = _fam_serve(
+                torch, m, params, case, inp, slice(None),
+                fed=runs["unsharded"]["tokens"] if runs else None)
+        st = runs[key].pop("state")
+        runs[key]["rec"] = _bit_sums(torch, [st[k] for k in sorted(st)
+                                             if k.startswith("rec_")])
+        del st
+    launches = ops.launch_counts()
+    equal = dict(logits=all(torch.equal(a, b) for a, b in zip(
+        runs["tp"]["logits"], runs["unsharded"]["logits"])),
+        rec=runs["tp"]["rec"] == runs["unsharded"]["rec"])
+    emit(dict(phase="families_tp", run="nccl_world_1_xlstm",
+              config=f"{cfg.name} (n_layers={cfg.n_layers})",
+              requests=case["requests"], context=case["context"],
+              decode_steps=case["steps"], equal_unsharded=equal,
+              launches=launches,
+              wall_s_per_decode_step_median=_median(runs["tp"]["wall_s"]),
+              wall_s_per_decode_step_median_unsharded=_median(
+                  runs["unsharded"]["wall_s"]),
+              seconds=time.perf_counter() - t0))
+    failures = [] if all(equal.values()) else [("xlstm serve", equal)]
+    if any(launches.values()):
+        failures.append(("xlstm launched", launches))
+    del m, params
+    for arch in ("xlstm-125m", "zamba2-7b"):
+        t1 = time.perf_counter()
+        tcase = FAM_TRAIN[arch]
+        cfg = _fam_cfg(tcase)
+        out = {}
+        for key in ("unsharded", "tp"):
+            m = build_model(cfg, device=TP_DEV)
+            gen = torch.Generator(device=TP_DEV).manual_seed(0)
+            ctx = (shd.use_rules(shd.TRAIN_RULES, mesh) if key == "tp"
+                   else contextlib.nullcontext())
+            with ctx:
+                params = (shd.init_shards(m.specs, gen, TP_DEV)
+                          if key == "tp" else m.init(gen))
+                step = make_train_step(m, OptConfig(warmup_steps=1,
+                                                    total_steps=100))
+                opt = init_opt_state(params)
+                _tp_sync(torch)
+                t2 = time.perf_counter()
+                params, opt, met = step(params, opt,
+                                        _fam_batch(torch, cfg, tcase))
+                _tp_sync(torch)
+                out[key] = dict(loss=float(met["loss"]),
+                                grad_norm=float(met["grad_norm"]),
+                                wall_s=time.perf_counter() - t2,
+                                sums=_bit_sums(torch, [params, opt["m"],
+                                                       opt["v"]]))
+            del m, params, opt
+            gc.collect()
+            if TP_DEV == "cuda":
+                torch.cuda.empty_cache()
+        u, w = out["unsharded"], out["tp"]
+        equal = {k: u[k] == w[k] for k in ("loss", "grad_norm", "sums")}
+        equal["finite"] = math.isfinite(u["grad_norm"])
+        emit(dict(phase="families_tp", run="nccl_world_1_train",
+                  config=f"{cfg.name} (n_layers={cfg.n_layers})",
+                  batch=[tcase["batch"], tcase["seq"]],
+                  equal_unsharded=equal, loss=u["loss"],
+                  wall_s=w["wall_s"], wall_s_unsharded=u["wall_s"],
+                  seconds=time.perf_counter() - t1))
+        if not all(equal.values()):
+            failures.append((arch, "train world of one", equal))
+    if failures:
+        raise AssertionError(f"families (a): {failures}")
+    return launches
+
+
+def families_nccl(torch, ops) -> list:
+    """Phase 21 (a) alone (``--families``): phase 16's NCCL world of one
+    with only its Zamba2-7B and Whisper-small runs, each with its third
+    (tensor-parallel) run, then ``families_world_of_one``."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    _tp_world_of_one(torch, dist, _free_port())
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        counts = [sharded_zamba(torch, ops, mesh, tp=True)]
+        counts += sharded_whisper(torch, ops, mesh, tp=True)
+        counts.append(families_world_of_one(torch, ops, mesh))
+        return counts
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -5171,9 +5942,13 @@ def main() -> None:
     ap.add_argument("--fsdp", action="store_true",
                     help="phases 1-3, then only the d_model rows split "
                     "across ranks (20)")
+    ap.add_argument("--families", action="store_true",
+                    help="phases 1-3, then only tensor parallelism of the "
+                    "recurrent and encoder-decoder families (21, with "
+                    "phase 16 (e)-(f) that it rides on)")
     args = ap.parse_args()
     only = (args.kernels or args.sharded or args.twin or args.dryrun
-            or args.tp or args.fsdp)
+            or args.tp or args.fsdp or args.families)
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
              "a checkout of the repository")
@@ -5328,13 +6103,22 @@ def main() -> None:
     if args.sharded or not only:
         # 16. the pool sharded over a torch.distributed mesh
         t0 = time.perf_counter()
-        _, refs, counts_a = sharded_nccl(torch, ops)
+        _, refs, counts_a = sharded_nccl(torch, ops, families=not only)
         _, counts_b = sharded_gloo(torch, refs)
         sharded_small(torch)
         sharded_families_small(torch)
         shard_launches = {k: sum(c[k] for c in counts_a + [counts_b])
                           for k in counts_b}
         emit(dict(phase="sharded_total", launches=shard_launches,
+                  seconds=time.perf_counter() - t0))
+    if args.families and not args.sharded:
+        # 21 (a) alone: phase 16 (e)-(f) with their third runs, and the
+        # rest of (a), in an NCCL world of one
+        t0 = time.perf_counter()
+        counts = families_nccl(torch, ops)
+        shard_launches = {k: sum(c.get(k, 0) for c in counts)
+                          for k in counts[0]}
+        emit(dict(phase="families_tp_world_1_total", launches=shard_launches,
                   seconds=time.perf_counter() - t0))
     if args.twin or not only:
         # 17. the simulator twin: the engine's timeline replayed
@@ -5364,9 +6148,12 @@ def main() -> None:
             for k in shard_launches:
                 shard_launches[k] += tp_counts.get(k, 0)
 
-    if args.fsdp or not only:
-        # 20. the d_model rows split across ranks: training, long_500k
-        fsdp_counts = fsdp_phase(torch, ops, smi[0])
+    if args.fsdp or args.families or not only:
+        # 20. the d_model rows split across ranks: training, long_500k;
+        # 21 (b) in the same spawned world
+        fsdp_counts = fsdp_phase(torch, ops, smi[0],
+                                 fsdp=args.fsdp or not only,
+                                 families=args.families or not only)
         if launches is not None:
             for k in launches:
                 launches[k] += fsdp_counts.get(k, 0)

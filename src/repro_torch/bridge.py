@@ -108,7 +108,8 @@ def shards_from_jax(tree: Dict[str, Any], cfg: ModelConfig, mesh, rules,
     cut on the host, then moved to ``device``)."""
     from repro_torch.distributed.sharding import shard_params
     whole = params_from_jax(tree, cfg, "cpu", dtype)
-    specs = model_param_specs(cfg)
+    specs = (encdec_param_specs(cfg) if cfg.enc_dec
+             else model_param_specs(cfg))
     return _map_tensors(lambda t: t.to(device),
                         shard_params(whole, specs, mesh, rules))
 

@@ -195,6 +195,22 @@ def placements_for(mesh, dims: Sequence[str], shape: Sequence[int],
     return out
 
 
+def rec_spec(shape, batch: int, model_size: int):
+    """The reference's spec of a recurrent-state leaf (its dry-run's
+    ``_rec_pspec``): the batch axis, the first dim of ``shape`` equal to
+    ``batch`` (``"__B__"``), plus the first later dim that divides by the
+    model axis's size (``"model"``); None elsewhere."""
+    spec = [None] * len(shape)
+    b_ax = next((i for i, d in enumerate(shape) if d == batch), None)
+    if b_ax is not None:
+        spec[b_ax] = "__B__"
+        for j in range(b_ax + 1, len(shape)):
+            if shape[j] % model_size == 0 and shape[j] >= model_size:
+                spec[j] = "model"
+                break
+    return spec
+
+
 def block_of(axes, mesh, coord=None) -> Tuple[int, int]:
     """(blocks, this rank's block) of a dim over ``axes`` (a ``spec_for``
     entry: None or a tuple, the first axis major) on ``mesh`` at the
@@ -324,8 +340,9 @@ def shard_serve_state(state: Dict[str, Any], mesh,
     splice of prefills, made them; S must divide by the pool axis.  The
     result keeps every other entry (the hot tier's ``page_table`` stays
     over all S positions: its input is the all-reduced fetch; the
-    recurrent state ``rec_*`` of the rank's lanes, which every pool rank
-    updates alike; an encoder-decoder's whole ``self_kv``) and holds
+    recurrent state ``rec_*`` of the rank's lanes, as the model made it:
+    whole, or, under ``use_rules``, already the rank's block of it; an
+    encoder-decoder's whole ``self_kv``) and holds
     ``kv_pool`` / ``idx_pool`` (an encoder-decoder's cross-attention
     pools) cut to the slice [base, base + S_local), copied by the
     splice's shard form in one launch.  The whole pools exist until the

@@ -56,8 +56,15 @@ sizes multiply to 1 is the identity both ways, so a world of one runs
 the unsharded path's arithmetic bit for bit.  ``WHOLE`` is the plan
 without a mesh: every weight whole, every collective the identity.
 
-The recurrent and encoder-decoder families stay on whole weights, and
-the residual stream is replicated over ``model`` (the reference's
+The recurrent and encoder-decoder families run on their blocks too
+(``models/ssm.py``, ``models/encdec.py``): a block of a fused or a head
+dim need not be whole heads.  ``rms_norm`` normalises a vector whose
+blocks lie on several ranks (one all-reduce of the squared sums);
+``all_gather(..., reduce=True)`` joins blocks that each rank then uses
+on its own part (its backward reduce-scatters the partial gradients);
+``rec_block`` is a rank's block of a recurrent-state leaf, placed as the
+reference's ``_rec_pspec`` places it (``sharding.rec_spec``).  The
+residual stream is replicated over ``model`` (the reference's
 sequence-parallel ``S`` is not split).
 """
 from __future__ import annotations
@@ -121,6 +128,9 @@ class Whole:
     def rows(self, w: torch.Tensor, dims, shape) -> torch.Tensor:
         return w
 
+    def product(self, w: torch.Tensor, dims, shape):
+        return lambda x: x @ w
+
     def enter(self, x: torch.Tensor, axes) -> torch.Tensor:
         return x
 
@@ -129,6 +139,13 @@ class Whole:
 
     def own_lanes(self, x: torch.Tensor) -> torch.Tensor:
         return x
+
+    def rms_norm(self, x, gamma, axes, width: int, eps: float = 1e-6):
+        from repro_torch.models.layers import rms_norm
+        return rms_norm(x, gamma, eps)
+
+    def rec_block(self, shape, lane: int):
+        return None
 
 
 WHOLE = Whole()
@@ -175,6 +192,25 @@ class _Enter(torch.autograd.Function):
         y = g.to(torch.float32, copy=True)
         dist.all_reduce(y, group=ctx.tp._group(ctx.axes)[0])
         return y.to(g.dtype), None, None
+
+
+class _SumOver(torch.autograd.Function):
+    """The sum over ``axes`` in f32 of a partial sum that each rank then
+    uses on its own block: forward and backward are both all-reduces
+    (the whole sum's gradient is the sum of the ranks' uses')."""
+
+    @staticmethod
+    def forward(ctx, x, tp, axes):
+        ctx.tp, ctx.axes = tp, axes
+        y = x.to(torch.float32, copy=True)
+        dist.all_reduce(y, group=tp._group(axes)[0])
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y = g.to(torch.float32, copy=True)
+        dist.all_reduce(y, group=ctx.tp._group(ctx.axes)[0])
+        return y, None, None
 
 
 class _AllGather(torch.autograd.Function):
@@ -369,6 +405,15 @@ class TensorParallel(Whole):
                 w = _AllGather.apply(w, self, s.axes, i, True)
         return w
 
+    def product(self, w, dims, shape):
+        """``x -> matmul(x, w, dims, shape)`` for a loop of products with
+        one weight (the sLSTM's recurrence): rows over batch axes gathered
+        once, before the loop."""
+        if all(g for _, _, g in self._row_splits(dims, shape)):
+            w = self.rows(w, dims, shape)
+            return lambda x: x @ w
+        return lambda x: self.matmul(x, w, dims, shape)
+
     def enter(self, x, axes):
         """``x``, the same on the ranks of ``axes``, where each of them
         starts a use of its own: the identity, whose backward sums the
@@ -377,13 +422,52 @@ class TensorParallel(Whole):
             return x
         return _Enter.apply(x, self, tuple(axes))
 
-    def all_gather(self, x, axes, dim=-1):
+    def all_gather(self, x, axes, dim=-1, reduce: bool = False):
         """The blocks of ``x`` over ``axes`` joined along ``dim`` in block
         order (one all-gather of the bytes: any dtype, every bit); its
-        backward takes the rank's block of the gradient."""
+        backward takes the rank's block of the gradient, or, with
+        ``reduce`` (each rank uses the whole on its own part: its
+        gradient is a partial sum), reduce-scatters it."""
         if self.size(axes) == 1:
             return x
-        return _AllGather.apply(x, self, tuple(axes), dim % x.dim(), False)
+        return _AllGather.apply(x, self, tuple(axes), dim % x.dim(), reduce)
+
+    def rms_norm(self, x, gamma, axes, width: int, eps: float = 1e-6):
+        """``layers.rms_norm`` of a vector of ``width`` whose last-dim
+        blocks (``x`` and ``gamma`` this rank's) lie over ``axes``: the
+        squares summed in f32 on each block, one all-reduce of the sums
+        (``_SumOver``), the mean over the whole width."""
+        if self.size(axes) == 1:
+            return super().rms_norm(x, gamma, axes, width, eps)
+        xf = x.float()
+        ss = _SumOver.apply(xf.square().sum(-1, keepdim=True), self,
+                            tuple(axes))
+        return (xf * torch.rsqrt(ss / width + eps)).to(x.dtype) * gamma
+
+    def rec_block(self, shape, lane: int):
+        """(axis, Split) of this rank's block of a recurrent-state leaf of
+        ``shape`` (this rank's lanes on axis ``lane``, the rest whole), or
+        None where ``model`` splits none of it: the axis the reference's
+        ``_rec_pspec`` gives ``model`` on the leaf's global shape (the
+        lanes times the batch axes' ranks).  An axis before the lanes'
+        (a stacked layer axis) is refused: the port keeps each layer's
+        state with its lanes."""
+        m = self.sizes.get("model", 1)
+        if m == 1:
+            return None
+        glob = list(shape)
+        glob[lane] *= self.size(self.batch_axes)
+        spec = _shd().rec_spec(glob, glob[lane], m)
+        axis = next((i for i, a in enumerate(spec) if a == "model"), None)
+        if axis is None:
+            return None
+        b_ax = spec.index("__B__")
+        if axis <= lane or (b_ax != lane and self.size(self.batch_axes) > 1):
+            raise ValueError(
+                f"a recurrent-state leaf {tuple(glob)} with lanes on axis "
+                f"{lane}: the reference's layout puts the batch on axis "
+                f"{b_ax} and model on axis {axis}, a stacked layer axis")
+        return axis, Split(("model",), m, self.coord["model"])
 
     def _gather(self, x, axes, dim):
         n = self.size(axes)
@@ -455,6 +539,22 @@ class RankView:
 
     def __getattr__(self, name):
         return getattr(self._cfg, name)
+
+
+def rank_view(cfg, views: Dict, batch_axes=None):
+    """The config this rank runs: ``cfg`` itself outside
+    ``use_rules(rules, mesh)``, else a ``RankView`` with the mesh's
+    ``TensorParallel`` plan, made once a mesh and rule table and kept in
+    the model's ``views``."""
+    shd = _shd()
+    mesh = shd._mesh()
+    if mesh is None:
+        return cfg
+    rules = shd._rules()
+    key = (id(mesh), tuple(sorted(rules.items())))
+    if key not in views:
+        views[key] = RankView(cfg, TensorParallel(mesh, rules, batch_axes))
+    return views[key]
 
 
 def _memo(cfg, name, fn):

@@ -17,12 +17,14 @@ operators and kernel calls, and the live storage's peak.
 
 What one rank runs is the port's program:
 
-- in every cell of the attention families (``dense``, ``moe``,
-  ``mla_dense``, ``mla_moe``, ``lg_super``), the reference's
-  partitioned program: the rank holds its ``spec_for`` block of every
-  weight (and, training, of the AdamW moments) and runs ``forward`` /
-  ``prefill`` / ``decode`` under ``use_rules(rules, mesh)``, tensor- and
-  expert-parallel with their collectives (``distributed/tp.py``).  The
+- in every cell, the reference's partitioned program: the rank holds
+  its ``spec_for`` block of every weight (and, training, of the AdamW
+  moments) and runs ``forward`` / ``prefill`` / ``decode`` under
+  ``use_rules(rules, mesh)``, tensor- and expert-parallel with their
+  collectives (``distributed/tp.py``; the Mamba2, mLSTM and sLSTM
+  layers of ``models/ssm.py`` and the encoder-decoder of
+  ``models/encdec.py`` on their blocks too), and holds its block of the
+  recurrent state ``rec_*`` as the reference's ``_rec_pspec`` places it.  The
   rules are the reference's: ``TRAIN_RULES`` for a train cell (the
   d_model rows over ``data``: each layer's row blocks gathered for the
   product, their gradients reduce-scattered in the backward, the other
@@ -30,9 +32,6 @@ What one rank runs is the port's program:
   cell, plus ``D=("data",)`` where its batch does not split (every
   ``long_500k`` cell: the rank takes its columns of the input and sums
   the partial products over ``data``);
-- the recurrent (Zamba2, xLSTM) and encoder-decoder (Whisper) families
-  run every layer with WHOLE weights (their tensor parallelism is not
-  ported yet);
 - in every cell the residual stream is replicated over ``model``
   (``residual_over_model`` in the record): the reference's
   sequence-parallel ``S`` is not split;
@@ -124,16 +123,10 @@ def batch_axes_for(mesh, batch: int):
 
 def _rec_pspec(shape, batch: int, model_size: int):
     """Heuristic spec for recurrent-state leaves: shard the batch axis,
-    plus the first later axis divisible by the model-axis size."""
-    spec = [None] * len(shape)
-    b_ax = next((i for i, d in enumerate(shape) if d == batch), None)
-    if b_ax is not None:
-        spec[b_ax] = "__B__"
-        for j in range(b_ax + 1, len(shape)):
-            if shape[j] % model_size == 0 and shape[j] >= model_size:
-                spec[j] = "model"
-                break
-    return spec
+    plus the first later axis divisible by the model-axis size
+    (``sharding.rec_spec``, which the models' serve states follow too)."""
+    from repro_torch.distributed.sharding import rec_spec
+    return rec_spec(shape, batch, model_size)
 
 
 def _axes(entry):
@@ -266,7 +259,6 @@ def build_cell(arch: str, shape_name: str, mesh, mode: str = "sac",
     from repro_torch.distributed import sharding as shd
     from repro_torch.models.model import (build_model, cell_is_supported,
                                           input_specs)
-    from repro_torch.models.transformer import _ATTN_KINDS, build_segments
     from repro_torch.training.optimizer import OptConfig, init_opt_state
     from repro_torch.training.train_loop import make_train_step
 
@@ -300,32 +292,25 @@ def build_cell(arch: str, shape_name: str, mesh, mode: str = "sac",
                                          batch_axes=baxes)
     if opts.get("moe_groups") == "auto":
         opts["moe_groups"] = int(np_prod_axes(mesh, baxes))
-    tp = (not cfg.enc_dec
-          and all(s.kind in _ATTN_KINDS for s in build_segments(cfg)))
     model = build_model(cfg, fetch_fn=fetch, mode=mode, topk_fn=topk_fn,
-                        opts=dict(opts, batch_axes=baxes) if tp else opts,
-                        device=device)
+                        opts=dict(opts, batch_axes=baxes), device=device)
 
     meta = {"arch": arch, "shape": shape_name, "mode": model.mode,
             "kind": shape.kind, "opts": {k: v for k, v in opts.items()},
             "batch": shape.global_batch, "seq": shape.seq_len,
             "batch_axes": list(baxes), "lanes_per_rank": B_local,
-            "tensor_parallel": tp, "residual_over_model": "replicated",
-            "rows_over": list(rules.get("D", ())) if tp else []}
+            "tensor_parallel": True, "residual_over_model": "replicated",
+            "rows_over": list(rules.get("D", ()))}
     real = device.type != "meta"
     p_global = model.param_shapes()
     p_shard = _param_specs(model.specs, mesh, rules)
     gen = torch.Generator(device=device).manual_seed(0) if real else None
-    if tp:                  # this rank's blocks of the weights
-        with shd.use_rules(rules, mesh):
-            params = (shd.init_shards(model.specs, gen, device) if real
-                      else model.param_shapes())
-    elif real:
-        params = model.init(gen)
-    else:
-        params = p_global
-    ctx = ((lambda: shd.use_rules(rules, mesh)) if tp
-           else contextlib.nullcontext)
+    with shd.use_rules(rules, mesh):     # this rank's blocks of the weights
+        params = (shd.init_shards(model.specs, gen, device) if real
+                  else model.param_shapes())
+
+    def ctx():
+        return shd.use_rules(rules, mesh)
     b_entry = (baxes,) if baxes else (None,)
 
     def batch_local(specs):
@@ -385,11 +370,12 @@ def build_cell(arch: str, shape_name: str, mesh, mode: str = "sac",
     st_shard = serve_state_shardings(specs["state"], mesh,
                                      shape.global_batch)
     tok_shard = b_entry
-    if real:
-        state = model.init_serve_state(B_local, S_local)
-        state["cache_len"].fill_(shape.seq_len - 1)
-    else:
-        state = model.serve_state_shapes(B_local, S_local)
+    with ctx():             # the rank's block of rec_*
+        if real:
+            state = model.init_serve_state(B_local, S_local)
+            state["cache_len"].fill_(shape.seq_len - 1)
+        else:
+            state = model.serve_state_shapes(B_local, S_local)
     tokens = batch_local({"t": specs["tokens"]})["t"]
     meta["global"] = (p_global, specs["state"], specs["tokens"])
     meta["pool_rows_per_rank"] = S_local

@@ -37,6 +37,18 @@ whole on every rank, as the reference's ``P(None, b, None, None)``.
 ``prefill`` and ``decode`` update nothing of the caller's and run under
 ``torch.no_grad``; ``forward`` (training) runs under autograd, each
 layer under ``torch.utils.checkpoint`` when ``remat`` is on.
+
+Under ``sharding.use_rules(rules, mesh)`` ``forward``, ``prefill`` and
+``decode`` run on this rank's block of every weight through a
+``distributed/tp.py::RankView`` of the config (``rank_cfg``), as the
+decoder-only models do: a vocab-parallel embedding and column-parallel
+logits, the encoder's and the cross-attention's ``bidir_attention`` in
+f32 on the rank's heads (q all-gathered where its block is not whole
+heads, k and v whole), ``wo`` and the MLP's ``w_down`` row blocks summed
+over their axes, and the decoder's self-attention and SAC
+cross-attention through the GQA decode of ``models/dsa.py`` on the
+rank's heads.  ``self_kv`` stays whole on every rank of ``model``, as
+the reference keeps it; each rank writes its lanes' new entries.
 """
 from __future__ import annotations
 
@@ -49,20 +61,16 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import sac as sac_core
 from repro_torch.core.pool import FetchFn, local_fetch, pool_write
 from repro_torch.models import dsa
-from repro_torch.models.layers import (DTYPE, ParamSpec, attn_param_specs,
-                                       dense_attention_block, init_params,
-                                       mlp_block, mlp_param_specs, repeat_kv,
-                                       rms_norm, spec_shapes)
 from repro_torch.distributed import sharding as shd
-from repro_torch.models.transformer import _span, run_layer
-
-
-def _no_mesh():
-    """The encoder-decoder runs whole weights: it refuses the tensor-
-    parallel context (``use_rules(rules, mesh)``) rather than run a
-    weight its rules would split."""
-    if shd._mesh() is not None:
-        raise ValueError("the encoder-decoder does not run tensor-parallel")
+from repro_torch.distributed.tp import gqa_layout, rank_view, tp_of
+from repro_torch.models.layers import (DTYPE, ParamSpec, attn_out,
+                                       attn_param_specs,
+                                       dense_attention_block, gather_kv_cols,
+                                       gather_q_cols, init_params, mlp_block,
+                                       mlp_param_specs, rank_kv_heads,
+                                       repeat_kv, rms_norm)
+from repro_torch.models.transformer import (_span, embed_of, logits_of,
+                                            run_layer)
 
 MAX_DEC = 448  # whisper decoder context
 
@@ -147,35 +155,45 @@ def encdec_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
+def _attend(p, xq, xkv, cfg):
+    """Non-causal attention of ``xq``'s positions over ``xkv``'s (the
+    encoder's self-attention, the training forward's cross-attention),
+    no RoPE -> [B, Sq, D].  Over a tensor-parallel rank: its q heads (all
+    heads where its q block is not whole heads), k and v whole, ``wo``'s
+    row block summed (``layers.attn_out``)."""
+    B, Sq, d = xq.shape
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    tp, lay = tp_of(cfg), gqa_layout(cfg)
+    xq_r = tp.enter(xq, lay.q.axes)
+    xkv_r = (xq_r if xkv is xq and lay.kv.axes == lay.q.axes
+             else tp.enter(xkv, lay.kv.axes))
+    q = tp.matmul(xq_r, p["wq"], ("D", "H"), (d, nh * hd))
+    k = tp.matmul(xkv_r, p["wk"], ("D", "KV"), (d, nkv * hd))
+    v = tp.matmul(xkv_r, p["wv"], ("D", "KV"), (d, nkv * hd))
+    q = gather_q_cols(cfg, q)
+    k, v = gather_kv_cols(cfg, k, v)
+    q = q.reshape(B, Sq, q.shape[-1] // hd, hd)
+    k = rank_kv_heads(cfg, k.reshape(B, -1, nkv, hd))
+    v = rank_kv_heads(cfg, v.reshape(B, -1, nkv, hd))
+    n_rep = q.shape[2] // k.shape[2]
+    out = bidir_attention(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep))
+    return attn_out(p, out.reshape(B, Sq, q.shape[2] * hd), cfg)
+
+
 def _enc_layer(p, x, cfg):
     xn = rms_norm(x, p["ln1"])
-    B, S, _ = xn.shape
-    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (xn @ p["attn"]["wq"]).reshape(B, S, nh, hd)
-    k = (xn @ p["attn"]["wk"]).reshape(B, S, nkv, hd)
-    v = (xn @ p["attn"]["wv"]).reshape(B, S, nkv, hd)
-    n_rep = nh // nkv
-    out = bidir_attention(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep))
-    x = x + out.reshape(B, S, nh * hd) @ p["attn"]["wo"]
-    return x + mlp_block(p["mlp"], rms_norm(x, p["ln2"]))
+    x = x + _attend(p["attn"], xn, xn, cfg)
+    return x + mlp_block(p["mlp"], rms_norm(x, p["ln2"]), cfg)
 
 
 def _dec_layer(p, x, enc_out, cfg, positions):
     """One decoder layer of the training forward: causal self-attention,
     full cross-attention over ``enc_out``, MLP."""
-    B, Sd, _ = x.shape
-    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    n_rep = nh // nkv
     h, _ = dense_attention_block(p["self_attn"], rms_norm(x, p["ln1"]), cfg,
                                  positions)
     x = x + h
-    xn = rms_norm(x, p["ln2"])
-    q = (xn @ p["cross_attn"]["wq"]).reshape(B, Sd, nh, hd)
-    k = (enc_out @ p["cross_attn"]["wk"]).reshape(B, -1, nkv, hd)
-    v = (enc_out @ p["cross_attn"]["wv"]).reshape(B, -1, nkv, hd)
-    out = bidir_attention(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep))
-    x = x + out.reshape(B, Sd, nh * hd) @ p["cross_attn"]["wo"]
-    return x + mlp_block(p["mlp"], rms_norm(x, p["ln3"]))
+    x = x + _attend(p["cross_attn"], rms_norm(x, p["ln2"]), enc_out, cfg)
+    return x + mlp_block(p["mlp"], rms_norm(x, p["ln3"]), cfg)
 
 
 class EncDecLM:
@@ -183,8 +201,11 @@ class EncDecLM:
 
     def __init__(self, cfg: ModelConfig, fetch_fn: FetchFn = local_fetch,
                  mode: str = "sac", topk_fn: Optional[Callable] = None,
-                 remat: bool = True, device="cuda"):
+                 remat: bool = True, opts: Optional[Dict] = None,
+                 device="cuda"):
         self.cfg = cfg
+        self.opts = dict(opts or {})
+        self._views: Dict[Any, Any] = {}   # tensor parallelism
         self.device = torch.device(device)
         self.fetch_fn = fetch_fn
         # a cross-KV pool sharded over ranks (core/pool.py::
@@ -198,45 +219,53 @@ class EncDecLM:
         self.kv_dim = dsa.gqa_entry_dim(cfg)
         self.specs = encdec_param_specs(cfg)
 
+    def rank_cfg(self):
+        """The config this rank runs (``TransformerLM.rank_cfg``)."""
+        return rank_view(self.cfg, self._views, self.opts.get("batch_axes"))
+
     def init(self, generator: torch.Generator) -> Dict:
         """Random parameters drawn from ``generator`` on the model's
         device, one tensor at a time in its own dtype."""
         return init_params(self.specs, generator, self.device)
 
     def param_shapes(self) -> Dict:
-        """The parameters as empty ``meta`` tensors (the dry-run's)."""
-        return spec_shapes(self.specs)
+        """The parameters as empty ``meta`` tensors (the dry-run's); under
+        ``use_rules(rules, mesh)`` this rank's blocks."""
+        return shd.map_specs(lambda _, s: torch.empty(
+            shd.block_shape(s) if shd._mesh() is not None else s.shape,
+            dtype=s.dtype, device="meta"), self.specs, self.specs)
 
     # -- encoder -------------------------------------------------------------
-    def encode(self, params, frames) -> torch.Tensor:
+    def encode(self, params, frames, cfg=None) -> torch.Tensor:
         """frames [B, S_enc, D] (stubbed frontend output) -> [B, S_enc, D]."""
+        cfg = cfg or self.rank_cfg()
         x = frames.to(DTYPE)
         for p in params["enc"]:
-            x = run_layer(self.remat, _enc_layer, p, x, self.cfg)
+            x = run_layer(self.remat, _enc_layer, p, x, cfg)
         return x
 
-    def _cross_entry(self, p_dec, enc_out):
+    def _cross_entry(self, p_dec, enc_out, cfg):
         """A decoder layer's cross-KV entries of the encoder output (no
         RoPE: positions 0)."""
         zero_pos = torch.zeros(enc_out.shape[:-1], dtype=torch.int32,
                                device=enc_out.device)
-        return dsa.gqa_kv_entry(p_dec["cross_attn"], enc_out, self.cfg,
-                                zero_pos)
+        return dsa.gqa_kv_entry(p_dec["cross_attn"], enc_out, cfg, zero_pos)
 
     # -- training forward ------------------------------------------------------
     def forward(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """batch {frames [B,S,D], tokens [B,S_dec]} -> (logits [B, S_dec,
         V] f32, aux f32 0)."""
-        enc_out = self.encode(params, batch["frames"])
+        cfg = self.rank_cfg()
+        enc_out = self.encode(params, batch["frames"], cfg)
         tokens = batch["tokens"]
         B, Sd = tokens.shape
-        x = params["embed"][tokens.long()].to(DTYPE)
+        x = embed_of(params, tokens, cfg)
         positions = torch.arange(Sd, dtype=torch.int32,
                                  device=tokens.device)[None, :].expand(B, Sd)
         for p in params["dec"]:
-            x = run_layer(self.remat, _dec_layer, p, x, enc_out, self.cfg,
+            x = run_layer(self.remat, _dec_layer, p, x, enc_out, cfg,
                           positions)
-        return self._logits(params, x), torch.zeros((), device=x.device)
+        return logits_of(params, x, cfg), torch.zeros((), device=x.device)
 
     # -- prefill: encode + populate the cross-KV pool ----------------------------
     @torch.no_grad()
@@ -245,26 +274,25 @@ class EncDecLM:
         encoder's cross-KV entries of every decoder layer in ``kv_pool``
         and, in SAC mode, their indexer keys in ``idx_pool``; the
         decoder starts empty (``dec_len`` 0)."""
-        _no_mesh()
-        cfg = self.cfg
+        cfg = self.rank_cfg()
         B, S_enc, _ = frames.shape
         dev = frames.device
         if lengths is None:
             lengths = torch.full((B,), S_enc, dtype=torch.int32, device=dev)
-        enc_out = self.encode(params, frames)
+        enc_out = self.encode(params, frames, cfg)
         state = self._empty_state(B, S_enc, dev)
         for layer, p in enumerate(params["dec"]):
-            state["kv_pool"][layer] = self._cross_entry(p, enc_out)
+            state["kv_pool"][layer] = self._cross_entry(p, enc_out, cfg)
             if "idx_pool" in state:
                 state["idx_pool"][layer] = dsa.indexer_keys(p["idx"],
-                                                            enc_out)
+                                                            enc_out, cfg)
         state["cache_len"] = lengths.to(torch.int32)
         return state, torch.zeros((B, cfg.vocab), dtype=torch.float32,
                                   device=dev)
 
     # -- decode: self-attn (local dense) + SAC cross-attn ------------------------
     def _layer_decode(self, p, x, kv_l, ik_l, skv_l, dec_len, cache_len,
-                      bufs=None):
+                      bufs=None, cfg=None):
         """One decoder layer's step: (x', the token's self entry).
 
         Over a sharded pool the indexer scores the rank's slice; the
@@ -272,7 +300,7 @@ class EncDecLM:
         ``local_scores`` takes the slice's instead), the chosen entries
         come through the pooled fetch, and ``dense`` mode all-gathers the
         layer (``PoolShard.gather_pool`` into ``bufs``)."""
-        cfg = self.cfg
+        cfg = cfg or self.cfg
         # 1) causal self-attention over the decoder cache
         xn = rms_norm(x, p["ln1"])
         own = dsa.gqa_kv_entry(p["self_attn"], xn, cfg, dec_len)
@@ -306,7 +334,7 @@ class EncDecLM:
                                       valid, zero_pos)
         # 3) MLP
         h = rms_norm(x, p["ln3"])[:, None, :]
-        return x + mlp_block(p["mlp"], h)[:, 0], own
+        return x + mlp_block(p["mlp"], h, cfg)[:, 0], own
 
     @torch.no_grad()
     def decode(self, params, state, tokens):
@@ -314,8 +342,8 @@ class EncDecLM:
         state dict is updated IN PLACE (``self_kv``, ``dec_len``).  Each
         decoder layer is a ``pool_layer`` profiler range while a
         profiler records (``transformer.DECODE_SPANS``)."""
-        _no_mesh()
-        x = params["embed"][tokens.long()].to(DTYPE)
+        cfg = self.rank_cfg()
+        x = embed_of(params, tokens, cfg)
         dec_len = state["dec_len"]
         kv_pool, idx_pool = state["kv_pool"], state.get("idx_pool")
         self_kv = state["self_kv"]               # [L, B, MAX_DEC, d]
@@ -325,11 +353,11 @@ class EncDecLM:
                 x, own = self._layer_decode(
                     p, x, kv_pool[layer],
                     idx_pool[layer] if idx_pool is not None else None,
-                    self_kv[layer], dec_len, state["cache_len"], bufs)
+                    self_kv[layer], dec_len, state["cache_len"], bufs, cfg)
             owns.append(own)
         pool_write(self_kv, torch.stack(owns), dec_len)
         state["dec_len"] = dec_len + 1
-        return state, self._logits(params, x)
+        return state, logits_of(params, x, cfg)
 
     # -- state ---------------------------------------------------------------------
     def _empty_state(self, batch: int, seq_len: int, device) -> Dict:
@@ -360,7 +388,3 @@ class EncDecLM:
         """The zero serve state's tree on ``meta`` (nothing allocated;
         ``device_buffer`` ignored, as in ``init_serve_state``)."""
         return self._empty_state(batch, seq_len, torch.device("meta"))
-
-    def _logits(self, params, x):
-        x = rms_norm(x, params["final_norm"])
-        return (x @ params["lm_head"]).float()

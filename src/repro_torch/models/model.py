@@ -35,7 +35,7 @@ def build_model(cfg: ModelConfig, fetch_fn: FetchFn = local_fetch,
     ``remat``: activation checkpointing of each layer in ``forward``."""
     if cfg.enc_dec:
         return EncDecLM(cfg, fetch_fn=fetch_fn, mode=mode, topk_fn=topk_fn,
-                        remat=remat, device=device)
+                        remat=remat, opts=opts, device=device)
     return TransformerLM(cfg, fetch_fn=fetch_fn, mode=mode, topk_fn=topk_fn,
                          remat=remat, opts=opts, device=device)
 

@@ -63,8 +63,10 @@ too under the training rules (each layer's row blocks gathered inside
 its activation checkpoint) and under the serve rules of a batch that
 does not split.  The ``opts`` key ``batch_axes`` names the axes the
 rank's lanes are split over (by default the rules' ``B`` axes in the
-mesh).  The attention kinds only: the recurrent families refuse a mesh
-there.
+mesh).  Every segment kind runs so: the Mamba2, mLSTM and sLSTM layers
+of ``models/ssm.py`` on their blocks, and the recurrent state ``rec_*``
+that prefill and ``init_serve_state`` make is the rank's block of it
+(``tp.rec_block``: the reference's ``_rec_pspec`` layout).
 Outside that context nothing changes, bit for bit.  Under ``torch.profiler`` it marks each
 layer's work as a range named by ``DECODE_SPANS`` (a pool layer, a Mamba2
 layer, an xLSTM super-block), so that a trace splits a step by layer
@@ -91,7 +93,7 @@ from repro_torch.core import sac as sac_core
 from repro_torch.core.pool import (E4M3, FetchFn, local_fetch,
                                    pool_write_step, to_kv_dtype)
 from repro_torch.distributed import sharding as shd
-from repro_torch.distributed.tp import RankView, TensorParallel, tp_of
+from repro_torch.distributed.tp import rank_view, tp_of
 from repro_torch.models import dsa, moe, ssm
 from repro_torch.models.layers import (DTYPE, ParamSpec, attn_param_specs,
                                        dense_attention_block, init_params,
@@ -431,12 +433,20 @@ def segment_rec_shapes(seg: Segment, cfg: ModelConfig, batch: int):
     return None
 
 
-def _zero_rec(shapes, n, device):
-    """Zeros of a segment's recurrent state, stacked on its [n] axis."""
+def _zero_rec(shapes, marks, n, device, tp):
+    """Zeros of a segment's recurrent state, stacked on its [n] axis:
+    each leaf's block under ``tp`` (``marks``: the same shapes with the
+    lanes marked -1)."""
     if isinstance(shapes[1], torch.dtype):
-        shape, dtype = shapes
-        return torch.zeros((n, *shape), dtype=dtype, device=device)
-    return tuple(_zero_rec(s, n, device) for s in shapes)
+        (shape, dtype), (mark, _) = shapes, marks
+        shape = [n, *shape]
+        block = tp.rec_block(shape, 1 + mark.index(-1))
+        if block is not None:
+            axis, split = block
+            shape[axis] //= split.n
+        return torch.zeros(shape, dtype=dtype, device=device)
+    return tuple(_zero_rec(s, m, n, device, tp)
+                 for s, m in zip(shapes, marks))
 
 
 # ---------------------------------------------------------------------------
@@ -471,25 +481,13 @@ class TransformerLM:
         # read through the pooled fetch (``dense`` mode all-gathers each
         # layer), the recurrent layers keep ``rec_*`` of those lanes
         self.shard = getattr(fetch_fn, "shard", None)
-        self._views: Dict[Any, RankView] = {}   # tensor parallelism
+        self._views: Dict[Any, Any] = {}   # tensor parallelism
 
     def rank_cfg(self):
         """The config this rank runs: ``cfg`` itself outside
         ``use_rules(rules, mesh)``, else a ``RankView`` with the mesh's
-        ``TensorParallel`` plan (made once a mesh and rule table)."""
-        mesh = shd._mesh()
-        if mesh is None:
-            return self.cfg
-        if any(s.kind not in _ATTN_KINDS for s in self.segments):
-            raise ValueError(
-                f"{sorted({s.kind for s in self.segments})}: only the "
-                f"attention kinds {_ATTN_KINDS} run tensor-parallel")
-        rules = shd._rules()
-        key = (id(mesh), tuple(sorted(rules.items())))
-        if key not in self._views:
-            self._views[key] = RankView(self.cfg, TensorParallel(
-                mesh, rules, self.opts.get("batch_axes")))
-        return self._views[key]
+        ``TensorParallel`` plan (``tp.rank_view``)."""
+        return rank_view(self.cfg, self._views, self.opts.get("batch_axes"))
 
     # -- params ------------------------------------------------------------
     def init(self, generator: torch.Generator) -> Dict:
@@ -510,16 +508,16 @@ class TransformerLM:
     # -- the layer walk, shared by the training forward and prefill -----------
     def _embed_seq(self, params, tokens, cfg=None):
         B, S = tokens.shape
-        x = _embed(params, tokens, cfg or self.cfg)
+        x = embed_of(params, tokens, cfg or self.cfg)
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None, :].expand(B, S)
         return x, positions
 
-    def _walk(self, params, x, attn, remat=False):
+    def _walk(self, params, x, attn, cfg, remat=False):
         """``x`` through every layer in order: ``attn(p, x) -> x`` runs
         each attention layer (in pool-layer order), ``run_layer`` each
-        Mamba2 layer and each mLSTM / sLSTM layer."""
-        cfg = self.cfg
+        Mamba2 layer and each mLSTM / sLSTM layer (on ``cfg``, the rank's
+        view)."""
         layer = functools.partial(run_layer, remat)
         chunk = int(self.opts.get("ssm_chunk", 256))
         for seg, items in zip(self.segments, params["segments"]):
@@ -559,7 +557,7 @@ class TransformerLM:
             aux[0] = aux[0] + a
             return x
 
-        x = self._walk(params, x, attn, self.remat)
+        x = self._walk(params, x, attn, cfg, self.remat)
         return self._logits(params, x, cfg), aux[0]
 
     # -- prefill -------------------------------------------------------------
@@ -607,10 +605,10 @@ class TransformerLM:
             warms.append(wm)
             return x
 
-        x = self._walk(params, x, attn)
+        x = self._walk(params, x, attn, cfg)
         if warms and warms[0] is not None:
             state["warm_idx"] = torch.stack(warms)
-        state.update(self._zero_recs(B, dev))
+        state.update(self._zero_recs(B, dev, cfg))
         state["cache_len"] = lengths.to(torch.int32)
         last_idx = torch.clamp(lengths.long() - 1, 0, S - 1)
         x_last = x[torch.arange(B, device=dev), last_idx]
@@ -626,7 +624,7 @@ class TransformerLM:
         speculative width per request: it caps the speculation lanes
         each request may warm-insert (traffic only, never tokens)."""
         cfg = self.rank_cfg()
-        x = _embed(params, tokens, cfg)
+        x = embed_of(params, tokens, cfg)
         cache_len = state["cache_len"]
         ctx = {
             "positions": cache_len,       # 0-indexed position of new token
@@ -750,37 +748,43 @@ class TransformerLM:
                                                     **i32)
                 state["pf_inserted"] = torch.zeros((batch,), **i32)
                 state["pf_useful"] = torch.zeros((batch,), **i32)
-        state.update(self._zero_recs(batch, dev))
+        state.update(self._zero_recs(batch, dev, self.rank_cfg()))
         return state
 
-    def _zero_recs(self, batch: int, device) -> Dict[str, Any]:
+    def _zero_recs(self, batch: int, device, cfg) -> Dict[str, Any]:
         """``rec_{si}`` zeros of each recurrent segment, in the
         reference's layout: ``zamba_super`` (ssm f32 [n, a, B, nh, N,
         hd], conv bf16 [n, a, B, 3, d_inner]), ``mamba_tail`` the same
         without the [a] axis, ``xlstm_super`` ((C, n, m) [n, 3, B, ...],
-        (h, c, n, m) [n, B, d])."""
+        (h, c, n, m) [n, B, d]); over a tensor-parallel rank (``cfg``'s
+        plan) each leaf's block."""
         out = {}
         for si, seg in enumerate(self.segments):
             shapes = segment_rec_shapes(seg, self.cfg, batch)
             if shapes is not None:
-                out[f"rec_{si}"] = _zero_rec(shapes, seg.n, device)
+                out[f"rec_{si}"] = _zero_rec(
+                    shapes, segment_rec_shapes(seg, self.cfg, -1), seg.n,
+                    device, tp_of(cfg))
         return out
 
     # -- shared pieces -----------------------------------------------------------
     def _logits(self, params, x, cfg=None):
-        """Column-parallel over a tensor-parallel rank: its vocab block's
-        logits, all-gathered (the loss, the same on every rank of the
-        vocab's axes, takes the whole gradient of each block)."""
-        cfg = cfg or self.cfg
-        tp, shape = tp_of(cfg), (cfg.d_model, cfg.vocab)
-        x = rms_norm(x, params["final_norm"])
-        v = tp.split(("D", "V"), shape, 1)
-        y = tp.matmul(tp.enter(x, v.axes), params["lm_head"], ("D", "V"),
-                      shape)
-        return tp.all_gather(y, v.axes).float()
+        return logits_of(params, x, cfg or self.cfg)
 
 
-def _embed(params, tokens, cfg) -> torch.Tensor:
+def logits_of(params, x, cfg) -> torch.Tensor:
+    """The final norm and ``lm_head``; column-parallel over a
+    tensor-parallel rank: its vocab block's logits, all-gathered (the
+    loss, the same on every rank of the vocab's axes, takes the whole
+    gradient of each block)."""
+    tp, shape = tp_of(cfg), (cfg.d_model, cfg.vocab)
+    x = rms_norm(x, params["final_norm"])
+    v = tp.split(("D", "V"), shape, 1)
+    y = tp.matmul(tp.enter(x, v.axes), params["lm_head"], ("D", "V"), shape)
+    return tp.all_gather(y, v.axes).float()
+
+
+def embed_of(params, tokens, cfg) -> torch.Tensor:
     """The tokens' embedding rows; vocab-parallel over a tensor-parallel
     rank: its block's rows (zeros for another block's tokens), summed
     over the vocab's axes; a block of the rows' columns (``D`` over axes

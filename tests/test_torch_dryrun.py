@@ -369,6 +369,42 @@ def test_decode_cell_counts_qwen2():
             "peak_bytes"} <= set(rec["mem_per_device"])
 
 
+@pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-125m",
+                                  "whisper-small"])
+def test_recurrent_and_encdec_decode_cells_hold_their_blocks(arch):
+    """The recurrent and encoder-decoder families' decode_32k cells at the
+    single pod run tensor-parallel: the rank's inputs (its blocks of the
+    weights, its lanes' state with ``rec_*`` cut as the reference's
+    ``_rec_pspec`` places it, its tokens) are, leaf for leaf, the shapes
+    of the reference's layout (``local_tree`` of the global trees under
+    the cell's specs, which ``test_per_rank_shapes_equal_reference``
+    holds to ``NamedSharding.shard_shape``), and so the same bytes."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    with dryrun.fake_world(256):
+        mesh = make_production_mesh(multi_pod=False, device="cpu")
+        step, in_sh, in_spec, meta = dryrun.build_cell(arch, "decode_32k",
+                                                       mesh)
+        assert meta["tensor_parallel"] and meta["lanes_per_rank"] == 8
+        local = [dryrun.local_tree(t, s, mesh)
+                 for t, s in zip(meta["global"], in_sh)]
+        for got, want in zip(in_spec, local):
+            g, w = _flat(got), _flat(want)
+            assert g == w, sorted(set(g.items()) ^ set(w.items()))[:4]
+        layout = dryrun.layout_bytes(in_sh, meta, mesh)
+        assert [dryrun.tree_bytes(t) for t in in_spec] == [
+            layout[k] for k in ("params", "state", "tokens")]
+        recs = [k for k in in_spec[1] if k.startswith("rec_")]
+        assert bool(recs) != (arch == "whisper-small")
+        cuts = []
+        for k in recs:
+            whole = _flat(meta["global"][1][k])
+            for path, (shape, _) in _flat(in_spec[1][k]).items():
+                # the lanes over data (128 / 16), at most one dim over model
+                cuts.append(np.prod(whole[path][0]) // np.prod(shape))
+        assert set(cuts) <= {16, 256} and (not recs or 256 in cuts), cuts
+
+
 # ---------------------------------------------------------------------------
 # FLOPs against the reference's HLO count, reduced Qwen2
 # ---------------------------------------------------------------------------
