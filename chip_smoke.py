@@ -23,8 +23,10 @@ Phases, each printing one JSON line with its seconds; any failure raises
    PyTorch call computes the same function, that call (``library_ms``;
    the port never calls it), each taken per call (an event pair around
    each of 20 calls: ``ms``) and, for the row movers, also batched (one
-   pair around 200 back-to-back calls: ``ms_batched``; the gathers cycle
-   through copies of their inputs so that each call reads from HBM).
+   pair around 200 back-to-back calls, fewer for a call over 0.5 ms:
+   ``ms_batched``; the gathers cycle through copies of their inputs so
+   that each call reads from HBM), the calls queued behind a busy-wait
+   as long as the host takes to queue them (``_queue_behind``).
    The row movers, bit-exact, each form one launch: the gather at
    DeepSeek-V3.2's and Qwen2-1.5B's decode shapes, the fetch pipeline's
    fused demand set and speculation tail (k=2048 plus w=512), the tail
@@ -98,9 +100,10 @@ Phases, each printing one JSON line with its seconds; any failure raises
    top-k 2048, hot tier 6144, 256 experts top-8; random bf16 weights
    from a seed), 4 slots, 8 requests of 4096-token context and 8 output
    tokens; every kernel of the path launched on every layer of every
-   decode step; then a profile of two pure decode steps (the device's
-   busy share and the kernels that take its time; each kernel of the
-   path, both attention passes included, must show on the device);
+   decode step; a profile of the run's last two decode steps, pure
+   decode steps with every slot full (the device's busy share and the
+   kernels that take its time; each kernel of the path, both attention
+   passes included, must show on the device);
 6. the same for Qwen2-1.5B at full width and full depth (28 layers,
    12 heads over 2 KV heads of 128, QKV bias, top-k 2048, hot tier
    6144): 8 slots, 16 requests of 8192-token context and 16 output
@@ -200,7 +203,8 @@ Phases, each printing one JSON line with its seconds; any failure raises
    hierarchical top-k with the speculation tail, each rank bit-equal to
    the unsharded card run of its lanes, which holds SMALL_TOL against
    the CPU beside its e4m3 control.  The kernels are built before any
-   rank starts;
+   rank starts; the ranks of (b), (c) and (g) start once (e) is done and
+   each group waits for its turn;
 17. the simulator twin: the port's ``Engine`` serves Qwen2-1.5B at full
    width and depth in ``replay_engine_timeline``'s parity regime (no
    warm-up, radix seeds or prefetch, no hot tier, overlap off), 8
@@ -232,8 +236,10 @@ Phases, each printing one JSON line with its seconds; any failure raises
    DRYRUN_CELLS, each ending ``ok`` or ``skipped`` with the reference's
    reasons (a cell still running at DRYRUN_BUDGET_S fails the phase);
    (c) the port's ``examples/torch/quickstart.py`` and
-   ``serve_sac.py`` on the card, exit 0.  (b), (c) and (a)'s meta build
-   run at once; (a)'s card part runs after them, alone;
+   ``serve_sac.py`` on the card, both at once, exit 0.  (b) and (a)'s
+   meta build run on the host beside phases 4-17 (started after phase
+   3; alone, with ``--dryrun``, beside (c)); (a)'s card part runs after
+   (c), alone;
 19. tensor and expert parallelism of the weights (``distributed/tp.py``
    under ``use_rules(SERVE_RULES, mesh)``, over the sharded pool, with
    the hot tier and a score-independent top-k of 2048): (a) Qwen2-1.5B
@@ -255,7 +261,18 @@ Phases, each printing one JSON line with its seconds; any failure raises
    the hot tier's integer state exact, and a control (model rank 1's
    ``wo`` zeroed) outside both limits; rank 0's weight bytes,
    peak memory, device ms, launches and collectives a step (two
-   profiled steps), with the card's name and power limit;
+   profiled steps), with the card's name and power limit; (c) MoE
+   dispatch groups over the batch axes (``moe_groups=auto``: 2 groups at
+   (2, 2)) on (b)'s ranks: DeepSeek-V3.2's prefill on (b)'s blocks,
+   each rank routing its own lanes and trading the dispatch slots by
+   all-to-all, and 2 decode steps (one group), fed the unsharded run's
+   at 2 groups (made in (b)'s child), held as (b); then one
+   ``TRAIN_RULES`` step's gradients of Mixtral-8x22B at full width with
+   2 layers (4 x 256) against the unsharded step at 2 groups (made by
+   the parent meanwhile) in f32, the loss within 1e-4 and each leaf
+   within 1e-2 on the ranks' blocks, a control without the batch-axis
+   sums outside; each rank's collectives inside its MoE blocks, peak and
+   seconds;
 20. the d_model rows split across ranks (``distributed/tp.py`` with the
    rows over ``data``): (a) at an NCCL world of one, three training
    steps of Qwen2-1.5B at full width and depth (8 x 512) under
@@ -375,24 +392,52 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+_STARTED = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """A record on stdout; on stderr, the script's seconds so far and the
+    record's phase (where the time goes between records)."""
     print(json.dumps(obj), flush=True)
+    print(f"chip_smoke: {time.perf_counter() - _STARTED:.1f} s "
+          f"{obj.get('phase', '')} {obj.get('run', '')}", file=sys.stderr,
+          flush=True)
+
+
+def _warm_host_s(fns, n: int) -> float:
+    """Call ``fns`` (cycled) ``n`` times; the host seconds of the last
+    call (the earlier ones may load or compile)."""
+    host = 0.0
+    for i in range(n):
+        t0 = time.perf_counter()
+        fns[i % len(fns)]()
+        host = time.perf_counter() - t0
+    return host
+
+
+def _queue_behind(host_s: float) -> None:
+    """Hold the stream with a busy-wait kernel until the host has queued
+    the timed calls behind it: thrice ``host_s`` (their host time, as
+    the warm-up took it) and 2 ms, at 2 GHz of GPU cycles (longer at the
+    card's lower clocks), at most ~50 ms."""
+    import torch
+    torch.cuda._sleep(int(2e9 * min(0.05, 3 * host_s + 0.002)))
 
 
 def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Device time per call: a pair of CUDA events around each of
-    ``iters`` calls, all queued behind a ~50 ms busy-wait kernel so that
-    the host has enqueued them before the first starts (a call that
-    synchronizes the host, as a boolean-mask index does, still includes
-    host time).  The inputs stay warm in the 50 MB L2 between calls
-    (the row movers' ``ms_batched`` reads them cold where it says so)."""
+    ``iters`` calls, all queued behind a busy-wait kernel
+    (``_queue_behind``) so that the host has enqueued them before the
+    first starts (a call that synchronizes the host, as a boolean-mask
+    index does, still includes host time).  The inputs stay warm in the
+    50 MB L2 between calls (the row movers' ``ms_batched`` reads them
+    cold where it says so)."""
     import torch
-    for _ in range(warmup):
-        fn()
+    host = _warm_host_s([fn], max(warmup, 1))
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
     torch.cuda.synchronize()
-    torch.cuda._sleep(100_000_000)          # ~50 ms of GPU cycles
+    _queue_behind(iters * (host + 20e-6))    # the event pairs' own host
     for start, end in events:
         start.record()
         fn()
@@ -417,12 +462,11 @@ def cuda_batched_ms(fns, n: int = 200, warmup: int = 3) -> float:
     out of the L2: ``cold_copies``)."""
     import torch
     fns = fns if isinstance(fns, list) else [fns]
-    for i in range(max(warmup, len(fns))):
-        fns[i % len(fns)]()
+    host = _warm_host_s(fns, max(warmup, len(fns)))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    torch.cuda._sleep(100_000_000)          # ~50 ms of GPU cycles
+    _queue_behind(n * host)
     start.record()
     for i in range(n):
         fns[i % len(fns)]()
@@ -431,12 +475,19 @@ def cuda_batched_ms(fns, n: int = 200, warmup: int = 3) -> float:
     return start.elapsed_time(end) / n
 
 
+# a batched run's calls: 200, or as many as take BATCHED_MS of the
+# device (at least 20) where a call takes longer than BATCHED_MS / 200
+BATCHED_MS = 100.0
+
+
 def both_times(fn, rotation=None) -> dict:
     """``ms`` (an event pair around each of 20 calls of ``fn``) and
-    ``ms_batched`` (one pair around 200 calls, cycling through
-    ``rotation`` when given, else of ``fn``)."""
-    return dict(ms=cuda_time_ms(fn),
-                ms_batched=cuda_batched_ms(rotation or fn))
+    ``ms_batched`` (one pair around 200 calls, or fewer where ``ms`` is
+    long: BATCHED_MS, cycling through ``rotation`` when given, else of
+    ``fn``)."""
+    ms = cuda_time_ms(fn)
+    n = min(200, max(20, int(BATCHED_MS / max(ms, 1e-6))))
+    return dict(ms=ms, ms_batched=cuda_batched_ms(rotation or fn, n=n))
 
 
 L2_BYTES = 50 * 2 ** 20                    # the H100's L2
@@ -1486,15 +1537,18 @@ def _to(tree, dev):
 
 
 def serve(torch, ops, cfg, *, slots: int, max_ctx: int, requests: int,
-          context: int, output: int, device="cuda"):
+          context: int, output: int, device="cuda", device_kernels=None):
     """Serve the trace through the port's Engine; returns the engine, the
     kernels' launch counts during the run, a summary (with the bytes and
     dtypes of the pool, the hot tier's entries and the indexer pool),
-    each request's decoded tokens and the first decode step's logits.
-    Every logit of every decode step must be finite.  (``device`` lets
-    the same phase run reduced on the CPU as a rehearsal.)  The summary
-    also gives the pool layers and the bytes of the recurrent state
-    ``rec_*`` (Mamba2, xLSTM)."""
+    each request's decoded tokens, the first decode step's logits and,
+    with ``device_kernels``, the profile of the run's last
+    PROFILED_STEPS decode steps (``profile_in_run``; their wall times
+    are the profile's, not in the summary's).  Every logit of every
+    decode step must be finite.  (``device`` lets the same phase run
+    reduced on the CPU as a rehearsal.)  The summary also gives the pool
+    layers and the bytes of the recurrent state ``rec_*`` (Mamba2,
+    xLSTM)."""
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.request import sharegpt_trace
 
@@ -1520,10 +1574,26 @@ def serve(torch, ops, cfg, *, slots: int, max_ctx: int, requests: int,
     step_s = []
     for r in reqs:
         eng.submit(r)
-    done = []
+    done, prof, held = [], None, []
+
+    def kept(*args, **kwargs):             # no operator in the trace
+        state, logits = plain_decode(*args, **kwargs)
+        held.append(logits)
+        return state, logits
     ops.reset_launch_counts()
     t_run = time.perf_counter()
     while len(done) < len(reqs) and eng.stats.steps < 20 * requests:
+        if device_kernels is not None and prof is None and \
+                last_wave_ready(eng):
+            eng._decode = kept
+            prof, finished = profile_in_run(torch, eng, eng.step,
+                                            device_kernels=device_kernels)
+            eng._decode = decode
+            nonfinite += [(~torch.isfinite(lg)).sum() for lg in held]
+            done += finished
+            # the run's wall holds the traced steps, not their analysis
+            t_run += prof["seconds"] - prof["wall_s"]
+            continue
         s0 = eng.stats.steps
         t1 = time.perf_counter()
         done += eng.step()
@@ -1531,6 +1601,8 @@ def serve(torch, ops, cfg, *, slots: int, max_ctx: int, requests: int,
         if eng.stats.steps > s0:
             step_s.append(time.perf_counter() - t1)
     run_s = time.perf_counter() - t_run
+    if device_kernels is not None and prof is None:
+        raise AssertionError(f"{cfg.name}: no last wave to profile")
     counts = ops.launch_counts()
     steps = eng.stats.steps
     if len(done) != requests or eng.stats.tokens != requests * output:
@@ -1572,21 +1644,136 @@ def serve(torch, ops, cfg, *, slots: int, max_ctx: int, requests: int,
         rec_bytes=sum(t.nbytes for t in _rec_leaves(eng.state)),
         logits_finite=True, launches=counts)
     return (eng, counts, summary, {r.request_id: r.out_tokens for r in done},
-            first[0])
+            first[0], prof)
 
 
-def _span_totals(event):
-    """Device seconds of the kernels launched inside a profiler range
-    (by the operators below it; the range's own device-side annotation
-    left out) and the ``cudaLaunchKernel`` calls there."""
-    dev, n = 0.0, 0
-    stack = list(event.cpu_children)
-    while stack:
-        e = stack.pop()
-        dev += sum(k.duration for k in e.kernels) * 1e-6
-        n += e.name == "cudaLaunchKernel"
-        stack.extend(e.cpu_children)
-    return dev, n
+# the profiler's own utility events, which its event list leaves out too
+# (torch.autograd.profiler_util._filter_name)
+_PROFILER_UTILITY = frozenset((
+    "[memory]", "[OutOfMemory]", "profiler::_record_function_enter",
+    "profiler::_record_function_enter_new",
+    "profiler::_record_function_exit", "aten::is_leaf", "aten::output_nr",
+    "aten::_version"))
+
+
+def _trace_facts(torch, prof, spans=()):
+    """What ``profile_steps`` reads of a trace, straight from kineto's
+    events: the profiler's Python event list (``prof.events()``,
+    ``key_averages()``) would build an object and a tree node for each of
+    the trace's tens of thousands of events, seconds of host time for two
+    decode steps of a full-depth model, and these few sums need neither.
+    The same definitions as that list's:
+
+    - ``device``: (start ns, end ns from the trace's start, name) of each
+      device activity (kernels and copies), the ranges' device-side
+      annotations left out;
+    - ``keys``: by host event name, [calls, inclusive host us, own host
+      us], as ``key_averages`` gives ``count``, ``cpu_time_total`` and
+      ``self_cpu_time_total`` for its host entries (a range's device-side
+      annotation has an entry of its own, which is left out): a host
+      event's own time is its time less
+      its children's, nesting by interval on its thread (a device
+      runtime call on the thread of the operator that made it), an
+      asynchronous event counting no own time and holding no children,
+      and a child that is its same-named parent's only child merged
+      into it;
+    - ``spans``: for each host range named in ``spans``, [name, host us,
+      device us of the activities launched by the operators inside it,
+      ``cudaLaunchKernel`` calls inside it]."""
+    from torch.autograd import DeviceType
+    results = prof.profiler.kineto_results
+    t0 = results.trace_start_ns()
+    cpu, device, names = [], [], {}
+    for e in results.events():
+        raw = e.name()
+        if raw in _PROFILER_UTILITY or (hasattr(e, "is_hidden_event")
+                                        and e.is_hidden_event()):
+            continue
+        name = names.get(raw)
+        if name is None:             # demangled, as the event list names it
+            name = names[raw] = (torch._C._demangle(raw) if len(raw) > 1
+                                 else raw)
+        if e.device_type() == DeviceType.CPU:
+            cpu.append((e.start_ns(), e.end_ns(), name, e.start_thread_id(),
+                        e.is_async() or e.start_thread_id()
+                        != e.end_thread_id(), e.correlation_id(),
+                        e.linked_correlation_id()))
+        elif e.device_type() == DeviceType.CUDA:
+            device.append((e.start_ns() - t0, e.end_ns() - t0, name,
+                           e.linked_correlation_id(),
+                           e.is_user_annotation()))
+    # a runtime call (linked to its operator) runs on that operator's thread
+    thread_of = {c[5]: c[3] for c in cpu if c[6] == 0 and not c[4]}
+    threads = {}
+    for i, c in enumerate(cpu):
+        if not c[4]:
+            t = thread_of.get(c[6], c[3]) if c[6] else c[3]
+            threads.setdefault(t, []).append(i)
+    parent = [None] * len(cpu)
+    children = [[] for _ in cpu]
+    where = {}                       # thread -> its events in start order
+    for t, idx in threads.items():
+        idx.sort(key=lambda i: (cpu[i][0], -cpu[i][1]))
+        where[t] = idx
+        stack = []
+        for i in idx:
+            while stack and (cpu[i][0] >= cpu[stack[-1]][1]
+                             or cpu[i][1] > cpu[stack[-1]][1]):
+                stack.pop()
+            if stack:
+                parent[i] = stack[-1]
+                children[stack[-1]].append(i)
+            stack.append(i)
+    gone = set()
+    while True:                      # merge same-named only children
+        merged = False
+        for i, c in enumerate(cpu):
+            p = parent[i]
+            if i in gone or p is None or cpu[p][2] != c[2] \
+                    or len(children[p]) != 1:
+                continue
+            children[p] = children[i]
+            for ch in children[i]:
+                parent[ch] = p
+            gone.add(i)
+            merged = True
+        if not merged:
+            break
+    keys = {}
+    for i, c in enumerate(cpu):
+        if i in gone:
+            continue
+        dur = (c[1] - c[0]) * 1e-3
+        own = 0.0 if c[4] else dur - sum((cpu[ch][1] - cpu[ch][0]) * 1e-3
+                                         for ch in children[i])
+        k = keys.setdefault(c[2], [0, 0.0, 0.0])
+        k[0] += 1
+        k[1] += dur
+        k[2] += own
+    # the ranges: the operators and runtime calls on their thread between
+    # their ends, and the device activities those operators launched
+    out, launched = [], {}
+    for a, b, name, linked, _ in device:
+        if linked:
+            launched[linked] = launched.get(linked, 0) + (b - a)
+    import bisect
+    for t, idx in where.items():
+        starts = [cpu[i][0] for i in idx]
+        for j, i in enumerate(idx):
+            a, b, name = cpu[i][0], cpu[i][1], cpu[i][2]
+            if name not in spans or i in gone:
+                continue
+            dev_ns, n = 0, 0
+            for k in idx[j + 1:bisect.bisect_left(starts, b, lo=j + 1)]:
+                if cpu[k][1] > b:
+                    continue
+                n += cpu[k][2] == "cudaLaunchKernel"
+                if cpu[k][6] == 0:
+                    dev_ns += launched.get(cpu[k][5], 0)
+            out.append([name, (b - a) * 1e-3, dev_ns * 1e-3, n])
+    device = sorted((a, b, name) for a, b, name, _, note in device
+                    if name not in spans and not note)
+    return dict(device=device, keys=keys, spans=out)
 
 
 # the host operators of the collectives (phase 16 (a) reads them): c10d's
@@ -1610,7 +1797,6 @@ def profile_steps(torch, step, *, n_steps: int, device_kernels, spans,
     too, where any ran (``reported``; none is required).  ``host_ops``:
     the collectives' host operators (COLLECTIVE_OPS), where any ran, by
     name: calls and host time under the profiler, inclusive and own."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models.transformer import DECODE_SPANS
 
@@ -1622,16 +1808,13 @@ def profile_steps(torch, step, *, n_steps: int, device_kernels, spans,
             step()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    # device activity: kernels and copies, not the ranges' annotations
-    events = sorted((e.time_range.start, e.time_range.end, e.name)
-                    for e in prof.events()
-                    if e.device_type == DeviceType.CUDA
-                    and e.name not in DECODE_SPANS
-                    and not getattr(e, "is_user_annotation", False))
+    facts = _trace_facts(torch, prof, DECODE_SPANS)
+    events = facts["device"]
     if not events:
         raise AssertionError("the profiler recorded no device activity")
     busy_us, end_us, by_name = 0.0, -math.inf, {}
     for a, b, name in events:                    # union of the intervals
+        a, b = a * 1e-3, b * 1e-3
         busy_us += max(0.0, b - max(a, end_us))
         end_us = max(end_us, b)
         t, n = by_name.get(name, (0.0, 0))
@@ -1645,23 +1828,20 @@ def profile_steps(torch, step, *, n_steps: int, device_kernels, spans,
             raise AssertionError(f"no {key} on the device in the profile")
         ours[key]["us_per_call"] = (ours[key]["seconds"] * 1e6
                                     / ours[key]["calls"])
-    # one aggregation by operator: each key_averages call walks every
-    # event again
-    averages = prof.key_averages()
+    # by event name: calls, inclusive and own host us (key_averages')
+    averages = facts["keys"]
     # kernel launches the host made through cudaLaunchKernel (the count
     # earlier records give; cuBLAS's cudaLaunchKernelExC apart)
-    launches = {k: sum(e.count for e in averages if e.key == k)
+    launches = {k: averages.get(k, (0,))[0]
                 for k in ("cudaLaunchKernel", "cudaLaunchKernelExC")}
     kinds = {k: dict(calls=0, host_s=0.0, device_s=0.0, launches=0)
              for k in DECODE_SPANS}
-    for e in prof.events():
-        if e.name in kinds and e.device_type == DeviceType.CPU:
-            dev, n = _span_totals(e)
-            k = kinds[e.name]
-            k["calls"] += 1
-            k["host_s"] += e.cpu_time_total * 1e-6
-            k["device_s"] += dev
-            k["launches"] += n
+    for name, host_us, dev_us, n in facts["spans"]:
+        k = kinds[name]
+        k["calls"] += 1
+        k["host_s"] += host_us * 1e-6
+        k["device_s"] += dev_us * 1e-6
+        k["launches"] += n
     layer_kinds = {}
     for name, k in kinds.items():
         want = spans.get(name, 0)
@@ -1683,14 +1863,14 @@ def profile_steps(torch, step, *, n_steps: int, device_kernels, spans,
         hits = [v for name, v in by_name.items() if key in name.lower()]
         reported[key] = dict(seconds=sum(t for t, _ in hits),
                              calls=sum(n for _, n in hits))
-    host_ops = {e.key: dict(calls=e.count,
-                            host_s=e.cpu_time_total * 1e-6,
-                            self_host_s=e.self_cpu_time_total * 1e-6)
-                for e in averages if e.key.startswith(COLLECTIVE_OPS)}
+    host_ops = {key: dict(calls=n, host_s=total * 1e-6,
+                          self_host_s=own * 1e-6)
+                for key, (n, total, own) in averages.items()
+                if key.startswith(COLLECTIVE_OPS)}
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     # where the host's share goes: operators by their own (self) host time
-    host = sorted((e for e in averages if e.self_cpu_time_total > 0),
-                  key=lambda e: -e.self_cpu_time_total)[:top]
+    host = sorted(((key, n, own) for key, (n, _, own) in averages.items()
+                   if own > 0), key=lambda e: -e[2])[:top]
     return dict(
         decode_steps=n_steps, wall_s=wall_s, device_busy_s=busy_us * 1e-6,
         device_busy_share=busy_us * 1e-6 / wall_s,
@@ -1702,41 +1882,48 @@ def profile_steps(torch, step, *, n_steps: int, device_kernels, spans,
         host_ops=host_ops,
         top_kernels=[dict(name=name[:96], seconds=t, calls=n)
                      for name, (t, n) in ranked],
-        top_host_ops=[dict(name=e.key[:96],
-                           self_seconds=e.self_cpu_time_total * 1e-6,
-                           calls=e.count) for e in host])
+        top_host_ops=[dict(name=key[:96], self_seconds=own * 1e-6,
+                           calls=n) for key, n, own in host])
 
 
-def profile_decode(torch, eng, *, requests: int, context: int,
-                   device_kernels, n_steps: int = 2, top: int = 8):
-    """``profile_steps`` over pure decode steps of the engine at full
-    width: ``requests`` more requests (new ids, the serving phase's
-    lengths) are admitted and prefilled outside the trace, then their
-    next ``n_steps`` decode steps are traced; each model layer kind
-    (pool layers, Mamba2 layers, xLSTM super-blocks) must open its range
-    once per such layer a step."""
-    from repro_torch.serving.request import sharegpt_trace
+PROFILED_STEPS = 2
 
-    reqs = sharegpt_trace(requests, context_len=context,
-                          output_len=n_steps + 1, ctx_jitter=0.0, seed=1,
-                          vocab=eng.cfg.vocab)
-    for i, r in enumerate(reqs):
-        r.request_id = 1000 + i
-        eng.submit(r)
-    eng.step()                                   # admission, prefill, token 1
+
+def last_wave_ready(eng, n_steps: int = PROFILED_STEPS) -> bool:
+    """Whether the engine's next ``n_steps`` steps are pure decode steps
+    at full width that finish its last wave: no request waits, every
+    slot holds one, and each has ``n_steps`` tokens left."""
+    reqs = eng.slot_req
+    return (not eng.queue and all(r is not None for r in reqs)
+            and all(r.output_len - r.generated == n_steps
+                    for r in reqs))
+
+
+def profile_in_run(torch, eng, step, *, device_kernels,
+                   n_steps: int = PROFILED_STEPS):
+    """``profile_steps`` over the serving run's own last ``n_steps``
+    decode steps (``step()`` runs one and returns the requests it
+    finished), once ``last_wave_ready``: every slot full, no prefill in
+    them, and the wave done by their end.  Each model layer kind (pool
+    layers, Mamba2 layers, xLSTM super-blocks) must open its range once
+    per such layer a step.  Returns the profile's record and the
+    finished requests."""
     done = []
     cfg = eng.cfg
     spans = dict(pool_layer=eng.model.n_kv,
                  mamba2_layer=cfg.n_layers if cfg.ssm_state else 0,
                  xlstm_super=sum(seg.n for seg in eng.model.segments
                                  if seg.kind == "xlstm_super"))
-    rec = profile_steps(torch, lambda: done.extend(eng.step()),
+    slots = sum(r is not None for r in eng.slot_req)
+    t0 = time.perf_counter()
+    rec = profile_steps(torch, lambda: done.extend(step()),
                         n_steps=n_steps, device_kernels=device_kernels,
-                        spans=spans, top=top)
-    if len(done) != len(reqs):
+                        spans=spans)
+    if len(done) != slots:
         raise AssertionError(f"profiled steps finished {len(done)} of "
-                             f"{len(reqs)} requests")
-    return dict(phase="profile", config=eng.cfg.name, slots=requests, **rec)
+                             f"{slots} requests")
+    return dict(phase="profile", config=cfg.name, slots=slots, **rec,
+                seconds=time.perf_counter() - t0), done
 
 
 def check_launches(counts, steps: int, layers: int, attn, prompts: int,
@@ -1784,20 +1971,15 @@ def serve_and_profile(torch, ops, name: str):
         cfg = dataclasses.replace(cfg, sac=dataclasses.replace(
             cfg.sac, kv_quant=spec["kv_quant"]))
     t0 = time.perf_counter()
-    eng, counts, summary, tokens, first = serve(
+    eng, counts, summary, tokens, first, prof = serve(
         torch, ops, cfg, slots=spec["slots"], max_ctx=spec["max_ctx"],
         requests=spec["requests"], context=spec["context"],
-        output=spec["output"])
+        output=spec["output"], device_kernels=spec["device_kernels"])
     summary["seconds"] = time.perf_counter() - t0
     summary["run"] = name
     emit(summary)
     check_launches(counts, summary["steps"], summary["pool_layers"],
                    spec["attn"], prompts=spec["requests"])
-    t0 = time.perf_counter()
-    prof = profile_decode(torch, eng, requests=spec["slots"],
-                          context=spec["context"],
-                          device_kernels=spec["device_kernels"])
-    prof["seconds"] = time.perf_counter() - t0
     prof["run"] = name
     emit(prof)
     del eng
@@ -1815,19 +1997,29 @@ FETCH_RUNS = {
 }
 
 
-def serve_cli(torch, ops, argv):
+def serve_cli(torch, ops, argv, device_kernels=None):
     """Serve through the port's CLI (``repro_torch.launch.serve.main``);
     returns the engine, its requests, the CLI's printed JSON, the
     kernels' launch counts, each step's wall time (as serve() takes it:
     the CLI runs Engine.run, whose steps a wrapper times and
-    synchronizes) and the entries the prefill warm-up inserted (so the
-    speculation's share of ``prefetched_entries`` is known)."""
+    synchronizes), the entries the prefill warm-up inserted (so the
+    speculation's share of ``prefetched_entries`` is known) and, with
+    ``device_kernels``, the profile of the run's last PROFILED_STEPS
+    decode steps (``profile_in_run``; their wall times are the
+    profile's)."""
     from repro_torch.launch import serve as serve_cli_mod
     from repro_torch.serving.engine import Engine
-    step_s, warm = [], [0]
+    step_s, warm, prof = [], [0], []
     plain_step, plain_warm = Engine.step, Engine._warm_apply
 
     def timed_step(self, *args, **kwargs):
+        if device_kernels is not None and not prof and \
+                last_wave_ready(self):
+            rec, finished = profile_in_run(
+                torch, self, lambda: plain_step(self, *args, **kwargs),
+                device_kernels=device_kernels)
+            prof.append(rec)
+            return finished
         s0 = self.stats.steps
         t1 = time.perf_counter()
         finished = plain_step(self, *args, **kwargs)
@@ -1850,17 +2042,19 @@ def serve_cli(torch, ops, argv):
         Engine.step, Engine._warm_apply = plain_step, staticmethod(plain_warm)
     counts = ops.launch_counts()
     text = printed.getvalue()
+    if device_kernels is not None and not prof:
+        raise AssertionError(f"{argv}: no last wave to profile")
     return (eng, reqs, json.loads(text[text.index("{"):]), counts, step_s,
-            warm[0])
+            warm[0], prof[0] if prof else None)
 
 
 def fetch_pipeline(torch, ops, off_summary, off_tokens):
     """Phase 7: Qwen2-1.5B's serve trace through the port's CLI, held
     against the prefetch-off run of phase 6 (its summary and tokens):
     first with the fetch pipeline, the arbiter and online resizing on,
-    then a profile of its decode steps; then with speculation alone, at
-    the grants' full width.  Returns the launch counts of the served
-    runs."""
+    with a profile of its last decode steps; then with speculation
+    alone, at the grants' full width.  Returns the launch counts of the
+    served runs."""
     spec = SERVES["qwen2-1.5b"]
     base = ["--arch", "qwen2-1.5b", "--requests", str(spec["requests"]),
             "--ctx", str(spec["context"]), "--out-len", str(spec["output"]),
@@ -1870,9 +2064,12 @@ def fetch_pipeline(torch, ops, off_summary, off_tokens):
     for run, flags in FETCH_RUNS.items():
         argv = base + flags
         t0 = time.perf_counter()
-        eng, reqs, cli_out, counts, step_s, warm_entries = serve_cli(
-            torch, ops, argv)
-        run_s = time.perf_counter() - t0
+        eng, reqs, cli_out, counts, step_s, warm_entries, prof = serve_cli(
+            torch, ops, argv, device_kernels=(
+                spec["device_kernels"] if run == "prefetch_arbiter_resize"
+                else None))
+        run_s = time.perf_counter() - t0 - (
+            prof["seconds"] - prof["wall_s"] if prof else 0.0)
         st = eng.stats
         steps, layers = st.steps, eng.cfg.n_layers
         width = eng.cfg.sac.prefetch_width
@@ -1921,12 +2118,7 @@ def fetch_pipeline(torch, ops, off_summary, off_tokens):
             # of its lanes inserted an entry
             raise AssertionError(f"{run}: {spec_entries} speculated entries "
                                  f"in {spec_lanes} lanes")
-        if run == "prefetch_arbiter_resize":
-            t0 = time.perf_counter()
-            prof = profile_decode(torch, eng, requests=spec["slots"],
-                                  context=spec["context"],
-                                  device_kernels=spec["device_kernels"])
-            prof["seconds"] = time.perf_counter() - t0
+        if prof:
             prof["phase"] = "profile_fetch_pipeline"
             emit(prof)
         del eng, reqs
@@ -1946,7 +2138,7 @@ def cli_defaults(torch, ops, arch: str):
     argv = ["--arch", arch]
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    eng, reqs, cli_out, counts, step_s, _ = serve_cli(torch, ops, argv)
+    eng, reqs, cli_out, counts, step_s, _, _ = serve_cli(torch, ops, argv)
     st = eng.stats
     emit(dict(phase="cli", argv=argv, config=eng.cfg.name,
               n_layers=eng.cfg.n_layers, pool_layers=eng.model.n_kv,
@@ -2736,7 +2928,7 @@ def _collective_facts(torch, dist, group):
     return facts
 
 
-def sharded_nccl(torch, ops, families=False):
+def sharded_nccl(torch, ops, families=False, then=None):
     """Phase 16 (a): Qwen2-1.5B at full width and depth over a world of
     one NCCL rank, mesh (1, 1), through the real collectives (the scores'
     all-gather and the fetch's byte all-reduce): 16 decode steps beside
@@ -2751,7 +2943,9 @@ def sharded_nccl(torch, ops, families=False):
     references and the shard forms' launches.  In the same NCCL world it
     then runs (a) extended, (d), (e) and (f), and with ``families`` phase
     21 (a) (the third runs of (e) and (f), ``families_world_of_one``);
-    the launches returned are a list, one dict each run."""
+    the launches returned are a list, one dict each run.  ``then()``
+    runs once (e) has left the card (the script starts the gloo ranks of
+    (b), (c) and (g) there, to wait for their turn)."""
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.core.pool import make_pooled_fetch
@@ -2812,8 +3006,10 @@ def sharded_nccl(torch, ops, families=False):
         del s0, m, ms, params
         gc.collect()
         torch.cuda.empty_cache()
-        # (e), (f)
+        # (e), (f); past (e), the card's peak, ``then()``
         more.append(sharded_zamba(torch, ops, mesh, tp=families))
+        if then is not None:
+            then()
         more += sharded_whisper(torch, ops, mesh, tp=families)
         if families:
             more.append(families_world_of_one(torch, ops, mesh))
@@ -2843,6 +3039,7 @@ def _sharded_rank(rank, world, port, out_dir):
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=world)
     try:
+        _wait_file(Path(out_dir) / "go")
         mesh = make_mesh(SHARDED["mesh_gloo"], ("data", "model"))
         facts = _collective_facts(torch, dist, mesh.get_group("model"))
         cfg = get_config(SHARDED["arch"])
@@ -2883,6 +3080,7 @@ def _small_sharded_rank(rank, world, port, out_dir):
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=world)
     try:
+        _wait_file(Path(out_dir) / "go")
         mesh = make_mesh((1, 2), ("data", "model"))
         out = {}
         for name in SHARDED_SMALL:
@@ -2896,30 +3094,66 @@ def _small_sharded_rank(rank, world, port, out_dir):
         dist.destroy_process_group()
 
 
-def _spawn(fn, world: int, out_dir):
-    """Run ``fn(rank, world, port, out_dir)`` in ``world`` processes (the
-    kernels are built already: the ranks load the library), joined;
-    returns each rank's saved result."""
-    import torch
+@contextlib.contextmanager
+def _started_ranks(fn, out_dir, world: int = 4):
+    """``fn(rank, world, port, out_dir)`` in ``world`` processes, started
+    now (imports, the card's context, their gloo group) so that they
+    start while the caller makes their inputs, which they wait for;
+    yields their context (join it), and kills any still running on the
+    way out (the caller failed first)."""
     import torch.multiprocessing as mp
-    mp.start_processes(fn, args=(world, _free_port(), str(out_dir)),
-                       nprocs=world, start_method="spawn")
-    return [torch.load(Path(out_dir) / f"rank{r}.pt", weights_only=False)
-            for r in range(world)]
+    spawned = mp.start_processes(fn, args=(world, _free_port(),
+                                           str(out_dir)),
+                                 nprocs=world, start_method="spawn",
+                                 join=False)
+    try:
+        yield spawned
+    finally:
+        for proc in spawned.processes:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
 
 
-def sharded_gloo(torch, refs):
+def _go(started):
+    """Let ranks started (``_started_ranks``: (directory, context)) and
+    waiting for their ``go`` run; their results, joined."""
+    import torch
+    tmp, spawned = started
+    (Path(tmp) / "go").touch()
+    while not spawned.join():
+        pass
+    return [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+            for r in range(len(spawned.processes))]
+
+
+def start_sharded_ranks(stack) -> dict:
+    """The ranks of phase 16 (b), (c) and (g), started (imports, the
+    card's context, their gloo groups) while (a)-(f) end, each group
+    waiting for its ``go`` (``_go``); ``stack`` (an ExitStack) kills any
+    still running when it closes and removes their directories."""
+    import tempfile
+    out = {}
+    for key, fn, world in (("b", _sharded_rank, 4),
+                           ("c", _small_sharded_rank, 2),
+                           ("g", _family_sharded_rank, 4)):
+        tmp = stack.enter_context(tempfile.TemporaryDirectory())
+        out[key] = (tmp, stack.enter_context(_started_ranks(fn, tmp,
+                                                            world)))
+    return out
+
+
+def sharded_gloo(torch, refs, started):
     """Phase 16 (b): four ranks on card 0 over gloo, mesh (2, 2), against
     phase (a)'s unsharded runs of the same 4 lanes: tokens, logits and the
-    hot tier bit for bit.  Returns the record and the shard forms'
-    launches summed over the ranks."""
-    import tempfile
+    hot tier bit for bit.  ``started``: the ranks (``start_sharded_ranks``).
+    Returns the record and the shard forms' launches summed over the
+    ranks."""
     from repro_torch.configs import get_config
     L = get_config(SHARDED["arch"]).n_layers
     steps = SHARDED["steps_gloo"]
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        ranks = _spawn(_sharded_rank, 4, tmp)
+    ranks = _go(started)
     seconds = time.perf_counter() - t0
     per = SHARDED["requests"] // SHARDED["mesh_gloo"][0]
     checks = []
@@ -2958,14 +3192,13 @@ def sharded_gloo(torch, refs):
     return rec, launches
 
 
-def sharded_small(torch):
+def sharded_small(torch, started):
     """Phase 16 (c): small DeepSeek-V3.2 (MLA) and Gemma3-12B (windowed)
-    at mesh (1, 2) over gloo: logits, hot tier and pool (the two slices
-    side by side) bit-equal to the unsharded card run, which is held to
-    SMALL_TOL against the CPU beside its e4m3 control."""
-    import tempfile
-    with tempfile.TemporaryDirectory() as tmp:
-        ranks = _spawn(_small_sharded_rank, 2, tmp)
+    at mesh (1, 2) over gloo (``started``: the two ranks): logits, hot
+    tier and pool (the two slices side by side) bit-equal to the
+    unsharded card run, which is held to SMALL_TOL against the CPU beside
+    its e4m3 control."""
+    ranks = _go(started)
     for name in SHARDED_SMALL:
         t0 = time.perf_counter()
         cfg = small_config(name)
@@ -3391,6 +3624,7 @@ def _family_sharded_rank(rank, world, port, out_dir):
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=world)
     try:
+        _wait_file(Path(out_dir) / "go")
         mesh = make_mesh((2, 2), ("data", "model"))
         torch.save(sharded_small_cases(torch, "cuda", mesh),
                    Path(out_dir) / f"rank{rank}.pt")
@@ -3398,14 +3632,13 @@ def _family_sharded_rank(rank, world, port, out_dir):
         dist.destroy_process_group()
 
 
-def sharded_families_small(torch):
-    """Phase 16 (g): FAMILY_SMALL on four gloo ranks sharing the card,
-    each rank bit-equal to the unsharded card run of its lanes, which
-    holds SMALL_TOL against the CPU beside its e4m3 control."""
-    import tempfile
+def sharded_families_small(torch, started):
+    """Phase 16 (g): FAMILY_SMALL on four gloo ranks sharing the card
+    (``started``), each rank bit-equal to the unsharded card run of its
+    lanes, which holds SMALL_TOL against the CPU beside its e4m3
+    control."""
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        ranks = _spawn(_family_sharded_rank, 4, tmp)
+    ranks = _go(started)
     spawn_s = time.perf_counter() - t0
     report = check_small_cases(torch, ranks, "cuda", control=True)
     emit(dict(phase="sharded", run="small_families_total",
@@ -3536,7 +3769,10 @@ DRYRUN_STEPS = dict(warmup=2, timed=5, profiled=2)
 # token at a time: 32,768 times a token's operators).  The 16 cells that
 # stay took 66-77 s on the card's host with (c) and (a)'s meta build beside
 # them; DRYRUN_BUDGET_S is a hang guard: a cell still running then, or
-# not yet started, fails the phase
+# not yet started, fails the phase.  In the whole script (b) and (a)'s
+# meta build start after phase 3 and run beside phases 4-17, which keep
+# one host core busy each, on DRYRUN_WORKERS_BESIDE cores; phase 18 then
+# collects them
 DRYRUN_ARCHS = ("qwen2-1.5b", "mixtral-8x22b", "gemma3-12b", "zamba2-7b",
                 "xlstm-125m", "whisper-small")
 DRYRUN_SHAPES = ("decode_32k", "long_500k", "prefill_32k", "train_4k")
@@ -3548,6 +3784,7 @@ DRYRUN_CELLS = ([("deepseek-v32", "decode_32k", m)
                 + [(a, s, "single") for s in DRYRUN_SHAPES
                    for a in DRYRUN_ARCHS if (a, s) not in DRYRUN_CUT])
 DRYRUN_WORKERS = 8
+DRYRUN_WORKERS_BESIDE = 4
 DRYRUN_BUDGET_S = 300
 # the port's examples run on the card in (c)
 DRYRUN_EXAMPLES = ("quickstart", "serve_sac")
@@ -3739,16 +3976,21 @@ def dryrun_cell_on_card(torch, smi: str, meta_proc) -> dict:
     return rec
 
 
-def dryrun_cli_cells(lines: list) -> list:
+def dryrun_cli_cells(lines: list, workers: int | None = None,
+                     procs: list | None = None) -> list:
     """Phase 18 (b): the dry-run CLI, one process a cell of DRYRUN_CELLS
-    (DRYRUN_WORKERS at once, none on the card).  Every cell must end
-    ``ok`` or ``skipped``; one still running at DRYRUN_BUDGET_S is killed
-    and reported ``timeout`` with its stderr's tail, and one not started
-    by then ``not_started``.  Runs in a thread beside (c): its records go
-    to ``lines`` (emitted by the caller after the join), and the cells'
+    (``workers`` at once, DRYRUN_WORKERS by default; none on the card).
+    Every cell must end ``ok`` or ``skipped``; one still running at
+    DRYRUN_BUDGET_S is killed and reported ``timeout`` with its stderr's
+    tail, and one not started by then ``not_started``.  Runs in a thread
+    (``start_dryrun_cells``): its records go to ``lines`` (emitted by
+    the caller after the join), each process it starts to ``procs`` (so
+    that the script can stop them if it fails first), and the cells'
     records are returned."""
     import os
     import tempfile
+    workers = DRYRUN_WORKERS if workers is None else workers
+    procs = [] if procs is None else procs
     t0 = time.perf_counter()
     recs = []
     with tempfile.TemporaryDirectory() as out:
@@ -3757,16 +3999,16 @@ def dryrun_cli_cells(lines: list) -> list:
         env = _sub_env(**META_ENV)
         while pending or running:
             late = time.perf_counter() - t0 > DRYRUN_BUDGET_S
-            while pending and len(running) < DRYRUN_WORKERS and not late:
+            while pending and len(running) < workers and not late:
                 arch, shape, mesh = pending.pop(0)
                 cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
                        "--arch", arch, "--shape", shape, "--mesh", mesh,
                        "--out", out]
+                procs.append(subprocess.Popen(
+                    cmd, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                    text=True, env=env))
                 running.append(((arch, shape, mesh), time.perf_counter(),
-                                subprocess.Popen(
-                                    cmd, stdout=subprocess.DEVNULL,
-                                    stderr=subprocess.PIPE, text=True,
-                                    env=env)))
+                                procs[-1]))
             time.sleep(0.2)
             late = time.perf_counter() - t0 > DRYRUN_BUDGET_S
             still = []
@@ -3820,47 +4062,76 @@ def dryrun_cli_cells(lines: list) -> list:
               failed=[(r["arch"], r["shape"], r["mesh"], r["status"])
                       for r in recs if r["status"] not in ("ok", "skipped")],
               cut_up_front=sorted(DRYRUN_CUT), budget_s=DRYRUN_BUDGET_S,
-              seconds=time.perf_counter() - t0))
+              workers=workers, seconds=time.perf_counter() - t0))
     return recs
 
 
-def dryrun_phase(torch, indexer, sparse_attn, smi: str) -> None:
-    """Phase 18: the host's shape rules; then (b) in a thread of
-    subprocesses, (a)'s meta build in its own process and (c) on the
-    card, all at once; then (a) on the card alone (its wall and device
-    times uncontended)."""
+def start_dryrun_cells(workers: int | None = None) -> dict:
+    """Phase 18's host work, started: (a)'s meta build in its own
+    process and (b) in a thread of subprocesses (``workers`` at once).
+    Every process is stopped when the script exits, whether or not the
+    phase collected it (``dryrun_phase``)."""
+    import atexit
     import threading
+    started = dict(meta=start_meta_cell(), lines=[], recs=[], procs=[],
+                   t0=time.perf_counter())
+    started["procs"].append(started["meta"])
+    started["thread"] = threading.Thread(
+        target=lambda: started["recs"].extend(dryrun_cli_cells(
+            started["lines"], workers, started["procs"])), daemon=True)
+    started["thread"].start()
+
+    def stop():
+        for proc in started["procs"]:
+            if proc.poll() is None:
+                proc.kill()
+    atexit.register(stop)
+    return started
+
+
+def dryrun_phase(torch, indexer, sparse_attn, smi: str,
+                 started: dict | None = None) -> None:
+    """Phase 18: the host's shape rules; (c) on the card beside (b) and
+    (a)'s meta build (``started`` earlier by the caller, else now); then
+    (a) on the card alone (its wall and device times uncontended)."""
     check_host_rules(torch, indexer, sparse_attn)
-    meta_proc = start_meta_cell()
-    lines, recs = [], []
-    cli = threading.Thread(target=lambda: recs.extend(
-        dryrun_cli_cells(lines)))
-    cli.start()
+    started = started or start_dryrun_cells()
     try:
         dryrun_examples(torch)
     finally:
-        cli.join()
-        for line in lines:
+        started["thread"].join()
+        for line in started["lines"]:
             emit(line)
+    recs = started["recs"]
     bad = [r for r in recs if r["status"] not in ("ok", "skipped")]
     if bad or len(recs) != len(DRYRUN_CELLS):
         raise AssertionError(f"dry-run cells failed: {bad}")
-    dryrun_cell_on_card(torch, smi, meta_proc)
+    dryrun_cell_on_card(torch, smi, started["meta"])
 
 
 def dryrun_examples(torch) -> None:
-    """Phase 18 (c): the port's examples on the card, exit 0."""
-    for name in DRYRUN_EXAMPLES:
-        t0 = time.perf_counter()
-        out = subprocess.run(
-            [sys.executable, str(ROOT / "examples" / "torch" / f"{name}.py")],
-            capture_output=True, text=True, env=_sub_env(), timeout=600)
-        emit(dict(phase="dryrun_example", example=name, rc=out.returncode,
-                  tail=out.stdout.strip().splitlines()[-3:],
-                  seconds=time.perf_counter() - t0))
-        if out.returncode:
-            raise AssertionError(f"examples/torch/{name}.py failed:\n"
-                                 f"{out.stderr[-3000:]}")
+    """Phase 18 (c): the port's examples on the card, both at once, each
+    to exit 0."""
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / "torch" / f"{name}.py")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=_sub_env()) for name in DRYRUN_EXAMPLES}
+    try:
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            emit(dict(phase="dryrun_example", example=name,
+                      rc=proc.returncode,
+                      tail=out.strip().splitlines()[-3:],
+                      seconds=time.perf_counter() - t0))
+            if proc.returncode:
+                raise AssertionError(f"examples/torch/{name}.py failed:\n"
+                                     f"{err[-3000:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 # ---------------------------------------------------------------------------
@@ -3881,7 +4152,7 @@ def dryrun_examples(torch) -> None:
 TP_CASES = {
     "deepseek-v32": dict(arch="deepseek-v32", n_layers=2, requests=4,
                          context=1024, max_ctx=1088, steps=4,
-                         meshes=((2, 2),)),
+                         meshes=((2, 2),), grouped=True),
     "qwen2-1.5b": dict(arch="qwen2-1.5b", n_layers=None, requests=4,
                        context=1024, max_ctx=1088, steps=16,
                        meshes=((1, 4), (2, 2))),
@@ -3908,9 +4179,33 @@ TP_GATE_TIE = 0.0625
 # set to "cpu" a rehearsal on the CPU at the reduced configs and small
 # sizes (tests/test_torch_tp_chip.py; its ranks inherit the setting)
 TP_DEV = os.environ.get("CHIP_SMOKE_TP_DEVICE", "cuda")
+# (c): MoE dispatch groups over the batch axes, ``moe_groups=auto`` (the
+# batch ranks' product: 2 groups at (2, 2)), on (b)'s four ranks.
+# Serving: (b)'s DeepSeek-V3.2 blocks and lanes prefilled again with the
+# groups (each rank routes its own lanes, the slots cross by all-to-all)
+# and TP_GROUPED["steps"] decode steps (one group, as the reference
+# decodes), fed the unsharded run's at the same groups (made in (b)'s
+# child), held as (b) is.  Training: one TRAIN_RULES step's gradients of
+# Mixtral-8x22B at full width with 2 layers (a rank holds 2 of its 8
+# experts, 1.2 GB a layer), batch 4 x 256, against the unsharded step at
+# the same groups (made by the parent while the ranks run (b)'s other
+# cases, once DeepSeek-V3.2's blocks have left the card: 43 GB in f32),
+# on the ranks' blocks as phase 21's steps are: the loss
+# and each leaf within ``limits``, the control without the batch-axis
+# sums outside.  The step runs in f32 without activation checkpointing,
+# as phase 21's Zamba2-7B step: in bf16 a router logit moves by a
+# rounding, and a token whose top 2 of 8 then differ moves its experts'
+# and the router's gradient leaves by several per cent (the bf16 step's
+# median leaf was 5.5 % from the unsharded step, its worst the router's
+# at 10.6 % on an H100: PERF.md §6)
+TP_GROUPED = dict(groups=2, steps=2,
+                  train=dict(arch="mixtral-8x22b", n_layers=2, batch=4,
+                             seq=256, f32=True),
+                  limits=dict(loss_rel=1e-4, grad_rel_l2=1e-2))
 if TP_DEV == "cpu":
     TP_CASES = {k: dict(v, requests=4, context=24, max_ctx=32, steps=2)
                 for k, v in TP_CASES.items()}
+    TP_GROUPED["train"] = dict(TP_GROUPED["train"], seq=8)
 
 
 def _tp_sync(torch):
@@ -4022,6 +4317,58 @@ def _f32_row_products(torch):
         tp.Whole.matmul = orig
 
 
+@contextlib.contextmanager
+def _rank_rounding(torch, m: int):
+    """The unsharded path rounded as a rank of ``m`` model ranks rounds
+    (the like-for-like control of the families' TP gaps): a row-parallel
+    product (``tp.Whole.matmul`` of a weight whose first dim is ``H`` or
+    ``F``: Mamba2's, the mLSTM's and the sLSTM's ``w_out``, Whisper's
+    ``wo`` and ``w_down``) in f32, rounded once; ``tp.Whole.rms_norm``'s
+    squared sums made on ``m`` blocks of the vector and added in f32; and
+    a column-parallel product's input gradient (a weight whose second dim
+    is ``H``, ``KV``, ``F``, ``Hm`` or ``V``) the f32 sum of its ``m``
+    column blocks' products, each rounded to the input's dtype first, as
+    the ranks' partial gradients are before ``tp.enter`` sums them."""
+    from repro_torch.distributed import tp
+
+    class ColumnBlocks(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, w):
+            ctx.save_for_backward(x, w)
+            return x @ w
+
+        @staticmethod
+        def backward(ctx, g):
+            x, w = ctx.saved_tensors
+            n = w.shape[1] // m
+            dx = sum((g[..., i * n:(i + 1) * n]
+                      @ w[:, i * n:(i + 1) * n].T).float()
+                     for i in range(m)).to(x.dtype)
+            dw = (x.reshape(-1, x.shape[-1]).T
+                  @ g.reshape(-1, g.shape[-1])).to(w.dtype)
+            return dx, dw
+
+    orig_mm, orig_norm = tp.Whole.matmul, tp.Whole.rms_norm
+
+    def matmul(self, x, w, dims, shape, axes=()):
+        if dims[0] in ("H", "F"):
+            return torch.matmul(x.float(), w.float()).to(x.dtype)
+        if dims[1] in ("H", "KV", "F", "Hm", "V") and w.shape[1] % m == 0:
+            return ColumnBlocks.apply(x, w)
+        return x @ w
+
+    def rms_norm(self, x, gamma, axes, width, eps=1e-6):
+        xf = x.float()
+        ss = xf.square().reshape(*xf.shape[:-1], m, -1).sum(-1).sum(
+            -1, keepdim=True)
+        return (xf * torch.rsqrt(ss / width + eps)).to(x.dtype) * gamma
+    tp.Whole.matmul, tp.Whole.rms_norm = matmul, rms_norm
+    try:
+        yield
+    finally:
+        tp.Whole.matmul, tp.Whole.rms_norm = orig_mm, orig_norm
+
+
 def _tp_hot(state):
     """A copy of the hot tier's integer state on the host."""
     return [t.to("cpu", copy=True) for t in state["hot_buf"]
@@ -4074,6 +4421,9 @@ def _tp_reference(torch, ops, case, mesh):
                launches=ops.launch_counts(), wall_s=wall,
                seconds=time.perf_counter() - t0, peak_bytes=_tp_peak(torch))
     del state
+    if case.get("grouped"):         # (c)'s reference: the same weights
+        ref["grouped"] = _tp_grouped_serve(torch, ops, _tp_grouped_model(
+            cfg), params, prompts, case)
     if not cfg.n_experts:
         # the unsharded run with its row-parallel products (``wo``,
         # ``w_down``) made as the TP ranks make them: in f32, rounded once
@@ -4129,6 +4479,7 @@ def _tp_deepseek_child(rank, world, port, out_dir):
     torch.backends.cudnn.allow_tf32 = False
     if TP_DEV == "cuda":
         torch.cuda.set_device(0)
+    _wait_file(Path(out_dir) / "go")
     _tp_world_of_one(torch, dist, port)
     try:
         mesh = make_mesh((1, 1), ("data", "model"), device=TP_DEV)
@@ -4138,7 +4489,197 @@ def _tp_deepseek_child(rank, world, port, out_dir):
         dist.destroy_process_group()
 
 
-def _tp_rank_case(torch, dist, ops, case, mesh, tokens, rank, world):
+def _wait_file(path, spawned=None, timeout_s: float = 900.0):
+    """Wait until ``path`` exists (another process of the phase made it);
+    with ``spawned`` (the ranks' context) fail as soon as a rank does."""
+    t0 = time.perf_counter()
+    while not path.exists():
+        if spawned is not None and spawned.join(timeout=0.05):
+            raise RuntimeError(f"the ranks ended before {path.name}")
+        if time.perf_counter() - t0 > timeout_s:
+            raise TimeoutError(f"no {path.name} after {timeout_s} s")
+        time.sleep(0.05)
+
+
+def _tp_grouped_model(cfg, mesh=None):
+    """A model at TP_GROUPED's groups (over the sharded pool with
+    ``mesh``)."""
+    from repro_torch.core.pool import make_pooled_fetch
+    from repro_torch.models.model import build_model
+    fetch = {} if mesh is None else dict(fetch_fn=make_pooled_fetch(mesh))
+    return build_model(cfg, topk_fn=_tp_topk, device=TP_DEV,
+                       opts={"moe_groups": TP_GROUPED["groups"]}, **fetch)
+
+
+@contextlib.contextmanager
+def _moe_collectives(kinds):
+    """While open, the collectives inside each ``moe_block`` call are
+    counted by kind on ``kinds`` (a ``_CollectiveKinds``)."""
+    from repro_torch.models import moe
+    orig = moe.moe_block
+
+    def counted(*a, **kw):
+        with kinds:
+            return orig(*a, **kw)
+    moe.moe_block = counted
+    try:
+        yield
+    finally:
+        moe.moe_block = orig
+
+
+def _tp_grouped_serve(torch, ops, m, params, prompts, case, mesh=None,
+                      fed=None):
+    """(c)'s serve run: ``prompts`` prefilled at TP_GROUPED's groups (the
+    pool cut to the rank's slice with ``mesh``), then TP_GROUPED["steps"]
+    decode steps, greedy or fed ``fed``'s tokens: the logits, the fed
+    tokens, the expert choices, the MoE blocks' collectives by kind (the
+    prefill's, then the whole run's), the launches, wall s and peak."""
+    if TP_DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    kinds, gates, logits, toks = _CollectiveKinds(), [], [], []
+    t0 = time.perf_counter()
+    with _moe_collectives(kinds), _tp_gates(gates):
+        state, lg = _tp_state(torch, m, params, prompts, case, mesh)
+        prefill = dict(kinds.counts)
+        logits.append(lg.cpu())
+        for i in range(TP_GROUPED["steps"]):
+            tok = (lg.argmax(-1).to(torch.int32) if fed is None
+                   else fed[i].to(TP_DEV))
+            toks.append(tok.cpu())
+            state, lg = m.decode(params, state, tok)
+            logits.append(lg.cpu())
+    _tp_sync(torch)
+    return dict(logits=logits, tokens=toks, gates=gates,
+                moe_collectives_prefill=prefill,
+                moe_collectives=dict(kinds.counts),
+                launches=ops.launch_counts(),
+                seconds=time.perf_counter() - t0, peak_bytes=_tp_peak(torch))
+
+
+def _tp_grouped_batch(torch, cfg, lanes=slice(None)):
+    g = torch.Generator().manual_seed(1)
+    case = TP_GROUPED["train"]
+    t = torch.randint(0, cfg.vocab, (case["batch"], case["seq"] + 1),
+                      generator=g, dtype=torch.int32)[lanes]
+    return {"tokens": t[:, :-1].to(TP_DEV), "labels": t[:, 1:].to(TP_DEV)}
+
+
+def _tp_grouped_train_reference(torch, path):
+    """(c)'s unsharded training step at TP_GROUPED's groups, made by the
+    phase's parent: its loss, ``aux`` and gradients saved on the host at
+    ``path`` (phase 21's layout); returns the loss, wall s and peak."""
+    from repro_torch.models.model import build_model
+    from repro_torch.training.train_loop import make_grad_fn
+    from repro_torch.training.optimizer import tree_map
+    case = TP_GROUPED["train"]
+    cfg = _tp_cfg(case)
+    if TP_DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m = build_model(cfg, device=TP_DEV, remat=not case["f32"],
+                    opts={"moe_groups": TP_GROUPED["groups"]})
+    params = m.init(torch.Generator(device=TP_DEV).manual_seed(0))
+    if case["f32"]:
+        params = tree_map(lambda t: t.float(), params)
+    with _fam_precision(torch, case):
+        metrics, grads = make_grad_fn(m)(params, _tp_grouped_batch(torch,
+                                                                   cfg))
+    del params
+    out = dict(loss=float(metrics["loss"]), aux=float(metrics["aux"]),
+               peak_bytes=_tp_peak(torch))
+    torch.save(dict(out, paths=_tree_paths(grads),
+                    grads=[g.cpu() for g in _tree_tensors(grads)]), path)
+    del grads
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _block_rel_l2(torch, plan, mesh, specs, got, ref_grads, leaves) -> list:
+    """Each of ``leaves``' relative L2 from the reference's gradient, from
+    the rank's blocks alone (``got``): the squared sums of its difference
+    from the reference's block and of that block, summed over the mesh
+    with one replica of each block (``block_sums``)."""
+    from repro_torch.distributed import sharding as shd
+    diff, norm = [], []
+    for i in leaves:
+        w = shd._cut(ref_grads[i], shd.spec_for(
+            specs[i].dims, specs[i].shape), mesh).to(TP_DEV).float()
+        diff.append((got[i].float() - w).square().sum())
+        norm.append(w.square().sum())
+    sums = plan.block_sums(torch.stack(diff + norm), [
+        (specs[i].dims, specs[i].shape) for i in leaves] * 2)
+    n = len(leaves)
+    return [float((sums[k] / sums[n + k]).sqrt()) for k in range(n)]
+
+
+def _tp_rank_grouped_train(torch, mesh, path):
+    """(c)'s training step on one rank at (2, 2): its blocks of the
+    weights under TRAIN_RULES (drawn by ``init_shards``) and its lanes,
+    the step's gradients at TP_GROUPED's groups; each leaf's relative L2
+    from the unsharded step's on the rank's blocks; the control, before
+    the batch-axis sums; the collectives of the step and those inside
+    its MoE blocks (the forward's, and the recompute's where the step
+    checkpoints), wall s and peak."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.model import build_model
+    from repro_torch.training import train_loop
+    from repro_torch.training.optimizer import tree_map
+    ref = torch.load(path, mmap=True, weights_only=False)
+    case = TP_GROUPED["train"]
+    cfg = _tp_cfg(case)
+    m = build_model(cfg, device=TP_DEV, remat=not case["f32"],
+                    opts={"moe_groups": TP_GROUPED["groups"]})
+    nd, d = mesh.size(0), mesh.get_local_rank("data")
+    rows = TP_GROUPED["train"]["batch"] // nd
+    batch = _tp_grouped_batch(torch, cfg, slice(d * rows, (d + 1) * rows))
+    if TP_DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with shd.use_rules(shd.TRAIN_RULES, mesh), _fam_precision(torch, case):
+        params = shd.init_shards(m.specs, torch.Generator(
+            device=TP_DEV).manual_seed(0), TP_DEV)
+        if case["f32"]:
+            params = tree_map(lambda t: t.float(), params)
+        weight_bytes = sum(t.numel() * t.element_size()
+                           for t in _tree_tensors(params))
+        kept, reduce = {}, train_loop.reduce_grads
+
+        def keep_local(grads, specs, plan):
+            kept["local"] = grads
+            return reduce(grads, specs, plan)
+        train_loop.reduce_grads = keep_local
+        moe_kinds = _CollectiveKinds()
+        try:
+            with _CollectiveKinds() as kinds, _moe_collectives(moe_kinds):
+                _tp_sync(torch)
+                t1 = time.perf_counter()
+                metrics, grads = train_loop.make_step_grads(m)(params, batch)
+                _tp_sync(torch)
+                wall = time.perf_counter() - t1
+        finally:
+            train_loop.reduce_grads = reduce
+        specs = _tree_tensors(m.specs)
+        plan = train_loop.plan_of(m)
+        live = [i for i, g in enumerate(ref["grads"]) if bool(g.any())]
+        grad_rel = _block_rel_l2(torch, plan, mesh, specs,
+                                 _tree_tensors(grads), ref["grads"], live)
+        summed = [i for i in live
+                  if plan.grad_sum_axes(specs[i].dims, specs[i].shape)]
+        control = _block_rel_l2(torch, plan, mesh, specs,
+                                _tree_tensors(kept.pop("local")),
+                                ref["grads"], summed)
+    return dict(loss=float(metrics["loss"]), aux=float(metrics["aux"]),
+                grad_rel_l2=grad_rel, leaves=[ref["paths"][i] for i in live],
+                control_grad_rel_l2=control, grads_wall_s=wall,
+                weight_bytes=weight_bytes, collectives=dict(kinds.counts),
+                moe_collectives=dict(moe_kinds.counts),
+                peak_bytes=_tp_peak(torch), seconds=time.perf_counter() - t0)
+
+
+def _tp_rank_case(torch, dist, ops, case, mesh, tokens, rank, world,
+                  grouped_tokens=None):
     """One TP case on one of the four gloo ranks: the rank's blocks of the
     weights (drawn leaf by leaf, one rank at a time: a whole expert stack
     is 7.5 GB), its lanes prefilled, the unsharded run's tokens fed for
@@ -4206,9 +4747,14 @@ def _tp_rank_case(torch, dist, ops, case, mesh, tokens, rank, world):
             step()
             prof = None
         peak = _tp_peak(torch)
+        del state, last
+        grouped = None
+        if grouped_tokens is not None:      # (c) on the same blocks
+            grouped = _tp_grouped_serve(
+                torch, ops, _tp_grouped_model(cfg, mesh), params, prompts,
+                case, mesh, [t[d * per:(d + 1) * per] for t in grouped_tokens])
         # the control: the last step again from its state, with model
         # rank 1's ``wo`` blocks zeroed
-        del state, last
         if mesh.get_local_rank("model") == 1:
             for layer in pool_layer_params(cfg, params):
                 layer["attn"]["wo"].zero_()
@@ -4220,7 +4766,7 @@ def _tp_rank_case(torch, dist, ops, case, mesh, tokens, rank, world):
                 logits=logits, control=control, gates=gates, hot=hot,
                 launches=launches, wall_s=wall, prefill_s=prefill_s,
                 weight_bytes=weight_bytes, peak_bytes=peak, profile=prof,
-                seconds=time.perf_counter() - t0)
+                grouped=grouped, seconds=time.perf_counter() - t0)
 
 
 def _tp_clone(state):
@@ -4256,16 +4802,26 @@ def _tp_rank(rank, world, port, out_dir):
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=world)
     try:
+        _wait_file(Path(out_dir) / "inputs.ready")
         inp = torch.load(Path(out_dir) / "inputs.pt", weights_only=False)
         out = {}
         for arch, case in TP_CASES.items():
             for shape in case["meshes"]:
                 mesh = make_mesh(shape, ("data", "model"), device=TP_DEV)
-                out[arch, shape] = _tp_rank_case(torch, dist, ops, case, mesh,
-                                                 inp[arch], rank, world)
+                out[arch, shape] = _tp_rank_case(
+                    torch, dist, ops, case, mesh, inp[arch], rank, world,
+                    inp.get(("grouped", arch)) if shape == (2, 2) else None)
                 gc.collect()
                 torch.cuda.empty_cache()
                 dist.barrier()
+            if arch == "deepseek-v32" and rank == 0:
+                # its blocks have left the card: the parent makes (c)'s
+                # training reference while the other cases run
+                (Path(out_dir) / "deepseek.done").touch()
+        _wait_file(Path(out_dir) / "grouped.ready")
+        mesh = make_mesh((2, 2), ("data", "model"), device=TP_DEV)
+        out["grouped_train"] = _tp_rank_grouped_train(
+            torch, mesh, Path(out_dir) / "grouped_train.pt")
         torch.save(out, Path(out_dir) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -4295,6 +4851,141 @@ def _tp_flips(ref_gates, gates, lane: int, step: int, layers: int,
     return out
 
 
+def _grouped_flips(ref_gates, gates, lane, step, layers, d, per, prompt,
+                   groups):
+    """(c)'s ``_tp_flips``: the unsharded prefill dispatches each of its
+    ``groups`` groups on its own (a record a group a layer), a rank its
+    one group (``d``, its data index); a decode step dispatches the whole
+    batch as one group on both."""
+    out = []
+    for layer in range(layers):
+        if step == 0:
+            a = ref_gates[layer * groups + d]
+            b = gates[layer]
+            token = (lane - d * per) * prompt + prompt - 1
+        else:
+            a = ref_gates[layers * groups + (step - 1) * layers + layer]
+            b = gates[layers + (step - 1) * layers + layer]
+            token = lane
+        if not bool((a[0][token] == b[0][token]).all()):
+            out.append(dict(layer=layer, gap=float(a[1][token])))
+    return out
+
+
+def _tp_grouped_check(ref, ranks, smi: str, add, child_s: float) -> list:
+    """Phase 19 (c)'s limits over the ranks' results: the serve run's
+    logits as (b)'s (but where an expert choice differs at a gate near a
+    tie: listed, at most half), the kernels of the decode path launched;
+    the training step's loss and ``aux`` and each leaf within
+    TP_GROUPED's limits of the unsharded step's, the control outside;
+    the records, with each rank's MoE collectives, peak and seconds."""
+    case = TP_CASES["deepseek-v32"]
+    want = ref["grouped"]
+    L, G = _tp_cfg(case).n_layers, TP_GROUPED["groups"]
+    per = case["requests"] // 2
+    failures, worst, exempt, missing = [], [0.0, 0, 0.0], [], []
+    for r, res in enumerate(ranks):
+        x = res["deepseek-v32", (2, 2)]["grouped"]
+        add(x["launches"])
+        d = r // 2
+        for step, got in enumerate(x["logits"]):
+            for i in range(got.shape[0]):
+                lane = d * per + i
+                err, n_out, top = _tp_near(got[i], want["logits"][step][lane])
+                ok = err <= TP_REL_L2 and n_out <= TP_MISS_FRAC * got.shape[-1]
+                flips = [] if ok else _grouped_flips(
+                    want["gates"], x["gates"], lane, step, L, d, per,
+                    case["context"], G)
+                if not ok and flips and all(f["gap"] < TP_GATE_TIE
+                                            for f in flips):
+                    exempt.append(dict(rank=r, lane=lane, step=step,
+                                       rel_l2=err, flips=flips))
+                    continue
+                worst = [max(worst[0], err), max(worst[1], n_out),
+                         max(worst[2], top)]
+                if not ok:
+                    failures.append(("grouped serve", r, lane, step, err,
+                                     n_out, flips))
+        path = ("indexer_scores", "gather_kv.shard", "sparse_attn",
+                "scatter_kv.rows_at_shard")
+        missing += [(r, k) for k in path
+                    if TP_DEV == "cuda" and not x["launches"].get(k)]
+        moe = x["moe_collectives_prefill"]
+        if moe.get("all-to-all") != 2 * L or any(
+                n for k, n in moe.items() if k not in (
+                    "all-to-all", "all-gather", "all-reduce")):
+            failures.append(("grouped prefill's MoE collectives", r, moe))
+    held = case["requests"] * (TP_GROUPED["steps"] + 1)
+    if len({(e["lane"], e["step"]) for e in exempt}) > held // 2:
+        failures.append(("grouped serve routing flips", exempt))
+    if missing:
+        failures.append(("grouped serve kernels", missing))
+    emit(dict(phase="tensor_parallel", run="gloo_4_ranks_grouped_serve",
+              config="deepseek-v32", mesh=[2, 2], card=smi,
+              moe_groups=G, requests=case["requests"],
+              context=case["context"], decode_steps=TP_GROUPED["steps"],
+              limits=dict(rel_l2=TP_REL_L2, bf16_tol=TP_BF16_TOL,
+                          miss_frac=TP_MISS_FRAC),
+              worst_rel_l2=worst[0], worst_logits_outside=worst[1],
+              worst_ratio=worst[2], exempt_routing_flips=exempt,
+              kernels_missing=missing,
+              unsharded=dict(seconds=want["seconds"],
+                             peak_bytes=want["peak_bytes"],
+                             moe_collectives=want["moe_collectives"]),
+              ranks=[dict(moe_collectives_prefill=x["moe_collectives_prefill"],
+                          moe_collectives=x["moe_collectives"],
+                          peak_bytes=x["peak_bytes"], seconds=x["seconds"])
+                     for x in (res["deepseek-v32", (2, 2)]["grouped"]
+                               for res in ranks)],
+              launches_rank0=ranks[0]["deepseek-v32", (2, 2)]["grouped"][
+                  "launches"]))
+    tr = [res["grouped_train"] for res in ranks]
+    tref = ref["grouped_train"]
+    loss_rel = max(abs(x["loss"] - tref["loss"]) / abs(tref["loss"])
+                   for x in tr)
+    aux_rel = max(abs(x["aux"] - tref["aux"]) / abs(tref["aux"]) for x in tr)
+    errs = [max(x["grad_rel_l2"]) for x in tr]
+    leaves = tr[0]["leaves"]
+    at = max(range(len(leaves)), key=lambda i: max(x["grad_rel_l2"][i]
+                                                   for x in tr))
+    ctrl = min(max(x["control_grad_rel_l2"]) for x in tr)
+    emit(dict(phase="tensor_parallel", run="gloo_4_ranks_grouped_train",
+              config=TP_GROUPED["train"]["arch"],
+              layers=TP_GROUPED["train"]["n_layers"], mesh=[2, 2], card=smi,
+              moe_groups=G, batch=[TP_GROUPED["train"]["batch"],
+                                   TP_GROUPED["train"]["seq"]],
+              f32=TP_GROUPED["train"]["f32"], limits=TP_GROUPED["limits"],
+              loss_rel=loss_rel, aux_rel=aux_rel,
+              worst_grad_rel_l2=max(errs), worst_leaf=leaves[at],
+              grad_rel_l2_median=sorted(tr[0]["grad_rel_l2"])[
+                  len(leaves) // 2],
+              control_least_worst=ctrl,
+              unsharded=dict(seconds=tref["seconds"],
+                             peak_bytes=tref["peak_bytes"]),
+              ranks=[dict(weight_bytes=x["weight_bytes"],
+                          peak_bytes=x["peak_bytes"],
+                          collectives=x["collectives"],
+                          moe_collectives=x["moe_collectives"],
+                          grads_wall_s=x["grads_wall_s"],
+                          seconds=x["seconds"]) for x in tr]))
+    lim = TP_GROUPED["limits"]
+    if not (loss_rel <= lim["loss_rel"] and aux_rel <= lim["loss_rel"]
+            and max(errs) <= lim["grad_rel_l2"]):
+        failures.append(("grouped train", loss_rel, aux_rel, max(errs),
+                         leaves[at]))
+    if not ctrl > lim["grad_rel_l2"]:
+        failures.append(("grouped train control within", ctrl))
+    if any(x["moe_collectives"].get("all-to-all", 0) < 2 * L for x in tr):
+        failures.append(("grouped train: no all-to-all",
+                         [x["moe_collectives"] for x in tr]))
+    emit(dict(phase="tensor_parallel_grouped", card=smi,
+              child_seconds=child_s,
+              unsharded_seconds=want["seconds"] + tref["seconds"],
+              rank0_seconds=ranks[0]["deepseek-v32", (2, 2)]["grouped"][
+                  "seconds"] + tr[0]["seconds"]))
+    return failures
+
+
 def tp_phase(torch, ops, smi: str) -> dict:
     """Phase 19: tensor and expert parallelism of the weights on the card.
     (a) Qwen2-1.5B at full width and depth and (b) DeepSeek-V3.2 at full
@@ -4306,16 +4997,32 @@ def tp_phase(torch, ops, smi: str) -> dict:
     step (for DeepSeek-V3.2, but where the runs' experts for that token
     differ: a gate near a tie, listed), with the hot tier's integer state
     exact; the control (model rank 1's ``wo`` zeroed) must fail both
-    limits.  Returns the launches of the path's runs."""
+    limits.  (c) The same ranks with MoE dispatch groups over the batch
+    axes (TP_GROUPED): DeepSeek-V3.2's prefill and decode on (b)'s
+    blocks, and Mixtral-8x22B's training step, each against the
+    unsharded run at the same groups (``_tp_grouped_check``).  The four
+    ranks start first and wait for the references' tokens.  Returns the
+    launches of the path's runs."""
     import tempfile
+    t0 = time.perf_counter()
+    tmp_dir = tempfile.TemporaryDirectory()
+    with tempfile.TemporaryDirectory() as child_dir, \
+            _started_ranks(_tp_deepseek_child, child_dir, 1) as child, \
+            _started_ranks(_tp_rank, tmp_dir.name) as spawned:
+        return _tp_phase(torch, ops, smi, t0, tmp_dir, spawned,
+                         (child_dir, child))
+
+
+def _tp_phase(torch, ops, smi, t0, tmp_dir, spawned, child):
+    """Phase 19 once its ranks and child are starting (``tp_phase``)."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh
-    t0 = time.perf_counter()
     refs, totals = {}, {}
 
     def add(counts):
         for k, n in counts.items():
             totals[k] = totals.get(k, 0) + n
+    tmp = tmp_dir.name
     _tp_world_of_one(torch, dist, _free_port())
     try:
         mesh = make_mesh((1, 1), ("data", "model"), device=TP_DEV)
@@ -4325,8 +5032,9 @@ def tp_phase(torch, ops, smi: str) -> dict:
         dist.destroy_process_group()
         gc.collect()
         torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        refs["deepseek-v32"] = _spawn(_tp_deepseek_child, 1, tmp)[0]
+    t1 = time.perf_counter()
+    refs["deepseek-v32"] = _go(child)[0]
+    child_s = time.perf_counter() - t1
     gc.collect()
     torch.cuda.empty_cache()
     for arch, ref in refs.items():
@@ -4345,11 +5053,25 @@ def tp_phase(torch, ops, smi: str) -> dict:
                                     "hot_tier", "gates")):
             raise AssertionError(f"TP at a world of one differs from the "
                                  f"unsharded {arch}: {one}")
-    with tempfile.TemporaryDirectory() as tmp:
-        torch.save({arch: ref["tokens"] for arch, ref in refs.items()},
-                   Path(tmp) / "inputs.pt")
+    with tmp_dir:
+        inputs = {arch: ref["tokens"] for arch, ref in refs.items()}
+        inputs.update({("grouped", arch): ref["grouped"]["tokens"]
+                       for arch, ref in refs.items() if "grouped" in ref})
+        torch.save(inputs, Path(tmp) / "inputs.pt")
+        (Path(tmp) / "inputs.ready").touch()
         t1 = time.perf_counter()
-        ranks = _spawn(_tp_rank, 4, tmp)
+        # (c)'s unsharded training step, made once (b)'s DeepSeek-V3.2
+        # blocks have left the card, while the ranks run the other cases
+        _wait_file(Path(tmp) / "deepseek.done", spawned)
+        refs["deepseek-v32"]["grouped_train"] = _tp_grouped_train_reference(
+            torch, Path(tmp) / "grouped_train.pt")
+        gc.collect()
+        torch.cuda.empty_cache()
+        (Path(tmp) / "grouped.ready").touch()
+        while not spawned.join():
+            pass
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                 for r in range(4)]
         ranks_s = time.perf_counter() - t1
     failures = []
     for arch, case in TP_CASES.items():
@@ -4442,6 +5164,8 @@ def tp_phase(torch, ops, smi: str) -> dict:
             held = case["requests"] * (steps + 1)
             if len({(e["lane"], e["step"]) for e in exempt}) > held // 2:
                 failures.append((arch, shape, "routing flips", exempt))
+    failures += _tp_grouped_check(refs["deepseek-v32"], ranks, smi, add,
+                                  child_s)
     emit(dict(phase="tensor_parallel_total", launches=totals,
               ranks_seconds=ranks_s, seconds=time.perf_counter() - t0))
     if failures:
@@ -4750,6 +5474,7 @@ def _fsdp_deepseek_child(rank, world, port, out_dir):
     torch.backends.cudnn.allow_tf32 = False
     if TP_DEV == "cuda":
         torch.cuda.set_device(0)
+    _wait_file(Path(out_dir) / "go")
     _tp_world_of_one(torch, dist, port)
     try:
         mesh = make_mesh((1, 1), ("data", "model"), device=TP_DEV)
@@ -4933,11 +5658,8 @@ def _fsdp_rank_serve(torch, dist, ops, mesh, rank, world, case, tokens):
 def _fam_wait(out_dir, families: bool, timeout_s: float = 600.0):
     """Wait until the parent has made phase 21 (b)'s references (and
     released the card's memory they took)."""
-    t0 = time.perf_counter()
-    while families and not (out_dir / "families.ready").exists():
-        if time.perf_counter() - t0 > timeout_s:
-            raise TimeoutError("no phase 21 references from the parent")
-        time.sleep(0.05)
+    if families:
+        _wait_file(out_dir / "families.ready", timeout_s=timeout_s)
 
 
 def _fsdp_rank(rank, world, port, out_dir):
@@ -4956,6 +5678,7 @@ def _fsdp_rank(rank, world, port, out_dir):
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=world)
     try:
+        _wait_file(Path(out_dir) / "inputs.ready")
         inp = torch.load(Path(out_dir) / "inputs.pt", weights_only=False)
         out = {}
         if inp["fsdp"]:
@@ -5018,114 +5741,125 @@ def fsdp_phase(torch, ops, smi: str, fsdp: bool = True,
     at a near-tie: listed, at most half), the hot tier's integer state
     exact, the control outside both limits.  With ``families`` the same
     four ranks then run phase 21 (b) (``_fam_rank``, against the parent's
-    ``_fam_references``); with ``fsdp`` false, only that.  Returns the
-    launches of the runs."""
+    ``_fam_references``); with ``fsdp`` false, only that.  The four ranks
+    start first and wait for (a)'s tokens.  Returns the launches of the
+    runs."""
     import tempfile
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        tmp = stack.enter_context(tempfile.TemporaryDirectory())
+        child = None
+        if fsdp:
+            child_dir = stack.enter_context(tempfile.TemporaryDirectory())
+            child = (child_dir, stack.enter_context(_started_ranks(
+                _fsdp_deepseek_child, child_dir, 1)))
+        spawned = stack.enter_context(_started_ranks(_fsdp_rank, tmp))
+        return _fsdp_phase(torch, ops, smi, fsdp, families, t0, tmp,
+                           spawned, child)
+
+
+def _fsdp_phase(torch, ops, smi, fsdp, families, t0, tmp, spawned, child):
+    """Phases 20 and 21 (b) once their ranks (and with ``fsdp`` the
+    DeepSeek-V3.2 child) are starting (``fsdp_phase``)."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.model import build_model
-    t0 = time.perf_counter()
     totals, failures = {}, []
 
     def add(counts):
         for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v
-    with tempfile.TemporaryDirectory() as tmp:
-        grads_path = Path(tmp) / "grads.pt"
-        refs = {}
-        if fsdp:
-            _tp_world_of_one(torch, dist, _free_port())
-            try:
-                mesh = make_mesh((1, 1), ("data", "model"), device=TP_DEV)
-                cfg = _fsdp_cfg(FSDP_TRAIN)
-                runs = {}
-                for key, mesh_ in (("unsharded", None), ("world_of_one", mesh)):
-                    m = build_model(cfg, device=TP_DEV)
-                    gen = torch.Generator(device=TP_DEV).manual_seed(0)
-                    if mesh_ is None:
-                        params = m.init(gen)
-                    else:
-                        from repro_torch.distributed import sharding as shd
-                        with shd.use_rules(shd.TRAIN_RULES, mesh_):
-                            params = shd.init_shards(m.specs, gen, TP_DEV)
-                    runs[key] = _fsdp_train_run(
-                        torch, m, params, mesh_,
-                        grads_path if mesh_ is None else None)
-                    del params
-                    gc.collect()
-                    torch.cuda.empty_cache()
-                u, w = runs["unsharded"], runs["world_of_one"]
-                equal = {k: u[k] == w[k] for k in ("loss", "grad_norm")}
-                equal["params_m_v_bits"] = u["sums"] == w["sums"]
-                emit(dict(phase="fsdp", run="nccl_world_1_train",
-                          config=FSDP_TRAIN["arch"], card=smi,
-                          batch=[FSDP_TRAIN["batch"], FSDP_TRAIN["seq"]],
-                          steps=FSDP_TRAIN["steps"], equal_unsharded=equal,
-                          loss=u["loss"], grad_norm=u["grad_norm"],
-                          wall_s_per_step=w["wall_s"],
-                          wall_s_per_step_unsharded=u["wall_s"],
-                          peak_bytes=w["peak_bytes"],
-                          peak_bytes_unsharded=u["peak_bytes"],
-                          profile=_prof_summary(w["profile"])))
-                if not all(equal.values()):
-                    failures.append(("train world of one", equal))
-                refs["qwen2-1.5b"] = _fsdp_serve_reference(
-                    torch, ops, FSDP_SERVE["qwen2-1.5b"], mesh)
-            finally:
-                dist.destroy_process_group()
+    grads_path = Path(tmp) / "grads.pt"
+    refs = {}
+    if fsdp:
+        _tp_world_of_one(torch, dist, _free_port())
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), device=TP_DEV)
+            cfg = _fsdp_cfg(FSDP_TRAIN)
+            runs = {}
+            for key, mesh_ in (("unsharded", None), ("world_of_one", mesh)):
+                m = build_model(cfg, device=TP_DEV)
+                gen = torch.Generator(device=TP_DEV).manual_seed(0)
+                if mesh_ is None:
+                    params = m.init(gen)
+                else:
+                    from repro_torch.distributed import sharding as shd
+                    with shd.use_rules(shd.TRAIN_RULES, mesh_):
+                        params = shd.init_shards(m.specs, gen, TP_DEV)
+                runs[key] = _fsdp_train_run(
+                    torch, m, params, mesh_,
+                    grads_path if mesh_ is None else None)
+                del params
                 gc.collect()
                 torch.cuda.empty_cache()
-            with tempfile.TemporaryDirectory() as child:
-                refs["deepseek-v32"] = _spawn(_fsdp_deepseek_child, 1, child)[0]
+            u, w = runs["unsharded"], runs["world_of_one"]
+            equal = {k: u[k] == w[k] for k in ("loss", "grad_norm")}
+            equal["params_m_v_bits"] = u["sums"] == w["sums"]
+            emit(dict(phase="fsdp", run="nccl_world_1_train",
+                      config=FSDP_TRAIN["arch"], card=smi,
+                      batch=[FSDP_TRAIN["batch"], FSDP_TRAIN["seq"]],
+                      steps=FSDP_TRAIN["steps"], equal_unsharded=equal,
+                      loss=u["loss"], grad_norm=u["grad_norm"],
+                      wall_s_per_step=w["wall_s"],
+                      wall_s_per_step_unsharded=u["wall_s"],
+                      peak_bytes=w["peak_bytes"],
+                      peak_bytes_unsharded=u["peak_bytes"],
+                      profile=_prof_summary(w["profile"])))
+            if not all(equal.values()):
+                failures.append(("train world of one", equal))
+            refs["qwen2-1.5b"] = _fsdp_serve_reference(
+                torch, ops, FSDP_SERVE["qwen2-1.5b"], mesh)
+        finally:
+            dist.destroy_process_group()
             gc.collect()
             torch.cuda.empty_cache()
-            for arch, ref in refs.items():
-                one = ref["world_of_one"]
-                add(one["launches"])
-                ok = {k: one[k] for k in ("logits", "hot_tier", "gates")}
-                emit(dict(phase="fsdp", run="nccl_world_1_serve", config=arch,
-                          card=smi, seq=FSDP_SERVE[arch]["seq"],
-                          decode_steps=FSDP_SERVE[arch]["steps"],
-                          equal_unsharded=ok, launches=one["launches"],
-                          wall_s_per_decode_step_median=one[
-                              "wall_s_per_decode_step_median"],
-                          wall_s_per_decode_step_median_unsharded=_median(
-                              ref["wall_s"]),
-                          peak_bytes_unsharded=ref["peak_bytes"]))
-                if not all(ok.values()):
-                    failures.append((arch, "serve world of one", ok))
-        inputs = {arch: ref["tokens"] for arch, ref in refs.items()}
-        inputs.update(fsdp=fsdp, families=families)
-        torch.save(inputs, Path(tmp) / "inputs.pt")
-        t1 = time.perf_counter()
-        import torch.multiprocessing as mp
-        spawned = mp.start_processes(
-            _fsdp_rank, args=(4, _free_port(), str(tmp)), nprocs=4,
-            start_method="spawn", join=False)
-        if families:
-            # phase 21 (b)'s references, made while the ranks start; the
-            # ranks wait for them before phase 20's serve cases (the card's
-            # memory) and phase 21's work
-            t2 = time.perf_counter()
-            _fam_references(torch, ops, Path(tmp) / "families.pt")
-            fam_ref_s = time.perf_counter() - t2
-            fam_train_loss = {key[1]: ref["loss"] for key, ref in
-                              torch.load(Path(tmp) / "families.pt",
-                                         weights_only=False).items()
-                              if isinstance(key, tuple)}
-            gc.collect()
-            if TP_DEV == "cuda":
-                torch.cuda.empty_cache()
-            (Path(tmp) / "families.ready").touch()
-        while not spawned.join():
-            pass
-        ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
-                 for r in range(4)]
-        ranks_s = time.perf_counter() - t1
-        if fsdp:
-            saved = torch.load(grads_path, mmap=True, weights_only=False)
-            ref_loss, paths = saved["loss"], saved["paths"]
-            del saved
+        refs["deepseek-v32"] = _go(child)[0]
+        gc.collect()
+        torch.cuda.empty_cache()
+        for arch, ref in refs.items():
+            one = ref["world_of_one"]
+            add(one["launches"])
+            ok = {k: one[k] for k in ("logits", "hot_tier", "gates")}
+            emit(dict(phase="fsdp", run="nccl_world_1_serve", config=arch,
+                      card=smi, seq=FSDP_SERVE[arch]["seq"],
+                      decode_steps=FSDP_SERVE[arch]["steps"],
+                      equal_unsharded=ok, launches=one["launches"],
+                      wall_s_per_decode_step_median=one[
+                          "wall_s_per_decode_step_median"],
+                      wall_s_per_decode_step_median_unsharded=_median(
+                          ref["wall_s"]),
+                      peak_bytes_unsharded=ref["peak_bytes"]))
+            if not all(ok.values()):
+                failures.append((arch, "serve world of one", ok))
+    inputs = {arch: ref["tokens"] for arch, ref in refs.items()}
+    inputs.update(fsdp=fsdp, families=families)
+    torch.save(inputs, Path(tmp) / "inputs.pt")
+    (Path(tmp) / "inputs.ready").touch()
+    t1 = time.perf_counter()
+    if families:
+        # phase 21 (b)'s references, made while the ranks start; the
+        # ranks wait for them before phase 20's serve cases (the card's
+        # memory) and phase 21's work
+        t2 = time.perf_counter()
+        _fam_references(torch, ops, Path(tmp) / "families.pt")
+        fam_ref_s = time.perf_counter() - t2
+        fam_train_loss = {key[1]: ref["loss"] for key, ref in
+                          torch.load(Path(tmp) / "families.pt",
+                                     weights_only=False).items()
+                          if isinstance(key, tuple)}
+        gc.collect()
+        if TP_DEV == "cuda":
+            torch.cuda.empty_cache()
+        (Path(tmp) / "families.ready").touch()
+    while not spawned.join():
+        pass
+    ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+             for r in range(4)]
+    ranks_s = time.perf_counter() - t1
+    if fsdp:
+        saved = torch.load(grads_path, mmap=True, weights_only=False)
+        ref_loss, paths = saved["loss"], saved["paths"]
+        del saved
     if fsdp:
         # (b) training: the loss and the gradient norm within FSDP_LOSS_REL,
         # each gathered leaf within FSDP_GRAD_REL_L2; the control must miss
@@ -5331,6 +6065,11 @@ FAM_LIMITS = {"zamba2-7b": dict(first=3, logits=(0.4, 1.2), loss=1e-4,
 # served alone; the training step in two microbatches), the readings the
 # coarse limits are set against
 FAM_SPREAD = os.environ.get("CHIP_SMOKE_FAM_SPREAD") == "1"
+if FAM_SPREAD:
+    # and the ranks also take Zamba2-7B's bf16 step, reported beside its
+    # like-for-like control (``_fam_bf16_control``), not held
+    FAM_TRAIN["zamba2-7b-bf16"] = dict(FAM_TRAIN["zamba2-7b"], f32=False,
+                                       held=False)
 # the reduced configs at small sizes: the CPU rehearsal
 FAM_SMALL = TP_DEV == "cpu"
 if FAM_SMALL:
@@ -5540,12 +6279,18 @@ def _fam_references(torch, ops, path):
         out[arch] = run
         if FAM_SPREAD:
             half = case["requests"] // 2
-            errs = [_fam_errors(_fam_serve(torch, m, params, case, inp, lanes,
-                                           fed=run["tokens"]), run, lanes)
-                    for lanes in (slice(0, half), slice(half, None))]
-            emit(dict(phase="families_tp", run="unsharded_spread",
-                      config=arch, what="lane halves served alone",
-                      **_fam_summary(errs)))
+            for what, ctx in (
+                    ("lane halves served alone", contextlib.nullcontext),
+                    ("lane halves served alone, rounded as a rank of "
+                     "model 2 (_rank_rounding)",
+                     lambda: _rank_rounding(torch, 2))):
+                with ctx():
+                    errs = [_fam_errors(_fam_serve(
+                        torch, m, params, case, inp, lanes,
+                        fed=run["tokens"]), run, lanes)
+                        for lanes in (slice(0, half), slice(half, None))]
+                emit(dict(phase="families_tp", run="unsharded_spread",
+                          config=arch, what=what, **_fam_summary(errs)))
         del m, params
         gc.collect()
         if TP_DEV == "cuda":
@@ -5562,20 +6307,62 @@ def _fam_references(torch, ops, path):
         if FAM_SPREAD:
             with _fam_precision(torch, case):
                 met2, g2 = make_step_grads(m, 2)(params, batch)
-            errs = [_rel_l2(a.float(), w.float().to(a.device))
-                    for a, w in zip(_tree_tensors(g2), ref["grads"])
-                    if bool(w.any())]
             emit(dict(phase="families_tp", run="unsharded_spread",
                       config=arch, what="training step in two microbatches",
-                      loss_rel=abs(float(met2["loss"]) - ref["loss"])
-                      / abs(ref["loss"]), worst_grad_rel_l2=max(errs),
-                      grad_rel_l2_median=sorted(errs)[len(errs) // 2]))
+                      **_fam_grad_spread(torch, met2, g2, ref)))
             del g2
+            if not case.get("f32"):
+                emit(dict(phase="families_tp", run="unsharded_spread",
+                          config=arch, **_fam_bf16_control(torch, case,
+                                                           batch)))
         del m, params, grads
         gc.collect()
         if TP_DEV == "cuda":
             torch.cuda.empty_cache()
     torch.save(out, path)
+
+
+def _fam_grad_spread(torch, metrics, grads, ref) -> dict:
+    """A training step's distance from the reference step: the loss's
+    relative error, the worst and the median gradient leaf's relative L2
+    (each leaf the reference's is not all zeros), the leaves by name."""
+    errs = {p: _rel_l2(a.float(), w.float().to(a.device))
+            for p, a, w in zip(ref["paths"], _tree_tensors(grads),
+                               ref["grads"]) if bool(w.any())}
+    vals = sorted(errs.values())
+    return dict(loss_rel=abs(float(metrics["loss"]) - ref["loss"])
+                / abs(ref["loss"]), worst_grad_rel_l2=vals[-1],
+                worst_leaf=max(errs, key=errs.get),
+                grad_rel_l2_median=vals[len(vals) // 2],
+                by_kind=_by_kind(errs))
+
+
+def _by_kind(errs: dict) -> dict:
+    """{leaf name: [median, worst]} of per-leaf errors keyed by path,
+    over the leaves of each name (``A_log``, ``w_in``, ...)."""
+    kinds: dict = {}
+    for path, e in errs.items():
+        kinds.setdefault(path.split("/")[-1], []).append(e)
+    return {k: [sorted(v)[len(v) // 2], max(v)]
+            for k, v in sorted(kinds.items())}
+
+
+def _fam_bf16_control(torch, case, batch) -> dict:
+    """The like-for-like control of a training case's bf16 TP gap at
+    (2, 2): the unsharded bf16 step (with activation checkpointing, as
+    the ranks' bf16 step runs) against itself in two microbatches (the
+    data ranks' halves) rounded as a rank of model 2 rounds
+    (``_rank_rounding``)."""
+    from repro_torch.training.train_loop import make_grad_fn, make_step_grads
+    m, params = _fam_train_model(torch, dict(case, f32=False), None)
+    metrics, grads = make_grad_fn(m)(params, batch)
+    ref = dict(loss=float(metrics["loss"]), paths=_tree_paths(grads),
+               grads=_tree_tensors(grads))
+    with _rank_rounding(torch, 2):
+        met2, g2 = make_step_grads(m, 2)(params, batch)
+    return dict(what="bf16 training step against itself in two "
+                "microbatches rounded as a rank of model 2 "
+                "(_rank_rounding)", **_fam_grad_spread(torch, met2, g2, ref))
 
 
 def _fam_summary(errs: list) -> dict:
@@ -5666,20 +6453,8 @@ def _fam_rank_train(torch, mesh, case, ref):
         plan = train_loop.plan_of(m)
 
         def errors(tree, leaves):
-            """Each leaf's relative L2 from the reference's, from the
-            rank's block alone: the squared sums of its difference from
-            the reference's block and of that block, summed over the mesh
-            with one replica of each block (``block_sums``)."""
-            got, diff, norm = _tree_tensors(tree), [], []
-            for i in leaves:
-                w = shd._cut(ref["grads"][i], shd.spec_for(
-                    specs[i].dims, specs[i].shape), mesh).to(TP_DEV).float()
-                diff.append((got[i].float() - w).square().sum())
-                norm.append(w.square().sum())
-            sums = plan.block_sums(torch.stack(diff + norm), [
-                (specs[i].dims, specs[i].shape) for i in leaves] * 2)
-            n = len(leaves)
-            return [float((sums[k] / sums[n + k]).sqrt()) for k in range(n)]
+            return _block_rel_l2(torch, plan, mesh, specs,
+                                 _tree_tensors(tree), ref["grads"], leaves)
         live = [i for i, g in enumerate(ref["grads"]) if bool(g.any())]
         grad_rel = errors(grads, live)
         summed = [i for i in live
@@ -5783,8 +6558,9 @@ def _fam_check(ranks, smi: str) -> list:
 
 def _fam_check_train(ranks, refs_train, smi: str) -> list:
     failures = []
-    for arch in FAM_TRAIN:
-        lim, loss_lim = FAM_LIMITS[arch]["grads"], FAM_LIMITS[arch]["loss"]
+    for arch, case in FAM_TRAIN.items():
+        limits = FAM_LIMITS[case["arch"]]
+        lim, loss_lim = limits["grads"], limits["loss"]
         xs = [r["families"]["train", arch] for r in ranks]
         ref_loss = refs_train[arch]
         loss_rel = max(abs(x["loss"] - ref_loss) / abs(ref_loss) for x in xs)
@@ -5800,11 +6576,15 @@ def _fam_check_train(ranks, refs_train, smi: str) -> list:
                   worst_leaf=xs[0]["leaves"][worst],
                   grad_rel_l2_median=sorted(xs[0]["grad_rel_l2"])[
                       len(xs[0]["grad_rel_l2"]) // 2],
-                  control_least_worst=ctrl,
+                  control_least_worst=ctrl, held=case.get("held", True),
+                  by_kind=_by_kind(dict(zip(xs[0]["leaves"],
+                                            xs[0]["grad_rel_l2"]))),
                   ranks=[dict(peak_bytes=x["peak_bytes"],
                               collectives=x["collectives"],
                               grads_wall_s=x["grads_wall_s"],
                               seconds=x["seconds"]) for x in xs]))
+        if not case.get("held", True):
+            continue
         if not (loss_rel <= loss_lim and max(errs) <= lim):
             failures.append((arch, "train", loss_rel, max(errs)))
         if not ctrl > lim:
@@ -5979,23 +6759,40 @@ def main() -> None:
 
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
-    recs = dict(gather_kv=check_gathers(torch, ref, gather_kv),
-                scatter_kv=check_pool_writes(torch, ref, scatter_kv))
-    recs["indexer_scores"] = check_indexer(torch, ref, indexer)
-    indexer_edges = check_indexer_edges(torch, ref, indexer)
-    attn, attn_cases = check_attention(torch, ref, sparse_attn)
+    parts = {}
+
+    def timed(name, fn, *args):
+        t1 = time.perf_counter()
+        out = fn(*args)
+        parts[name] = time.perf_counter() - t1
+        return out
+    recs = dict(gather_kv=timed("gathers", check_gathers, torch, ref,
+                                gather_kv),
+                scatter_kv=timed("pool_writes", check_pool_writes, torch,
+                                 ref, scatter_kv))
+    recs["indexer_scores"] = timed("indexer", check_indexer, torch, ref,
+                                   indexer)
+    indexer_edges = timed("indexer_edges", check_indexer_edges, torch, ref,
+                          indexer)
+    attn, attn_cases = timed("attention", check_attention, torch, ref,
+                             sparse_attn)
     recs.update(attn)
-    recs["gather_kv_pages"] = check_gather_pages(torch, ref, gather_kv)
-    recs.update(check_shard_forms(torch, ref, gather_kv, scatter_kv))
-    edges = check_attention_edges(torch, ops, ref, sparse_attn)
+    recs["gather_kv_pages"] = timed("gather_pages", check_gather_pages,
+                                    torch, ref, gather_kv)
+    recs.update(timed("shard_forms", check_shard_forms, torch, ref,
+                      gather_kv, scatter_kv))
+    edges = timed("attention_edges", check_attention_edges, torch, ops, ref,
+                  sparse_attn)
     emit(dict(phase="kernels_vs_plain", tolerance_f32=TOL_F32,
               max_abs_err={k: v["max_abs_err"] for k, v in recs.items()},
               attention_cases=attn_cases, attention_edges=edges,
-              indexer_edges=indexer_edges,
+              indexer_edges=indexer_edges, seconds_by_check=parts,
               seconds=time.perf_counter() - t0))
 
-    launches = shard_launches = None
+    launches = shard_launches = dryrun_started = None
     if not only:
+        # phase 18's host work, on the host's idle cores meanwhile
+        dryrun_started = start_dryrun_cells(DRYRUN_WORKERS_BESIDE)
         # 4. small inputs: card vs CPU plain path
         path_kernels = {
             "sac": ("gather_kv", "indexer_scores", "scatter_kv"),
@@ -6103,10 +6900,14 @@ def main() -> None:
     if args.sharded or not only:
         # 16. the pool sharded over a torch.distributed mesh
         t0 = time.perf_counter()
-        _, refs, counts_a = sharded_nccl(torch, ops, families=not only)
-        _, counts_b = sharded_gloo(torch, refs)
-        sharded_small(torch)
-        sharded_families_small(torch)
+        with contextlib.ExitStack() as stack:
+            started = {}
+            _, refs, counts_a = sharded_nccl(
+                torch, ops, families=not only,
+                then=lambda: started.update(start_sharded_ranks(stack)))
+            _, counts_b = sharded_gloo(torch, refs, started["b"])
+            sharded_small(torch, started["c"])
+            sharded_families_small(torch, started["g"])
         shard_launches = {k: sum(c[k] for c in counts_a + [counts_b])
                           for k in counts_b}
         emit(dict(phase="sharded_total", launches=shard_launches,
@@ -6135,7 +6936,7 @@ def main() -> None:
         # cell that fits a card on meta and on the card, the CLI's
         # cells, the examples
         t0 = time.perf_counter()
-        dryrun_phase(torch, indexer, sparse_attn, smi[0])
+        dryrun_phase(torch, indexer, sparse_attn, smi[0], dryrun_started)
         emit(dict(phase="dryrun_total", seconds=time.perf_counter() - t0))
 
     if args.tp or not only:

@@ -21,7 +21,9 @@ collectives:
   dispatch of the whole token set with the reference's groups and
   capacity on every rank, the rank's experts on their slots, one
   all-reduce of the partial outputs over the axes that split the
-  experts' work, then the rank's own lanes.
+  experts' work, then the rank's own lanes; or, with dispatch groups
+  over the batch axes, each rank's own groups dispatched and their
+  slots traded with the experts' owners by ``all_to_all``.
 
 The d_model rows (``D``, and the experts' ``DE``) split over the
 ``data`` axis under ``TRAIN_RULES`` and under the serve rules of a batch
@@ -134,6 +136,10 @@ class Whole:
     def enter(self, x: torch.Tensor, axes) -> torch.Tensor:
         return x
 
+    def all_to_all(self, x: torch.Tensor, axes, dim: int = 0
+                   ) -> torch.Tensor:
+        return x
+
     def gather_lanes(self, x: torch.Tensor) -> torch.Tensor:
         return x
 
@@ -231,6 +237,22 @@ class _AllGather(torch.autograd.Function):
         n, i = _shd().block_of(axes, tp.mesh, tp.coord)
         b = g.shape[dim] // n
         return g.narrow(dim, i * b, b), None, None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """Block k of ``dim`` sent to the rank that holds block k over
+    ``axes``, and every rank's block for this one received in their block
+    order; backward: the same exchange of the gradient (the reverse
+    all-to-all)."""
+
+    @staticmethod
+    def forward(ctx, x, tp, axes, dim):
+        ctx.tp, ctx.axes, ctx.dim = tp, axes, dim
+        return tp._all_to_all(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp._all_to_all(g, ctx.axes, ctx.dim), None, None, None
 
 
 class TensorParallel(Whole):
@@ -432,6 +454,16 @@ class TensorParallel(Whole):
             return x
         return _AllGather.apply(x, self, tuple(axes), dim % x.dim(), reduce)
 
+    def all_to_all(self, x, axes, dim=0):
+        """``x``'s dim ``dim`` cut into one block per rank of ``axes``
+        (``block_of``'s order), block k sent to the rank that holds block
+        k, and the blocks received joined along ``dim`` in their senders'
+        block order (one all-to-all of the bytes: any dtype, every bit);
+        its backward is the reverse all-to-all."""
+        if self.size(axes) == 1:
+            return x
+        return _AllToAll.apply(x, self, tuple(axes), dim % x.dim())
+
     def rms_norm(self, x, gamma, axes, width: int, eps: float = 1e-6):
         """``layers.rms_norm`` of a vector of ``width`` whose last-dim
         blocks (``x`` and ``gamma`` this rank's) lie over ``axes``: the
@@ -474,8 +506,8 @@ class TensorParallel(Whole):
         group, order = self._group(axes)
         x = x.contiguous()
         out = x.new_empty((n,) + tuple(x.shape))
-        dist.all_gather_into_tensor(out.view(torch.uint8).view(-1),
-                                    x.view(torch.uint8).view(-1),
+        dist.all_gather_into_tensor(out.view(-1).view(torch.uint8),
+                                    x.view(-1).view(torch.uint8),
                                     group=group)
         if order != list(range(n)):     # group ranks -> block order
             out = out[torch.tensor(order, device=out.device)]
@@ -496,6 +528,22 @@ class TensorParallel(Whole):
         dist.reduce_scatter_tensor(out, blocks.reshape(-1, *out.shape[1:]),
                                    group=group)
         return out.movedim(0, dim).to(g.dtype)
+
+    def _all_to_all(self, x, axes, dim):
+        n = self.size(axes)
+        group, order = self._group(axes)
+        blocks = x.movedim(dim, 0)
+        blocks = blocks.reshape(n, blocks.shape[0] // n, *blocks.shape[1:])
+        if order != list(range(n)):     # block order -> group ranks
+            inv = sorted(range(n), key=order.__getitem__)
+            blocks = blocks[torch.tensor(inv, device=blocks.device)]
+        flat = blocks.reshape(n, -1).contiguous()
+        out = torch.empty_like(flat)
+        dist.all_to_all_single(out.view(torch.uint8), flat.view(torch.uint8),
+                               group=group)
+        if order != list(range(n)):     # group ranks -> block order
+            out = out[torch.tensor(order, device=out.device)]
+        return out.view(-1, *blocks.shape[2:]).movedim(0, dim)
 
     def gather_lanes(self, x):
         """Every rank's lanes (dim 0) over the batch axes, in lane order."""

@@ -6,7 +6,10 @@ its four ranks as processes of this machine.  The phase must pass: the
 TP path at a world of one bit-equal to the unsharded run (weights,
 logits, tokens, hot tier, expert choices), and each rank of the meshes
 within the limits of the unsharded logits, with its hot tier exact and
-its control outside both limits."""
+its control outside both limits; (c), the MoE dispatch groups over the
+batch axes, its serve run within the same limits (two all-to-alls a MoE
+layer of the prefill) and its training step within phase 20's, the
+control outside."""
 import json
 import os
 import subprocess
@@ -45,4 +48,15 @@ def test_chip_smoke_tp_phase_rehearses_on_cpu():
         if r.get("run") == "gloo_4_ranks_one_card":
             assert r["worst_rel_l2"] <= r["limits"]["rel_l2"]
             assert r["control_least_rel_l2"] > r["limits"]["rel_l2"]
+    grouped = {r["run"]: r for r in recs
+               if r.get("run", "").startswith("gloo_4_ranks_grouped")}
+    assert set(grouped) == {"gloo_4_ranks_grouped_serve",
+                            "gloo_4_ranks_grouped_train"}
+    serve, train = (grouped[f"gloo_4_ranks_grouped_{k}"]
+                    for k in ("serve", "train"))
+    assert serve["worst_rel_l2"] <= serve["limits"]["rel_l2"]
+    for rank in serve["ranks"]:     # two all-to-alls a MoE layer
+        assert rank["moe_collectives_prefill"]["all-to-all"] == 4
+    assert train["worst_grad_rel_l2"] <= train["limits"]["grad_rel_l2"]
+    assert train["control_least_worst"] > train["limits"]["grad_rel_l2"]
     assert recs[-1]["phase"] == "tensor_parallel_total"

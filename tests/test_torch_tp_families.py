@@ -56,7 +56,9 @@ What is held, for each config at each mesh:
   held in f32 only: its layer-1 ``D_skip`` gradient (norm 0.09, a sum
   that cancels over positions) is 8 % from the unsharded bf16 step at
   (2, 2) and at (1, 2) alike, while the f32 layer check holds it to
-  5e-7.
+  5e-7; over eight batches the bf16 gaps have the size of the unsharded
+  step's own when it rounds as a rank does
+  (``test_torch_tp_control.py``).
 """
 import contextlib
 import dataclasses

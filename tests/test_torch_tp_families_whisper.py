@@ -111,7 +111,8 @@ def test_chip_smoke_phase_21_rehearses_on_cpu():
     training steps bit-equal at a world of one; (b)'s four ranks at
     (2, 2) and (1, 4) within the phase's fixed limits, every control
     outside them (the phase raises otherwise), and the references'
-    spread readings (``CHIP_SMOKE_FAM_SPREAD=1``)."""
+    spread readings with the like-for-like control of the bf16 gaps
+    (``CHIP_SMOKE_FAM_SPREAD=1``)."""
     import json
     import os
     import subprocess
@@ -133,5 +134,15 @@ def test_chip_smoke_phase_21_rehearses_on_cpu():
         assert runs.count(("gloo_4_ranks_serve", arch)) == 2, arch
         assert ("gloo_4_ranks_train", arch) in runs, arch
     assert recs[-1]["phase"] == "fsdp_total" and recs[-1]["families"]
-    # the references' spread readings (CHIP_SMOKE_FAM_SPREAD)
-    assert runs.count(("unsharded_spread", "zamba2-7b")) == 2
+    # the references' spread readings (CHIP_SMOKE_FAM_SPREAD): each serve
+    # case's lane halves alone and rounded as a rank (``_rank_rounding``),
+    # each training step in two microbatches, and each bf16 step's
+    # like-for-like control, with Zamba2-7B's bf16 step on the ranks
+    # beside it (reported, not held)
+    assert runs.count(("unsharded_spread", "zamba2-7b")) == 3
+    for arch in ("xlstm-125m", "whisper-small"):
+        assert runs.count(("unsharded_spread", arch)) == 4, arch
+    assert runs.count(("unsharded_spread", "zamba2-7b-bf16")) == 2
+    bf16 = [r for r in recs if r.get("run") == "gloo_4_ranks_train"
+            and r["config"] == "zamba2-7b-bf16"]
+    assert len(bf16) == 1 and not bf16[0]["held"]
