@@ -4198,6 +4198,18 @@ TP_DEV = os.environ.get("CHIP_SMOKE_TP_DEVICE", "cuda")
 # and the router's gradient leaves by several per cent (the bf16 step's
 # median leaf was 5.5 % from the unsharded step, its worst the router's
 # at 10.6 % on an H100: PERF.md §6)
+# rank 0's peak bytes on the card in each attention-family record of
+# phases 19 and 20 as the tree before the sequence-parallel residual
+# made them (NVIDIA H100 80GB HBM3, 700.00 W; the same script, the same
+# cases), printed beside this run's as ``peak_bytes_was``
+PEAK_WAS = {("tp", "deepseek-v32", (2, 2)): 20246511616,
+            ("tp", "qwen2-1.5b", (1, 4)): 2482795520,
+            ("tp", "qwen2-1.5b", (2, 2)): 2651998720,
+            ("grouped_serve",): 16121582080,
+            ("grouped_train",): 13314556928,
+            ("fsdp_train",): 10025098752,
+            ("fsdp_serve", "qwen2-1.5b"): 9923231744,
+            ("fsdp_serve", "deepseek-v32"): 19641073664}
 TP_GROUPED = dict(groups=2, steps=2,
                   train=dict(arch="mixtral-8x22b", n_layers=2, batch=4,
                              seq=256, f32=True),
@@ -4235,6 +4247,13 @@ def _tp_topk(scores, cache_len):
     return _small_topk(scores, cache_len, 2048 if TP_DEV == "cuda" else 16)
 
 
+def _tp_opts(cfg):
+    """The serving models' opts: the prefill's warm-up plan at the
+    engine's width (the indexer kernel on the rank's slice of the
+    positions, where the residual is split over the sequence)."""
+    return dict(warmup_w=int(cfg.sac.warmup_entries))
+
+
 def _tp_cfg(case):
     from repro_torch.configs import get_config
     cfg = get_config(case["arch"])
@@ -4257,19 +4276,24 @@ def _tp_prompts(torch, cfg, case):
 def _tp_state(torch, m, params, prompts, case, mesh=None):
     """The lanes' prompts prefilled in one call (the expert dispatch sees
     them together, as the ranks' does), written into a serve state of
-    ``max_ctx`` rows with the config's hot tier, its pools cut to the
-    rank's slice with ``mesh``; returns it and the prefill's logits."""
+    ``max_ctx`` rows with the config's hot tier; with ``mesh`` (the rules
+    set, the model over the sharded pool) the prefill's residual is split
+    over the sequence and its pools are the rank's slices, written into
+    the serve state's slices; returns it and the prefill's logits."""
     from repro_torch.core.pool import pool_write_prefill
-    from repro_torch.distributed.sharding import shard_serve_state
+    from repro_torch.distributed.sharding import (shard_serve_state,
+                                                  write_prefill_shard)
     st, logits = m.prefill(params, prompts)
     state = m.init_serve_state(prompts.shape[0], case["max_ctx"],
                                device_buffer=m.cfg.sac.device_buffer_size)
-    for k in ("kv_pool", "idx_pool"):
-        pool_write_prefill(state[k], st[k])
     state["cache_len"] = st["cache_len"].clone()
-    del st
-    if mesh is not None:
+    if mesh is None:
+        for k in ("kv_pool", "idx_pool"):
+            pool_write_prefill(state[k], st[k])
+    else:
         state = shard_serve_state(state, mesh)
+        write_prefill_shard(state, st, mesh)
+    del st
     return state, logits
 
 
@@ -4306,7 +4330,7 @@ def _f32_row_products(torch):
     from repro_torch.distributed import tp
     orig = tp.Whole.matmul
 
-    def matmul(self, x, w, dims, shape, axes=()):
+    def matmul(self, x, w, dims, shape, axes=(), scatter=False):
         if dims[0] in ("H", "F"):
             return torch.matmul(x.float(), w.float()).to(x.dtype)
         return x @ w
@@ -4350,7 +4374,7 @@ def _rank_rounding(torch, m: int):
 
     orig_mm, orig_norm = tp.Whole.matmul, tp.Whole.rms_norm
 
-    def matmul(self, x, w, dims, shape, axes=()):
+    def matmul(self, x, w, dims, shape, axes=(), scatter=False):
         if dims[0] in ("H", "F"):
             return torch.matmul(x.float(), w.float()).to(x.dtype)
         if dims[1] in ("H", "KV", "F", "Hm", "V") and w.shape[1] % m == 0:
@@ -4408,7 +4432,7 @@ def _tp_reference(torch, ops, case, mesh):
     from repro_torch.models.model import build_model
     cfg = _tp_cfg(case)
     prompts = _tp_prompts(torch, cfg, case)
-    m = build_model(cfg, topk_fn=_tp_topk, device=TP_DEV)
+    m = build_model(cfg, topk_fn=_tp_topk, device=TP_DEV, opts=_tp_opts(cfg))
     params = m.init(torch.Generator(device=TP_DEV).manual_seed(0))
     t0 = time.perf_counter()
     ops.reset_launch_counts()
@@ -4438,7 +4462,7 @@ def _tp_reference(torch, ops, case, mesh):
                 for i in range(a.shape[0])]
         ref["f32_products"] = [max(x[j] for x in near) for j in range(3)]
     mt = build_model(cfg, fetch_fn=make_pooled_fetch(mesh), topk_fn=_tp_topk,
-                     device=TP_DEV)
+                     device=TP_DEV, opts=_tp_opts(cfg))
     with shd.use_rules(shd.SERVE_RULES, mesh):
         if cfg.n_experts:
             same_weights, tp_params = True, params
@@ -4698,7 +4722,7 @@ def _tp_rank_case(torch, dist, ops, case, mesh, tokens, rank, world,
     lanes = list(range(d * per, (d + 1) * per))
     prompts = _tp_prompts(torch, cfg, case)[d * per:(d + 1) * per]
     m = build_model(cfg, fetch_fn=make_pooled_fetch(mesh), topk_fn=_tp_topk,
-                    device=TP_DEV)
+                    device=TP_DEV, opts=_tp_opts(cfg))
     L = cfg.n_layers
     with shd.use_rules(shd.SERVE_RULES, mesh):
         for r in range(world):
@@ -4717,6 +4741,7 @@ def _tp_rank_case(torch, dist, ops, case, mesh, tokens, rank, world,
         with _tp_gates(gates):
             state, lg0 = _tp_state(torch, m, params, prompts, case, mesh)
         prefill_s = time.perf_counter() - t0
+        launches_prefill = ops.launch_counts()
         logits, wall = [lg0.cpu()], []
         with _tp_gates(gates):
             for i, tok in enumerate(tokens[:case["steps"]]):
@@ -4766,7 +4791,8 @@ def _tp_rank_case(torch, dist, ops, case, mesh, tokens, rank, world,
                 logits=logits, control=control, gates=gates, hot=hot,
                 launches=launches, wall_s=wall, prefill_s=prefill_s,
                 weight_bytes=weight_bytes, peak_bytes=peak, profile=prof,
-                grouped=grouped, seconds=time.perf_counter() - t0)
+                grouped=grouped, launches_prefill=launches_prefill,
+                seconds=time.perf_counter() - t0)
 
 
 def _tp_clone(state):
@@ -4910,10 +4936,14 @@ def _tp_grouped_check(ref, ranks, smi: str, add, child_s: float) -> list:
                 "scatter_kv.rows_at_shard")
         missing += [(r, k) for k in path
                     if TP_DEV == "cuda" and not x["launches"].get(k)]
+        # the slots out and back, and the combine's sum reduce-scattered
+        # to the rank's block of the sequence (the residual is split)
         moe = x["moe_collectives_prefill"]
-        if moe.get("all-to-all") != 2 * L or any(
+        if moe.get("all-to-all") != 2 * L or moe.get(
+                "reduce-scatter") != L or any(
                 n for k, n in moe.items() if k not in (
-                    "all-to-all", "all-gather", "all-reduce")):
+                    "all-to-all", "all-gather", "all-reduce",
+                    "reduce-scatter")):
             failures.append(("grouped prefill's MoE collectives", r, moe))
     held = case["requests"] * (TP_GROUPED["steps"] + 1)
     if len({(e["lane"], e["step"]) for e in exempt}) > held // 2:
@@ -4937,6 +4967,7 @@ def _tp_grouped_check(ref, ranks, smi: str, add, child_s: float) -> list:
                           peak_bytes=x["peak_bytes"], seconds=x["seconds"])
                      for x in (res["deepseek-v32", (2, 2)]["grouped"]
                                for res in ranks)],
+              peak_bytes_was=PEAK_WAS.get(("grouped_serve",)),
               launches_rank0=ranks[0]["deepseek-v32", (2, 2)]["grouped"][
                   "launches"]))
     tr = [res["grouped_train"] for res in ranks]
@@ -4967,7 +4998,8 @@ def _tp_grouped_check(ref, ranks, smi: str, add, child_s: float) -> list:
                           collectives=x["collectives"],
                           moe_collectives=x["moe_collectives"],
                           grads_wall_s=x["grads_wall_s"],
-                          seconds=x["seconds"]) for x in tr]))
+                          seconds=x["seconds"]) for x in tr],
+              peak_bytes_was=PEAK_WAS.get(("grouped_train",))))
     lim = TP_GROUPED["limits"]
     if not (loss_rel <= lim["loss_rel"] and aux_rel <= lim["loss_rel"]
             and max(errs) <= lim["grad_rel_l2"]):
@@ -5124,6 +5156,11 @@ def _tp_phase(torch, ops, smi, t0, tmp_dir, spawned, child):
                 kernels_missing += [(r, k) for k in path
                                     if TP_DEV == "cuda"
                                     and not x["launches"].get(k)]
+                # the split prefill's warm-up plan: the indexer on the
+                # rank's slice of the positions, once a layer
+                if TP_DEV == "cuda" and x["launches_prefill"].get(
+                        "indexer_scores") != _tp_cfg(case).n_layers:
+                    kernels_missing.append((r, "indexer_scores (prefill)"))
             x0 = ranks[0][arch, shape]
             prof = x0["profile"] or dict(
                 launches_per_step=None, launches_ex_per_step=None,
@@ -5145,7 +5182,9 @@ def _tp_phase(torch, ops, smi, t0, tmp_dir, spawned, child):
                 rank0=dict(
                     weight_bytes=x0["weight_bytes"],
                     peak_bytes=x0["peak_bytes"],
+                    peak_bytes_was=PEAK_WAS.get(("tp", arch, shape)),
                     prefill_s=x0["prefill_s"],
+                    launches_prefill=x0["launches_prefill"],
                     wall_s_per_decode_step_median=_median(x0["wall_s"]),
                     launches=x0["launches"],
                     launches_per_step=prof["launches_per_step"],
@@ -5893,7 +5932,8 @@ def _fsdp_phase(torch, ops, smi, fsdp, families, t0, tmp, spawned, child):
                                   "collectives_per_step_grads"],
                               grads_wall_s=x["grads_wall_s"],
                               adamw_wall_s=x["adamw_wall_s"],
-                              seconds=x["seconds"]) for x in tr]))
+                              seconds=x["seconds"]) for x in tr],
+                  peak_bytes_was=PEAK_WAS.get(("fsdp_train",))))
         if (over or min(control_over) <= 1 or loss_rel > FSDP_LOSS_REL
                 or norm_rel > FSDP_LOSS_REL):
             failures.append(("train ranks", over[:8], min(control_over),
@@ -5972,6 +6012,7 @@ def _fsdp_phase(torch, ops, smi, fsdp, families, t0, tmp, spawned, child):
                       control_least_rel_l2=least[0],
                       control_least_logits_outside=least[1],
                       exempt_routing_flips=exempt, kernels_missing=missing,
+                      peak_bytes_was=PEAK_WAS.get(("fsdp_serve", arch)),
                       ranks=[dict(weight_bytes=res[arch]["weight_bytes"],
                                   pool_bytes=res[arch]["pool_bytes"],
                                   peak_bytes=res[arch]["peak_bytes"],

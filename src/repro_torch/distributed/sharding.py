@@ -30,7 +30,9 @@ gets each leaf whole (a checkpoint of a sharded train state is written
 whole, as the reference saves its global arrays, and cut again at any
 mesh).
 ``shard_serve_state`` cuts a serve state's pools to one rank's slice of
-the pool axis (``core/pool.py``'s sharded pool).
+the pool axis (``core/pool.py``'s sharded pool); ``write_prefill_shard``
+writes a split prefill's slices (an attention family's prefill over the
+sharded pool) into such a state's slices of a longer pool.
 """
 from __future__ import annotations
 
@@ -364,3 +366,28 @@ def shard_serve_state(state: Dict[str, Any], mesh,
     ops.pool_splice_shard([out[k] for k in keys], [state[k] for k in keys],
                           shard.base(S_local))
     return out
+
+
+def write_prefill_shard(state: Dict[str, Any], prefilled: Dict[str, Any],
+                        mesh, pool_axis: str = "model") -> None:
+    """Rows [0, S) of each lane of ``state``'s pools (this rank's slices
+    ``[L, B, S'/n, d]`` over ``pool_axis``, as ``shard_serve_state`` cuts
+    them, S' >= S) set from ``prefilled``'s (the rank's slices ``[L, B,
+    S/n, d]`` of a prompt of S positions, as a split prefill makes them).
+    A rank's serve slice holds other positions than its prompt slice, so
+    each layer's prompt slices are all-gathered (their bytes: every bit)
+    and the rank copies the rows its slice holds: one layer of the
+    prompt is whole on a rank at a time.  Every rank of the axis calls
+    it."""
+    shard = PoolShard.of(mesh, pool_axis)
+    for k in ("kv_pool", "idx_pool"):
+        if k not in prefilled:
+            continue
+        dst, src = state[k], prefilled[k]
+        rows = dst.shape[2]
+        lo = shard.base(rows)
+        hi = min(lo + rows, src.shape[2] * shard.size)
+        for layer in range(src.shape[0]):
+            whole = shard.gather_pool(src[layer])
+            if hi > lo:
+                dst[layer, :, :hi - lo] = whole[:, lo:hi]

@@ -65,12 +65,29 @@ blocks lie on several ranks (one all-reduce of the squared sums);
 ``all_gather(..., reduce=True)`` joins blocks that each rank then uses
 on its own part (its backward reduce-scatters the partial gradients);
 ``rec_block`` is a rank's block of a recurrent-state leaf, placed as the
-reference's ``_rec_pspec`` places it (``sharding.rec_spec``).  The
-residual stream is replicated over ``model`` (the reference's
-sequence-parallel ``S`` is not split).
+reference's ``_rec_pspec`` places it (``sharding.rec_spec``).
+
+The sequence-parallel residual (Megatron's sequence parallelism, the
+reference's ``constrain(x, ("B", "S", "D"))`` with ``"S": ("model",)``):
+a plan made with ``seq`` (the attention families' training forward and
+prefill, ``rank_view``) keeps the residual between layers as the rank's
+contiguous block of each lane's sequence (``seq``, the ``S`` rule's
+axes off the batch's, in ``block_of`` order).  Norms run on the block.
+``gather_seq`` joins the blocks in front of the column-parallel
+products (its backward reduce-scatters the rank-specific uses'
+gradients), and the row-parallel products' sum is a reduce-scatter over
+the sequence (``matmul(..., scatter=True)``, ``all_reduce(...,
+scatter=True)``: the f32 sum rounded once, its backward an all-gather)
+in place of the all-reduce.  A weight the same on every rank of the
+sequence's axes that a rank uses on its own block (a norm's gamma,
+MLA's down-projections) has its gradient summed over them
+(``on_slice``).  Without ``seq`` (decode; Zamba2, xLSTM and Whisper) the
+residual is whole on every ``model`` rank and each of these is the
+plain path's.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import itertools
 import math
@@ -101,13 +118,20 @@ class Split:
 
 
 WHOLE_SPLIT = Split((), 1, 0)
+#: the sequence dim of a ``[B, S, ...]`` activation
+SEQ_DIM = 1
 #: the logical dims of the d_model rows (a dense weight's, an expert's)
 ROW_DIMS = ("D", "DE")
+
+
+def _minus(axes, drop) -> Tuple[str, ...]:
+    return tuple(a for a in axes if a not in drop)
 
 
 class Whole:
     """One rank holds every weight whole (the unsharded path)."""
     batch_axes: Tuple[str, ...] = ()
+    seq: Split = WHOLE_SPLIT
 
     def split(self, dims: Sequence[str], shape: Sequence[int],
               i: int) -> Split:
@@ -116,7 +140,8 @@ class Whole:
     def size(self, axes) -> int:
         return 1
 
-    def all_reduce(self, x: torch.Tensor, axes) -> torch.Tensor:
+    def all_reduce(self, x: torch.Tensor, axes, scatter: bool = False
+                   ) -> torch.Tensor:
         return x
 
     def all_gather(self, x: torch.Tensor, axes, dim: int = -1
@@ -124,8 +149,23 @@ class Whole:
         return x
 
     def matmul(self, x: torch.Tensor, w: torch.Tensor, dims, shape,
-               axes=()) -> torch.Tensor:
+               axes=(), scatter: bool = False) -> torch.Tensor:
         return x @ w
+
+    def gather_seq(self, x: torch.Tensor, axes=()) -> torch.Tensor:
+        return self.enter(x, axes)
+
+    def own_seq(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def seq_rows(self, x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        return x[torch.arange(x.shape[0], device=x.device), pos.long()]
+
+    def on_slice(self, w: torch.Tensor) -> torch.Tensor:
+        return w
+
+    def check_seq(self, S: int) -> None:
+        pass
 
     def rows(self, w: torch.Tensor, dims, shape) -> torch.Tensor:
         return w
@@ -239,6 +279,34 @@ class _AllGather(torch.autograd.Function):
         return g.narrow(dim, i * b, b), None, None, None, None
 
 
+class _ScatterSeq(torch.autograd.Function):
+    """The sum over ``axes`` of every rank's ``x`` in f32, cut to this
+    rank's block of the sequence (dim ``SEQ_DIM``): a reduce-scatter over
+    the sequence's axes where they are among ``axes``, else the rank's
+    block, then the block's all-reduce over the other axes; backward:
+    the gradient's blocks all-gathered over the sequence's axes (each
+    rank's use of its block is its own)."""
+
+    @staticmethod
+    def forward(ctx, x, tp, axes):
+        ctx.tp = tp
+        seq = tp.seq.axes
+        if set(seq) <= set(axes):
+            y = tp._reduce_scatter(x.float(), seq, SEQ_DIM)
+        else:
+            lo, hi = tp.seq.bounds(x.shape[SEQ_DIM])
+            y = x.float().narrow(SEQ_DIM, lo, hi - lo).clone()
+        rest = _minus(axes, seq)
+        if tp.size(rest) > 1:
+            y = y.contiguous()
+            dist.all_reduce(y, group=tp._group(rest)[0])
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp._gather(g, ctx.tp.seq.axes, SEQ_DIM), None, None
+
+
 class _AllToAll(torch.autograd.Function):
     """Block k of ``dim`` sent to the rank that holds block k over
     ``axes``, and every rank's block for this one received in their block
@@ -284,6 +352,16 @@ class TensorParallel(Whole):
         self._groups: Dict[Tuple[str, ...], object] = {}
         self._orders: Dict[Tuple[str, ...], Tuple[object, list]] = {}
         self._row_memo: Dict[Tuple, list] = {}
+
+    def with_seq(self) -> "TensorParallel":
+        """This plan with the residual split over the sequence: ``seq``
+        the ``S`` rule's axes in the mesh that the lanes are not split
+        over (the process groups are shared with this plan)."""
+        out = copy.copy(self)
+        axes = tuple(a for a in self.rules.get("S", ())
+                     if a in self.sizes and a not in self.batch_axes)
+        out.seq = Split(axes, *_shd().block_of(axes, self.mesh, self.coord))
+        return out
 
     # -- blocks ---------------------------------------------------------------
     def split(self, dims, shape, i):
@@ -374,31 +452,42 @@ class TensorParallel(Whole):
         return self._orders[axes]
 
     # -- collectives ------------------------------------------------------------
-    def all_reduce(self, x, axes):
+    def all_reduce(self, x, axes, scatter: bool = False):
         """The sum over ``axes`` of every rank's ``x``, in f32, rounded once
-        to ``x``'s dtype (``x`` itself where the axes hold one rank)."""
+        to ``x``'s dtype (``x`` itself where the axes hold one rank); with
+        ``scatter`` and the residual split over the sequence, this rank's
+        block of the sum's sequence (``x`` [B, S, ...]: a reduce-scatter,
+        ``_ScatterSeq``)."""
+        if scatter and self.seq.n > 1:
+            return _ScatterSeq.apply(x, self, tuple(axes)).to(x.dtype)
         if self.size(axes) == 1:
             return x
         return _AllReduce.apply(x, self, tuple(axes)).to(x.dtype)
 
-    def matmul_sum(self, a, w, axes):
+    def matmul_sum(self, a, w, axes, scatter: bool = False):
         """``a @ w`` of a row-parallel weight block ``w`` (and ``a``'s
         matching columns), summed over ``axes``: each rank's product in
         f32, the sum rounded once to ``a``'s dtype, as one product of the
         whole weight rounds (the same product where the axes hold one
-        rank)."""
+        rank); with ``scatter``, the sum's block of the sequence
+        (``all_reduce``)."""
+        if scatter and self.seq.n > 1:
+            y = (a @ w if self.size(axes) == 1
+                 else torch.matmul(a.float(), w.float()))
+            return _ScatterSeq.apply(y, self, tuple(axes)).to(a.dtype)
         if self.size(axes) == 1:
             return a @ w
         y = torch.matmul(a.float(), w.float())
         return _AllReduce.apply(y, self, tuple(axes)).to(a.dtype)
 
-    def matmul(self, x, w, dims, shape, axes=()):
+    def matmul(self, x, w, dims, shape, axes=(), scatter: bool = False):
         """``x @ w`` for this rank's block ``w`` of a weight of ``shape``
         over the logical ``dims`` (``x``'s last dim against ``w``'s
         first), summed over ``axes`` (the axes that split the contraction
-        besides the rows: ``wo``'s heads).  Rows over batch axes are
-        gathered (``rows``); rows over axes the input is the same on take
-        the input's matching columns (a contraction over them: its
+        besides the rows: ``wo``'s heads), with ``scatter`` cut to the
+        rank's block of the sequence (``matmul_sum``).  Rows over batch
+        axes are gathered (``rows``); rows over axes the input is the same
+        on take the input's matching columns (a contraction over them: its
         partial products summed over their axes) or leave the output a
         block of columns (all-gathered)."""
         w = self.rows(w, dims, shape)
@@ -413,7 +502,7 @@ class TensorParallel(Whole):
                 axes += s.axes
             else:
                 out.append(s.axes)
-        y = self.matmul_sum(x, w, axes)
+        y = self.matmul_sum(x, w, axes, scatter)
         for a in out:
             y = self.all_gather(y, a)
         return y
@@ -453,6 +542,53 @@ class TensorParallel(Whole):
         if self.size(axes) == 1:
             return x
         return _AllGather.apply(x, self, tuple(axes), dim % x.dim(), reduce)
+
+    def gather_seq(self, x, axes=()):
+        """The residual's sequence blocks ``x`` [B, S/n, ...] joined whole
+        (one all-gather; ``enter(x, axes)`` where the sequence is whole),
+        used by the rank on its own work over ``axes``: its backward sums
+        the gradient over ``axes`` and takes the rank's block (a
+        reduce-scatter where the sequence's axes are among them)."""
+        if self.seq.n == 1:
+            return self.enter(x, axes)
+        seq = self.seq.axes
+        if set(seq) <= set(axes):
+            return self.enter(_AllGather.apply(x, self, seq, SEQ_DIM, True),
+                              _minus(axes, seq))
+        return self.enter(_AllGather.apply(x, self, seq, SEQ_DIM, False),
+                          axes)
+
+    def own_seq(self, x):
+        """This rank's block of the sequence of a whole ``x`` [B, S, ...]
+        (positions, pool entries: no gradient)."""
+        lo, hi = self.seq.bounds(x.shape[SEQ_DIM])
+        return x.narrow(SEQ_DIM, lo, hi - lo)
+
+    def seq_rows(self, x, pos):
+        """Row ``pos[b]`` (a position of the whole sequence) of each lane
+        of the residual's blocks ``x`` [B, S/n, D]: the rank that holds it
+        gives it, the others zeros, summed over the sequence's axes."""
+        if self.seq.n == 1:
+            return super().seq_rows(x, pos)
+        lo, hi = self.seq.bounds(x.shape[SEQ_DIM] * self.seq.n)
+        mine = (pos >= lo) & (pos < hi)
+        rows = super().seq_rows(x, torch.where(mine, pos - lo, 0))
+        return self.all_reduce(torch.where(mine[:, None], rows, torch.zeros(
+            (), dtype=rows.dtype, device=rows.device)), self.seq.axes)
+
+    def on_slice(self, w):
+        """A weight the same on every rank of the sequence's axes, used on
+        the rank's own block of the residual: its gradient is summed over
+        them."""
+        return self.enter(w, self.seq.axes)
+
+    def check_seq(self, S: int) -> None:
+        """A sequence of ``S`` positions must split over the residual's
+        sequence axes."""
+        if S % self.seq.n:
+            raise ValueError(
+                f"a sequence of {S} positions does not split over the "
+                f"{self.seq.n} ranks of {self.seq.axes}")
 
     def all_to_all(self, x, axes, dim=0):
         """``x``'s dim ``dim`` cut into one block per rank of ``axes``
@@ -589,11 +725,12 @@ class RankView:
         return getattr(self._cfg, name)
 
 
-def rank_view(cfg, views: Dict, batch_axes=None):
+def rank_view(cfg, views: Dict, batch_axes=None, seq: bool = False):
     """The config this rank runs: ``cfg`` itself outside
     ``use_rules(rules, mesh)``, else a ``RankView`` with the mesh's
-    ``TensorParallel`` plan, made once a mesh and rule table and kept in
-    the model's ``views``."""
+    ``TensorParallel`` plan (with ``seq``, its sequence-parallel form:
+    ``with_seq``), made once a mesh and rule table and kept in the
+    model's ``views``."""
     shd = _shd()
     mesh = shd._mesh()
     if mesh is None:
@@ -602,7 +739,11 @@ def rank_view(cfg, views: Dict, batch_axes=None):
     key = (id(mesh), tuple(sorted(rules.items())))
     if key not in views:
         views[key] = RankView(cfg, TensorParallel(mesh, rules, batch_axes))
-    return views[key]
+    if not seq:
+        return views[key]
+    if key + ("seq",) not in views:
+        views[key + ("seq",)] = RankView(cfg, views[key].tp.with_seq())
+    return views[key + ("seq",)]
 
 
 def _memo(cfg, name, fn):

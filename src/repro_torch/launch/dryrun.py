@@ -32,14 +32,19 @@ What one rank runs is the port's program:
   cell, plus ``D=("data",)`` where its batch does not split (every
   ``long_500k`` cell: the rank takes its columns of the input and sums
   the partial products over ``data``);
-- in every cell the residual stream is replicated over ``model``
-  (``residual_over_model`` in the record): the reference's
-  sequence-parallel ``S`` is not split;
-- either on its own lanes (the batch over the longest prefix of ``(pod,
-  data)`` that divides it, as ``batch_axes_for``), with its slice of the
-  pools' sequence axis (over ``model``, the sharded pool of
-  ``core/pool.py``) in a decode, the whole prompt in a prefill (then cut
-  to the slice by ``shard_serve_state``, as the port does);
+- in the attention families' train and prefill cells the residual
+  stream is the rank's block of each lane's sequence over ``model``, as
+  the reference's ``S`` rule splits it (``residual_over_model``:
+  ``"sequence"``, Megatron's sequence parallelism,
+  ``distributed/tp.py``); it is replicated over ``model`` in their
+  decode cells (one token a lane: no sequence) and in every Zamba2,
+  xLSTM and Whisper cell (``"replicated"``);
+- on its own lanes (the batch over the longest prefix of ``(pod, data)``
+  that divides it, as ``batch_axes_for``), with its slice of the pools'
+  sequence axis (over ``model``, the sharded pool of ``core/pool.py``)
+  in a decode; an attention family's prefill makes and writes only that
+  slice, another family's prefill the whole prompt's pools, then cut to
+  the slice by ``shard_serve_state``;
 - so ``flops``, ``bytes`` and ``peak_bytes`` are that program's, and
   ``mem_per_device.argument_bytes`` is the reference's layout (each
   parameter's, optimizer state's, serve state's and batch's per-rank
@@ -259,6 +264,7 @@ def build_cell(arch: str, shape_name: str, mesh, mode: str = "sac",
     from repro_torch.distributed import sharding as shd
     from repro_torch.models.model import (build_model, cell_is_supported,
                                           input_specs)
+    from repro_torch.models.transformer import seq_parallel
     from repro_torch.training.optimizer import OptConfig, init_opt_state
     from repro_torch.training.train_loop import make_train_step
 
@@ -282,7 +288,10 @@ def build_cell(arch: str, shape_name: str, mesh, mode: str = "sac",
         rules = dict(rules, D=("data",))
     B_local = shape.global_batch // np_prod_axes(mesh, baxes)
 
-    if shape.kind == "decode" and cfg.has_attention:
+    split = (shape.kind != "decode" and seq_parallel(cfg)
+             and _sizes(mesh)["model"] > 1)
+    if cfg.has_attention and (shape.kind == "decode"
+                              or shape.kind == "prefill" and split):
         fetch = make_pooled_fetch(mesh, batch_axes=baxes)
     else:
         fetch = local_fetch
@@ -299,7 +308,8 @@ def build_cell(arch: str, shape_name: str, mesh, mode: str = "sac",
             "kind": shape.kind, "opts": {k: v for k, v in opts.items()},
             "batch": shape.global_batch, "seq": shape.seq_len,
             "batch_axes": list(baxes), "lanes_per_rank": B_local,
-            "tensor_parallel": True, "residual_over_model": "replicated",
+            "tensor_parallel": True,
+            "residual_over_model": "sequence" if split else "replicated",
             "rows_over": list(rules.get("D", ()))}
     real = device.type != "meta"
     p_global = model.param_shapes()
@@ -343,7 +353,7 @@ def build_cell(arch: str, shape_name: str, mesh, mode: str = "sac",
             (params, opt_state, batch_local(batch_specs)), meta
 
     if shape.kind == "prefill":
-        cut = cfg.has_attention and _sizes(mesh)["model"] > 1
+        cut = cfg.has_attention and _sizes(mesh)["model"] > 1 and not split
 
         def step(params, batch):
             x = batch["frames"] if cfg.enc_dec else batch["tokens"]

@@ -30,6 +30,13 @@ whole heads (``tp.gqa_layout``).  ``wo`` is then a row block, and one
 all-reduce sums the ranks' outputs.  Every product with a weight whose
 d_model rows may be split (``w_dq``, ``w_dkv``, the indexer's, q / k /
 v, ``wo``) goes through ``tp.matmul``.
+
+With the residual split over the sequence (``tp.seq``, prefill and the
+training forward) MLA's down-projections, its norms and the indexer's
+keys run on the rank's block: its latent entries and keys are its slice
+of the pool.  The latent entries (576 wide, not the d_model-wide
+residual) and ``mla_q_proj``'s low-rank ``cq`` are all-gathered for the
+up-projections, and ``wo`` reduce-scatters back to the block.
 """
 from __future__ import annotations
 
@@ -64,11 +71,13 @@ def indexer_param_specs(cfg) -> Dict[str, ParamSpec]:
 
 
 def indexer_keys(p, x, cfg=None) -> torch.Tensor:
-    """Per-token indexer keys. x: [..., D] -> [..., d_idx]."""
+    """Per-token indexer keys. x: [..., D] -> [..., d_idx] (the rank's
+    block of the sequence where the residual is split)."""
     if cfg is None:
         return x @ p["wk_idx"]
-    return tp_of(cfg).matmul(x, p["wk_idx"], ("D", "C"),
-                             (cfg.d_model, cfg.sac.d_idx))
+    tp = tp_of(cfg)
+    return tp.matmul(x, tp.on_slice(p["wk_idx"]), ("D", "C"),
+                     (cfg.d_model, cfg.sac.d_idx))
 
 
 def indexer_scores(p, xq, idx_keys, cfg) -> torch.Tensor:
@@ -205,24 +214,29 @@ def mla_param_specs(cfg) -> Dict[str, ParamSpec]:
 
 def mla_q_proj(p, x, cfg, positions):
     """x: [B(, S), D] -> q_nope [B(,S),nh,hd], q_pe [B(,S),nh,dr] (roped);
-    nh the rank's heads (``mla_heads``)."""
+    nh the rank's heads (``mla_heads``).  With the residual split over
+    the sequence ``x`` is the rank's block: ``cq`` is made and normed on
+    it, then gathered whole (``positions``: the whole sequence's)."""
     split, nh = mla_heads(cfg)
     hd, dr = cfg.hd, cfg.qk_rope_dim
-    lead = x.shape[:-1]
     tp = tp_of(cfg)
-    cq = tp.matmul(x, p["w_dq"], ("D", "C"), (cfg.d_model, cfg.q_lora_rank))
-    q = tp.enter(rms_norm(cq, p["q_norm_g"]), split.axes) @ p["w_uq"]
-    q = q.reshape(*lead, nh, hd + dr)
+    cq = tp.matmul(x, tp.on_slice(p["w_dq"]), ("D", "C"),
+                   (cfg.d_model, cfg.q_lora_rank))
+    cq = tp.gather_seq(rms_norm(cq, tp.on_slice(p["q_norm_g"])), split.axes)
+    lead = cq.shape[:-1]
+    q = (cq @ p["w_uq"]).reshape(*lead, nh, hd + dr)
     q_nope, q_pe = q[..., :hd], q[..., hd:]
     return q_nope, apply_rope(q_pe, positions, cfg.rope_theta)
 
 
 def mla_kv_entry(p, x, cfg, positions):
-    """Latent cache entry per token: [.., dc+dr] (c_kv normed, k_pe roped)."""
+    """Latent cache entry per token: [.., dc+dr] (c_kv normed, k_pe roped);
+    on the rank's block of the sequence where the residual is split."""
     dc = cfg.kv_lora_rank
-    kv = tp_of(cfg).matmul(x, p["w_dkv"], ("D", "C"),
-                           (cfg.d_model, dc + cfg.qk_rope_dim))
-    c = rms_norm(kv[..., :dc], p["kv_norm_g"])
+    tp = tp_of(cfg)
+    kv = tp.matmul(x, tp.on_slice(p["w_dkv"]), ("D", "C"),
+                   (cfg.d_model, dc + cfg.qk_rope_dim))
+    c = rms_norm(kv[..., :dc], tp.on_slice(p["kv_norm_g"]))
     k_pe = apply_rope(kv[..., dc:], positions, cfg.rope_theta)
     return torch.cat([c, k_pe], dim=-1)
 
@@ -230,15 +244,17 @@ def mla_kv_entry(p, x, cfg, positions):
 def mla_prefill_attention(p, x, cfg, positions, *, chunk: int = 1024):
     """Non-absorbed MLA over a full sequence (prefill).
 
-    x: [B, S, D] -> (out [B, S, D], cache_entries [B, S, dc+dr]).
+    x: [B, S, D] -> (out [B, S, D], cache_entries [B, S, dc+dr]); with the
+    residual split over the sequence, ``x``, ``out`` and the entries are
+    the rank's block (``positions``: the whole sequence's).
     """
-    B, S, _ = x.shape
     split, nh = mla_heads(cfg)
     hd, dr, dc = cfg.hd, cfg.qk_rope_dim, cfg.kv_lora_rank
     tp = tp_of(cfg)
     q_nope, q_pe = mla_q_proj(p, x, cfg, positions)
-    entry = mla_kv_entry(p, x, cfg, positions)
-    ranked = tp.enter(entry, split.axes)         # used by the rank's heads
+    entry = mla_kv_entry(p, x, cfg, tp.own_seq(positions))
+    ranked = tp.gather_seq(entry, split.axes)    # used by the rank's heads
+    B, S = ranked.shape[:2]
     c, k_pe = ranked[..., :dc], ranked[..., dc:]
     k_nope = (c @ p["w_uk"]).reshape(B, S, nh, hd)
     v = (c @ p["w_uv"]).reshape(B, S, nh, hd)
@@ -249,7 +265,8 @@ def mla_prefill_attention(p, x, cfg, positions, *, chunk: int = 1024):
     v_pad = torch.cat([v, v.new_zeros(B, S, nh, dr)], dim=-1)
     out = blocked_causal_attention(q, k, v_pad, chunk=chunk)[..., :hd]
     return tp.matmul(out.reshape(B, S, nh * hd), p["wo"], ("H", "D"),
-                     (cfg.n_heads * hd, cfg.d_model), split.axes), entry
+                     (cfg.n_heads * hd, cfg.d_model), split.axes,
+                     scatter=True), entry
 
 
 def mla_absorbed_decode(p, xq, cfg, fetched, valid, positions):

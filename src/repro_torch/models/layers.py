@@ -16,6 +16,11 @@ all-reduce.  Every product with a weight whose d_model rows may be
 split goes through ``tp.matmul`` (the rows gathered, or the input's
 columns taken); ``tp.enter`` marks where a rank's own use of an input
 that is the same on every rank starts (its gradient is summed there).
+With the residual split over the sequence (``tp.seq``) the normed input
+is all-gathered once in front of q, k and v and of the MLP's gate and up
+(``tp.gather_seq``, where the ``enter`` was), each rank attends for its
+heads over the whole sequence, and ``wo`` and ``w_down`` sum by a
+reduce-scatter over the sequence in place of the all-reduce.
 """
 from __future__ import annotations
 
@@ -165,12 +170,21 @@ def gather_q_cols(cfg, q):
 
 def qkv_proj(p, x, cfg, positions):
     """x: [B, S, D] -> q [B, S, nh, hd], k/v [B, S, nkv, hd] with RoPE.
-    Over a tensor-parallel rank q holds its heads (``gather_q_cols``)."""
-    B, S, d = x.shape
+    Over a tensor-parallel rank q holds its heads (``gather_q_cols``);
+    with the residual split over the sequence ``x`` is the rank's block,
+    gathered whole here (``positions``: the whole sequence's)."""
+    d = x.shape[-1]
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     tp, lay = tp_of(cfg), gqa_layout(cfg)
-    xq = tp.enter(x, lay.q.axes)
-    xkv = xq if lay.kv.axes == lay.q.axes else tp.enter(x, lay.kv.axes)
+    if lay.kv.axes == lay.q.axes:
+        xq = xkv = tp.gather_seq(x, lay.q.axes)
+    else:
+        seq = tuple(a for a in tp.seq.axes
+                    if a in lay.q.axes and a in lay.kv.axes)
+        x = tp.gather_seq(x, seq)
+        xq = tp.enter(x, tuple(a for a in lay.q.axes if a not in seq))
+        xkv = tp.enter(x, tuple(a for a in lay.kv.axes if a not in seq))
+    B, S = xq.shape[:2]
     q = tp.matmul(xq, p["wq"], ("D", "H"), (d, nh * hd))
     k = tp.matmul(xkv, p["wk"], ("D", "KV"), (d, nkv * hd))
     v = tp.matmul(xkv, p["wv"], ("D", "KV"), (d, nkv * hd))
@@ -199,17 +213,18 @@ def rank_kv_heads(cfg, k, head_dim: int = -2):
     return k.narrow(head_dim, lay.heads[2], lay.heads[3])
 
 
-def attn_out(p, out, cfg):
+def attn_out(p, out, cfg, scatter: bool = False):
     """Attention output [..., heads * hd] -> the layer's [..., D]: the
     rank's block of ``wo``'s rows (the rank's columns of ``out`` where
-    every head attended), then one all-reduce of the partial sums."""
+    every head attended), then one all-reduce of the partial sums (with
+    ``scatter``, a reduce-scatter to the rank's block of the sequence)."""
     lay, tp = gqa_layout(cfg), tp_of(cfg)
     nhd = cfg.n_heads * cfg.hd
     if lay.heads is None:
         lo, hi = lay.q.bounds(nhd)
         out = tp.enter(out, lay.q.axes)[..., lo:hi]
     return tp.matmul(out, p["wo"], ("H", "D"), (nhd, cfg.d_model),
-                     lay.q.axes)
+                     lay.q.axes, scatter)
 
 
 def repeat_kv(k, n_rep: int):
@@ -260,14 +275,17 @@ def blocked_causal_attention(q, k, v, *, chunk: int = 1024,
 
 def dense_attention_block(p, x, cfg, positions, *, window: int = 0):
     """Full prefill attention for one GQA layer. x: [B, S, D] ->
-    (out [B, S, D], (k, v) [B, S, nkv, hd], k roped)."""
-    B, S, _ = x.shape
+    (out [B, S, D], (k, v) [B, S, nkv, hd], k roped).  With the residual
+    split over the sequence ``x`` and ``out`` are the rank's blocks, and
+    ``(k, v)`` the whole sequence's."""
     q, k, v = qkv_proj(p, x, cfg, positions)
+    B, S = q.shape[:2]
     ka, va = rank_kv_heads(cfg, k), rank_kv_heads(cfg, v)
     n_rep = q.shape[2] // ka.shape[2]
     out = blocked_causal_attention(q, repeat_kv(ka, n_rep),
                                    repeat_kv(va, n_rep), window=window)
-    return attn_out(p, out.reshape(B, S, q.shape[2] * cfg.hd), cfg), (k, v)
+    return attn_out(p, out.reshape(B, S, q.shape[2] * cfg.hd), cfg,
+                    scatter=True), (k, v)
 
 
 def decode_attention(q, k_cache, v_cache, length_mask):
@@ -306,14 +324,18 @@ def mlp_param_specs(cfg) -> Dict[str, ParamSpec]:
 def mlp_block(p, x, cfg=None):
     """SwiGLU MLP; over a tensor-parallel rank (``cfg.tp``) the gate and
     up are column blocks and ``w_down`` a row block, whose partial sums
-    are all-reduced (``tp.matmul``)."""
+    are all-reduced (``tp.matmul``); with the residual split over the
+    sequence, ``x`` [B, S/n, D] is gathered whole for the gate and up
+    (the reference's ``("B", "Sq", "F")``) and ``w_down``'s sum is
+    reduce-scattered back to the rank's block."""
     if cfg is None:
         return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
     tp = tp_of(cfg)
     d, f_ = cfg.d_model, cfg.d_ff
     f = tp.split(("F", "D"), (f_, d), 0)
-    x = tp.enter(x, f.axes)
+    x = tp.gather_seq(x, f.axes)
     h = torch.nn.functional.silu(tp.matmul(x, p["w_gate"], ("D", "F"),
                                            (d, f_))) \
         * tp.matmul(x, p["w_up"], ("D", "F"), (d, f_))
-    return tp.matmul(h, p["w_down"], ("F", "D"), (f_, d), f.axes)
+    return tp.matmul(h, p["w_down"], ("F", "D"), (f_, d), f.axes,
+                     scatter=True)

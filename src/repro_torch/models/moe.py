@@ -42,6 +42,14 @@ rank runs its own experts on its own groups with those rows gathered
 (``tp.rows``), and no slot crosses.  No lane is gathered; ``aux`` is
 all-reduced over the batch axes, so it stays the whole batch's mean.
 
+With the residual split over the sequence (``tp.seq``: training and
+prefill of the attention families) the block's input is the rank's
+block of each lane's sequence: it is all-gathered first, so the groups
+are the reference's over the whole sequence (``("B", "Sq", "G")``), and
+the combine's sum over the axes that split the work becomes a
+reduce-scatter back to the rank's block where the sequence's axes are
+among them (else the rank takes its block of the sum).
+
 Under autograd (the training step) each use of the whole token set and
 of the router's probabilities by the rank's own experts or router
 columns starts at ``tp.enter`` over the axes that make it the rank's:
@@ -144,20 +152,33 @@ def _experts(p, ex, tp, rows, f, dtype):
     return out_e
 
 
-def _gate_sum(out_e, slot, w, K: int, tp, axes, dtype):
+def _gate_sum(out_e, slot, w, K: int, tp, axes, dtype, shape):
     """Each token's gated expert outputs summed: ``out_e`` [G, m, C, D]
     the outputs of the slots that ``slot`` [G, Tg*K] indexes (``m*C``,
     the sentinel, a zero row), ``w`` [G, Tg*K] the gates.  Over ranks
     that each hold a part of the experts' work (``axes``) the ranks' sums
-    are added in f32 and rounded once -> [G, Tg, D]."""
+    are added in f32 and rounded once -> the tokens' ``shape`` [B, S, D];
+    with the residual split over the sequence, the rank's block of S."""
     G, D = out_e.shape[0], out_e.shape[-1]
     flat_out = torch.cat([out_e.reshape(G, -1, D),
                           out_e.new_zeros(G, 1, D)], dim=1)
     gathered = flat_out.gather(1, slot[..., None].expand(-1, -1, D))
     gated = (gathered * w[..., None].to(out_e.dtype)).reshape(G, -1, K, D)
     if tp.size(axes) == 1:
-        return gated.sum(2)
-    return tp.all_reduce(gated.float().sum(2), axes).to(dtype)
+        return tp.all_reduce(gated.sum(2).reshape(shape), axes, True)
+    return tp.all_reduce(gated.float().sum(2).reshape(shape), axes,
+                         True).to(dtype)
+
+
+def _seq_uses(tp, *uses):
+    """The sequence's axes where every one of ``uses`` (the axes over
+    which a use of the gathered input is the rank's own) holds them (the
+    gather's backward sums those), and each use's other axes (it enters
+    over them)."""
+    seq = tp.seq.axes
+    if not all(set(seq) <= set(u) for u in uses):
+        seq = ()
+    return (seq,) + tuple(tuple(a for a in u if a not in seq) for u in uses)
 
 
 def _grouped(tp, e, rows, G: int, Tg: int, D: int):
@@ -189,6 +210,7 @@ def moe_block(p, x, cfg, *, cap_factor: float = 1.25, groups: int = 1):
     tp = tp_of(cfg)
     nb = tp.size(tp.batch_axes)
     S, D = x.shape[1:]
+    S *= tp.seq.n                         # the whole sequence
     E, K, Fh = cfg.n_experts, cfg.topk_experts, cfg.d_ff
     T = x.shape[0] * nb * S               # the whole batch's tokens
     G = _group_count(T, groups)
@@ -202,17 +224,18 @@ def moe_block(p, x, cfg, *, cap_factor: float = 1.25, groups: int = 1):
     g = _grouped(tp, e, rows, G, Tg, D)
     if g is not None:
         return _moe_grouped(p, x, cfg, g, G, e, rows, f, C)
-    x = tp.gather_lanes(x)
+    axes = e.axes + f.axes + rows.axes    # the axes that split the work
+    router = tp.split(("G", "E"), (D, E), 1)
+    seq, work, routing = _seq_uses(tp, axes, router.axes)
+    x = tp.gather_lanes(tp.gather_seq(x, seq))
     B = x.shape[0]
 
     xt = x.reshape(G, Tg, D)
-    axes = e.axes + f.axes + rows.axes    # the axes that split the work
-    router = tp.split(("G", "E"), (D, E), 1)
-    logits = tp.all_gather(tp.enter(xt, router.axes) @ p["router"],
+    logits = tp.all_gather(tp.enter(xt, routing) @ p["router"],
                            router.axes)                         # [G, Tg, E]
     probs = torch.softmax(logits.float(), dim=-1)
     n = E // e.n                          # the rank's experts [lo, lo + n)
-    xe = tp.enter(xt, axes)
+    xe = tp.enter(xt, work)
     parts = [_dispatch_one(xe[g], probs[g], E, K, C, e.index * n, n)
              for g in range(G)]
     dispatched = torch.stack([q[0] for q in parts])
@@ -221,8 +244,8 @@ def moe_block(p, x, cfg, *, cap_factor: float = 1.25, groups: int = 1):
     aux = torch.stack([q[3] for q in parts])
     ex = dispatched[:, : n * C].reshape(G, n, C, D)
     out_e = _experts(p, ex, tp, rows, f, x.dtype)
-    combined = _gate_sum(out_e, slot, w, K, tp, axes, x.dtype)
-    return tp.own_lanes(combined.reshape(B, S, D)), aux.mean()
+    combined = _gate_sum(out_e, slot, w, K, tp, axes, x.dtype, (B, S, D))
+    return tp.own_lanes(combined), aux.mean()
 
 
 def _moe_grouped(p, x, cfg, groups, G: int, e, rows, f, C: int):
@@ -230,10 +253,9 @@ def _moe_grouped(p, x, cfg, groups, G: int, e, rows, f, C: int):
     their split), on a rank's own lanes ``x`` [b, S, D]."""
     tp = tp_of(cfg)
     batch = tp.batch_axes
-    b, S, D = x.shape
     E, K, Fh = cfg.n_experts, cfg.topk_experts, cfg.d_ff
     nb, n = groups.n, E // e.n            # batch ranks, experts a rank
-    Gl, Tg = G // nb, b * S * nb // G     # the rank's groups, their tokens
+    Gl = G // nb                          # the rank's groups
     trade = bool(set(e.axes) & set(batch))
     # the experts the rank dispatches into: its model column's
     # [lo, lo + m) (the batch axes are the minor ones of the experts'
@@ -241,17 +263,23 @@ def _moe_grouped(p, x, cfg, groups, G: int, e, rows, f, C: int):
     m = nb * n if trade else n
     lo = (e.index - groups.index if trade else e.index) * n
     off = tuple(a for a in e.axes + f.axes + rows.axes if a not in batch)
+    D = x.shape[-1]
     router = tp.split(("G", "E"), (D, E), 1)
     r_off = tuple(a for a in router.axes if a not in batch)
+    seq, work, routing = _seq_uses(tp, off, r_off)
+    x = tp.gather_seq(x, seq)
+    b, S = x.shape[:2]
+    Tg = b * S * nb // G
 
     xt = x.reshape(Gl, Tg, D)
     # the router's columns gathered over the batch axes, or, whole over
     # them, used by every batch rank on its own lanes: its gradient summed
     w_r = (tp.all_gather(p["router"], batch, dim=1, reduce=True) if trade
            else tp.enter(p["router"], batch))
-    logits = tp.all_gather(tp.enter(xt, r_off) @ w_r, r_off)    # [Gl, Tg, E]
+    logits = tp.all_gather(tp.enter(xt, routing) @ w_r,
+                           r_off)                               # [Gl, Tg, E]
     probs = torch.softmax(logits.float(), dim=-1)
-    xe = tp.enter(xt, off)
+    xe = tp.enter(xt, work)
     parts = [_dispatch_one(xe[g], probs[g], E, K, C, lo, m)
              for g in range(Gl)]
     dispatched = torch.stack([q[0] for q in parts])
@@ -271,8 +299,7 @@ def _moe_grouped(p, x, cfg, groups, G: int, e, rows, f, C: int):
                   ("w_down", ("E", "F", "DE"), (Fh, D)))}
         out_e = _experts(pw, dispatched[:, :n * C].reshape(Gl, n, C, D), tp,
                          WHOLE_SPLIT, f, x.dtype)
-    combined = _gate_sum(out_e, slot, w, K, tp, off, x.dtype)
-    return combined.reshape(b, S, D), aux
+    return _gate_sum(out_e, slot, w, K, tp, off, x.dtype, (b, S, D)), aux
 
 
 def moe_decode(p, x, cfg, *, groups: int = 1):

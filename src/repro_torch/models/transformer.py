@@ -66,7 +66,15 @@ rank's lanes are split over (by default the rules' ``B`` axes in the
 mesh).  Every segment kind runs so: the Mamba2, mLSTM and sLSTM layers
 of ``models/ssm.py`` on their blocks, and the recurrent state ``rec_*``
 that prefill and ``init_serve_state`` make is the rank's block of it
-(``tp.rec_block``: the reference's ``_rec_pspec`` layout).
+(``tp.rec_block``: the reference's ``_rec_pspec`` layout).  The
+attention families (every segment of ``_ATTN_KINDS``) keep the residual
+of ``forward`` and ``prefill`` split over the sequence there
+(``seq_parallel``; the reference's ``constrain(x, ("B", "S", "D"))``
+with ``"S": ("model",)``): each ``model`` rank holds its contiguous
+block of each lane's positions between layers, and a prefill over the
+sharded pool writes only the rank's slice of each pool layer
+(``[L, B, S/m, d]``; over whole pools every rank gets each layer's
+entries all-gathered).  Zamba2, xLSTM and decode keep the residual whole.
 Outside that context nothing changes, bit for bit.  Under ``torch.profiler`` it marks each
 layer's work as a range named by ``DECODE_SPANS`` (a pool layer, a Mamba2
 layer, an xLSTM super-block), so that a trace splits a step by layer
@@ -149,6 +157,14 @@ def build_segments(cfg: ModelConfig) -> List[Segment]:
     if cfg.n_experts:
         return [Segment("moe", cfg.n_layers, 1, window=cfg.sliding_window)]
     return [Segment("dense", cfg.n_layers, 1, window=cfg.sliding_window)]
+
+
+def seq_parallel(cfg: ModelConfig) -> bool:
+    """Whether a decoder-only config's training forward and prefill split
+    the residual over the sequence under the rules: the attention
+    families, every segment of ``_ATTN_KINDS``."""
+    return not cfg.enc_dec and all(s.kind in _ATTN_KINDS
+                                   for s in build_segments(cfg))
 
 
 def n_kv_layers(cfg: ModelConfig) -> int:
@@ -280,20 +296,31 @@ def _layer_fwd(p, x, cfg, positions, window, groups, warm_w=0,
     indexer score against the LAST prompt position (the closest proxy
     for the first decode query), lanes of -1 where masked (outside a
     windowed layer's trailing window).
+
+    With the residual split over the sequence (``tp.seq``) ``x``, ``x'``,
+    the entries and the keys are the rank's block of the positions
+    (``positions`` stays the whole sequence's); the warm-up query is the
+    last position's row from the rank that holds it, the block's scores
+    are all-gathered, and the top-``w`` runs over the whole row.
     """
-    xn = rms_norm(x, p["ln1"])
+    tp = tp_of(cfg)
+    xn = rms_norm(x, tp.on_slice(p["ln1"]))
     entry = idx_keys = warm = None
     if cfg.mla:
         out, entry = dsa.mla_prefill_attention(p["attn"], xn, cfg, positions)
     else:
         out, (k, v) = dense_attention_block(p["attn"], xn, cfg, positions,
                                             window=window)
-        entry = dsa.pack_kv_entry(k, v) if collect else None
+        entry = (dsa.pack_kv_entry(tp.own_seq(k), tp.own_seq(v)) if collect
+                 else None)
     if collect and cfg.sac.enabled:
         idx_keys = dsa.indexer_keys(p["idx"], xn, cfg)
         if warm_w:
-            scores = dsa.indexer_scores(p["idx"], xn[:, -1], idx_keys, cfg)
-            S = scores.shape[-1]
+            B, S = positions.shape
+            last = tp.seq_rows(xn, torch.full((B,), S - 1, device=x.device))
+            scores = tp.all_gather(
+                dsa.indexer_scores(p["idx"], last, idx_keys, cfg),
+                tp.seq.axes, dim=1)
             if window:
                 # windowed layers only select from the trailing window
                 pos = torch.arange(S, dtype=torch.int32, device=x.device)
@@ -303,7 +330,8 @@ def _layer_fwd(p, x, cfg, positions, window, groups, warm_w=0,
             warm = torch.where(ws > dsa.NEG_INF / 2, warm,
                                -1).to(torch.int32)
     x = x + out
-    out, aux = _mlp_apply(p["mlp"], rms_norm(x, p["ln2"]), cfg, groups=groups)
+    out, aux = _mlp_apply(p["mlp"], rms_norm(x, tp.on_slice(p["ln2"])), cfg,
+                          groups=groups)
     return x + out, (entry if collect else None), idx_keys, warm, aux
 
 
@@ -482,12 +510,18 @@ class TransformerLM:
         # layer), the recurrent layers keep ``rec_*`` of those lanes
         self.shard = getattr(fetch_fn, "shard", None)
         self._views: Dict[Any, Any] = {}   # tensor parallelism
+        # the families whose training forward and prefill split the
+        # residual over the sequence under the rules
+        self.seq_parallel = seq_parallel(cfg)
 
-    def rank_cfg(self):
+    def rank_cfg(self, seq: bool = False):
         """The config this rank runs: ``cfg`` itself outside
         ``use_rules(rules, mesh)``, else a ``RankView`` with the mesh's
-        ``TensorParallel`` plan (``tp.rank_view``)."""
-        return rank_view(self.cfg, self._views, self.opts.get("batch_axes"))
+        ``TensorParallel`` plan (``tp.rank_view``; with ``seq`` and a
+        ``seq_parallel`` model, the plan whose residual is split over the
+        sequence)."""
+        return rank_view(self.cfg, self._views, self.opts.get("batch_axes"),
+                         seq and self.seq_parallel)
 
     # -- params ------------------------------------------------------------
     def init(self, generator: torch.Generator) -> Dict:
@@ -507,8 +541,14 @@ class TransformerLM:
 
     # -- the layer walk, shared by the training forward and prefill -----------
     def _embed_seq(self, params, tokens, cfg=None):
+        """(the residual [B, S, D], the positions [B, S]); with the
+        residual split over the sequence, the rank's block of it (a
+        sequence that does not split over its ranks raises), the
+        positions still the whole sequence's."""
+        cfg = cfg or self.cfg
         B, S = tokens.shape
-        x = embed_of(params, tokens, cfg or self.cfg)
+        tp_of(cfg).check_seq(S)
+        x = embed_of(params, tokens, cfg)
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None, :].expand(B, S)
         return x, positions
@@ -542,9 +582,10 @@ class TransformerLM:
         load-balance loss summed over layers).  Under autograd; no pool
         entries, indexer keys or warm-up candidates are made, so no
         kernel of the port runs.  Under ``use_rules(rules, mesh)`` it runs
-        on this rank's blocks and lanes (``rank_cfg``); the logits are the
-        lanes' and ``aux`` the whole batch's."""
-        cfg = self.rank_cfg()
+        on this rank's blocks and lanes (``rank_cfg``), the attention
+        families' residual split over the sequence; the logits are the
+        lanes' whole sequence's and ``aux`` the whole batch's."""
+        cfg = self.rank_cfg(seq=True)
         x, positions = self._embed_seq(params, tokens, cfg)
         groups = int(self.opts.get("moe_groups", 1))
         windows = iter(self.windows)
@@ -572,8 +613,17 @@ class TransformerLM:
         of the serve state).  The recurrent state ``rec_{si}`` is zeros,
         as the reference's prefill returns it.  Logits are computed for
         the last prompt position only (the reference computes all S and
-        keeps the last; the result is the same)."""
-        cfg = self.rank_cfg()
+        keeps the last; the result is the same).
+
+        Under ``use_rules`` an attention family runs with its residual
+        split over the sequence (``rank_cfg(seq=True)``): over the sharded
+        pool (the model's ``fetch_fn`` is the pooled fetch, its pool axis
+        the sequence's) the pools are the rank's slice ``[L, B, S/m, d]``
+        of the positions, made and written by the rank alone; over whole
+        pools each layer's entries are all-gathered into them.  The last
+        position's row comes from the rank that holds it."""
+        cfg = self.rank_cfg(seq=True)
+        tp = tp_of(cfg)
         B, S = tokens.shape
         dev = tokens.device
         if lengths is None:
@@ -581,16 +631,23 @@ class TransformerLM:
         x, positions = self._embed_seq(params, tokens, cfg)
         groups = int(self.opts.get("moe_groups", 1))
         warm_w = int(self.opts.get("warmup_w", 0))
+        gather = tp.seq.n > 1 and self.shard is None
+        if tp.seq.n > 1 and not gather and (
+                self.shard.size, self.shard.rank) != (tp.seq.n, tp.seq.index):
+            raise ValueError(
+                f"the pool's slices ({self.shard.size} ranks) are not the "
+                f"residual's blocks over {tp.seq.axes}")
+        rows = S if gather else S // tp.seq.n
         # each layer's entries land in the pool as they are made (no
         # second copy of a long prompt's pool from a stack)
         state: Dict[str, Any] = {}
         if self.n_kv:
             state["kv_pool"] = torch.empty(
-                (self.n_kv, B, S, self.kv_dim), dtype=self.kv_dtype,
+                (self.n_kv, B, rows, self.kv_dim), dtype=self.kv_dtype,
                 device=dev)
             if cfg.sac.enabled:
                 state["idx_pool"] = torch.empty(
-                    (self.n_kv, B, S, cfg.sac.d_idx), dtype=DTYPE,
+                    (self.n_kv, B, rows, cfg.sac.d_idx), dtype=DTYPE,
                     device=dev)
         warms = []
 
@@ -599,6 +656,10 @@ class TransformerLM:
             x, entry, ik, wm, _ = _layer_fwd(p, x, cfg, positions,
                                              self.windows[layer], groups,
                                              warm_w)
+            if gather:                   # whole pools on every rank
+                entry = tp.all_gather(entry, tp.seq.axes, dim=1)
+                ik = ik if ik is None else tp.all_gather(ik, tp.seq.axes,
+                                                         dim=1)
             state["kv_pool"][layer] = to_kv_dtype(entry, self.kv_dtype)
             if ik is not None:
                 state["idx_pool"][layer] = ik.to(DTYPE)
@@ -610,9 +671,8 @@ class TransformerLM:
             state["warm_idx"] = torch.stack(warms)
         state.update(self._zero_recs(B, dev, cfg))
         state["cache_len"] = lengths.to(torch.int32)
-        last_idx = torch.clamp(lengths.long() - 1, 0, S - 1)
-        x_last = x[torch.arange(B, device=dev), last_idx]
-        return state, self._logits(params, x_last, cfg)
+        x_last = tp.seq_rows(x, torch.clamp(lengths.long() - 1, 0, S - 1))
+        return state, self._logits(params, x_last, self.rank_cfg())
 
     # -- decode ----------------------------------------------------------------
     @torch.no_grad()
@@ -778,18 +838,20 @@ def logits_of(params, x, cfg) -> torch.Tensor:
     loss, the same on every rank of the vocab's axes, takes the whole
     gradient of each block)."""
     tp, shape = tp_of(cfg), (cfg.d_model, cfg.vocab)
-    x = rms_norm(x, params["final_norm"])
+    x = rms_norm(x, tp.on_slice(params["final_norm"]))
     v = tp.split(("D", "V"), shape, 1)
-    y = tp.matmul(tp.enter(x, v.axes), params["lm_head"], ("D", "V"), shape)
+    y = tp.matmul(tp.gather_seq(x, v.axes), params["lm_head"], ("D", "V"),
+                  shape)
     return tp.all_gather(y, v.axes).float()
 
 
 def embed_of(params, tokens, cfg) -> torch.Tensor:
     """The tokens' embedding rows; vocab-parallel over a tensor-parallel
     rank: its block's rows (zeros for another block's tokens), summed
-    over the vocab's axes; a block of the rows' columns (``D`` over axes
-    the tokens are the same on) all-gathered, rows over the batch's axes
-    gathered first (``tp.rows``)."""
+    over the vocab's axes (with the residual split over the sequence, a
+    reduce-scatter to the rank's block of it); a block of the rows'
+    columns (``D`` over axes the tokens are the same on) all-gathered,
+    rows over the batch's axes gathered first (``tp.rows``)."""
     tp = tp_of(cfg)
     dims, shape = ("V", "D"), (cfg.vocab, cfg.d_model)
     v = tp.split(dims, shape, 0)
@@ -801,8 +863,9 @@ def embed_of(params, tokens, cfg) -> torch.Tensor:
         t = tokens.long() - lo
         mine = ((t >= 0) & (t < hi - lo))[..., None]
         rows = embed[t.clamp(0, hi - lo - 1)].to(DTYPE)
-        x = tp.all_reduce(torch.where(mine, rows, torch.zeros(
-            (), dtype=DTYPE, device=rows.device)), v.axes)
+        x = torch.where(mine, rows, torch.zeros((), dtype=DTYPE,
+                                                device=rows.device))
+    x = tp.all_reduce(x, v.axes, scatter=True)
     if x.shape[-1] != cfg.d_model:
         x = tp.all_gather(x, tp.split(dims, shape, 1).axes)
     return x

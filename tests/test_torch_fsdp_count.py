@@ -10,7 +10,8 @@ mesh with the dry-run's ``TRAIN_RULES`` shardings
 weight's storage are its rows' all-gathers over ``data`` (the forward's
 and the activation checkpoint's recompute); one reduce-scatter over
 ``data`` for each row-split leaf the forward uses, counted by
-``StepCost`` as the reference's kind; one all-reduce of the replicated
+``StepCost`` as the reference's kind, beside the reduce-scatters of the
+residual split over the sequence; one all-reduce of the replicated
 leaves' gradients (norm gammas, QKV biases) over ``data``; and the
 dry-run's attention-family train and ``long_500k`` cells report
 ``tensor_parallel`` with their backward's collectives.
@@ -106,8 +107,16 @@ def test_train_collectives_touch_weights_only_in_the_row_gather():
     rows = [p for p, s in _paths(specs) if "D" in s.dims
             and blocks[p][s.dims.index("D")] * MESH[0] ==
             s.shape[s.dims.index("D")] and "/idx/" not in p]
-    kinds = [k for k, _ in rec.calls]
-    assert kinds.count("reduce-scatter") == len(rows) == 2 * 7 + 2
+    # the other reduce-scatters are the residual's, split over the
+    # sequence: [S/4, lanes, D] blocks (the reduce-scatter's layout)
+    seq = (TS // MESH[1], TB // MESH[0], cfg.d_model)
+    scattered = [tuple(ts[0].shape) for k, ts in rec.calls
+                 if k == "reduce-scatter"]
+    assert len([s for s in scattered if s != seq]) == len(rows) == 2 * 7 + 2
+    # each row-parallel product and the embedding forward, each
+    # sequence gather (q / k / v, the MLP, the logits) backward, and the
+    # activation checkpoint's recompute of each layer's ``wo``
+    assert scattered.count(seq) == 2 + 5 * cfg.n_layers
     replicated = sum(int(np.prod(blocks[p])) for p, s in _paths(specs)
                      if sums[p])
     # a layer: ln1, ln2 (64 each), the rank's blocks of bq (64 over model
@@ -188,14 +197,17 @@ def test_train_flops_near_reference_hlo():
     print("port / reference train FLOPs a rank under TRAIN_RULES:", ratio,
           got["collective_counts"])
     assert abs(ratio - 1) < FLOP_REL_TOL, ratio
-    assert got["collective_counts"]["reduce-scatter"] == 16
+    # the 16 row-split leaves' gradients and the residual's (the test
+    # above)
+    assert got["collective_counts"]["reduce-scatter"] == \
+        16 + 2 + 5 * cfg.n_layers
 
 
 def test_dryrun_train_and_long_cells_are_tensor_parallel():
     """Qwen2-1.5B's train_4k and long_500k cells at the single pod run on
-    the rank's blocks: rows over ``data``, the residual replicated over
-    ``model``; the train cell's backward reduce-scatters its row
-    gradients."""
+    the rank's blocks: rows over ``data``, the residual split over the
+    sequence in training and replicated over ``model`` in the decode;
+    the train cell's backward reduce-scatters its row gradients."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_production_mesh
     with dryrun.fake_world(256):
@@ -204,7 +216,8 @@ def test_dryrun_train_and_long_cells_are_tensor_parallel():
             step, in_sh, in_spec, meta = dryrun.build_cell(
                 "qwen2-1.5b", shape, mesh)
             assert meta["tensor_parallel"] and meta["rows_over"] == ["data"]
-            assert meta["residual_over_model"] == "replicated"
+            assert meta["residual_over_model"] == (
+                "sequence" if shape == "train_4k" else "replicated")
             layout = dryrun.layout_bytes(in_sh, meta, mesh)
             held = dryrun.tree_bytes(in_spec[0]) + (
                 dryrun.tree_bytes(in_spec[1]) if shape == "train_4k" else 0)

@@ -92,11 +92,13 @@ def _served(cfg, params, toks, mesh):
     with ctx:
         st, logits = m.prefill(params, prompt)
         state = m.init_serve_state(1, T + 8, device_buffer=HOT_BUFFER)
-        for k in ("kv_pool", "idx_pool"):
-            pool_write_prefill(state[k], st[k])
         state["cache_len"] = st["cache_len"].clone()
-        if mesh is not None:
+        if mesh is None:
+            for k in ("kv_pool", "idx_pool"):
+                pool_write_prefill(state[k], st[k])
+        else:       # the split prefill's slices into the serve slices
             state = shd.shard_serve_state(state, mesh)
+            shd.write_prefill_shard(state, st, mesh)
         out, tiers = [logits], []
         for i in range(STEPS):
             state, logits = m.decode(params, state, toks[:, T + i])

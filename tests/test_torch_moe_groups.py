@@ -415,8 +415,10 @@ def test_prefill_near_unsharded(runs, name, shape):
             err = _rel_l2(got["logits"][b], want["logits"][lanes][b])
             worst = max(worst, err)
             assert err <= REL_L2, (name, shape, r, b, err)
-        for k in ("kv_pool", "idx_pool"):
-            err = _rel_l2(got[k], want[k][:, lanes])
+        for k in ("kv_pool", "idx_pool"):      # the rank's slice of S
+            n = got[k].shape[2]
+            err = _rel_l2(got[k], want[k][:, lanes, (r % shape[1]) * n:
+                                          (r % shape[1] + 1) * n])
             worst = max(worst, err)
             assert err <= REL_L2, (name, shape, r, k, err)
     print(f"{name} {shape}: worst prefill rel L2 {worst:.4g}")
@@ -471,11 +473,13 @@ def test_moe_block_matches_reference_groups(name, groups):
 def test_grouped_block_collectives_on_fake_group():
     """Reduced DeepSeek-V3.2's prefill at (data 2, model 2) with 2 groups
     on a ``fake`` process group: each MoE block's collectives are two
-    all-to-alls (the slots out and back), the router's columns gathered
-    over ``data`` and its logits' blocks over ``model``, the partial sums
-    all-reduced over ``model`` and ``aux`` over ``data``; no all-gather
-    is as large as the lanes.  With one group the block gathers the
-    lanes and makes no all-to-all."""
+    all-to-alls (the slots out and back), the input's sequence blocks
+    gathered over ``model`` (the residual is split over the sequence),
+    the router's columns gathered over ``data`` and its logits' blocks
+    over ``model``, the partial sums reduce-scattered over ``model``
+    back to the rank's block of the sequence and ``aux`` all-reduced over
+    ``data``; no all-gather is as large as the lanes.  With one group the
+    block gathers the lanes and makes no all-to-all."""
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_leaves
     from repro_torch.distributed import sharding as shd
@@ -523,8 +527,8 @@ def test_grouped_block_collectives_on_fake_group():
     grouped, gathered = blocks[:cfg.n_layers], blocks[cfg.n_layers:]
     for calls in grouped:
         kinds = sorted(k for k, _ in calls)
-        assert kinds == ["all-gather"] * 2 + ["all-reduce"] * 2 + [
-            "all-to-all"] * 2, kinds
+        assert kinds == ["all-gather"] * 3 + ["all-reduce"] + [
+            "all-to-all"] * 2 + ["reduce-scatter"], kinds
         assert all(n < lanes for k, n in calls if k == "all-gather"), calls
     for calls in gathered:
         kinds = [k for k, _ in calls]

@@ -26,6 +26,8 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from test_torch_tp import one_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 MESHES = ((1, 2), (2, 2))
 B, SEQ = 4, 16

@@ -37,8 +37,17 @@ with weights bridged by ``repro_torch/bridge.py``.
 - The serving Engine against the JAX Engine on one trace: timelines,
   EngineStats (the per-layer hot-tier outcome included) and
   TrafficStats exact, the hot tier's integer state exact.
+
+The reference's whole-model runs (under jax.jit and op by op) run in one
+subprocess started with the module, beside the layer walks here.
 """
 import dataclasses
+import os
+import pickle
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -68,6 +77,7 @@ from torch_engine_pair import assert_engines_equal, jax_topk, torch_topk
 
 REL_L2 = 3e-2
 ARCH = "zamba2-7b"
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def _np(x):
@@ -291,12 +301,19 @@ def test_decode_teacher_forced(bridged, mode):
     jst, rng = _prefilled(cfg, params, jm, sac)
     tst = state_from_jax(jax.tree.map(np.asarray, jst), device="cpu")
     jdecode = jax.jit(jm.decode)
+    # the reference's layers, each compiled once (every layer and step
+    # has the same shapes)
+    jmamba = jax.jit(lambda p, x, st: jssm.mamba2_decode(
+        p["mamba"], jlayers.rms_norm(x, p["ln"]), cfg, st))
+    jshared = jax.jit(lambda x, kv, idx, hb, cache_len: jtr._layer_decode(
+        params["shared"], x, cfg, _ctx(cache_len, jfetch,
+                                       jax_topk if sac else None, mode),
+        kv, idx, 0, hb))
     for step in range(2):
         toks = rng.integers(0, cfg.vocab, size=2).astype(np.int32)
         ttoks = torch.from_numpy(toks)
         want_st, want_log = tm.decode(tp, _clone(tst), ttoks)
-        jctx = _ctx(jnp.asarray(tst["cache_len"].numpy()), jfetch,
-                    jax_topk if sac else None, mode)
+        jlen = jnp.asarray(tst["cache_len"].numpy())
         tctx = _ctx(tst["cache_len"], tfetch, torch_topk if sac else None,
                     mode)
         x = tp["embed"][ttoks.long()]
@@ -316,9 +333,7 @@ def test_decode_teacher_forced(bridged, mode):
                     jp = jax.tree.map(lambda a: a[at], jlayers_)
                     st = tuple(t[at] for t in trec)
                     jx = _jax_tree(x)
-                    jout, jnew = jssm.mamba2_decode(
-                        jp["mamba"], jlayers.rms_norm(jx, jp["ln"]), cfg,
-                        _jax_tree(st))
+                    jout, jnew = jmamba(jp, jx, _jax_tree(st))
                     x = ttr._mamba_decode(tpl, x, tcfg, st)
                     _assert_rel_close(x, jx + jout, 0, what)
                     for k, (a, b) in enumerate(zip(st, jnew)):
@@ -328,11 +343,10 @@ def test_decode_teacher_forced(bridged, mode):
                 what = f"step {step} pool layer {layer}"
                 hb_t = (hisparse.BufferState(
                     *(t[layer] for t in tst["hot_buf"])) if sac else None)
-                jx, jown, jkey, jhb, jh, jmiss = jtr._layer_decode(
-                    params["shared"], _jax_tree(x), cfg, jctx,
-                    _jax_tree(tst["kv_pool"][layer]),
-                    _jax_tree(tst["idx_pool"][layer]) if sac else None, 0,
-                    _jax_tree(hb_t) if sac else None)
+                jx, jown, jkey, jhb, jh, jmiss = jshared(
+                    _jax_tree(x), _jax_tree(tst["kv_pool"][layer]),
+                    _jax_tree(tst["idx_pool"][layer]) if sac else None,
+                    _jax_tree(hb_t) if sac else None, jlen)
                 x, town, tkey, thb, th, tmiss = ttr._layer_decode(
                     tp["shared"], x, tcfg, tctx, tst["kv_pool"][layer],
                     tst["idx_pool"][layer] if sac else None, 0, hb_t)
@@ -409,6 +423,39 @@ def test_sparse_equals_dense_when_topk_covers_context():
 
 
 # ---------------------------------------------------------------------------
+# the serving engine
+# ---------------------------------------------------------------------------
+
+
+def test_engine_timeline_and_traffic_exact(bridged):
+    """Engine.run on reduced Zamba2 with the injected top-k: per-request
+    timeline, EngineStats, TrafficStats and the hot tier's integer state
+    equal the JAX engine's exactly; every slot's recurrent state was
+    spliced (non-zero after decoding)."""
+    cfg, tcfg, params, _, tparams = bridged
+    kw = dict(slots=2, max_ctx=96, seed=3)
+    je = JEngine(cfg, topk_fn=jax_topk, **kw)
+    je.params = params
+    jreqs = jtrace(5, context_len=40, output_len=6, seed=1, ctx_jitter=0.0,
+                   vocab=cfg.vocab)
+    jout = je.run(jreqs)
+    te = TEngine(tcfg, topk_fn=torch_topk, device="cpu", **kw)
+    te.params = tparams
+    treqs = ttrace(5, context_len=40, output_len=6, seed=1, ctx_jitter=0.0,
+                   vocab=cfg.vocab)
+    tout = te.run(treqs)
+    assert_engines_equal(je, jreqs, jout, te, treqs, tout)
+    assert te.stats.buffer_hits + te.stats.buffer_misses > 0
+    for name in ("slot_pos", "page_table", "last_use"):
+        np.testing.assert_array_equal(
+            getattr(te.state["hot_buf"], name).numpy(),
+            np.asarray(getattr(je.state["hot_buf"], name)), err_msg=name)
+    for key in ("rec_0", "rec_1"):
+        for leaf in jax.tree.leaves(te.state[key]):
+            assert leaf.float().abs().sum() > 0
+
+
+# ---------------------------------------------------------------------------
 # the whole model against the reference
 # ---------------------------------------------------------------------------
 
@@ -440,29 +487,94 @@ def _no_carry(block):
     return wrong
 
 
+# The reference's runs of the ``whole`` fixture (under jax.jit and op by
+# op, both modes), in one subprocess started with the module: they need
+# none of the port's results, so they run while this process walks the
+# layers.  Its results cross as numpy.
+_REFERENCE = textwrap.dedent("""
+    import pickle, sys
+    sys.path.insert(0, sys.argv[2])
+    import numpy as np, jax, jax.numpy as jnp
+    from repro.models.model import build_model as jbuild
+    from test_torch_zamba import _configs, _prefilled
+    from torch_engine_pair import jax_topk
+
+    cfg, _ = _configs()
+    params = jax.jit(jbuild(cfg).init)(jax.random.PRNGKey(3))
+    leaves = lambda st: [np.asarray(a) for key in ("rec_0", "rec_1")
+                         for a in jax.tree.leaves(st[key])]
+    out = {}
+    for mode in ("sac", "dense"):
+        sac = mode == "sac"
+        jm = jbuild(cfg, mode=mode, topk_fn=jax_topk if sac else None,
+                    opts={"ssm_chunk": 8})
+        jst, rng = _prefilled(cfg, params, jm, sac)
+        prompt = np.random.default_rng(30).integers(
+            0, cfg.vocab, size=(2, 30)).astype(np.int32)
+        _, want = jax.jit(jm.prefill)(params, jnp.asarray(prompt))
+        with jax.disable_jit():
+            _, ref = jm.prefill(params, jnp.asarray(prompt))
+        res = dict(prompt=prompt, state=jax.tree.map(np.asarray, jst),
+                   prefill=(np.asarray(want), np.asarray(ref)), steps=[])
+        jdecode = jax.jit(jm.decode)
+        ref_st = jst
+        for _ in range(3):
+            toks = rng.integers(0, cfg.vocab, size=2).astype(np.int32)
+            jst, want = jdecode(params, jst, jnp.asarray(toks))
+            with jax.disable_jit():
+                ref_st, ref = jm.decode(params, ref_st, jnp.asarray(toks))
+            res["steps"].append(dict(
+                toks=toks, want=np.asarray(want), ref=np.asarray(ref),
+                want_rec=leaves(jst), ref_rec=leaves(ref_st)))
+        out[mode] = res
+    pickle.dump(out, open(sys.argv[1], "wb"))
+""")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference(tmp_path_factory):
+    """The reference subprocess, started with the module; ``result()``
+    waits for its runs."""
+    path = tmp_path_factory.mktemp("zamba") / "ref.pkl"
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=f"{ROOT / 'tests'}:{ROOT / 'src'}")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _REFERENCE, str(path), str(ROOT / "tests")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+    done = {}
+
+    def result():
+        if not done:
+            out, _ = proc.communicate(timeout=900)
+            assert proc.returncode == 0, out
+            with open(path, "rb") as f:
+                done.update(pickle.load(f))
+        return done
+    try:
+        yield result
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+
+
 @pytest.fixture(scope="module", params=["sac", "dense"])
-def whole(bridged, request):
+def whole(bridged, reference, request):
     """A 30-token prompt in 3 SSD chunks, then 3 teacher-forced decode
     steps from the reference's prefilled state, through the reference
-    under jax.jit (``want``), the reference op by op (``ref``), the port
-    (``port``) and the port's controls (``control``: the prefill with the
-    SSD's carry dropped, decode with ``rec_*`` zeroed before each step):
-    relative L2 errors against ``want`` of each request's prefill
-    logits, each request's decode logits a step and each ``rec_*`` leaf
-    a step."""
-    cfg, tcfg, params, _, tp = bridged
+    under jax.jit (``want``), the reference op by op (``ref``; both in
+    the ``reference`` subprocess), the port (``port``) and the port's
+    controls (``control``: the prefill with the SSD's carry dropped,
+    decode with ``rec_*`` zeroed before each step): relative L2 errors
+    against ``want`` of each request's prefill logits, each request's
+    decode logits a step and each ``rec_*`` leaf a step."""
+    _, tcfg, _, _, tp = bridged
     mode = request.param
     sac = mode == "sac"
-    opts = {"ssm_chunk": 8}
-    jm = jbuild(cfg, mode=mode, topk_fn=jax_topk if sac else None, opts=opts)
     tm = tbuild(tcfg, mode=mode, topk_fn=torch_topk if sac else None,
-                opts=opts, device="cpu")
-    jst, rng = _prefilled(cfg, params, jm, sac)
-    prompt = np.random.default_rng(30).integers(
-        0, cfg.vocab, size=(2, 30)).astype(np.int32)
-    _, want = jax.jit(jm.prefill)(params, jnp.asarray(prompt))
-    with jax.disable_jit():
-        _, ref = jm.prefill(params, jnp.asarray(prompt))
+                opts={"ssm_chunk": 8}, device="cpu")
+    res = reference()[mode]
+    prompt = res["prompt"]
+    want, ref = res["prefill"]
     _, port = tm.prefill(tp, torch.from_numpy(prompt))
     block = ttr.ssm.mamba2_block
     ttr.ssm.mamba2_block = _no_carry(block)
@@ -473,29 +585,23 @@ def whole(bridged, request):
     out = {k: dict(prefill=[_rel(x[i], want[i]) for i in range(2)],
                    decode=[], rec=[])
            for k, x in (("ref", ref), ("port", port), ("control", control))}
-    np_st = jax.tree.map(np.asarray, jst)
-    states = dict(ref=jst, port=state_from_jax(np_st, device="cpu"),
-                  control=state_from_jax(np_st, device="cpu"))
-    jdecode = jax.jit(jm.decode)
-    for _ in range(3):
-        toks = rng.integers(0, cfg.vocab, size=2).astype(np.int32)
-        jst, want = jdecode(params, jst, jnp.asarray(toks))
-        with jax.disable_jit():
-            states["ref"], ref = jm.decode(params, states["ref"],
-                                           jnp.asarray(toks))
+    states = dict(port=state_from_jax(res["state"], device="cpu"),
+                  control=state_from_jax(res["state"], device="cpu"))
+    for step in res["steps"]:
+        toks, want = step["toks"], step["want"]
         for key in ("rec_0", "rec_1"):
             for leaf in jax.tree.leaves(states["control"][key]):
                 leaf.zero_()
-        logits = {"ref": ref}
+        logits, recs = {"ref": step["ref"]}, {"ref": step["ref_rec"]}
         for k in ("port", "control"):
             states[k], logits[k] = tm.decode(tp, states[k],
                                              torch.from_numpy(toks))
+            recs[k] = [a for key in ("rec_0", "rec_1")
+                       for a in jax.tree.leaves(states[k][key])]
         for k, lg in logits.items():
             out[k]["decode"].append([_rel(lg[i], want[i]) for i in range(2)])
-            out[k]["rec"].append([
-                _rel(a, b) for key in ("rec_0", "rec_1")
-                for a, b in zip(jax.tree.leaves(states[k][key]),
-                                jax.tree.leaves(jst[key]))])
+            out[k]["rec"].append([_rel(a, b) for a, b in
+                                  zip(recs[k], step["want_rec"])])
     return mode, out
 
 
@@ -525,35 +631,3 @@ def test_whole_model_against_reference(whole):
     for step, errs in enumerate(control["decode"][1:], 1):
         assert min(errs) > WHOLE_L2["decode"], (mode, step, errs)
 
-
-# ---------------------------------------------------------------------------
-# the serving engine
-# ---------------------------------------------------------------------------
-
-
-def test_engine_timeline_and_traffic_exact(bridged):
-    """Engine.run on reduced Zamba2 with the injected top-k: per-request
-    timeline, EngineStats, TrafficStats and the hot tier's integer state
-    equal the JAX engine's exactly; every slot's recurrent state was
-    spliced (non-zero after decoding)."""
-    cfg, tcfg, params, _, tparams = bridged
-    kw = dict(slots=2, max_ctx=96, seed=3)
-    je = JEngine(cfg, topk_fn=jax_topk, **kw)
-    je.params = params
-    jreqs = jtrace(5, context_len=40, output_len=6, seed=1, ctx_jitter=0.0,
-                   vocab=cfg.vocab)
-    jout = je.run(jreqs)
-    te = TEngine(tcfg, topk_fn=torch_topk, device="cpu", **kw)
-    te.params = tparams
-    treqs = ttrace(5, context_len=40, output_len=6, seed=1, ctx_jitter=0.0,
-                   vocab=cfg.vocab)
-    tout = te.run(treqs)
-    assert_engines_equal(je, jreqs, jout, te, treqs, tout)
-    assert te.stats.buffer_hits + te.stats.buffer_misses > 0
-    for name in ("slot_pos", "page_table", "last_use"):
-        np.testing.assert_array_equal(
-            getattr(te.state["hot_buf"], name).numpy(),
-            np.asarray(getattr(je.state["hot_buf"], name)), err_msg=name)
-    for key in ("rec_0", "rec_1"):
-        for leaf in jax.tree.leaves(te.state[key]):
-            assert leaf.float().abs().sum() > 0
